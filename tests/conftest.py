@@ -26,6 +26,10 @@ def pytest_configure(config):
         "markers",
         "slow: chaos/socket acceptance tests — excluded from the fast "
         "tier-1 job (-m 'not slow'), always run in the cluster matrix rows")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); "
+        "skips with a reason elsewhere")
 
 
 def wait_until(predicate, timeout: float = 10.0, interval: float = 0.02,
