@@ -20,17 +20,38 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               checksum must equal ``ref.qa_checksum_ref`` of its volume, and
               both runs must commit the same records and bytes.
  4. run     - ``generate_jobs`` + ``LocalRunner`` for bias_correct,
-              affine_register and dwi_prequal on cuda: every unit ok,
-              outputs finite, a re-query finds no work. Then at 64^3 the
-              cuda outputs are held against the port's own cpu outputs with
-              the parity tests' tolerances.
- 5. kernels - K1, K2, K3 against their plain versions on the card: on the
+              affine_register, segment_unest and dwi_prequal on cuda: every
+              unit ok, outputs finite, a re-query finds no work. Launch
+              counts are zeroed just before and read just after each
+              pipeline's run: segment_unest launches K4 5 times and K5
+              twice per unit (180,224 patch tokens of a 256x256x176 T1w),
+              the others neither. Then at 64^3 the cuda outputs are held
+              against the port's own cpu outputs with the parity tests'
+              tolerances.
+ 5. model   - the dense stack at the published paper-unest width (12
+              layers, d 512, 8 heads, Dh 64, d_ff 2048), bf16, forward over
+              the 180,224 patch tokens of one ingested T1w, weights from a
+              seeded generator: finite logits, K4 25 and K5 12 launches.
+ 6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks.
-              Bit-exact (min/max equal by value).
- 6. timing  - each kernel's median time (CUDA events, L2 flushed, the GPU
+              Bit-exact (min/max equal by value). K4 at (180,224 x 128) and
+              (180,224 x 512) bf16, f32 and ragged shapes: bit-exact (the
+              plain version keeps the kernel's sum order). K5 at the
+              slice's shapes over the full key length, on the first, a
+              middle and the last query tile, with a flat and a peaked
+              softmax, plus GQA, window 64 and a ragged Sq = 200. Each
+              64-row query tile within 2e-5 absolute in f32, 3e-2 in bf16,
+              and within 2^-12 (f32) or 2^-6 (bf16) of its largest
+              |output|; outputs of broken kernels (zeros, one key tile,
+              half the keys, a lost carry) must fail that bound.
+ 7. timing  - each kernel's median time (CUDA events, L2 flushed, the GPU
               kept busy so host enqueue time is not counted) at the main
-              path's shapes, beside its plain version's and its bound.
+              path's shapes, beside its plain version's, its bound and,
+              for K4 and K5, one PyTorch call computing the same function
+              (``F.rms_norm``, ``F.scaled_dot_product_attention``), which
+              the port never calls. K5 also on contiguous (B,H,S,Dh)
+              copies, and the card's clock and power read while it runs.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -53,16 +74,29 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 F32_OPS_PER_S = 67e12          # H100 SXM scalar float32, published
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense, published
+EXP_PER_S = 16 * 132 * 1.98e9  # MUFU: 16 exp2 per clock per SM, 1.98 GHz
 T1W = (256, 256, 176)
 DWI = (96, 96, 60, 65)
 SESSIONS = 4
 BLK_V = 1024                   # qa_block_size for float32 volumes
+TOKENS = 64 * 64 * 44          # patch tokens of a T1w at patch 4
+# K5 against its plain version, per 64-row query tile: (absolute, relative
+# to the tile's largest |output|). The absolute ones are the reference's
+# (tests/test_kernels.py); 2^-6 of the largest output is two bf16 steps at
+# it, and 2^-12 leaves float32's sum-order differences room
+K5_TOL = {"float32": (2e-5, 2 ** -12), "bfloat16": (3e-2, 2 ** -6)}
 CHECKSUM_CU = "src/repro_torch/kernels/checksum/csrc/checksum.cu"
 TPU_CHECKSUM = "src/repro/kernels/checksum/checksum.py"
-KERNELS = {  # wrapper name -> TPU kernel it replaces
-    "qa_checksum": f"{TPU_CHECKSUM}:110",
-    "qa_checksum_chunk": f"{TPU_CHECKSUM}:223",
-    "device_checksum": f"{TPU_CHECKSUM}:47",
+KERNELS = {  # wrapper name -> (its CUDA source, the TPU kernel it replaces)
+    "qa_checksum": (CHECKSUM_CU, f"{TPU_CHECKSUM}:110"),
+    "qa_checksum_chunk": (CHECKSUM_CU, f"{TPU_CHECKSUM}:223"),
+    "device_checksum": (CHECKSUM_CU, f"{TPU_CHECKSUM}:47"),
+    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/rmsnorm.py:12"),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:22"),
 }
 
 
@@ -169,10 +203,25 @@ def qa_bound(nv: int, itemsize: int):
     return _bound(nv * itemsize + 24, 4 * nv + 4 * nw)
 
 
-def _bound(nbytes: int, ops: int):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+def _bound(nbytes: int, ops: float, rate: float = F32_OPS_PER_S):
+    """(ms, what bounds it) for ``nbytes`` moved and ``ops`` at ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
+
+
+def attention_bound(S: int, H: int, KV: int, Dh: int, itemsize: int):
+    """Least time for causal attention over S tokens: q, k, v read once
+    and o written once, against the work this causal mask needs (S(S+1)/2
+    query-key pairs per head): 4 flops per pair and head dim on the tensor
+    cores (Q K^T and P V), and one exponential per pair on the MUFU, the
+    larger of the two. Returns (ms, what bounds it)."""
+    pairs = S * (S + 1) // 2
+    nbytes = (2 * S * H * Dh + 2 * S * KV * Dh) * itemsize
+    flops, exps = 4 * pairs * Dh * H, H * pairs
+    if flops / BF16_OPS_PER_S >= exps / EXP_PER_S:
+        return _bound(nbytes, flops, BF16_OPS_PER_S)
+    return _bound(nbytes, exps, EXP_PER_S)
 
 
 def max_err(got, want) -> float:
@@ -181,10 +230,9 @@ def max_err(got, want) -> float:
     import numpy as np
     worst = 0.0
     for a, b in zip(got, want):
-        a, b = a.cpu().numpy(), b.cpu().numpy()
         check(a.shape == b.shape and a.dtype == b.dtype,
               f"outputs differ in kind: {a.shape}/{a.dtype} {b.shape}/{b.dtype}")
-        a, b = a.astype(np.float64), b.astype(np.float64)
+        a, b = a.cpu().double().numpy(), b.cpu().double().numpy()
         same = (a == b) | (np.isnan(a) & np.isnan(b))
         d = np.where(same, 0.0, np.abs(a - b))
         worst = max(worst, float(np.nan_to_num(d, nan=np.inf).max(
@@ -216,12 +264,18 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda} numpy "
         f"{np.__version__} python {sys.version.split()[0]}")
+    # float32 matmuls and convolutions in full float32, no TF32 (the
+    # defaults for matmul; stated here, where the comparisons are made)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.3f} s")
-    for line in _build.build_log("checksum").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    log(f"build: {time.perf_counter() - t0:.3f} s ({len(_build.SOURCES)} "
+        f"sources, one nvcc each, in parallel)")
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas {name}: {line.strip()}")
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -252,6 +306,8 @@ def run(args, work: Path):
         device_checksum, device_checksum_plain, qa_checksum_batched,
         initial_carry, qa_checksum_batched_plain, qa_checksum_chunk,
         qa_checksum_chunk_plain, ref, reset_launches)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
 
     # -- 2. data -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -314,14 +370,25 @@ def run(args, work: Path):
 
     # -- 4. the pipelines on cuda ---------------------------------------------
     pipes = builtin_pipelines("cuda")
+    k45 = {}                                # launches of segment_unest's run
     for name, pipe in pipes.items():
         plan = generate_jobs(m1, pipe, work / "jobs")
         check(len(plan.units) == SESSIONS,
               f"{name}: {len(plan.units)} units for {SESSIONS} sessions")
+        torch.cuda.synchronize()
+        rn.reset_launches()
+        fa.reset_launches()
         t0 = time.perf_counter()
         results = LocalRunner(pipe, m1.root).run(plan.units)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        got = (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"])
+        want = (5 * SESSIONS, 2 * SESSIONS) if name == "segment_unest" \
+            else (0, 0)
+        check(got == want, f"{name}: K4/K5 launches {got}, want {want}")
+        if name == "segment_unest":
+            k45 = {"rmsnorm": got[0], "flash_attention": got[1],
+                   "units": results}
         bad = [(r.unit.job_id, r.status, r.error) for r in results
                if r.status != "ok"]
         check(not bad, f"{name}: {bad}")
@@ -331,7 +398,8 @@ def run(args, work: Path):
         again, _ = query_available_work(m1, pipe)
         check(not again, f"{name}: the re-query found {len(again)} units")
         log(f"run {name}: {len(results)} units ok, wall {wall:.3f} s, per "
-            f"unit {[round(r.seconds, 3) for r in results]} s")
+            f"unit {[round(r.seconds, 3) for r in results]} s, K4/K5 "
+            f"launches {got}")
 
     rng = np.random.default_rng(args.seed + 1)
     small = {"T1w": make_t1w(rng, (64, 64, 64)),
@@ -354,14 +422,26 @@ def run(args, work: Path):
             - cpu["affine_register"]["T1w_reg"]))),
         "dwi_prequal_rel": rel(gpu["dwi_prequal"]["dwi_denoised"],
                                cpu["dwi_prequal"]["dwi_denoised"]),
+        "segment_logits_abs": float(np.max(np.abs(
+            gpu["segment_unest"]["class_logits"]
+            - cpu["segment_unest"]["class_logits"]))),
+        "segment_argmax_agree": float(np.mean(
+            gpu["segment_unest"]["class_logits"].argmax(-1)
+            == cpu["segment_unest"]["class_logits"].argmax(-1))),
     }
     log(f"cuda vs cpu at 64^3: {diffs}")
     check(diffs["bias_correct_rel"] <= 1e-4
           and diffs["affine_theta_abs"] <= 1e-4
           and diffs["affine_warped_abs"] <= 5e-3
-          and diffs["dwi_prequal_rel"] <= 1e-4, f"cuda vs cpu: {diffs}")
+          and diffs["dwi_prequal_rel"] <= 1e-4
+          and diffs["segment_logits_abs"] <= 1.6e-2
+          and diffs["segment_argmax_agree"] >= 0.99, f"cuda vs cpu: {diffs}")
 
-    # -- 5. kernels against their plain versions ---------------------------------
+    # -- 5. the dense stack at the published paper-unest width ---------------
+    t1_rec = next(i for i in m1.images if i.suffix == "T1w")
+    model_wall = model_phase(np.load(Path(m1.root) / t1_rec.path), args.seed)
+
+    # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
 
     def hold(name, got, want):
@@ -406,10 +486,12 @@ def run(args, work: Path):
         hold("qa_checksum_chunk",
              qa_checksum_chunk(part, (head, head, n, n), carry, **kw),
              qa_checksum_chunk_plain(part, (head, head, n, n), carry, **kw))
-    log(f"kernels vs plain, max abs err: {errs}")
     check(all(e == 0.0 for e in errs.values()), f"kernels disagree: {errs}")
+    errs["rmsnorm"] = check_rmsnorm(args.seed)
+    errs["flash_attention"] = check_attention(args.seed)[0]
+    log(f"kernels vs plain, max abs err: {errs}")
 
-    # -- 6. timing at the main path's shapes ----------------------------------
+    # -- 7. timing at the main path's shapes ----------------------------------
     timer = Timer()
     t1r = t1.reshape(1, -1)
     dwi = torch.from_numpy(vols["sub000_dwi.npz"]).cuda().reshape(1, -1)
@@ -431,9 +513,10 @@ def run(args, work: Path):
     }
     timing = {}
     for name, (kern, plain, (b_ms, b_by)) in calls.items():
-        timing[name] = (timer(kern), timer(plain, reps=5), b_ms, b_by)
+        timing[name] = (timer(kern), timer(plain, reps=5), b_ms, b_by, None)
         log(f"time {name}: kernel {timing[name][0]} ms, plain "
             f"{timing[name][1]} ms, bound {b_ms} ms ({b_by})")
+    timing.update(time_rmsnorm_and_attention(timer, args.seed))
     dwi_ms = timer(lambda: qa_checksum_batched(dwi))
     log(f"time qa_checksum at DWI {DWI}: kernel {dwi_ms} ms, bound "
         f"{qa_bound(dwi.numel(), 4)[0]} ms")
@@ -451,19 +534,242 @@ def run(args, work: Path):
         log(f"ingest split stream={mode}: wall {wall} s, kernels {k_s[mode]}"
             f" s ({100 * k_s[mode] / wall} %), host work and copies "
             f"{wall - k_s[mode]} s")
+    # segment_unest split, per unit: 5 K4 and 2 K5 launches at these shapes
+    k_unit = (5 * timing["rmsnorm"][0] + 2 * timing["flash_attention"][0]) \
+        / 1e3
+    for r in k45["units"]:
+        log(f"segment_unest split {r.unit.subject}: wall {r.seconds} s, "
+            f"K4+K5 {k_unit} s ({100 * k_unit / r.seconds} %), rest "
+            f"{r.seconds - k_unit} s")
+    log(f"model split: wall {model_wall} s, K5 12 x "
+        f"{timing['flash_attention_full'][0]} ms = "
+        f"{12 * timing['flash_attention_full'][0] / 1e3} s")
 
     launches = {"qa_checksum": l0["qa_checksum"],
                 "qa_checksum_chunk": l1["qa_checksum_chunk"],
                 # K3 is not on the main path: the JAX package calls it
                 # only from tests
                 "device_checksum": l0["device_checksum"]
-                + l1["device_checksum"]}
-    return [{"name": name, "route": "cuda", "source": CHECKSUM_CU,
+                + l1["device_checksum"],
+                "rmsnorm": k45["rmsnorm"],
+                "flash_attention": k45["flash_attention"]}
+    return [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": timing[name][0],
              "plain_ms": timing[name][1], "bound_ms": timing[name][2],
-             "bound_by": timing[name][3], "library_ms": None}
-            for name, replaces in KERNELS.items()]
+             "bound_by": timing[name][3], "library_ms": timing[name][4]}
+            for name, (source, replaces) in KERNELS.items()]
+
+
+def model_phase(vol, seed: int) -> float:
+    """Phase 5: the dense stack at the published paper-unest width over
+    the patch tokens of ``vol``, in bf16; returns its wall time (s)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipelines import segment_logits
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import init_params
+    cfg = get_config("paper-unest")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         device="cuda")
+    proj = torch.randn((4 ** 3, cfg.d_model),
+                       generator=torch.Generator().manual_seed(seed + 1))
+    proj = (proj / 4 ** 1.5).cuda()
+    v = torch.from_numpy(vol).cuda()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rn.reset_launches()
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits = segment_logits(v, cfg, params, proj, 4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"])
+    want = (2 * cfg.n_layers + 1, cfg.n_layers)
+    check(got == want, f"model: K4/K5 launches {got}, want {want}")
+    check(tuple(logits.shape) == (TOKENS, cfg.vocab_size),
+          f"model: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "model: logits not finite")
+    log(f"model paper-unest L{cfg.n_layers} d{cfg.d_model} H{cfg.n_heads} "
+        f"KV{cfg.n_kv_heads} Dh{cfg.d_head} ff{cfg.d_ff} bf16 over "
+        f"{TOKENS} tokens: wall {wall} s (weights {init_s} s), K4/K5 "
+        f"launches {got}, peak {torch.cuda.max_memory_allocated() / 1e9} "
+        f"GB, max |logit| {logits.abs().max().item()}")
+    return wall
+
+
+def check_rmsnorm(seed: int) -> float:
+    """K4 against its plain version on the card, at the main path's shapes
+    and the reference's test shapes: bit-exact (the plain version keeps the
+    kernel's order of the sum of squares). Returns the max abs error."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device="cuda").manual_seed(seed + 3)
+    err = 0.0
+    for shape in ((TOKENS, 128), (TOKENS, 512), (8, 64, 128), (3, 100),
+                  (512, 256), (1, 7)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, device="cuda", generator=g).to(dt)
+            sc = torch.rand(shape[-1], device="cuda", generator=g) + 0.5
+            err = max(err, max_err([rn.rmsnorm(x, sc)],
+                                   [rn.rmsnorm_plain(x, sc)]))
+    check(err == 0.0, f"rmsnorm kernel differs from its plain version: {err}")
+    return err
+
+
+def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
+    """K5 against its plain version: at the slice's shapes over the full
+    key length, on the first, a middle and the last 64-row query tile, with
+    q drawn at two scales: a flat softmax, whose outputs late in the
+    sequence average 90k-180k keys and are near 0.005, and a peaked one (q
+    four times larger, v four times smaller), whose outputs follow a few
+    keys and stay below about 1, where one bf16 step is under 3e-2. Plus
+    GQA, a ragged Sq = 200 and window 64.
+
+    Each 64-row query tile must agree within K5_TOL: the absolute tolerance
+    the reference sets on its own kernel, and a bound relative to the
+    tile's largest |output|, which holds the late tiles (and so the carry
+    of the online softmax across key tiles) to what their outputs' size
+    allows. Outputs a broken kernel would give, made from the plain version
+    (zeros, the first key tile alone, the first half of the keys, the last
+    key tiles alone: a lost carry), must fail the same bound, or the check
+    could not tell them apart. Returns (max abs error, max error over the
+    tile's largest |output|, the least control error over its bound)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = {f32: K5_TOL["float32"], bf16: K5_TOL["bfloat16"]}
+    g = torch.Generator(device=device).manual_seed(seed + 5)
+    abs_err, rel_err, controls = 0.0, 0.0, []
+
+    def randn(*shape, dtype, scale=1.0):
+        return (scale * torch.randn(shape, device=device, generator=g)
+                ).to(dtype)
+
+    def bound(want):
+        a, r = tol[want.dtype]
+        return min(a, r * float(want.abs().max()))
+
+    def hold(got, want):            # (B, H, S, Dh), per 64-row query tile
+        nonlocal abs_err, rel_err
+        for r in range(0, want.shape[2], 64):
+            w = want[:, :, r:r + 64]
+            e, top = max_err([got[:, :, r:r + 64]], [w]), float(w.abs().max())
+            check(e <= bound(w), f"flash attention kernel differs from its "
+                  f"plain version: {e} at outputs up to {top}, bound "
+                  f"{bound(w)} ({tuple(want.shape)} {want.dtype}, rows "
+                  f"{r}..)")
+            abs_err, rel_err = max(abs_err, e), max(rel_err, e / top)
+
+    def reject(bad, want, what):
+        e = max_err([bad], [want])
+        check(e > bound(want), f"the K5 check passes {what}: error {e}, "
+              f"bound {bound(want)}")
+        controls.append(e / bound(want))
+
+    S = tokens
+    for H, KV, Dh, dt in ((4, 2, 32, bf16), (4, 2, 32, f32),
+                          (8, 8, 64, bf16)):
+        for q_scale in (1.0, 4.0):
+            q = randn(1, S, H, Dh, dtype=dt, scale=q_scale)
+            k = randn(1, S, KV, Dh, dtype=dt)
+            v = randn(1, S, KV, Dh, dtype=dt, scale=1 / q_scale)
+            o = fa.flash_attention_op(q, k, v, causal=True).transpose(1, 2)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            for r0 in (0, S // 2 + 37, S - 64):     # first, middle, last
+                qs = qt[:, :, r0:r0 + 64]
+                want = fa.flash_attention_plain(qs, kt, vt, q_offset=r0)
+                hold(o[:, :, r0:r0 + 64], want)
+                if r0 == 0:                         # one key tile
+                    continue
+                c = r0 // 64 * 64
+
+                def part(lo, hi):
+                    return fa.flash_attention_plain(
+                        qs, kt[:, :, lo:hi], vt[:, :, lo:hi],
+                        q_offset=r0 - lo)
+                reject(torch.zeros_like(want), want, "zeros")
+                reject(part(0, 64), want, "the first key tile alone")
+                reject(part(0, r0 // 2), want, "the first half of the keys")
+                reject(part(c, S), want, "the last key tiles alone")
+    for dt in (f32, bf16):      # GQA, a ragged Sq = 200, masks on and off
+        q = randn(2, 4, 200, 64, dtype=dt)
+        k, v = (randn(2, 2, 200, 64, dtype=dt) for _ in range(2))
+        for causal, window in ((True, None), (False, None), (True, 64)):
+            kw = dict(causal=causal, window=window)
+            hold(fa.flash_attention(q, k, v, **kw),
+                 fa.flash_attention_plain(q, k, v, **kw))
+    log(f"flash_attention vs plain: max abs err {abs_err}, max err / "
+        f"largest |output| of its tile {rel_err} (bounds {K5_TOL}); "
+        f"{len(controls)} broken outputs rejected, the closest at "
+        f"{min(controls)} x its bound")
+    return abs_err, rel_err, min(controls)
+
+
+def time_rmsnorm_and_attention(timer, seed: int):
+    """Median times of K4 and K5 at the main path's shapes (segment_unest:
+    180,224 tokens, d 128, H 4, KV 2, Dh 32, bf16, causal), their plain
+    versions, their bounds and one PyTorch call each; K5 also at the
+    published width (key ``flash_attention_full``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    x = torch.randn(TOKENS, 128, device="cuda", generator=g).to(bf16)
+    sc = torch.rand(128, device="cuda", generator=g) + 0.5
+    out = {"rmsnorm": (
+        timer(lambda: rn.rmsnorm(x, sc)),
+        timer(lambda: rn.rmsnorm_plain(x, sc), reps=5),
+        *_bound(2 * x.numel() * 2 + 128 * 4, 4 * x.numel()),
+        timer(lambda: F.rms_norm(x, (128,), sc.to(bf16), 1e-5)))}
+    for key, (H, KV, Dh, reps) in (("flash_attention", (4, 2, 32, 5)),
+                                   ("flash_attention_full", (8, 8, 64, 3))):
+        q = torch.randn(1, TOKENS, H, Dh, device="cuda", generator=g).to(bf16)
+        k, v = (torch.randn(1, TOKENS, KV, Dh, device="cuda",
+                            generator=g).to(bf16) for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        plain = timer(lambda: fa.flash_attention_plain(qt, kt, vt), reps=2) \
+            if key == "flash_attention" else None
+        out[key] = (
+            timer(lambda: fa.flash_attention_op(q, k, v), reps=reps), plain,
+            *attention_bound(TOKENS, H, KV, Dh, 2),
+            timer(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)))
+        # the main path reads the model's (B, S, H, Dh) in place; the same
+        # kernel on dense (B, H, S, Dh) copies, and the card's clocks while
+        # the main path's call runs, say what its time depends on
+        dense = [t.contiguous() for t in (qt, kt, vt)]
+        ms_dense = timer(lambda: fa.flash_attention(*dense), reps=reps)
+        load = under_load(lambda: fa.flash_attention_op(q, k, v),
+                          int(2000 / out[key][0]) + 1)
+        log(f"time {key} on contiguous (B,H,S,Dh) copies: kernel {ms_dense} "
+            f"ms; the card while the (B,S,H,Dh) call runs (sm clock, max "
+            f"sm clock, power draw, temperature): {load}")
+    for key, (ms, plain, b_ms, b_by, lib) in out.items():
+        log(f"time {key}: kernel {ms} ms, plain {plain} ms, bound {b_ms} ms "
+            f"({b_by}), library {lib} ms")
+    return out
+
+
+def under_load(fn, n: int) -> str:
+    """nvidia-smi's reading of the card while ``fn`` runs ``n`` times back
+    to back (queued before the reading, waited for after it)."""
+    import torch
+    torch.cuda.synchronize()
+    for _ in range(n):
+        fn()
+    r = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,"
+                        "clocks.max.sm,power.draw,temperature.gpu",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    torch.cuda.synchronize()
+    return (r.stdout + r.stderr).strip()
 
 
 def profile_kernels(fn, reps=5):

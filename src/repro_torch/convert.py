@@ -2,7 +2,12 @@
 
 ``from_jax`` turns numpy arrays taken from the JAX package (``np.asarray``
 of its ``jax.Array``s, nested dicts, lists and tuples included) into the
-port's tensors on a device. ``accumulator_from_jax`` continues a stream that
+port's tensors on a device. It is also the weight loader of the port's
+model: ``repro_torch.models`` keeps the reference's parameter layout (a
+dict of ``(L, ...)``-stacked weights, the same names), so
+``from_jax(jax.tree.map(np.asarray, params))`` is ready for
+``repro_torch.core.pipelines._segment_fn(..., params=...)`` with no
+renaming. ``accumulator_from_jax`` continues a stream that
 the reference's ``QAChecksumAccumulator`` began: its carry, the blocks it
 folded and its unfolded tail move across, and the port's ``finalize()``
 gives the ``QAStats`` the reference would have given. Nothing here imports

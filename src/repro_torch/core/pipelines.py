@@ -9,11 +9,16 @@ whose recorded digest matches).
 
   * bias_correct — N4-style low-order polynomial bias-field estimation
   * affine_register — gradient-descent affine registration to an atlas
+  * segment_unest — UNesT-like patch-transformer tissue segmentation
+    (backbone = configs/paper_unest.py, on the RMSNorm and flash-attention
+    kernels)
   * dwi_prequal — MP-PCA-flavoured truncated-SVD denoising
 
 Inputs and outputs stay numpy; the compute runs on the pipeline's device.
 Products are written as elementwise multiplies and sums, so no float32
-product goes through a TF32 matrix multiply.
+product goes through a TF32 matrix multiply; segment_unest's one float32
+matmul (the patch projection) runs in full float32, torch's default
+(``torch.backends.cuda.matmul.allow_tf32`` is False).
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..configs import get_config
 from ..device import DeviceLike, resolve_device
+from ..models import backbone_logits, init_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +201,52 @@ def _register_fn(inputs, *, device: torch.device, steps: int = 60,
 
 
 # ---------------------------------------------------------------------------
+# UNesT-like segmentation (transformer backbone over 3D patches)
+# ---------------------------------------------------------------------------
+
+def segment_logits(vol: torch.Tensor, cfg, params, proj: torch.Tensor,
+                   patch: int) -> torch.Tensor:
+    """Logits (npatch, vocab) of the backbone over ``vol``'s patches:
+    patchify, normalise, project (float32), run the stack in bfloat16,
+    final rmsnorm, head. ``npatch = prod(vol.shape // patch)``."""
+    X, Y, Z = vol.shape
+    px, py, pz = X // patch, Y // patch, Z // patch
+    patches = vol[:px * patch, :py * patch, :pz * patch] \
+        .reshape(px, patch, py, patch, pz, patch) \
+        .permute(0, 2, 4, 1, 3, 5).reshape(px * py * pz, patch ** 3)
+    patches = (patches - patches.mean()) / (_std(patches) + 1e-6)
+    x = (patches @ proj)[None].to(torch.bfloat16)        # (1, npatch, D)
+    return backbone_logits(cfg, params, x)[0]
+
+
+def _segment_fn(inputs, *, device: torch.device, n_classes: int = 4,
+                patch: int = 4, seed: int = 0, params=None, proj=None):
+    """The reference's ``_segment_fn``. ``params`` and ``proj`` default to
+    weights drawn from CPU ``torch.Generator``s seeded ``seed`` and
+    ``seed + 1`` (the same on every device; not the reference's
+    ``jax.random`` weights, which a caller converts with
+    ``repro_torch.convert.from_jax`` and passes in)."""
+    vol = torch.as_tensor(np.asarray(inputs["T1w"], np.float32),
+                          device=device)
+    cfg = get_config("paper-unest").reduced(vocab_size=max(n_classes, 8))
+    if params is None:
+        params = init_params(cfg, torch.Generator().manual_seed(seed),
+                             device=device)
+    if proj is None:
+        proj = torch.randn((patch ** 3, cfg.d_model),
+                           generator=torch.Generator().manual_seed(seed + 1))
+        proj = (proj / patch ** 1.5).to(device)
+    with torch.inference_mode():
+        logits = segment_logits(vol, cfg, params, proj, patch)[:, :n_classes]
+        grid = [s // patch for s in vol.shape]
+        seg = torch.argmax(logits, -1).reshape(grid)
+        for axis in range(3):
+            seg = torch.repeat_interleave(seg, patch, dim=axis)
+    return {"segmentation": seg.to(torch.int32).cpu().numpy(),
+            "class_logits": logits.to(torch.float32).cpu().numpy()}
+
+
+# ---------------------------------------------------------------------------
 # DWI denoising (PreQual stand-in)
 # ---------------------------------------------------------------------------
 
@@ -218,7 +271,7 @@ def _pca_denoise_fn(inputs, *, device: torch.device, keep: int = 3):
 
 def builtin_pipelines(device: DeviceLike = None) -> Dict[str, Pipeline]:
     """The port's pipelines on ``device`` (``None`` means ``cuda``, which
-    must exist). ``segment_unest`` joins in the next slice."""
+    must exist)."""
     dev = resolve_device(device)
     return {
         "bias_correct": Pipeline(
@@ -229,6 +282,10 @@ def builtin_pipelines(device: DeviceLike = None) -> Dict[str, Pipeline]:
             PipelineSpec("affine_register", "1.0", ("T1w",),
                          {"steps": 60, "lr": 5e-3, "backend": "torch"}),
             functools.partial(_register_fn, device=dev)),
+        "segment_unest": Pipeline(
+            PipelineSpec("segment_unest", "1.0", ("T1w",),
+                         {"n_classes": 4, "patch": 4, "backend": "torch"}),
+            functools.partial(_segment_fn, device=dev)),
         "dwi_prequal": Pipeline(
             PipelineSpec("dwi_prequal", "1.0", ("T1w", "dwi"),
                          {"denoise": "pca", "backend": "torch"}),

@@ -26,9 +26,12 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 # library name -> its CUDA source
 SOURCES: Dict[str, Path] = {
     "checksum": _PKG / "checksum" / "csrc" / "checksum.cu",
+    "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
-# no --use_fast_math and no -ftz: the checksum kernels keep subnormals
+# no --use_fast_math and no -ftz: the checksum kernels keep subnormals, and
+# rmsnorm and flash attention keep accurate sqrtf, division and expf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,3 +107,21 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+def launch(name: str, fn: str, argtypes: List, *args) -> None:
+    """Call ``fn`` of library ``name`` (building it on first use): a C
+    launcher that returns its ``cudaError_t``. Raises ``RuntimeError`` when
+    that is not 0, so a launch the card refused (too much shared memory,
+    too many threads) never passes unseen."""
+    lib = load(name)
+    f = getattr(lib, fn)
+    if f.argtypes is None:
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+    rc = f(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed to launch: CUDA error {rc} "
+                           f"({lib.repro_error_string(rc).decode()})")

@@ -73,23 +73,8 @@ _SIGNATURES = {
 }
 
 
-def _cuda_fn(name: str):
-    lib = _build.load("checksum")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-    return fn, lib
-
-
 def _launch(name: str, *args):
-    fn, lib = _cuda_fn(name)
-    rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} failed to launch: CUDA error {rc} "
-                           f"({lib.repro_error_string(rc).decode()})")
+    _build.launch("checksum", name, _SIGNATURES[name], *args)
 
 
 def _stream(t: torch.Tensor) -> int:

@@ -15,7 +15,12 @@ from repro_torch.core import cost, integrity
 REPO = Path(__file__).resolve().parents[1]
 
 VERBATIM = ["core/integrity.py", "core/manifest.py", "core/provenance.py",
-            "core/query.py", "core/storage.py", "kernels/checksum/ref.py"]
+            "core/query.py", "core/storage.py", "kernels/checksum/ref.py"] + [
+    f"configs/{m}.py" for m in (
+        "__init__", "base", "glm4_9b", "granite_34b", "h2o_danube_1_8b",
+        "internvl2_76b", "llama3_2_1b", "llama4_scout_17b_a16e",
+        "moonshot_v1_16b_a3b", "paper_unest", "rwkv6_1_6b", "whisper_small",
+        "zamba2_1_2b")]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)

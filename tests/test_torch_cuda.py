@@ -3,8 +3,18 @@
 A CUDA kernel has no CPU mode, so every test here skips without a GPU; on
 an H100 run them with ``python -m pytest -m cuda tests/test_torch_cuda.py``
 (``chip_smoke.py`` holds the same kernels at the main path's full sizes).
-Tolerance: none — the kernels keep the plain versions' reduction order, so
-every output is bit-exact (min/max equal by value).
+Tolerances: none for the checksum family (K1-K3) — the kernels keep the
+plain versions' reduction order, so every output is bit-exact (min/max
+equal by value), and so is RMSNorm (K4), whose plain version repeats the
+kernel's order of the sum of squares. Flash attention (K5) sums in another
+order than its plain version, and in bfloat16 hands the probabilities to
+the tensor cores rounded to bf16. It is held on every 64-row query tile to
+2e-5 absolute in float32 and 3e-2 in bfloat16, the tolerances the
+reference sets on its own kernel (``tests/test_kernels.py``), and to 2^-12
+(float32) or 2^-6 (bfloat16, two bf16 steps) of the tile's largest
+|output|: late in a causal sequence the outputs average many keys and are
+small, and the absolute tolerance alone would pass a wrong carry across
+key tiles there.
 """
 import numpy as np
 import pytest
@@ -16,6 +26,9 @@ from repro_torch.kernels.checksum import (ACCUMULATOR_DTYPES, LAUNCHES,
                                           qa_checksum_batched,
                                           qa_checksum_chunk, qa_stats, ref,
                                           reset_launches)
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +44,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     reset_launches()
+    rn.reset_launches()
+    fa.reset_launches()
     return torch.device("cuda")
 
 
@@ -108,3 +123,97 @@ def test_kernel_failure_raises(cuda):
     with pytest.raises(RuntimeError, match="failed to launch"):
         # a 32768-value block is past the kernel's shared-memory tree
         qa_checksum(torch.zeros(1 << 15, device=cuda), blk=1 << 15)
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+# K5: (absolute, relative to the tile's largest |output|)
+TOL = {torch.float32: (2e-5, 2 ** -12), torch.bfloat16: (3e-2, 2 ** -6)}
+
+
+def _close(got, want):
+    """got, want: (B, H, S, Dh); each 64-row query tile within TOL."""
+    tol, rel = TOL[want.dtype]
+    assert got.dtype == want.dtype and got.shape == want.shape
+    for r in range(0, want.shape[2], 64):
+        w = want[:, :, r:r + 64]
+        top = w.float().abs().max().item()
+        assert _err(got[:, :, r:r + 64], w) <= min(tol, rel * top), \
+            (r, _err(got[:, :, r:r + 64], w), top)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 128), (3, 100), (512, 256),
+                                   (1, 7), (1000, 512)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
+    g = torch.Generator().manual_seed(len(shape))
+    x = torch.randn(shape, generator=g).to(dtype)
+    s = torch.randn(shape[-1:], generator=g).abs() + 0.5
+    got = rn.rmsnorm(x.to(cuda), s.to(cuda))
+    assert got.dtype == dtype and got.shape == x.shape and got.is_cuda
+    assert torch.equal(got, rn.rmsnorm_plain(x.to(cuda), s.to(cuda)))
+    assert torch.equal(got.cpu(), rn.rmsnorm_plain(x, s))
+    assert rn.LAUNCHES["rmsnorm"] == 1
+
+
+@pytest.mark.parametrize("B,H,KV,S,D", [
+    (2, 4, 2, 256, 64), (1, 8, 8, 128, 32), (2, 4, 1, 200, 64),
+    (1, 2, 2, 384, 128), (1, 4, 2, 1000, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, B, H, KV, S, D, dtype, causal):
+    g = torch.Generator().manual_seed(S)
+    q = torch.randn(B, H, S, D, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(B, KV, S, D, generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want)
+    assert fa.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window_layout_and_offset(cuda, dtype):
+    g = torch.Generator().manual_seed(7)
+    q = torch.randn(1, 300, 4, 32, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(1, 300, 2, 32, generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    got = fa.flash_attention_op(q, k, v, causal=True, window=64)
+    want = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), window=64)
+    _close(got.transpose(1, 2), want)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    part = fa.flash_attention(qt[:, :, 130:200], kt, vt, q_offset=130)
+    _close(part, fa.flash_attention_plain(qt, kt, vt)[:, :, 130:200])
+    assert fa.LAUNCHES["flash_attention"] == 2
+
+
+def test_flash_kernel_takes_odd_strided_bf16_views(cuda):
+    """The bf16 kernel reads element pairs; a view whose strides are odd
+    is copied to a dense layout first."""
+    g = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn(1, 4 if i == 0 else 2, 65, 33, generator=g)
+               .to(torch.bfloat16).to(cuda)[..., :32] for i in range(3))
+    assert q.stride(2) == 33
+    got = fa.flash_attention(q, k, v)
+    _close(got, fa.flash_attention_plain(q, k, v))
+
+
+def test_new_wrappers_raise_and_never_fall_back(cuda):
+    x = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rmsnorm(x.half(), torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):
+        rn.rmsnorm(x, torch.ones(8))                  # scale on the CPU
+    q = torch.zeros(1, 2, 8, 80, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 8, 32, device=cuda)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :3], q[:, :3])     # 4 heads over 3
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q.cpu(), q.cpu())
+    assert rn.LAUNCHES["rmsnorm"] == fa.LAUNCHES["flash_attention"] == 0

@@ -58,7 +58,7 @@ def test_pipeline_digests_differ_from_reference():
     from repro_torch.core.pipelines import builtin_pipelines
     ref = ref_pipelines()
     port = builtin_pipelines("cpu")
-    assert set(port) == set(ref) - {"segment_unest"}
+    assert set(port) == set(ref)
     for name, pipe in port.items():
         assert pipe.spec.config["backend"] == "torch"
         assert pipe.digest() != ref[name].digest(), name

@@ -14,6 +14,12 @@ Tolerances and why:
     other bits again.
   * dwi_prequal, relative <= 1e-4: LAPACK SVDs in two libraries; the
     rank-3 reconstruction does not depend on the singular vectors' signs.
+  * segment_unest, with the reference's weights converted by ``from_jax``:
+    class logits within 1.6e-2 absolute (four bf16 steps at 0.5-1; the
+    logits are below 1 and the two models round at other points, e.g. the
+    reference's probabilities are bf16 before P.V, the port's f32; 3.9e-3
+    measured at 64^3), and the argmax on >= 99 % of patches (a logit pair
+    within a bf16 step may swap).
 """
 import jax
 import jax.numpy as jnp
@@ -21,8 +27,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config
 from repro.core.pipelines import builtin_pipelines as jax_pipelines
-from repro_torch.core.pipelines import _linspace, builtin_pipelines
+from repro.models import init_params
+from repro_torch.convert import from_jax
+from repro_torch.core.pipelines import (_linspace, _segment_fn,
+                                        builtin_pipelines)
 
 SHAPES = [(16, 16, 16), (32, 32, 24)]
 
@@ -83,3 +93,41 @@ def test_dwi_prequal_matches_reference(pipes, shape):
     ref, port = (p["dwi_prequal"].run(inputs) for p in pipes)
     assert port["dwi_denoised"].dtype == np.float32
     assert _rel(port["dwi_denoised"], ref["dwi_denoised"]) <= 1e-4
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_segment_unest_matches_reference(pipes, shape):
+    """The reference's weights, built as its ``_segment_fn`` builds them
+    (seed 0 for the params, seed 1 for the projection), go through the
+    port's ``_segment_fn``."""
+    ref = pipes[0]["segment_unest"].run({"T1w": _t1(shape)})
+    cfg = get_config("paper-unest").reduced(vocab_size=8)
+    params = jax.tree.map(np.asarray, init_params(cfg, jax.random.PRNGKey(0)))
+    proj = np.asarray(jax.random.normal(jax.random.PRNGKey(1),
+                                        (4 ** 3, cfg.d_model)) / 4 ** 1.5)
+    cpu = torch.device("cpu")
+    port = _segment_fn({"T1w": _t1(shape)}, device=cpu,
+                       params=from_jax(params, cpu), proj=from_jax(proj, cpu))
+    a, b = port["class_logits"], ref["class_logits"]
+    assert a.dtype == np.float32 and a.shape == b.shape
+    assert a.shape == (np.prod([s // 4 for s in shape]), 4)
+    assert np.max(np.abs(a - b)) <= 1.6e-2
+    assert np.mean(a.argmax(-1) == b.argmax(-1)) >= 0.99
+    seg = port["segmentation"]
+    assert seg.dtype == np.int32 and seg.shape == ref["segmentation"].shape
+    assert set(np.unique(seg)) <= {0, 1, 2, 3}
+    assert np.mean(seg == ref["segmentation"]) >= 0.99
+
+
+def test_segment_unest_own_weights_are_seeded_and_device_free(pipes):
+    """Without ``params=``/``proj=`` the port draws its weights from CPU
+    generators seeded 0 and 1: the same on every run and every device."""
+    vol = {"T1w": _t1((16, 16, 16))}
+    a = pipes[1]["segment_unest"].run(vol)
+    b = _segment_fn(vol, device=torch.device("cpu"))
+    c = _segment_fn(vol, device=torch.device("cpu"), seed=1)
+    assert np.array_equal(a["class_logits"], b["class_logits"])
+    assert not np.array_equal(a["class_logits"], c["class_logits"])
+    assert np.all(np.isfinite(a["class_logits"]))
+    assert np.array_equal(a["segmentation"][::4, ::4, ::4].reshape(-1),
+                          a["class_logits"].argmax(-1))
