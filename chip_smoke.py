@@ -32,6 +32,23 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               layers, d 512, 8 heads, Dh 64, d_ff 2048), bf16, forward over
               the 180,224 patch tokens of one ingested T1w, weights from a
               seeded generator: finite logits, K4 25 and K5 12 launches.
+ 5b. serve  - ``serve_batch`` for rwkv6-1.6b, zamba2-1.2b and llama3.2-1b
+              at their published configs (no cut), bf16, weights from a
+              seeded CPU generator: 4 prompts of 2,000 tokens, 32 new
+              tokens. Launch counts are zeroed just before and read just
+              after: K6 38 (zamba2), K7 24 (rwkv6). Inside the same run
+              the prefill and the decode loop are timed and counted apart
+              (decode launches neither K5, K6 nor K7); tokens in the
+              vocabulary, logits finite. A run under torch.profiler just
+              before gives the K6/K7 share of prefill and the card's busy
+              share. Then, in f32 at full width with the depth cut
+              (zamba2 6 layers, one shared-attention period; rwkv6 and
+              llama 2) on a 300-token prompt: prefill(S-1) plus one decode
+              step against prefill(S) within 2e-3, and the cuda prefill
+              (logits and every cache tensor) against the port's own CPU
+              run within 1e-4 of each one's largest |value|; with a
+              broken scan in place (each chunk from a zero state) that
+              check must fail.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks.
@@ -44,7 +61,15 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               64-row query tile within 2e-5 absolute in f32, 3e-2 in bf16,
               and within 2^-12 (f32) or 2^-6 (bf16) of its largest
               |output|; outputs of broken kernels (zeros, one key tile,
-              half the keys, a lost carry) must fail that bound.
+              half the keys, a lost carry) must fail that bound. K6 at
+              zamba2's width (4 x 2,000 steps, H 64, dh 64, N 64, chunk
+              256) and K7 at rwkv6's (H 32, dh 64, chunk 128, bf16 r/k/v),
+              in the model's strided layout, from a zero and a random
+              state: y and the final state within 1e-4 of max(1, max|ref|)
+              of the plain version; the first sequence against the
+              sequential ``ref.py`` over all 2,000 steps; outputs of broken
+              kernels (the inter-chunk term dropped, the state not carried)
+              must fail the same bound.
  7. timing  - each kernel's median time (CUDA events, L2 flushed, the GPU
               kept busy so host enqueue time is not counted) at the main
               path's shapes, beside its plain version's, its bound and,
@@ -52,6 +77,9 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               (``F.rms_norm``, ``F.scaled_dot_product_attention``), which
               the port never calls. K5 also on contiguous (B,H,S,Dh)
               copies, and the card's clock and power read while it runs.
+              K6 and K7 at the serve phase's shapes (no single PyTorch
+              call computes either: library null), bounded by what the
+              sequential recurrence needs.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -60,6 +88,7 @@ a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -97,7 +126,18 @@ KERNELS = {  # wrapper name -> (its CUDA source, the TPU kernel it replaces)
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:22"),
+    "ssd_chunked": ("src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu",
+                    "src/repro/kernels/mamba2_ssd/mamba2_ssd.py:23"),
+    "wkv6_chunked": ("src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+                     "src/repro/kernels/rwkv6/rwkv6.py:20"),
 }
+SERVE_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "llama3.2-1b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2000, 32
+CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6, "llama3.2-1b": 2}
+CUT_PROMPT = 300
+# K6/K7 against their plain versions and the sequential oracles: relative
+# to max(1, max|ref|), the bound the reference holds its kernels to
+SCAN_TOL = 1e-4
 
 
 def log(*a):
@@ -441,6 +481,12 @@ def run(args, work: Path):
     t1_rec = next(i for i in m1.images if i.suffix == "T1w")
     model_wall = model_phase(np.load(Path(m1.root) / t1_rec.path), args.seed)
 
+    # -- 5b. serving: rwkv6, zamba2 and llama at their published widths -------
+    t0 = time.perf_counter()
+    serve = serve_phase(args.seed)
+    cut_model_phase(args.seed)
+    serve_s = time.perf_counter() - t0
+
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
 
@@ -489,6 +535,7 @@ def run(args, work: Path):
     check(all(e == 0.0 for e in errs.values()), f"kernels disagree: {errs}")
     errs["rmsnorm"] = check_rmsnorm(args.seed)
     errs["flash_attention"] = check_attention(args.seed)[0]
+    errs.update(check_scans(args.seed)[0])
     log(f"kernels vs plain, max abs err: {errs}")
 
     # -- 7. timing at the main path's shapes ----------------------------------
@@ -517,6 +564,7 @@ def run(args, work: Path):
         log(f"time {name}: kernel {timing[name][0]} ms, plain "
             f"{timing[name][1]} ms, bound {b_ms} ms ({b_by})")
     timing.update(time_rmsnorm_and_attention(timer, args.seed))
+    timing.update(time_scans(timer, args.seed))
     dwi_ms = timer(lambda: qa_checksum_batched(dwi))
     log(f"time qa_checksum at DWI {DWI}: kernel {dwi_ms} ms, bound "
         f"{qa_bound(dwi.numel(), 4)[0]} ms")
@@ -544,6 +592,13 @@ def run(args, work: Path):
     log(f"model split: wall {model_wall} s, K5 12 x "
         f"{timing['flash_attention_full'][0]} ms = "
         f"{12 * timing['flash_attention_full'][0] / 1e3} s")
+    for arch, name in (("zamba2-1.2b", "ssd_chunked"),
+                       ("rwkv6-1.6b", "wkv6_chunked")):
+        n, ms = serve[arch]["launches"][name], timing[name][0]
+        log(f"serve split {arch}: prefill {serve[arch]['prefill_s']} s, "
+            f"{name} {n} x {ms} ms = {n * ms / 1e3} s "
+            f"({100 * n * ms / 1e3 / serve[arch]['prefill_s']} %)")
+    log(f"serve phase: {serve_s} s in all")
 
     launches = {"qa_checksum": l0["qa_checksum"],
                 "qa_checksum_chunk": l1["qa_checksum_chunk"],
@@ -552,7 +607,12 @@ def run(args, work: Path):
                 "device_checksum": l0["device_checksum"]
                 + l1["device_checksum"],
                 "rmsnorm": k45["rmsnorm"],
-                "flash_attention": k45["flash_attention"]}
+                "flash_attention": k45["flash_attention"],
+                # the serve phase's serve_batch runs (zamba2: K6, rwkv6: K7)
+                "ssd_chunked": sum(v["launches"]["ssd_chunked"]
+                                   for v in serve.values()),
+                "wkv6_chunked": sum(v["launches"]["wkv6_chunked"]
+                                    for v in serve.values())}
     return [{"name": name, "route": "cuda", "source": source,
              "replaces": replaces, "launches": launches[name],
              "max_abs_err": errs[name], "ms": timing[name][0],
@@ -600,6 +660,447 @@ def model_phase(vol, seed: int) -> float:
         f"launches {got}, peak {torch.cuda.max_memory_allocated() / 1e9} "
         f"GB, max |logit| {logits.abs().max().item()}")
     return wall
+
+
+def _path_kernels():
+    """Wrapper name -> module of K4-K7, whose launches the serve phase
+    counts."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_ssd as k6
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rwkv6 as k7
+    return {"rmsnorm": rn, "flash_attention": fa, "ssd_chunked": k6,
+            "wkv6_chunked": k7}
+
+
+def _counts():
+    """Launches of K4-K7 since their last reset."""
+    return {name: mod.LAUNCHES[name] for name, mod in _path_kernels().items()}
+
+
+def _reset_counts():
+    for mod in _path_kernels().values():
+        mod.reset_launches()
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _leaves(tree):
+    if isinstance(tree, (dict, tuple)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _want_launches(cfg):
+    """(K5, K6, K7) launches of one prefill of ``cfg``."""
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        return L // cfg.shared_attn_every, L, 0
+    if cfg.rwkv is not None:
+        return 0, 0, L
+    return L, 0, 0
+
+
+def _probed_serve_batch(arch, prompts, params, profile=False):
+    """One ``serve_batch`` run at the published config, probed from the
+    inside: ``launch.serve``'s step factories are wrapped so that the card
+    is synchronised and the clock read around the prefill, and from the
+    first decode step to the end of the run, and K4-K7's launches counted
+    in each part; with ``profile`` each part also runs under
+    torch.profiler. The counts are zeroed just before the run. Returns the
+    tokens and, per part, its seconds, launches, last logits and device
+    time by kernel (us)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as Profile
+    from repro_torch.launch import serve as serve_mod
+    parts = {}
+
+    def begin(part):
+        torch.cuda.synchronize()
+        prof = Profile(activities=[ProfilerActivity.CUDA]) if profile \
+            else None
+        if prof:
+            prof.start()
+        parts[part] = {"prof": prof, "before": _counts(),
+                       "t0": time.perf_counter()}
+
+    def end(part):
+        torch.cuda.synchronize()
+        p = parts[part]
+        p["s"] = time.perf_counter() - p.pop("t0")
+        prof = p.pop("prof")
+        if prof:
+            prof.stop()
+        p["us"] = _device_us(prof, False) if prof else {}
+        before, now = p.pop("before"), _counts()
+        p["launches"] = {k: now[k] - before[k] for k in now}
+
+    real = serve_mod.make_prefill_step, serve_mod.make_decode_step
+
+    def prefill_factory(cfg):
+        step = real[0](cfg)
+
+        def prefill(params, batch):
+            begin("prefill")
+            logits, cache = step(params, batch)
+            end("prefill")
+            parts["prefill"]["logits"] = logits
+            return logits, cache
+        return prefill
+
+    def decode_factory(cfg):
+        step = real[1](cfg)
+
+        def decode(params, cache, token, pos):
+            if "decode" not in parts:
+                begin("decode")
+            logits, cache = step(params, cache, token, pos)
+            parts["decode"]["logits"] = logits
+            return logits, cache
+        return decode
+
+    _reset_counts()
+    serve_mod.make_prefill_step = prefill_factory
+    serve_mod.make_decode_step = decode_factory
+    try:
+        toks = serve_mod.serve_batch(arch, prompts, SERVE_NEW, reduced=False,
+                                     params=params, device="cuda")
+    finally:
+        serve_mod.make_prefill_step, serve_mod.make_decode_step = real
+    end("decode")
+    return toks, parts
+
+
+def serve_phase(seed: int):
+    """Phase 5b: ``serve_batch`` at the published configs, twice per arch:
+    under torch.profiler, then timed and counted. Returns per arch the
+    launches of the timed run and its measurements."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator().manual_seed(seed),
+                             torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        prompts = np.random.default_rng(seed + 7).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+        want5, want6, want7 = _want_launches(cfg)
+        # device time by kernel, from a run under torch.profiler, which
+        # also takes the first run's start-up costs off the timed one
+        again, prof = _probed_serve_batch(arch, prompts, params, True)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        toks, parts = _probed_serve_batch(arch, prompts, params)
+        wall = time.perf_counter() - t0
+        path = _counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        pre, dec = parts["prefill"], parts["decode"]
+        check(toks.shape == (SERVE_BATCH, SERVE_NEW) and toks.min() >= 0
+              and toks.max() < cfg.vocab_size, f"{arch}: tokens {toks}")
+        check(tuple(pre["logits"].shape) == (SERVE_BATCH, cfg.vocab_size)
+              and bool(torch.isfinite(pre["logits"]).all())
+              and bool(torch.isfinite(dec["logits"]).all()),
+              f"{arch}: prefill logits {tuple(pre['logits'].shape)} or "
+              f"decode logits not finite")
+        check(path["ssd_chunked"] == want6 and path["wkv6_chunked"] == want7
+              and path["flash_attention"] == want5,
+              f"{arch}: serve_batch launches {path}, want K5 {want5}, K6 "
+              f"{want6}, K7 {want7}")
+        check((pre["launches"]["flash_attention"],
+               pre["launches"]["ssd_chunked"],
+               pre["launches"]["wkv6_chunked"]) == (want5, want6, want7),
+              f"{arch}: prefill launches {pre['launches']}")
+        check(dec["launches"]["flash_attention"]
+              == dec["launches"]["ssd_chunked"]
+              == dec["launches"]["wkv6_chunked"] == 0,
+              f"{arch}: decode launches {dec['launches']}")
+        us, total = prof["prefill"]["us"], sum(prof["prefill"]["us"].values())
+        share = {}
+        for name in ("ssd_chunk_kernel", "wkv6_chunk_kernel",
+                     "flash_mma_kernel", "rmsnorm_kernel"):
+            t = sum(v for k, v in us.items() if name in k)
+            share[name] = (t / 1e3, 100 * t / total if total else None)
+        share["device_ms"] = total / 1e3
+        share["busy_%_of_prefill_wall"] = total / 1e3 / pre["s"] / 10
+        share["decode_busy_%"] = sum(prof["decode"]["us"].values()) / 1e3 \
+            / dec["s"] / 10
+        share["top_prefill_kernels_ms"] = [
+            (k[:60], v / 1e3) for k, v in
+            sorted(us.items(), key=lambda kv: -kv[1])[:6]]
+        out[arch] = {"launches": path, "prefill_s": pre["s"],
+                     "decode_ms_per_token": 1e3 * dec["s"] / (SERVE_NEW - 1),
+                     "wall_s": wall, "init_s": init_s, "peak_gb": peak}
+        log(f"serve {arch} L{cfg.n_layers} d{cfg.d_model} bf16, "
+            f"{SERVE_BATCH} x {SERVE_PROMPT} tokens + {SERVE_NEW} new: "
+            f"serve_batch {wall} s (weights {init_s} s), launches {path}, "
+            f"peak {peak} GB; prefill {pre['s']} s, launches "
+            f"{pre['launches']}; decode {1e3 * dec['s']} ms for "
+            f"{SERVE_NEW - 1} steps ({out[arch]['decode_ms_per_token']} ms "
+            f"per token), launches {dec['launches']}; the profiled run gave "
+            f"the same tokens {bool(np.array_equal(again, toks))}; prefill "
+            f"device time by kernel (ms, % of device time) {share}")
+        del params, pre, dec, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _scans_restarted_each_chunk():
+    """The models' K6 and K7 calls replaced by a broken scan: each chunk
+    from a zero state, the last chunk's state returned (the inter-chunk
+    term dropped and the state not carried)."""
+    import torch
+    from repro_torch.models import mamba2, rwkv6
+
+    def restarted(op):
+        def scan(*args, chunk, state=None):
+            S = args[0].shape[1]
+            parts = [op(*(t[:, lo:lo + chunk] if t.dim() >= 3 else t
+                          for t in args), chunk=chunk)
+                     for lo in range(0, S, chunk)]
+            return torch.cat([p[0] for p in parts], 1), parts[-1][1]
+        return scan
+    real = mamba2.ssd_chunked_op, rwkv6.wkv6_op
+    mamba2.ssd_chunked_op = restarted(real[0])
+    rwkv6.wkv6_op = restarted(real[1])
+    try:
+        yield
+    finally:
+        mamba2.ssd_chunked_op, rwkv6.wkv6_op = real
+
+
+def cut_model_phase(seed: int):
+    """Phase 5b, f32 at full width with the depth cut: decode consistency
+    on the card (2e-3, the reference's bound), and the card's prefill (the
+    logits and every cache tensor) against the port's own CPU run, each
+    within 1e-4 of its largest |value|. With a broken chunk scan in place
+    the same comparison must fail: the logits alone move little, since the
+    embedding reaches the head through the residual, but the caches after
+    the scans do not."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import graft
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_cache, init_params)
+    f32 = torch.float32
+
+    def rel(got, want):        # worst over the logits and every cache tensor
+        return max(float((a.cpu() - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(_leaves(got), _leaves(want)))
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=CUT_LAYERS[arch])
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(seed + 1),
+                            f32, "cpu")
+        params = _tree_to(p_cpu, "cuda")
+        toks = torch.from_numpy(np.random.default_rng(seed + 8).integers(
+            0, cfg.vocab_size, (2, CUT_PROMPT)))
+        td = toks.cuda()
+        with torch.inference_mode():
+            full = forward_prefill(cfg, params, {"tokens": td}, f32)
+            _, cache = forward_prefill(cfg, params, {"tokens": td[:, :-1]},
+                                       f32)
+            cache = graft(init_cache(cfg, 2, CUT_PROMPT, f32, "cuda"), cache)
+            step, _ = forward_decode(cfg, params, cache, td[:, -1:],
+                                     CUT_PROMPT - 1, f32)
+            on_cpu = forward_prefill(cfg, p_cpu, {"tokens": toks}, f32)
+            with _scans_restarted_each_chunk():
+                broken = forward_prefill(cfg, params, {"tokens": td}, f32)
+        consist = float((full[0] - step[:, 0]).abs().max())
+        err, err_bad = rel(full, on_cpu), rel(broken, on_cpu)
+        logits_bad = rel(broken[0], on_cpu[0])
+        out[arch] = (consist, err, err_bad)
+        log(f"cut {arch} L{cfg.n_layers} d{cfg.d_model} f32, {CUT_PROMPT} "
+            f"tokens: decode vs prefill {consist} (bound 2e-3), cuda vs cpu "
+            f"prefill {err} of the largest |value| (bound 1e-4), max |logit| "
+            f"{float(on_cpu[0].abs().max())}; with each chunk scanned from a "
+            f"zero state {err_bad} (the logits alone {logits_bad})")
+        check(consist < 2e-3, f"{arch}: decode differs from prefill by "
+              f"{consist}")
+        check(err < 1e-4, f"{arch}: the card's prefill differs from the "
+              f"CPU's by {err} of the largest")
+        if cfg.family in ("hybrid", "ssm"):
+            check(err_bad > 1e-4, f"{arch}: the prefill check passes a "
+                  f"broken scan ({err_bad})")
+    return out
+
+
+def _scan_rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / max(1.0, float(want.float().abs().max())))
+
+
+# decay laws of the scans' inputs: the reference's test distributions;
+# slow ones, whose state survives a chunk (K7's is the model's init, w0 =
+# -6), on which a dropped carry must show; and K7's down to the clip at -20
+SCAN_DECAYS = {"ssd_chunked": {"reference": 0.1, "slow": 0.001},
+               "wkv6_chunked": {"reference": (0.5, -2.0), "slow": (0.5, -6.0),
+                                "strong": (2.0, -1.0)}}
+
+
+def _scan_inputs(name: str, decay: str, g):
+    """K6 (zamba2's widths: H 64, dh 64, N 64) or K7 (rwkv6's: H 32, dh 64)
+    inputs in the model's layout: (B, S, H, ...) tensors seen as (B, H, S,
+    ...) views, B and C slices of one projection, r/k/v in bf16; and a
+    random initial state."""
+    import torch
+    B, S = SERVE_BATCH, SERVE_PROMPT
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).cuda()
+    law = SCAN_DECAYS[name][decay]
+    if name == "ssd_chunked":
+        H, dh, N = 64, 64, 64
+        x = randn(B, S, H, dh).transpose(1, 2)
+        lw = (-randn(B, S, H).abs() * law).transpose(1, 2)
+        bc = randn(B, S, 2 * N) * 0.3
+        return (x, lw, bc[..., :N], bc[..., N:]), randn(B, H, dh, N)
+    H, dh = 32, 64
+    r, k, v = (randn(B, S, H, dh).to(torch.bfloat16).transpose(1, 2)
+               for _ in range(3))
+    lw = -torch.exp(randn(B, S, H, dh) * law[0] + law[1])
+    lw = lw.clamp(-20.0, -1e-6).transpose(1, 2)
+    return (r, k, v, lw, randn(H, dh) * 0.3), randn(B, H, dh, dh)
+
+
+def _by_chunk(args, n_seq, lo, hi):
+    """The slices [lo, hi) along S of a scan's inputs (the first n_seq
+    carry S at dim 2, B/C at dim 1; u has none)."""
+    out = []
+    for i, t in enumerate(args):
+        if t.dim() == 4 or (t.dim() == 3 and i < n_seq):
+            out.append(t[:, :, lo:hi])
+        elif t.dim() == 3:
+            out.append(t[:, lo:hi])
+        else:
+            out.append(t)
+    return out
+
+
+def check_scans(seed: int):
+    """K6 and K7 against their plain versions at the serve phase's widths
+    (ragged S, from a zero and a random state, every decay law of
+    SCAN_DECAYS) and the first sequence against the sequential oracle over
+    all S steps. On the slow laws, outputs a broken kernel would give (the
+    inter-chunk term dropped: each chunk from a zero state; the state not
+    carried: the last chunk's alone) must fail the same bound; on the fast
+    ones the carried state fades within a chunk, so no check can see
+    either. Returns ({name: max abs err}, {name: worst rel err}, the least
+    control error over its bound)."""
+    import torch
+    from repro_torch.kernels import mamba2_ssd as k6
+    from repro_torch.kernels import rwkv6 as k7
+    g = torch.Generator().manual_seed(seed + 11)
+    abs_err, rel_err, controls = {}, {}, []
+    fns = {"ssd_chunked": (k6.ssd_chunked, k6.ssd_chunked_plain, k6.ssd_ref,
+                           256, 2),
+           "wkv6_chunked": (k7.wkv6_chunked, k7.wkv6_chunked_plain,
+                            k7.wkv6_ref, 128, 4)}
+    for name, (kern, plain, seq, T, n_seq) in fns.items():
+        for decay in SCAN_DECAYS[name]:
+            args, s0 = _scan_inputs(name, decay, g)
+            for state in (None, s0):
+                y, st = kern(*args, chunk=T, state=state)
+                yp, sp = plain(*args, chunk=T, state=state)
+                e = max(_scan_rel(y, yp), _scan_rel(st, sp))
+                check(e < SCAN_TOL, f"{name} differs from its plain version "
+                      f"({decay} decays, state given {state is not None}): "
+                      f"{e} of max(1, max|ref|)")
+                abs_err[name] = max(abs_err.get(name, 0.0),
+                                    float((y - yp).abs().max()),
+                                    float((st - sp).abs().max()))
+                rel_err[name] = max(rel_err.get(name, 0.0), e)
+                if decay != "slow":
+                    continue
+                # broken outputs, from the plain version
+                parts = [plain(*_by_chunk(args, n_seq, lo, lo + T), chunk=T)
+                         for lo in range(0, SERVE_PROMPT, T)]
+                for bad, want, what in (
+                        (torch.cat([p[0] for p in parts], 2), yp,
+                         "the inter-chunk term dropped"),
+                        (parts[-1][1], sp, "the state not carried")):
+                    eb = _scan_rel(bad, want)
+                    check(eb > SCAN_TOL, f"the {name} check passes {what}: "
+                          f"{eb}")
+                    controls.append(eb / SCAN_TOL)
+            y0, _ = kern(*args, chunk=T)
+            one = [t[:1] if t.dim() >= 3 else t for t in args]
+            e = _scan_rel(y0[:1], seq(*one))
+            check(e < SCAN_TOL, f"{name} differs from the sequential oracle "
+                  f"over {SERVE_PROMPT} steps ({decay} decays): {e}")
+            rel_err[name] = max(rel_err[name], e)
+            log(f"{name} ({decay} decays): vs plain max abs err "
+                f"{abs_err[name]}, worst of max(1, max|ref|) so far "
+                f"{rel_err[name]} (bound {SCAN_TOL}); vs the sequential "
+                f"oracle over {SERVE_PROMPT} steps {e}")
+    log(f"chunk scans: {len(controls)} broken outputs rejected, the closest "
+        f"at {min(controls)} x the bound")
+    return abs_err, rel_err, min(controls)
+
+
+def scan_bound(name: str, B: int, H: int, S: int, dh: int, N: int,
+               itemsize: int = 4):
+    """Least time for one chunk scan over S steps: inputs read once and
+    outputs (y and the final state) written once, against the operations
+    the function needs, which the sequential recurrence (``ref.py``) does:
+    per step and head, K6 dh N FMAs for the state update and dh N for y,
+    K7 dh dh FMAs each for the state update and the output and dh
+    exponentials of the decay (the chunked form applies each decay once a
+    chunk, so no per-step multiply is counted). FMAs (two flops) at 67
+    TFLOP/s f32, exponentials at the MUFU rate. Returns (ms, what bounds
+    it)."""
+    steps = B * H * S
+    if name == "ssd_chunked":
+        nbytes = 4 * (2 * steps * dh + steps + 2 * B * S * N
+                      + B * H * dh * N)
+        return _bound(nbytes, 4 * steps * dh * N)
+    nbytes = 3 * steps * dh * itemsize + 4 * (2 * steps * dh + H * dh
+                                              + B * H * dh * dh)
+    flops, exps = 4 * steps * dh * dh, steps * dh
+    if exps / EXP_PER_S >= flops / F32_OPS_PER_S:
+        return _bound(nbytes, exps, EXP_PER_S)
+    return _bound(nbytes, flops)
+
+
+def time_scans(timer, seed: int):
+    """Median times of K6 and K7 at the serve phase's shapes (from a zero
+    state, as prefill calls them), their plain versions and bounds."""
+    import torch
+    from repro_torch.kernels import mamba2_ssd as k6
+    from repro_torch.kernels import rwkv6 as k7
+    g = torch.Generator().manual_seed(seed + 12)
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    a6, _ = _scan_inputs("ssd_chunked", "reference", g)
+    a7, _ = _scan_inputs("wkv6_chunked", "reference", g)
+    out = {
+        "ssd_chunked": (
+            timer(lambda: k6.ssd_chunked(*a6, chunk=256)),
+            timer(lambda: k6.ssd_chunked_plain(*a6, chunk=256), reps=5),
+            *scan_bound("ssd_chunked", B, 64, S, 64, 64), None),
+        "wkv6_chunked": (
+            timer(lambda: k7.wkv6_chunked(*a7, chunk=128)),
+            timer(lambda: k7.wkv6_chunked_plain(*a7, chunk=128), reps=5),
+            *scan_bound("wkv6_chunked", B, 32, S, 64, 64, 2), None)}
+    for key, (ms, plain, b_ms, b_by, _) in out.items():
+        log(f"time {key}: kernel {ms} ms, plain {plain} ms, bound {b_ms} ms "
+            f"({b_by}), library none")
+    return out
 
 
 def check_rmsnorm(seed: int) -> float:
@@ -784,12 +1285,20 @@ def profile_kernels(fn, reps=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return _device_us(prof, True)
+
+
+def _device_us(prof, per_launch: bool):
+    """Device time (us) by CUDA kernel in a torch.profiler trace: per
+    launch, or in all."""
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0.0)
         if us and e.count:
             name = e.key.replace("(anonymous namespace)::", "")
-            out[name.split("(")[0]] = us / e.count
+            key = name.split("(")[0]
+            out[key] = out.get(key, 0.0) + (us / e.count if per_launch
+                                            else us)
     return out
 
 

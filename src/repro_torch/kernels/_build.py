@@ -28,10 +28,13 @@ SOURCES: Dict[str, Path] = {
     "checksum": _PKG / "checksum" / "csrc" / "checksum.cu",
     "rmsnorm": _PKG / "rmsnorm" / "csrc" / "rmsnorm.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "mamba2_ssd": _PKG / "mamba2_ssd" / "csrc" / "mamba2_ssd.cu",
+    "rwkv6": _PKG / "rwkv6" / "csrc" / "rwkv6.cu",
 }
 
 # no --use_fast_math and no -ftz: the checksum kernels keep subnormals, and
-# rmsnorm and flash attention keep accurate sqrtf, division and expf
+# rmsnorm, flash attention and the two chunk scans keep accurate sqrtf,
+# division and expf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

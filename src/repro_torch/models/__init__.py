@@ -1,5 +1,9 @@
-"""The dense transformer model of the JAX package, in PyTorch, on the
-port's RMSNorm (K4) and flash-attention (K5) kernels."""
-from .model import backbone_logits, init_params, lm_logits
+"""The language-model stack of the JAX package, in PyTorch: the dense,
+rwkv and hybrid (zamba2) families with prefill, decode and their caches, on
+the port's kernels (RMSNorm K4, flash attention K5, the Mamba-2 SSD scan K6
+and the RWKV-6 WKV scan K7)."""
+from .model import (backbone_logits, cache_max_len, forward_decode,
+                    forward_prefill, init_cache, init_params, lm_logits)
 
-__all__ = ["backbone_logits", "init_params", "lm_logits"]
+__all__ = ["backbone_logits", "cache_max_len", "forward_decode",
+           "forward_prefill", "init_cache", "init_params", "lm_logits"]

@@ -24,12 +24,13 @@ import torch.nn.functional as F
 # q_offset) is K5 in the model's (B, S, H, Dh) layout. Unlike the
 # reference's, this attention runs any Sq: the reference asserts
 # Sq % 2048 == 0 above 2048 query rows.
+from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention_op as attention
 from ..kernels.rmsnorm import rmsnorm
 
-__all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention", "split_fused",
-           "qkv_fusable", "attn_qkv", "attn_out", "mlp", "normal_init",
-           "init_attn", "init_mlp"]
+__all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
+           "decode_attention", "split_fused", "qkv_fusable", "attn_qkv",
+           "attn_out", "mlp", "normal_init", "init_attn", "init_mlp"]
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +70,39 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention of one new token against a cache
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention against a (possibly longer-than-pos) cache.
+
+    q: (B, 1, H, Dh); caches: (B, Smax, KV, Dh); pos: the position of the
+    new token (cache entries > pos are masked out). With ``window`` the
+    cache is a ring of length Smax == window: once it has wrapped (pos >=
+    Smax) every slot is valid. Plain torch, as the reference computes it in
+    XLA (no Pallas kernel): scores in f32, masked to -1e30, the
+    probabilities rounded to the cache's dtype before P.V.
+    """
+    B, _, H, Dh = q.shape
+    Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, 1, KV, G, Dh)
+    k_pos = torch.arange(Smax, device=q.device)
+    valid = k_pos <= pos
+    if window is not None and pos >= Smax:
+        valid = torch.ones_like(valid)
+    scores = torch.einsum("biegd,bjed->begij", qg.float(),
+                          k_cache.float()) * scale
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("begij,bjed->biegd", probs, v_cache)
+    return out.reshape(B, 1, H, Dh)
 
 
 # ---------------------------------------------------------------------------
@@ -135,13 +169,13 @@ def mlp(x: torch.Tensor, p, kind: str = "swiglu",
 
 # ---------------------------------------------------------------------------
 # init helpers: drawn on the CPU from a torch.Generator, then moved, so one
-# seed gives the same weights on every device
+# seed gives the same weights on every device (``None`` means ``cuda``)
 # ---------------------------------------------------------------------------
 
 def normal_init(gen: torch.Generator, shape, scale: float = 0.02,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     w = scale * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
-    return w.to(device=device, dtype=dtype)
+    return w.to(device=resolve_device(device), dtype=dtype)
 
 
 def init_attn(gen: torch.Generator, cfg, n_layers: Optional[int] = None,

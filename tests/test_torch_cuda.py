@@ -14,7 +14,10 @@ reference sets on its own kernel (``tests/test_kernels.py``), and to 2^-12
 (float32) or 2^-6 (bfloat16, two bf16 steps) of the tile's largest
 |output|: late in a causal sequence the outputs average many keys and are
 small, and the absolute tolerance alone would pass a wrong carry across
-key tiles there.
+key tiles there. The chunk scans, the Mamba-2 SSD (K6) and the RWKV-6 WKV
+(K7), sum in other orders than their plain versions and the sequential
+oracles: y, outputs and final states within 1e-4 relative to max(1,
+max|ref|), the bound the reference holds its own kernels to.
 """
 import numpy as np
 import pytest
@@ -28,7 +31,9 @@ from repro_torch.kernels.checksum import (ACCUMULATOR_DTYPES, LAUNCHES,
                                           reset_launches)
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_ssd as k6
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import rwkv6 as k7
 
 pytestmark = pytest.mark.cuda
 
@@ -44,8 +49,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     reset_launches()
-    rn.reset_launches()
-    fa.reset_launches()
+    for mod in (rn, fa, k6, k7):
+        mod.reset_launches()
     return torch.device("cuda")
 
 
@@ -217,3 +222,144 @@ def test_new_wrappers_raise_and_never_fall_back(cuda):
     with pytest.raises(ValueError):
         fa.flash_attention(q, q.cpu(), q.cpu())
     assert rn.LAUNCHES["rmsnorm"] == fa.LAUNCHES["flash_attention"] == 0
+
+
+def _rel(got, want):
+    return (got.float() - want.float()).abs().max().item() / max(
+        1.0, want.float().abs().max().item())
+
+
+def _ssd_inputs(B, H, S, dh, N, seed, model_layout):
+    """K6's inputs, as the reference's tests draw them; in the model's
+    layout they are transposed views of (B, S, H, ...) tensors, and B, C
+    slices of a wider projection, read in place."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, S, H, dh, generator=g)
+    lw = -torch.randn(B, S, H, generator=g).abs() * 0.1
+    BC = torch.randn(B, S, 2 * N + 5, generator=g) * 0.3
+    s0 = torch.randn(B, H, dh, N, generator=g)
+    x, lw = x.transpose(1, 2), lw.transpose(1, 2)
+    if not model_layout:
+        x, lw = x.contiguous(), lw.contiguous()
+    return x, lw, BC[..., 5:5 + N], BC[..., 5 + N:], s0
+
+
+@pytest.mark.parametrize("B,H,S,dh,N,chunk", [
+    (2, 3, 96, 32, 16, 32), (1, 2, 128, 64, 64, 128), (2, 2, 200, 32, 64, 64),
+    (1, 4, 520, 64, 64, 256), (2, 2, 77, 16, 8, 100)])
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_matches_plain(cuda, B, H, S, dh, N, chunk, model_layout,
+                                  with_state):
+    x, lw, Bm, Cm, s0 = _ssd_inputs(B, H, S, dh, N, S, model_layout)
+    s0 = s0 if with_state else None
+    dev = [t.to(cuda) if t is not None else None for t in (x, lw, Bm, Cm, s0)]
+    y, st = k6.ssd_chunked(*dev[:4], chunk=chunk, state=dev[4])
+    assert k6.LAUNCHES["ssd_chunked"] == 1
+    yp, sp = k6.ssd_chunked_plain(*dev[:4], chunk=chunk, state=dev[4])
+    assert y.shape == yp.shape and st.shape == sp.shape and y.is_cuda
+    assert _rel(y, yp) < 1e-4 and _rel(st, sp) < 1e-4
+    yc, sc = k6.ssd_chunked(x, lw, Bm, Cm, chunk=chunk, state=s0)  # the CPU
+    assert _rel(y.cpu(), yc) < 1e-4 and _rel(st.cpu(), sc) < 1e-4
+    if model_layout:           # the output is laid out like x
+        assert y.stride() == dev[0].stride()
+
+
+def test_ssd_kernel_matches_the_sequential_oracle(cuda):
+    x, lw, Bm, Cm, _ = _ssd_inputs(1, 4, 700, 64, 64, 9, True)
+    x, lw, Bm, Cm = (t.to(cuda) for t in (x, lw, Bm, Cm))
+    y, _ = k6.ssd_chunked(x, lw, Bm, Cm, chunk=256)
+    assert _rel(y, k6.ssd_ref(x, lw, Bm, Cm)) < 1e-4
+
+
+def _wkv_inputs(B, H, S, dh, seed, dtype, strong):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn(B, S, H, dh, generator=g).to(dtype)
+               for _ in range(3))
+    z = torch.randn(B, S, H, dh, generator=g)
+    logw = -torch.exp(z * 2 - 1) if strong else -torch.exp(z * 0.5 - 2)
+    logw = logw.clamp(-20.0, -1e-6)
+    u = torch.randn(H, dh, generator=g) * 0.3
+    s0 = torch.randn(B, H, dh, dh, generator=g)
+    return [t.transpose(1, 2) for t in (r, k, v, logw)] + [u, s0]
+
+
+@pytest.mark.parametrize("B,H,S,dh,chunk", [
+    (2, 3, 96, 32, 32), (1, 2, 128, 64, 128), (2, 2, 200, 16, 64),
+    (1, 4, 300, 64, 128), (1, 2, 77, 64, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strong,with_state", [(False, False), (True, True)])
+def test_wkv6_kernel_matches_plain(cuda, B, H, S, dh, chunk, dtype, strong,
+                                   with_state):
+    r, k, v, lw, u, s0 = _wkv_inputs(B, H, S, dh, S, dtype, strong)
+    s0 = s0 if with_state else None
+    dev = [t.to(cuda) if t is not None else None
+           for t in (r, k, v, lw, u, s0)]
+    o, st = k7.wkv6_chunked(*dev[:5], chunk=chunk, state=dev[5])
+    assert k7.LAUNCHES["wkv6_chunked"] == 1
+    op, sp = k7.wkv6_chunked_plain(*dev[:5], chunk=chunk, state=dev[5])
+    assert o.dtype == torch.float32 and o.shape == op.shape
+    assert _rel(o, op) < 1e-4 and _rel(st, sp) < 1e-4
+    assert bool(torch.isfinite(o).all() and torch.isfinite(st).all())
+    oc, sc = k7.wkv6_chunked(r, k, v, lw, u, chunk=chunk, state=s0)
+    assert _rel(o.cpu(), oc) < 1e-4 and _rel(st.cpu(), sc) < 1e-4
+
+
+def test_wkv6_kernel_matches_the_sequential_oracle(cuda):
+    r, k, v, lw, u, _ = _wkv_inputs(1, 4, 700, 64, 11, torch.float32, True)
+    dev = [t.to(cuda) for t in (r, k, v, lw, u)]
+    o, _ = k7.wkv6_chunked(*dev, chunk=128)
+    assert _rel(o, k7.wkv6_ref(*dev)) < 1e-4
+
+
+def test_chunk_scan_wrappers_raise_and_never_fall_back(cuda):
+    x = torch.zeros(1, 2, 8, 80, device=cuda)
+    lw = torch.zeros(1, 2, 8, device=cuda)
+    bc = torch.zeros(1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="at most 64"):
+        k6.ssd_chunked(x, lw, bc, bc, chunk=4)
+    with pytest.raises(ValueError):
+        k6.ssd_chunked(x[..., :16], lw, bc.cpu(), bc, chunk=4)
+    r = torch.zeros(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="dtypes"):
+        k7.wkv6_chunked(r.half(), r.half(), r.half(), r, r[0, :, 0],
+                        chunk=4)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        # a 4096-step chunk's cumsum is past the card's shared memory
+        k7.wkv6_chunked(r, r, r, r, r[0, :, 0], chunk=4096)
+    assert k6.LAUNCHES["ssd_chunked"] == k7.LAUNCHES["wkv6_chunked"] == 0
+
+
+@pytest.mark.parametrize("arch,k6_n,k7_n", [("zamba2-1.2b", 4, 0),
+                                            ("rwkv6-1.6b", 0, 2)])
+def test_served_models_launch_the_chunk_scans(cuda, arch, k6_n, k7_n):
+    """Reduced zamba2 and rwkv6 prefill on the card: K6 once per Mamba-2
+    layer, K7 once per rwkv layer, decode neither; the logits match the
+    port's own CPU run (f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import graft
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_cache, init_params)
+    cfg = get_config(arch).reduced()
+    p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 150)))
+    want, _ = forward_prefill(cfg, p, {"tokens": toks}, torch.float32)
+    pc = _tree_to(p, cuda)
+    got, cache = forward_prefill(cfg, pc, {"tokens": toks.to(cuda)},
+                                 torch.float32)
+    assert (k6.LAUNCHES["ssd_chunked"], k7.LAUNCHES["wkv6_chunked"]) == \
+        (k6_n, k7_n)
+    assert _rel(got.cpu(), want) < 1e-4
+    cache = graft(init_cache(cfg, 2, 151, torch.float32, cuda), cache)
+    step, _ = forward_decode(cfg, pc, cache, toks[:, :1].to(cuda), 150,
+                             torch.float32)
+    assert bool(torch.isfinite(step).all())
+    assert (k6.LAUNCHES["ssd_chunked"], k7.LAUNCHES["wkv6_chunked"]) == \
+        (k6_n, k7_n)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -82,6 +82,26 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
     assert QAChecksumAccumulator(4, np.float32, backend="host").device is None
 
 
+def test_model_and_serve_entry_points_default_to_cuda(monkeypatch):
+    """``init_params``, ``init_cache`` and ``serve_batch`` with no device
+    mean ``cuda``, and raise without a card rather than place weights or
+    caches on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.layers import normal_init
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("zamba2-1.2b").reduced()
+    for call in (lambda: init_params(cfg, torch.Generator()),
+                 lambda: normal_init(torch.Generator(), (2, 2)),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: serve_batch("rwkv6-1.6b", np.zeros((1, 4), int))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    p = init_params(cfg, torch.Generator(), device="cpu")
+    assert p["embed"]["tok"].device == torch.device("cpu")
+
+
 def test_wrappers_refuse_other_devices():
     """A wrapper runs its plain version only for a CPU tensor; any other
     device launches the kernel or raises, never falls back."""

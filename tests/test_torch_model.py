@@ -160,22 +160,45 @@ def test_attention_runs_any_length_above_the_chunk():
 def test_init_params_has_the_reference_layout():
     cfg = get_config("paper-unest").reduced(vocab_size=8)
     ref = _np_tree(jax_init_params(cfg, jax.random.PRNGKey(0)))
-    port = init_params(cfg, torch.Generator().manual_seed(0))
+    port = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     flat_r = jax.tree_util.tree_flatten_with_path(ref)[0]
     flat_p = jax.tree_util.tree_flatten_with_path(
         jax.tree.map(lambda t: t.numpy(), port))[0]
     assert [(p, a.shape, a.dtype) for p, a in flat_r] == \
         [(p, a.shape, a.dtype) for p, a in flat_p]
-    again = init_params(cfg, torch.Generator().manual_seed(0))
+    again = init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
     assert torch.equal(port["layers"]["mlp"]["w1"],
                        again["layers"]["mlp"]["w1"])
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "llama3.2-1b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_families_init_params_have_the_reference_layout(arch, dtype):
+    """Key names (``layers.rwkv``, ``layers.mamba``, ``shared``), shapes
+    and dtypes of the served families, at their reduced configs."""
+    cfg = get_config(arch).reduced()
+    ref = _np_tree(jax_init_params(jax_get_config(arch).reduced(),
+                                   jax.random.PRNGKey(0),
+                                   getattr(jnp, dtype)))
+    port = init_params(cfg, torch.Generator().manual_seed(0),
+                       getattr(torch, dtype), CPU)
+    flat_r = jax.tree_util.tree_flatten_with_path(ref)[0]
+    flat_p = jax.tree_util.tree_flatten_with_path(
+        jax.tree.map(lambda t: t.float().numpy(), port))[0]
+    assert [(p, a.shape) for p, a in flat_r] == \
+        [(p, a.shape) for p, a in flat_p]
+    assert all(t.dtype == getattr(torch, dtype)
+               for t in jax.tree.leaves(port))
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-small",
+                                  "internvl2-76b"])
 def test_other_families_wait_for_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="language-model-stack"):
-        init_params(get_config(arch).reduced(), torch.Generator())
+    """The moe, audio and vlm families join in a later slice."""
+    with pytest.raises(NotImplementedError, match="later slice"):
+        init_params(get_config(arch).reduced(), torch.Generator(),
+                    device=CPU)
 
 
 def test_stack_norm_and_head_match_reference_in_bf16():
