@@ -250,14 +250,16 @@ def _bound(nbytes: int, ops: float, rate: float = F32_OPS_PER_S):
                                         else "operations")
 
 
-def attention_bound(S: int, H: int, KV: int, Dh: int, itemsize: int):
-    """Least time for causal attention over S tokens: q, k, v read once
-    and o written once, against the work this causal mask needs (S(S+1)/2
-    query-key pairs per head): 4 flops per pair and head dim on the tensor
-    cores (Q K^T and P V), and one exponential per pair on the MUFU, the
-    larger of the two. Returns (ms, what bounds it)."""
-    pairs = S * (S + 1) // 2
-    nbytes = (2 * S * H * Dh + 2 * S * KV * Dh) * itemsize
+def attention_bound(S: int, H: int, KV: int, Dh: int, itemsize: int,
+                    B: int = 1):
+    """Least time for causal attention over B sequences of S tokens: q, k,
+    v read once and o written once, against the work this causal mask needs
+    (S(S+1)/2 query-key pairs per sequence and head): 4 flops per pair and
+    head dim on the tensor cores (Q K^T and P V), and one exponential per
+    pair on the MUFU, the larger of the two. Returns (ms, what bounds
+    it)."""
+    pairs = B * S * (S + 1) // 2
+    nbytes = B * (2 * S * H * Dh + 2 * S * KV * Dh) * itemsize
     flops, exps = 4 * pairs * Dh * H, H * pairs
     if flops / BF16_OPS_PER_S >= exps / EXP_PER_S:
         return _bound(nbytes, flops, BF16_OPS_PER_S)

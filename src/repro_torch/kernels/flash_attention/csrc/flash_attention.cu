@@ -12,11 +12,9 @@
 //     is wholly masked gets p = exp(0) = 1 there, and the first real column
 //     wipes it with alpha = exp(-1e30 - m) = 0; with -inf it would be NaN);
 //   * running max m, denominator l and accumulator in f32, l = l*alpha +
-//     sum p, acc = acc*alpha + p v, p kept in f32 (rounded to bf16 on the
-//     bf16 path, below); the output acc / max(l, 1e-30), rounded once to
-//     the output dtype;
-//   * GQA: query head h reads kv head h / G, K and V never repeated;
-//   * accurate expf, not __expf (built without --use_fast_math).
+//     sum p, acc = acc*alpha + p v; the output acc / max(l, 1e-30), rounded
+//     once to the output dtype;
+//   * GQA: query head h reads kv head h / G, K and V never repeated.
 // Rows are absolute positions q_offset + i (q_offset = 0 in the Pallas
 // kernel). Any Sq and Sk: the ragged tiles are masked here, not padded.
 //
@@ -28,34 +26,41 @@
 // Dh = 32. At H = 8, Dh = 64 (the published width) 33 TFLOP (34 ms) against
 // 1.3e11 exponentials (~32 ms): about even.
 //
-// Two kernels share the grid, the masks and the online softmax: one
-// 128-thread block per (b, h, 64-row query tile), walking the 64-column key
-// tiles in order. Causal tiles wholly above the diagonal are skipped: their
-// contribution is exactly zero once a real column has been seen, and column
-// 0 (tile 0) is always seen first. Query tiles are issued longest first, so
-// the short causal tiles fill the tail. No TMA, no wgmma: simple first.
-//
-//  * flash_mma_kernel, bf16: the two products on the tensor cores with
-//    mma.sync m16n8k16 (bf16 in, f32 accumulate). Each warp owns 16 query
-//    rows; Q stays in registers as A fragments, K is staged row-major and V
-//    transposed in shared memory (rows padded by 8 elements, so the
-//    fragment loads do not conflict), and the score tile stays in
-//    registers: its C fragments are the A fragments of P.V once rounded to
-//    bf16. That rounding of P (the reference model rounds its
-//    probabilities to bf16 before P.V too) is its one departure from the
-//    Pallas kernel's arithmetic; l sums the same rounded p, so the weights
-//    stay normalised. It is far from its bound, most likely for latency:
-//    with 4 resident blocks at Dh 32 and 3 at Dh 64 (99 and 134 registers
-//    a thread) an SM has few warps to hide the chain of dependent steps
-//    each tile takes (products, row max, shuffles, expf, row sum, rescale,
-//    products) between its two barriers.
+//  * flash_wgmma_kernel, bf16, built for Hopper. One block of three
+//    warpgroups per (b, h, 128 query rows), longest rows first. Warpgroup 2
+//    is the producer: after setmaxnreg gives its registers to the others,
+//    one of its threads issues every load as a TMA box copy (a 4-D tensor
+//    map (Dh, heads, S, B) per tensor, built on the host from the view's
+//    strides, swizzled 128/64/32 B for Dh 64/32/16; Dh 128 is two 64-column
+//    boxes): Q once, then K and V tile by tile into a ring of 2-3 stages,
+//    each with a full and an empty mbarrier. Warpgroups 0 and 1 own 64 query
+//    rows each and never issue a copy. Both products run on wgmma: S = Q K^T
+//    (m64n128k16, Q and K K-major from shared memory) and O += P V
+//    (m64nDh k16, P from registers: the S accumulator packed to bf16 is the
+//    A fragment layout; V straight from its TMA tile as an MN-major B, so
+//    nothing is transposed in software). P is rounded to bf16 for the
+//    tensor cores (the reference model's XLA attention rounds its
+//    probabilities to bf16 too), and l sums the same rounded weights: the
+//    one departure from the Pallas kernel's arithmetic besides the next.
+//    Scores are scaled by scale*log2(e) and exponentiated with ex2.approx,
+//    one MUFU op, where accurate expf takes several instructions around it:
+//    this moves last bits only (relative error ~2^-22, flushed below
+//    2^-126), far inside the bf16 tolerance. Key tiles wholly above the
+//    causal diagonal or wholly outside the window are skipped (their
+//    contribution is exactly zero once a row has seen a real key, and every
+//    row sees one in the tiles visited); only the tiles that cross the
+//    diagonal, the ragged last tile and a window's edge are masked.
 //  * flash_fwd_kernel, f32: plain f32 FMAs on the SIMT units (67 TFLOP/s),
-//    since TF32 would miss the 2e-5 tolerance. Q, K, V (as f32) and P are
-//    staged in shared memory, rows padded by one word; each thread owns a
-//    4x8 patch of the 64x64 score tile and a 4x(Dh/8) patch of the output,
-//    row max and row sum reduced across the 8 threads of a row group with
-//    warp shuffles.
+//    since TF32 would miss the 2e-5 tolerance; accurate expf. One 128-thread
+//    block per (b, h, 64-row query tile), longest first, walking the
+//    64-column key tiles in order, skipping those above the diagonal. Q, K,
+//    V (as f32) and P are staged in shared memory, rows padded by one word;
+//    each thread owns a 4x8 patch of the 64x64 score tile and a 4x(Dh/8)
+//    patch of the output, row max and row sum reduced across the 8 threads
+//    of a row group with warp shuffles.
 
+#include <cuda.h>            // CUtensorMap and its enums (no libcuda link)
+#include <cudaTypedefs.h>    // PFN_cuTensorMapEncodeTiled_v12000
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -243,24 +248,51 @@ flash_fwd_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores
+// bf16 on Hopper: TMA, an mbarrier ring and wgmma
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
 
-// d += a . b for one 16x16 (A, row-major) by 16x8 (B, column-major) bf16
-// tile pair with f32 accumulators, in the PTX fragment layout: with
-// g = lane / 4 and t = lane % 4, a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
-// A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t], D[g][2t+1],
-// D[g+8][2t], D[g+8][2t+1]}; each 32-bit register holds two consecutive
-// elements, the lower index in the low half.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int kWG = 128;         // threads of a warpgroup
+constexpr int kBM = 128;         // query rows per block: two consumer warpgroups
+constexpr int kBN = 128;         // keys per tile
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The shared-memory plan of one block. A TMA box is at most 128 bytes wide
+// (the widest swizzle), so Dh 128 is two boxes of 64 columns; each box of R
+// rows is R rows of kSwz bytes, swizzled by the TMA in 8-row atoms of
+// 8 * kSwz bytes, and every tile starts on a 1024-byte boundary (a whole
+// number of atoms), so the descriptors need no base offset.
+template <int DH>
+struct Plan {
+  static constexpr int kBox = DH < 64 ? DH : 64;     // columns of one box
+  static constexpr int kBoxes = DH / kBox;
+  static constexpr int kSwz = 2 * kBox;              // bytes of one box row
+  static constexpr int kStages = DH == 128 ? 2 : 3;  // K/V tiles in flight
+  static constexpr int kQBytes = kBM * DH * 2;
+  static constexpr int kTileBytes = kBN * DH * 2;    // one K or one V tile
+  static constexpr int kBars = kQBytes + 2 * kStages * kTileBytes;
+  // + full and empty barriers per stage and Q's, + slack to align the base
+  static constexpr int kSmem = kBars + 8 * (2 * kStages + 1) + 1024;
+  // the descriptors' swizzle code: 1 = 128 B, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t kSwzCode = kSwz == 128 ? 1 : kSwz == 64 ? 2 : 3;
+};
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (all in 16-byte units) and the swizzle mode.
+//  * K-major (Q and K: rows of Dh contiguous values): rows of an 8-row atom
+//    kSwz bytes apart, atoms `sbo` = 8 * kSwz apart; the leading offset is
+//    unused with a swizzle (1 by convention); a 16-wide k step is 32 bytes
+//    further along the row.
+//  * MN-major (V as the B of P.V: keys are k, Dh is n and contiguous): an
+//    atom is 8 keys of kSwz bytes, atoms along k `sbo` apart, along n
+//    `lbo` apart (unused: each wgmma here covers one box).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swz) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (swz << 62);
 }
 
 // two floats rounded to bf16 in one register (lo in the low half), and back
@@ -275,180 +307,407 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ptx:begin -- the inline PTX of the bf16 kernel, one statement each
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int DH>
-constexpr int mma_smem_bytes() {  // sQ, sK: 64 x (DH+8); sVt: DH x (64+8)
-  return static_cast<int>(sizeof(bf16)) *
-         (2 * kBQ * (DH + 8) + DH * (kBK + 8));
+// 2^x on the MUFU, one instruction (results below 2^-126 flush to zero)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-flash_mma_kernel(Params p) {
-  extern __shared__ uint32_t smem_words[];
-  constexpr int LD = DH + 8;                 // sQ, sK row pitch (elements)
-  constexpr int LDV = kBK + 8;               // sVt row pitch
-  constexpr int PAIRS = DH / 2;              // 32-bit pairs per row
-  bf16* sQ = reinterpret_cast<bf16*>(smem_words);
-  bf16* sK = sQ + kBQ * LD;
-  bf16* sVt = sK + kBK * LD;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+// arrive, and expect `bytes` more from the TMA before the phase completes
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
 
-  const int n_q = (p.Sq + kBQ - 1) / kBQ;
+// one box of a 4-D (Dh, heads, S, B) tensor map at (d, h, s, b) into
+// shared memory, completing its bytes on `bar`; rows past S read as zero
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int s,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(s),
+      "r"(b) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of r across a wgmma wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x 128, f32) = A (64 x 16) . B (128 x 16)^T, both bf16 K-major in
+// shared memory; D += when `accumulate` is non-zero
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 16, f32) += A (64 x 16, bf16 in registers, the mma.sync A
+// fragment layout per warp) . B (16 x 16, bf16 MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, f32) += A (64 x 16, bf16 in registers, the mma.sync A
+// fragment layout per warp) . B (16 x 32, bf16 MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers, the mma.sync A
+// fragment layout per warp) . B (16 x 64, bf16 MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ptx:end
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+// One block per (b, h, 128 query rows), longest rows first. Warpgroups 0
+// and 1 each own 64 query rows; warpgroup 2 is the producer, of which one
+// thread issues every TMA load: Q once, then each key tile's K and V into
+// the next free stage of the ring. A stage's full barrier completes when its
+// bytes have landed; its empty barrier when all 8 consumer warps are done
+// with it.
+template <int DH>
+__global__ void __launch_bounds__(3 * kWG, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Plan<DH>;
+  constexpr int NS = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sKV = base + L::kQBytes, bars = base + L::kBars;
+  const uint32_t q_bar = bars + 16 * NS;
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (NS + st); };
+
+  const int n_q = (p.Sq + kBM - 1) / kBM;
   const int bh_count = p.B * p.H;
   const int qt = n_q - 1 - static_cast<int>(blockIdx.x / bh_count);
   const int bh = static_cast<int>(blockIdx.x % bh_count);
   const int b = bh / p.H, h = bh % p.H, kvh = h / p.G;
-  const int64_t q0 = static_cast<int64_t>(qt) * kBQ;
+  const int q0 = qt * kBM;
 
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ks.b + kvh * p.ks.h;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vs.b + kvh * p.vs.h;
-  bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
+  // the key tiles [t0, t1) that hold an unmasked key of some row: causal
+  // stops at the last row's position, a window starts at the first row's
+  // position - window + 1 (tiles outside both are exactly zero once a row
+  // has seen a real key; every row sees one in [t0, t1))
+  const int64_t row_first = p.q_offset + q0;
+  const int64_t row_last = p.q_offset + min(q0 + kBM, p.Sq) - 1;
+  int64_t kv_end = p.Sk, kv_beg = 0;
+  if (p.causal && row_last + 1 < kv_end) kv_end = row_last + 1;
+  if (p.window > 0 && row_first - p.window + 1 > 0)
+    kv_beg = row_first - p.window + 1;
+  const int t1 = kv_end > 0 ? static_cast<int>((kv_end + kBN - 1) / kBN) : 1;
+  const int t0 = kv_beg / kBN < t1 - 1 ? static_cast<int>(kv_beg / kBN)
+                                         : t1 - 1;
 
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int w0 = (tid >> 5) * 16;            // the warp's first query row
-
-  for (int idx = tid; idx < kBQ * PAIRS; idx += kThreads) {
-    const int r = idx / PAIRS, c = 2 * (idx % PAIRS);
-    const int64_t s = q0 + r;
-    *reinterpret_cast<uint32_t*>(&sQ[r * LD + c]) =
-        s < p.Sq ? ld32(q + s * p.qs.s + c) : 0u;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full(st), 1);
+      mbar_init(empty(st), kConsumerWarps);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
   }
   __syncthreads();
-  uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    const bf16* base = sQ + (w0 + g) * LD + kk * 16 + 2 * t;
-    qa[kk][0] = ld32(base);
-    qa[kk][1] = ld32(base + 8 * LD);
-    qa[kk][2] = ld32(base + 8);
-    qa[kk][3] = ld32(base + 8 * LD + 8);
-  }
 
-  // rows g and g + 8 of the warp: index 0 and 1 below
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  int64_t kv_end = p.Sk;
-  if (p.causal) {
-    const int64_t last = p.q_offset + q0 + kBQ - 1;
-    kv_end = last + 1 < kv_end ? last + 1 : kv_end;
-  }
-  const int64_t n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 1;
-
-  for (int64_t tile = 0; tile < n_tiles; ++tile) {
-    const int64_t c0 = tile * kBK;
-    __syncthreads();                         // the last tile's reads are done
-    for (int idx = tid; idx < kBK * PAIRS; idx += kThreads) {
-      const int r = idx / PAIRS, c = 2 * (idx % PAIRS);
-      const int64_t s = c0 + r;
-      *reinterpret_cast<uint32_t*>(&sK[r * LD + c]) =
-          s < p.Sk ? ld32(k + s * p.ks.s + c) : 0u;
+  const int wg = threadIdx.x / kWG;
+  if (wg == 2) {
+    // -- producer ---------------------------------------------------------
+    regs_dec<24>();
+    if (threadIdx.x == 2 * kWG) {
+      mbar_expect_tx(q_bar, L::kQBytes);
+      for (int x = 0; x < L::kBoxes; ++x)
+        tma_load(sQ + x * kBM * L::kSwz, &tq, q_bar, x * L::kBox, h, q0, b);
+      for (int t = t0, i = 0; t < t1; ++t, ++i) {
+        const int st = i % NS;
+        mbar_wait(empty(st), ((i / NS) & 1) ^ 1);   // round 0 passes at once
+        mbar_expect_tx(full(st), 2 * L::kTileBytes);
+        const uint32_t sK = sKV + st * 2 * L::kTileBytes;
+        const uint32_t sV = sK + L::kTileBytes;
+        for (int x = 0; x < L::kBoxes; ++x) {
+          tma_load(sK + x * kBN * L::kSwz, &tk, full(st), x * L::kBox, kvh,
+                   t * kBN, b);
+          tma_load(sV + x * kBN * L::kSwz, &tv, full(st), x * L::kBox, kvh,
+                   t * kBN, b);
+        }
+      }
     }
-    // V^T: each thread takes keys r, r+1 at dims c, c+1 and writes two
-    // words, dims c and c+1 over keys r, r+1. A warp spans 4 dim pairs of
-    // 8 key pairs: each load reads 16 contiguous bytes of 8 rows, and each
-    // store hits 32 banks (the 72-element pitch puts dims c, c+2, c+4, c+6
-    // 8 banks apart)
-    for (int idx = tid; idx < (kBK / 2) * PAIRS; idx += kThreads) {
-      const int rest = idx >> 2;
-      const int r = 2 * (rest % (kBK / 2)),
-                c = 2 * (4 * (rest / (kBK / 2)) + (idx & 3));
-      const int64_t s = c0 + r;
-      const uint32_t v0 = s < p.Sk ? ld32(v + s * p.vs.s + c) : 0u;
-      const uint32_t v1 = s + 1 < p.Sk ? ld32(v + (s + 1) * p.vs.s + c) : 0u;
-      *reinterpret_cast<uint32_t*>(&sVt[c * LDV + r]) =
-          __byte_perm(v0, v1, 0x5410);
-      *reinterpret_cast<uint32_t*>(&sVt[(c + 1) * LDV + r]) =
-          __byte_perm(v0, v1, 0x7632);
-    }
-    __syncthreads();
+  } else {
+    // -- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ---------
+    regs_inc<240>();
+    const int tid = threadIdx.x % kWG, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int64_t wrow = p.q_offset + q0 + 64 * wg;   // its first position
+    const float sl2 = p.scale * kLog2e;               // scores to log2 units
+    constexpr int kKsteps = L::kBox / 16;             // k steps in one box
 
-    float sc[kBK / 8][4];                    // the warp's 16 x 64 scores
+    // the accumulator of P.V, one m64nBox fragment per box: element 4j + e
+    // is row warp*16 + g + 8(e/2), column box*kBox + 8j + 2 t4 + e%2
+    float acc[L::kBoxes][L::kBox / 2];
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
+    for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.0f;
+      for (int i = 0; i < L::kBox / 2; ++i) acc[x][i] = 0.0f;
+    // running max (log2 units) and this thread's part of the row sums of
+    // rows g and g + 8 of its warp (summed over the row's 4 threads at the end)
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+    mbar_wait(q_bar, 0);
+    for (int t = t0, i = 0; t < t1; ++t, ++i) {
+      const int st = i % NS;
+      const uint32_t sK = sKV + st * 2 * L::kTileBytes;
+      const uint32_t sV = sK + L::kTileBytes;
+      mbar_wait(full(st), (i / NS) & 1);
+
+      // S = Q K^T: 64 x 128 f32, element 4j + e at row warp*16 + g + 8(e/2),
+      // key 8j + 2 t4 + e%2 of the tile
+      float sc[kBN / 2];
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        const bf16* kb = sK + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(sc[j], qa[kk], ld32(kb), ld32(kb + 8));
+        const int x = kk / kKsteps, off = (kk % kKsteps) * 32;
+        const uint64_t da = gmma_desc(
+            sQ + x * kBM * L::kSwz + wg * 64 * L::kSwz + off, 16,
+            8 * L::kSwz, L::kSwzCode);
+        const uint64_t db = gmma_desc(sK + x * kBN * L::kSwz + off, 16,
+                                      8 * L::kSwz, L::kSwzCode);
+        wgmma_ss_n128(sc, da, db, kk);
       }
+      wgmma_commit();
+      wgmma_wait();
+      reg_fence(sc);
+
+      // to log2 units; the masks only where a key of the tile can be masked
+      // for a row of the warpgroup: the causal diagonal, the ragged last
+      // tile, a window's edge
+      const int64_t c0 = static_cast<int64_t>(t) * kBN;
+      const bool masked = (p.causal && c0 + kBN - 1 > wrow) ||
+                          c0 + kBN > p.Sk ||
+                          (p.window > 0 && wrow + 63 - c0 >= p.window);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int64_t row = wrow + warp * 16 + g + 8 * (e >> 1);
+            const int64_t col = c0 + 8 * j + 2 * t4 + (e & 1);
+            bool ok = col < p.Sk;
+            if (p.causal) ok = ok && row >= col;
+            if (p.window > 0) ok = ok && row - col < p.window;
+            sc[4 * j + e] = ok ? sc[4 * j + e] * sl2 : kNegInf;
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kBN / 2; ++j) sc[j] *= sl2;
+      }
+
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+      }
+      // p rounded to bf16, as the tensor cores take it; l sums those same
+      // weights. pk[j][r] holds row g + 8r, keys 8j + 2 t4 and + 1: the
+      // A fragment of P.V for keys 16 kk .. + 15 is pk[2kk], pk[2kk + 1]
+      uint32_t pk[kBN / 8][2];
+      float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          pk[j][r] = pack_bf16(ex2(sc[4 * j + 2 * r] - m[r]),
+                               ex2(sc[4 * j + 2 * r + 1] - m[r]));
+          rs[r] += bf16_lo(pk[j][r]) + bf16_hi(pk[j][r]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int x = 0; x < L::kBoxes; ++x)
+#pragma unroll
+        for (int i2 = 0; i2 < L::kBox / 2; ++i2)
+          acc[x][i2] *= alpha[(i2 >> 1) & 1];
+
+      // O += P V, V straight from its TMA tile as an MN-major B
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0],
+                               pk[2 * kk + 1][1]};
+#pragma unroll
+        for (int x = 0; x < L::kBoxes; ++x)
+          wgmma_rs<L::kBox>(
+              acc[x], a,
+              gmma_desc(sV + x * kBN * L::kSwz + kk * 16 * L::kSwz,
+                        kBN * L::kSwz, 8 * L::kSwz, L::kSwzCode));
+      }
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int x = 0; x < L::kBoxes; ++x) reg_fence(acc[x]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(st));          // the stage is free
     }
 
-    float mx[2] = {kNegInf, kNegInf};
+    bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int64_t s = q0 + 64 * wg + warp * 16 + g + 8 * r;
+      if (s >= p.Sq) continue;
+      const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hi = e >> 1;
-        const int64_t row = p.q_offset + q0 + w0 + g + 8 * hi;
-        const int64_t col = c0 + j * 8 + 2 * t + (e & 1);
-        bool ok = col < p.Sk;
-        if (p.causal) ok = ok && row >= col;
-        if (p.window > 0) ok = ok && row - col < p.window;
-        sc[j][e] = ok ? sc[j][e] * p.scale : kNegInf;
-        mx[hi] = fmaxf(mx[hi], sc[j][e]);
-      }
-    float alpha[2], rs[2] = {0.0f, 0.0f};
+      for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      alpha[i] = expf(m[i] - m_new);
-      m[i] = m_new;
+        for (int j = 0; j < L::kBox / 8; ++j)
+          *reinterpret_cast<uint32_t*>(o + s * p.os.s + x * L::kBox + 8 * j +
+                                       2 * t4) =
+              pack_bf16(acc[x][4 * j + 2 * r] / denom,
+                        acc[x][4 * j + 2 * r + 1] / denom);
     }
-    // p rounded to bf16 (row g in pk[j][0], row g + 8 in pk[j][1]), as
-    // the tensor cores take it, and l sums those same weights
-    uint32_t pk[kBK / 8][2];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j) {
-      pk[j][0] = pack_bf16(expf(sc[j][0] - m[0]), expf(sc[j][1] - m[0]));
-      pk[j][1] = pack_bf16(expf(sc[j][2] - m[1]), expf(sc[j][3] - m[1]));
-      rs[0] += bf16_lo(pk[j][0]) + bf16_hi(pk[j][0]);
-      rs[1] += bf16_lo(pk[j][1]) + bf16_hi(pk[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
-      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
-      l[i] = l[i] * alpha[i] + rs[i];
-    }
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {  // keys 16 kk .. 16 kk + 15
-      const uint32_t pa[4] = {pk[2 * kk][0], pk[2 * kk][1],
-                              pk[2 * kk + 1][0], pk[2 * kk + 1][1]};
-#pragma unroll
-      for (int n = 0; n < DH / 8; ++n) {
-        const bf16* vb = sVt + (n * 8 + g) * LDV + kk * 16 + 2 * t;
-        mma_bf16(acc[n], pa, ld32(vb), ld32(vb + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int64_t s = q0 + w0 + g + 8 * i;
-    if (s >= p.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o + s * p.os.s + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * i] / denom, acc[n][2 * i + 1] / denom);
   }
 }
 
@@ -456,24 +715,95 @@ flash_mma_kernel(Params p) {
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename K>
-int launch(K kernel, int smem, const Params& p, cudaStream_t st) {
-  const int64_t n_q = (p.Sq + kBQ - 1) / kBQ;
-  const int64_t blocks = n_q * p.B * p.H;
+// cuTensorMapEncodeTiled, taken from the driver at run time, so the library
+// links no libcuda
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &got);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                              cudaEnableDefault, &got);
+#endif
+    if (err == cudaSuccess && got == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f);
+  }
+  return fn;
+}
+
+// The 4-D map (Dh, heads, S, B) of a bf16 (B, heads, S, Dh) view with
+// element strides `st`, read in boxes of (box_cols, 1, rows, 1). A dim of
+// size 1 takes the dense stride (never stepped; any torch stride is legal
+// there). TMA wants the base 16-byte aligned and strides in multiples of 16
+// bytes: the wrapper copies a view that is not.
+int make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
+             int Dh, Strides st, int box_cols, int rows) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {
+      heads > 1 ? static_cast<cuuint64_t>(st.h) * 2 : dims[0] * 2,
+      S > 1 ? static_cast<cuuint64_t>(st.s) * 2 : dims[0] * dims[1] * 2,
+      B > 1 ? static_cast<cuuint64_t>(st.b) * 2
+            : dims[0] * dims[1] * dims[2] * 2};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
+                       static_cast<cuuint32_t>(rows), 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : box_cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                      const_cast<void*>(ptr), dims, strides, box, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DH>
+int launch_bf16(const Params& p, int KV, cudaStream_t st) {
+  using L = Plan<DH>;
+  const int64_t blocks =
+      static_cast<int64_t>((p.Sq + kBM - 1) / kBM) * p.B * p.H;
   if (blocks == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(p);
+  if (p.Sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv;
+  int err = make_map(&tq, p.q, p.H, p.Sq, p.B, DH, p.qs, L::kBox, kBM);
+  if (!err) err = make_map(&tk, p.k, KV, p.Sk, p.B, DH, p.ks, L::kBox, kBN);
+  if (!err) err = make_map(&tv, p.v, KV, p.Sk, p.B, DH, p.vs, L::kBox, kBN);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_wgmma_kernel<DH><<<static_cast<unsigned>(blocks), 3 * kWG, L::kSmem,
+                           st>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int DH>
-int launch_dh(const Params& p, int dtype, cudaStream_t st) {
-  if (dtype == BF16)
-    return launch(flash_mma_kernel<DH>, mma_smem_bytes<DH>(), p, st);
-  return launch(flash_fwd_kernel<DH>,
-                static_cast<int>(sizeof(float)) * smem_floats<DH>(), p, st);
+int launch_f32(const Params& p, cudaStream_t st) {
+  const int64_t blocks =
+      static_cast<int64_t>((p.Sq + kBQ - 1) / kBQ) * p.B * p.H;
+  if (blocks == 0) return 0;
+  const int smem = static_cast<int>(sizeof(float)) * smem_floats<DH>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_kernel<DH><<<static_cast<unsigned>(blocks), kThreads, smem, st>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch_dh(const Params& p, int KV, int dtype, cudaStream_t st) {
+  return dtype == BF16 ? launch_bf16<DH>(p, KV, st) : launch_f32<DH>(p, st);
 }
 
 }  // namespace
@@ -487,8 +817,11 @@ const char* repro_error_string(int err) {
 // q: (B, H, Sq, Dh), k and v: (B, KV, Sk, Dh), o: (B, H, Sq, Dh), given as
 // base pointers and element strides of their first three dims (the last dim
 // dense), so the model's (B, S, H, Dh) layout is read in place. dtype: 0 f32,
-// 1 bf16 (all four alike). Dh in {16, 32, 64, 128}; H a multiple of KV.
-// Launches on `stream`; returns the cudaError_t of the launch (0 on success).
+// 1 bf16 (all four alike). Dh in {16, 32, 64, 128}; H a multiple of KV. For
+// bf16, q, k and v start 16-byte aligned with strides in multiples of 8
+// elements (the TMA's rule; dims of size 1 excepted), and o's row pairs are
+// 4-byte aligned. Launches on `stream`; returns the cudaError_t of the
+// launch (0 on success).
 int repro_flash_attention(const void* q, const void* k, const void* v,
                           void* o, int dtype, int B, int H, int KV, int Sq,
                           int Sk, int Dh, int64_t qsb, int64_t qsh,
@@ -504,10 +837,10 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   if (dtype != F32 && dtype != BF16)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (Dh) {
-    case 16: return launch_dh<16>(p, dtype, st);
-    case 32: return launch_dh<32>(p, dtype, st);
-    case 64: return launch_dh<64>(p, dtype, st);
-    case 128: return launch_dh<128>(p, dtype, st);
+    case 16: return launch_dh<16>(p, KV, dtype, st);
+    case 32: return launch_dh<32>(p, KV, dtype, st);
+    case 64: return launch_dh<64>(p, KV, dtype, st);
+    case 128: return launch_dh<128>(p, KV, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,11 +7,15 @@ window ``row - col < window``, a masked score set to -1e30; GQA with query
 head ``h`` reading kv head ``h // G``; scores, softmax and the accumulator in
 f32; the output rounded once to the input dtype. The kernels are CUDA C++
 in ``csrc/flash_attention.cu`` (built by ``nvcc`` at first use,
-``kernels/_build.py``): bf16 on the tensor cores, which take the
-probabilities rounded to bf16 (as the reference model's XLA attention
-does), f32 on the SIMT units in full f32. :func:`flash_attention`
+``kernels/_build.py``): bf16 on Hopper's tensor cores (TMA loads, wgmma),
+which take the probabilities rounded to bf16 (as the reference model's XLA
+attention does), f32 on the SIMT units in full f32. :func:`flash_attention`
 launches them for CUDA tensors and runs :func:`flash_attention_plain`
 (probabilities in f32, as the Pallas kernel) only for CPU tensors.
+
+The bf16 kernel reads q, k and v through TMA tensor maps, in place where
+the view allows (:func:`kernel_operand`): a (B, S, H, Dh) model layout, or
+q/k/v split from a fused projection, costs no copy.
 
 ``LAUNCHES["flash_attention"]`` counts kernel launches (never plain-version
 runs), so a run can show that its main path went through the kernel.
@@ -68,6 +72,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"match (H must be a multiple of KV)")
 
 
+def kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if the kernel can read it in place, else a dense copy.
+    Every kernel wants a dense last dim. The bf16 kernel loads through TMA
+    tensor maps, which want the start 16-byte aligned and every stride a
+    multiple of 16 bytes (8 elements); a dim of size 1 is never stepped, so
+    its stride does not matter."""
+    ok = t.stride(-1) == 1
+    if ok and t.dtype == torch.bfloat16:
+        ok = t.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+            if n > 1)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None, q_offset: int = 0,
@@ -117,11 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {Dh} not compiled (have {HEAD_DIMS})")
     if max(Sq, Sk) >= 2 ** 31 or B * H * (-(-Sq // 64)) >= 2 ** 31:
         raise ValueError(f"too many rows: {tuple(q.shape)}")
-    # dense last dim; the bf16 kernel also reads aligned element pairs
-    q, k, v = (t if t.stride(-1) == 1 and not (
-        t.dtype == torch.bfloat16 and (t.data_ptr() % 4 or any(
-            s % 2 for s in t.stride()[:3]))) else t.contiguous()
-        for t in (q, k, v))
+    q, k, v = (kernel_operand(t) for t in (q, k, v))
     out = torch.empty_like(q)        # q's layout where q is dense
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     _build.launch("flash_attention", "repro_flash_attention", _ARGTYPES,

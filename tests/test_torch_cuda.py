@@ -197,8 +197,9 @@ def test_flash_kernel_window_layout_and_offset(cuda, dtype):
 
 
 def test_flash_kernel_takes_odd_strided_bf16_views(cuda):
-    """The bf16 kernel reads element pairs; a view whose strides are odd
-    is copied to a dense layout first."""
+    """The bf16 kernel loads through TMA, which wants strides in multiples
+    of 16 bytes; a view whose strides are odd is copied to a dense layout
+    first."""
     g = torch.Generator().manual_seed(8)
     q, k, v = (torch.randn(1, 4 if i == 0 else 2, 65, 33, generator=g)
                .to(torch.bfloat16).to(cuda)[..., :32] for i in range(3))
@@ -206,6 +207,93 @@ def test_flash_kernel_takes_odd_strided_bf16_views(cuda):
     got = fa.flash_attention(q, k, v)
     _close(got, fa.flash_attention_plain(q, k, v))
 
+
+
+def _bf16_qkv(B, H, KV, Sq, Sk, D, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, H, Sq, D, generator=g).to(torch.bfloat16).to(cuda),
+            *(torch.randn(B, KV, Sk, D, generator=g).to(torch.bfloat16)
+              .to(cuda) for _ in range(2)))
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_every_head_dim_ragged_keys(cuda, D, causal):
+    """333 keys: two whole 128-key tiles and a ragged one of 77."""
+    q, k, v = _bf16_qkv(2, 4, 2, 333, 333, D, D, cuda)
+    _close(fa.flash_attention(q, k, v, causal=causal),
+           fa.flash_attention_plain(q, k, v, causal=causal))
+    assert fa.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("Sq,causal", [(1, True), (1, False), (50, True),
+                                       (50, False)])
+def test_flash_bf16_fewer_queries_than_a_block(cuda, Sq, causal):
+    """Sq below the kernel's 128-row block (Sq = 1: one decode-like row),
+    placed at the end of 300 keys."""
+    q, k, v = _bf16_qkv(2, 4, 2, Sq, 300, 64, Sq, cuda)
+    kw = dict(causal=causal, q_offset=300 - Sq)
+    _close(fa.flash_attention(q, k, v, **kw),
+           fa.flash_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("start", [37, 130, 200])
+def test_flash_bf16_offset_inside_a_tile(cuda, D, start):
+    """Query rows at absolute positions that start inside a key tile give
+    the rows of the whole causal computation."""
+    q, k, v = _bf16_qkv(1, 4, 2, 400, 400, D, start, cuda)
+    part = fa.flash_attention(q[:, :, start:start + 150], k, v,
+                              q_offset=start)
+    _close(part, fa.flash_attention_plain(q, k, v)[:, :, start:start + 150])
+
+
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_window_skips_whole_tiles(cuda, D, causal):
+    """window 64 over 1,000 keys: each 128-row block visits at most three
+    of the eight key tiles."""
+    q, k, v = _bf16_qkv(1, 4, 2, 1000, 1000, D, 64 + D, cuda)
+    kw = dict(causal=causal, window=64)
+    _close(fa.flash_attention(q, k, v, **kw),
+           fa.flash_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("H,KV,D", [(16, 4, 64), (48, 1, 128)])
+def test_flash_bf16_grouped_query_heads(cuda, H, KV, D):
+    """G 4 and G 48 (granite's 48 query heads over one kv head, Dh 128)."""
+    q, k, v = _bf16_qkv(2, H, KV, 300, 300, D, H, cuda)
+    _close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_bf16_reads_a_fused_qkv_split_in_place(cuda, D):
+    """q, k and v sliced from one (B, S, (H + 2 KV) Dh) projection and
+    viewed as (B, H, S, Dh): the kernel reads them where they lie."""
+    H, KV, S = 8, 2, 260
+    g = torch.Generator().manual_seed(D)
+    qkv = torch.randn(2, S, (H + 2 * KV) * D, generator=g).to(
+        torch.bfloat16).to(cuda)
+    q = qkv[..., :H * D].view(2, S, H, D)
+    k = qkv[..., H * D:(H + KV) * D].view(2, S, KV, D)
+    v = qkv[..., (H + KV) * D:].view(2, S, KV, D)
+    for t in (q, k, v):
+        assert fa.kernel_operand(t.transpose(1, 2)).data_ptr() == \
+            t.data_ptr()
+    got = fa.flash_attention_op(q, k, v, causal=True)
+    _close(got.transpose(1, 2), fa.flash_attention_plain(
+        *(t.transpose(1, 2) for t in (q, k, v)), causal=True))
+
+
+def test_flash_bf16_copies_a_misaligned_view(cuda):
+    """A view that starts 2 bytes past a 16-byte boundary breaks TMA's
+    rule: the wrapper copies it and the answer stays the same."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(1, 6, 200, 65, generator=g).to(torch.bfloat16).to(cuda)
+    q, k, v = x[:, :4, :, 1:], x[:, 4:5, :, 1:], x[:, 5:, :, 1:]
+    assert q.data_ptr() % 16 == 2
+    assert fa.kernel_operand(q).data_ptr() != q.data_ptr()
+    _close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
 
 def test_new_wrappers_raise_and_never_fall_back(cuda):
     x = torch.zeros(4, 8, device=cuda)
