@@ -75,8 +75,10 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               path's shapes, beside its plain version's, its bound and,
               for K4 and K5, one PyTorch call computing the same function
               (``F.rms_norm``, ``F.scaled_dot_product_attention``), which
-              the port never calls. K5 also on contiguous (B,H,S,Dh)
-              copies, and the card's clock and power read while it runs.
+              the port never calls. K5 also at the published width and at
+              llama3.2-1b's prefill (4 x 2,000 tokens, H 32, KV 8, Dh 64),
+              on contiguous (B,H,S,Dh) copies, and the card's clock and
+              power read while it runs.
               K6 and K7 at the serve phase's shapes (no single PyTorch
               call computes either: library null), bounded by what the
               sequential recurrence needs.
@@ -594,9 +596,11 @@ def run(args, work: Path):
     log(f"model split: wall {model_wall} s, K5 12 x "
         f"{timing['flash_attention_full'][0]} ms = "
         f"{12 * timing['flash_attention_full'][0] / 1e3} s")
-    for arch, name in (("zamba2-1.2b", "ssd_chunked"),
-                       ("rwkv6-1.6b", "wkv6_chunked")):
-        n, ms = serve[arch]["launches"][name], timing[name][0]
+    for arch, name, key in (("zamba2-1.2b", "ssd_chunked", "ssd_chunked"),
+                            ("rwkv6-1.6b", "wkv6_chunked", "wkv6_chunked"),
+                            ("llama3.2-1b", "flash_attention",
+                             "flash_attention_llama")):
+        n, ms = serve[arch]["launches"][name], timing[key][0]
         log(f"serve split {arch}: prefill {serve[arch]['prefill_s']} s, "
             f"{name} {n} x {ms} ms = {n * ms / 1e3} s "
             f"({100 * n * ms / 1e3 / serve[arch]['prefill_s']} %)")
@@ -831,7 +835,7 @@ def serve_phase(seed: int):
         us, total = prof["prefill"]["us"], sum(prof["prefill"]["us"].values())
         share = {}
         for name in ("ssd_chunk_kernel", "wkv6_chunk_kernel",
-                     "flash_mma_kernel", "rmsnorm_kernel"):
+                     "flash_wgmma_kernel", "rmsnorm_kernel"):
             t = sum(v for k, v in us.items() if name in k)
             share[name] = (t / 1e3, 100 * t / total if total else None)
         share["device_ms"] = total / 1e3
@@ -1217,7 +1221,9 @@ def time_rmsnorm_and_attention(timer, seed: int):
     """Median times of K4 and K5 at the main path's shapes (segment_unest:
     180,224 tokens, d 128, H 4, KV 2, Dh 32, bf16, causal), their plain
     versions, their bounds and one PyTorch call each; K5 also at the
-    published width (key ``flash_attention_full``)."""
+    published width (key ``flash_attention_full``) and at llama3.2-1b's
+    prefill (B 4, S 2,000, H 32, KV 8, Dh 64; key
+    ``flash_attention_llama``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1231,17 +1237,20 @@ def time_rmsnorm_and_attention(timer, seed: int):
         timer(lambda: rn.rmsnorm_plain(x, sc), reps=5),
         *_bound(2 * x.numel() * 2 + 128 * 4, 4 * x.numel()),
         timer(lambda: F.rms_norm(x, (128,), sc.to(bf16), 1e-5)))}
-    for key, (H, KV, Dh, reps) in (("flash_attention", (4, 2, 32, 5)),
-                                   ("flash_attention_full", (8, 8, 64, 3))):
-        q = torch.randn(1, TOKENS, H, Dh, device="cuda", generator=g).to(bf16)
-        k, v = (torch.randn(1, TOKENS, KV, Dh, device="cuda",
+    for key, (B, S, H, KV, Dh, reps) in (
+            ("flash_attention", (1, TOKENS, 4, 2, 32, 5)),
+            ("flash_attention_full", (1, TOKENS, 8, 8, 64, 3)),
+            ("flash_attention_llama", (SERVE_BATCH, SERVE_PROMPT, 32, 8, 64,
+                                       15))):
+        q = torch.randn(B, S, H, Dh, device="cuda", generator=g).to(bf16)
+        k, v = (torch.randn(B, S, KV, Dh, device="cuda",
                             generator=g).to(bf16) for _ in range(2))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         plain = timer(lambda: fa.flash_attention_plain(qt, kt, vt), reps=2) \
-            if key == "flash_attention" else None
+            if key != "flash_attention_full" else None
         out[key] = (
             timer(lambda: fa.flash_attention_op(q, k, v), reps=reps), plain,
-            *attention_bound(TOKENS, H, KV, Dh, 2),
+            *attention_bound(S, H, KV, Dh, 2, B),
             timer(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)))
         # the main path reads the model's (B, S, H, Dh) in place; the same

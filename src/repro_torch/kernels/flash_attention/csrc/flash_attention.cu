@@ -26,15 +26,17 @@
 // Dh = 32. At H = 8, Dh = 64 (the published width) 33 TFLOP (34 ms) against
 // 1.3e11 exponentials (~32 ms): about even.
 //
-//  * flash_wgmma_kernel, bf16, built for Hopper. One block of three
-//    warpgroups per (b, h, 128 query rows), longest rows first. Warpgroup 2
-//    is the producer: after setmaxnreg gives its registers to the others,
-//    one of its threads issues every load as a TMA box copy (a 4-D tensor
-//    map (Dh, heads, S, B) per tensor, built on the host from the view's
-//    strides, swizzled 128/64/32 B for Dh 64/32/16; Dh 128 is two 64-column
-//    boxes): Q once, then K and V tile by tile into a ring of 2-3 stages,
-//    each with a full and an empty mbarrier. Warpgroups 0 and 1 own 64 query
-//    rows each and never issue a copy. Both products run on wgmma: S = Q K^T
+//  * flash_wgmma_kernel, bf16, built for Hopper. One block per (b, h, 64 x
+//    kConsumers query rows), longest rows first, of kConsumers consumer
+//    warpgroups (4 at Dh 16 and 32, 3 at Dh 64, 2 at Dh 128: as many as
+//    their registers allow) and one producer warpgroup. After setmaxnreg
+//    gives the producer's registers to the consumers, one producer thread
+//    issues every load as a TMA box copy (a 4-D tensor map (Dh, heads, S, B)
+//    per tensor, built on the host from the view's strides, swizzled
+//    128/64/32 B for Dh 64/32/16; Dh 128 is two 64-column boxes): Q once,
+//    then K and V tile by tile into a ring of 2-3 stages, each with a full
+//    and an empty mbarrier. Each consumer warpgroup owns 64 query rows and
+//    never issues a copy. Both products run on wgmma: S = Q K^T
 //    (m64n128k16, Q and K K-major from shared memory) and O += P V
 //    (m64nDh k16, P from registers: the S accumulator packed to bf16 is the
 //    A fragment layout; V straight from its TMA tile as an MN-major B, so
@@ -254,9 +256,7 @@ flash_fwd_kernel(Params p) {
 typedef __nv_bfloat16 bf16;
 
 constexpr int kWG = 128;         // threads of a warpgroup
-constexpr int kBM = 128;         // query rows per block: two consumer warpgroups
 constexpr int kBN = 128;         // keys per tile
-constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The shared-memory plan of one block. A TMA box is at most 128 bytes wide
@@ -266,11 +266,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 // number of atoms), so the descriptors need no base offset.
 template <int DH>
 struct Plan {
+  // consumer warpgroups of 64 query rows each, and the registers setmaxnreg
+  // gives them and the producer: the block's launch allocation (65,536 /
+  // threads, rounded down to a multiple of 8) shared out, none left over
+  static constexpr int kConsumers = DH == 128 ? 2 : DH == 64 ? 3 : 4;
+  static constexpr int kThreads = kWG * (kConsumers + 1);
+  static constexpr int kConsumerRegs =
+      kConsumers == 2 ? 240 : kConsumers == 3 ? 160 : 112;
+  static constexpr int kProducerRegs = kConsumers == 2 ? 24 : 32;
+  static constexpr int kBM = 64 * kConsumers;        // query rows per block
   static constexpr int kBox = DH < 64 ? DH : 64;     // columns of one box
   static constexpr int kBoxes = DH / kBox;
   static constexpr int kSwz = 2 * kBox;              // bytes of one box row
   static constexpr int kStages = DH == 128 ? 2 : 3;  // K/V tiles in flight
-  static constexpr int kQBytes = kBM * DH * 2;
+  static constexpr int kQBytes = kBM * DH * 2;       // Q, all the block's rows
   static constexpr int kTileBytes = kBN * DH * 2;    // one K or one V tile
   static constexpr int kBars = kQBytes + 2 * kStages * kTileBytes;
   // + full and empty barriers per stage and Q's, + slack to align the base
@@ -375,6 +384,7 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
+// wait until all of this warpgroup's committed wgmma groups are done
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
@@ -421,8 +431,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 16, f32) += A (64 x 16, bf16 in registers, the mma.sync A
-// fragment layout per warp) . B (16 x 16, bf16 MN-major in shared memory)
+// D (64 x 16, f32) += A (64 x 16, bf16 in registers: per warp
+// the A fragment of an m16n8k16 product) . B (16 x 16, bf16 MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -437,8 +447,8 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 32, f32) += A (64 x 16, bf16 in registers, the mma.sync A
-// fragment layout per warp) . B (16 x 32, bf16 MN-major in shared memory)
+// D (64 x 32, f32) += A (64 x 16, bf16 in registers: per warp
+// the A fragment of an m16n8k16 product) . B (16 x 32, bf16 MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -456,8 +466,8 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers, the mma.sync A
-// fragment layout per warp) . B (16 x 64, bf16 MN-major in shared memory)
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers: per warp
+// the A fragment of an m16n8k16 product) . B (16 x 64, bf16 MN-major in shared memory)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -492,14 +502,120 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n64(d, a, db);
 }
 
-// One block per (b, h, 128 query rows), longest rows first. Warpgroups 0
-// and 1 each own 64 query rows; warpgroup 2 is the producer, of which one
-// thread issues every TMA load: Q once, then each key tile's K and V into
-// the next free stage of the ring. A stage's full barrier completes when its
-// bytes have landed; its empty barrier when all 8 consumer warps are done
-// with it.
+// S = Q K^T for one key tile, issued (not waited for): 64 x 128 f32,
+// element 4j + e at row warp*16 + g + 8(e/2), key 8j + 2 t4 + e%2
 template <int DH>
-__global__ void __launch_bounds__(3 * kWG, 1)
+__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t sQ,
+                                         uint32_t sK) {
+  using L = Plan<DH>;
+  constexpr int kKsteps = L::kBox / 16;          // k steps in one box
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int x = kk / kKsteps, off = (kk % kKsteps) * 32;
+    const uint64_t da = gmma_desc(sQ + x * L::kBM * L::kSwz + off, 16,
+                                  8 * L::kSwz, L::kSwzCode);
+    const uint64_t db = gmma_desc(sK + x * kBN * L::kSwz + off, 16,
+                                  8 * L::kSwz, L::kSwzCode);
+    wgmma_ss_n128(sc, da, db, kk);
+  }
+}
+
+// O += P V for one key tile, issued (not waited for); V straight from its
+// TMA tile as an MN-major B. pk[j][r] holds row g + 8r, keys 8j + 2 t4 and
+// + 1, so the A fragment for keys 16 kk .. + 15 is pk[2kk], pk[2kk + 1]
+template <int DH>
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[Plan<DH>::kBoxes][Plan<DH>::kBox / 2],
+    const uint32_t (&pk)[kBN / 8][2], uint32_t sV) {
+  using L = Plan<DH>;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0],
+                           pk[2 * kk + 1][1]};
+#pragma unroll
+    for (int x = 0; x < L::kBoxes; ++x)
+      wgmma_rs<L::kBox>(
+          acc[x], a,
+          gmma_desc(sV + x * kBN * L::kSwz + kk * 16 * L::kSwz,
+                    kBN * L::kSwz, 8 * L::kSwz, L::kSwzCode));
+  }
+}
+
+// The online softmax of one tile of scores `sc` (raw q.k) for the thread's
+// rows `row` and row + 8: updates the running max m (log2 units), returns
+// alpha = 2^(m_old - m_new), the weights p = 2^(s scale log2(e) - m) rounded
+// to bf16 in pk, and this thread's part of their row sums in rs. With
+// `masked`, keys at or past Sk, above the diagonal or outside the window
+// score NEG_INF (in log2 units, as the reference masks scaled scores).
+__device__ __forceinline__ void softmax_tile(
+    float (&sc)[kBN / 2], uint32_t (&pk)[kBN / 8][2], float (&m)[2],
+    float (&alpha)[2], float (&rs)[2], bool masked, int64_t row, int64_t c0,
+    const Params& p, float sl2) {
+  float mx[2] = {kNegInf, kNegInf};
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int64_t r = row + 8 * (e >> 1);
+        const int64_t col = c0 + 8 * j + 2 * (threadIdx.x % 4) + (e & 1);
+        bool ok = col < p.Sk;
+        if (p.causal) ok = ok && r >= col;
+        if (p.window > 0) ok = ok && r - col < p.window;
+        sc[4 * j + e] = ok ? sc[4 * j + e] * sl2 : kNegInf;
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // an unmasked tile's max is raw: scale it (rounding is monotone, so
+    // this is the max of the rounded scaled scores)
+    const float m_new = fmaxf(m[r], masked ? mx[r] : mx[r] * sl2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    rs[r] = 0.0f;
+  }
+  // p = 2^(s - m): one FFMA from a raw score, one FADD from a masked tile's
+  // scaled one (whose all-masked rows need s - m = -1e30 - -1e30 = 0 exactly)
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        pk[j][r] = pack_bf16(ex2(sc[4 * j + 2 * r] - m[r]),
+                             ex2(sc[4 * j + 2 * r + 1] - m[r]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        pk[j][r] = pack_bf16(ex2(fmaf(sc[4 * j + 2 * r], sl2, -m[r])),
+                             ex2(fmaf(sc[4 * j + 2 * r + 1], sl2, -m[r])));
+  }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rs[r] += bf16_lo(pk[j][r]) + bf16_hi(pk[j][r]);
+}
+
+// One block per (b, h, kBM query rows), longest rows first. Consumer
+// warpgroups 0 .. kConsumers - 1 each own 64 query rows; the last
+// warpgroup is the producer, of which one thread issues every TMA load: Q
+// once, then each key tile's K and V into the next free stage of the ring.
+// A stage's full barrier completes when its bytes have landed, its empty
+// barrier when every consumer warp is done with it. Each consumer
+// warpgroup takes a tile in order (S = Q K^T, wait, softmax, O += P V,
+// wait); the warpgroups of a block, at their own pace, keep the tensor
+// cores, the MUFU and the FP32 units busy together.
+template <int DH>
+__global__ void __launch_bounds__(Plan<DH>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -511,7 +627,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_bar = bars + 16 * NS;
   auto full = [&](int st) { return bars + 8 * st; };
   auto empty = [&](int st) { return bars + 8 * (NS + st); };
+  auto k_tile = [&](int st) { return sKV + st * 2 * L::kTileBytes; };
+  auto v_tile = [&](int st) { return k_tile(st) + L::kTileBytes; };
 
+  constexpr int kBM = L::kBM;
   const int n_q = (p.Sq + kBM - 1) / kBM;
   const int bh_count = p.B * p.H;
   const int qt = n_q - 1 - static_cast<int>(blockIdx.x / bh_count);
@@ -536,7 +655,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   if (threadIdx.x == 0) {
     for (int st = 0; st < NS; ++st) {
       mbar_init(full(st), 1);
-      mbar_init(empty(st), kConsumerWarps);
+      mbar_init(empty(st), 4 * L::kConsumers);     // one per warp
     }
     mbar_init(q_bar, 1);
     mbar_fence_init();
@@ -544,10 +663,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   const int wg = threadIdx.x / kWG;
-  if (wg == 2) {
+  if (wg == L::kConsumers) {
     // -- producer ---------------------------------------------------------
-    regs_dec<24>();
-    if (threadIdx.x == 2 * kWG) {
+    regs_dec<L::kProducerRegs>();
+    if (threadIdx.x == L::kConsumers * kWG) {
       mbar_expect_tx(q_bar, L::kQBytes);
       for (int x = 0; x < L::kBoxes; ++x)
         tma_load(sQ + x * kBM * L::kSwz, &tq, q_bar, x * L::kBox, h, q0, b);
@@ -555,24 +674,30 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int st = i % NS;
         mbar_wait(empty(st), ((i / NS) & 1) ^ 1);   // round 0 passes at once
         mbar_expect_tx(full(st), 2 * L::kTileBytes);
-        const uint32_t sK = sKV + st * 2 * L::kTileBytes;
-        const uint32_t sV = sK + L::kTileBytes;
         for (int x = 0; x < L::kBoxes; ++x) {
-          tma_load(sK + x * kBN * L::kSwz, &tk, full(st), x * L::kBox, kvh,
-                   t * kBN, b);
-          tma_load(sV + x * kBN * L::kSwz, &tv, full(st), x * L::kBox, kvh,
-                   t * kBN, b);
+          tma_load(k_tile(st) + x * kBN * L::kSwz, &tk, full(st),
+                   x * L::kBox, kvh, t * kBN, b);
+          tma_load(v_tile(st) + x * kBN * L::kSwz, &tv, full(st),
+                   x * L::kBox, kvh, t * kBN, b);
         }
       }
     }
   } else {
     // -- consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63 ---------
-    regs_inc<240>();
+    regs_inc<L::kConsumerRegs>();
     const int tid = threadIdx.x % kWG, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t4 = lane % 4;
     const int64_t wrow = p.q_offset + q0 + 64 * wg;   // its first position
+    const int64_t row = wrow + warp * 16 + g;         // this thread's first
     const float sl2 = p.scale * kLog2e;               // scores to log2 units
-    constexpr int kKsteps = L::kBox / 16;             // k steps in one box
+    const uint32_t sQw = sQ + wg * 64 * L::kSwz;      // its 64 rows of Q
+    // a tile needs the masks if a key in it can be masked for a row of the
+    // warpgroup: the causal diagonal, the ragged last tile, a window's edge
+    auto needs_mask = [&](int t) {
+      const int64_t c0 = static_cast<int64_t>(t) * kBN;
+      return (p.causal && c0 + kBN - 1 > wrow) || c0 + kBN > p.Sk ||
+             (p.window > 0 && wrow + 63 - c0 >= p.window);
+    };
 
     // the accumulator of P.V, one m64nBox fragment per box: element 4j + e
     // is row warp*16 + g + 8(e/2), column box*kBox + 8j + 2 t4 + e%2
@@ -584,111 +709,36 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // running max (log2 units) and this thread's part of the row sums of
     // rows g and g + 8 of its warp (summed over the row's 4 threads at the end)
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+    float sc[kBN / 2], alpha[2], rs[2];
+    uint32_t pk[kBN / 8][2];
 
     mbar_wait(q_bar, 0);
-    for (int t = t0, i = 0; t < t1; ++t, ++i) {
+    int i = 0;
+    for (int t = t0; t < t1; ++t, ++i) {
       const int st = i % NS;
-      const uint32_t sK = sKV + st * 2 * L::kTileBytes;
-      const uint32_t sV = sK + L::kTileBytes;
       mbar_wait(full(st), (i / NS) & 1);
-
-      // S = Q K^T: 64 x 128 f32, element 4j + e at row warp*16 + g + 8(e/2),
-      // key 8j + 2 t4 + e%2 of the tile
-      float sc[kBN / 2];
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const int x = kk / kKsteps, off = (kk % kKsteps) * 32;
-        const uint64_t da = gmma_desc(
-            sQ + x * kBM * L::kSwz + wg * 64 * L::kSwz + off, 16,
-            8 * L::kSwz, L::kSwzCode);
-        const uint64_t db = gmma_desc(sK + x * kBN * L::kSwz + off, 16,
-                                      8 * L::kSwz, L::kSwzCode);
-        wgmma_ss_n128(sc, da, db, kk);
-      }
+      issue_qk<DH>(sc, sQw, k_tile(st));
       wgmma_commit();
       wgmma_wait();
       reg_fence(sc);
-
-      // to log2 units; the masks only where a key of the tile can be masked
-      // for a row of the warpgroup: the causal diagonal, the ragged last
-      // tile, a window's edge
-      const int64_t c0 = static_cast<int64_t>(t) * kBN;
-      const bool masked = (p.causal && c0 + kBN - 1 > wrow) ||
-                          c0 + kBN > p.Sk ||
-                          (p.window > 0 && wrow + 63 - c0 >= p.window);
-      if (masked) {
-#pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int64_t row = wrow + warp * 16 + g + 8 * (e >> 1);
-            const int64_t col = c0 + 8 * j + 2 * t4 + (e & 1);
-            bool ok = col < p.Sk;
-            if (p.causal) ok = ok && row >= col;
-            if (p.window > 0) ok = ok && row - col < p.window;
-            sc[4 * j + e] = ok ? sc[4 * j + e] * sl2 : kNegInf;
-          }
-      } else {
-#pragma unroll
-        for (int j = 0; j < kBN / 2; ++j) sc[j] *= sl2;
-      }
-
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = ex2(m[r] - m_new);
-        m[r] = m_new;
-      }
-      // p rounded to bf16, as the tensor cores take it; l sums those same
-      // weights. pk[j][r] holds row g + 8r, keys 8j + 2 t4 and + 1: the
-      // A fragment of P.V for keys 16 kk .. + 15 is pk[2kk], pk[2kk + 1]
-      uint32_t pk[kBN / 8][2];
-      float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          pk[j][r] = pack_bf16(ex2(sc[4 * j + 2 * r] - m[r]),
-                               ex2(sc[4 * j + 2 * r + 1] - m[r]));
-          rs[r] += bf16_lo(pk[j][r]) + bf16_hi(pk[j][r]);
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+      softmax_tile(sc, pk, m, alpha, rs, needs_mask(t), row,
+                   static_cast<int64_t>(t) * kBN, p, sl2);
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll
         for (int i2 = 0; i2 < L::kBox / 2; ++i2)
           acc[x][i2] *= alpha[(i2 >> 1) & 1];
-
-      // O += P V, V straight from its TMA tile as an MN-major B
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0],
-                               pk[2 * kk + 1][1]};
-#pragma unroll
-        for (int x = 0; x < L::kBoxes; ++x)
-          wgmma_rs<L::kBox>(
-              acc[x], a,
-              gmma_desc(sV + x * kBN * L::kSwz + kk * 16 * L::kSwz,
-                        kBN * L::kSwz, 8 * L::kSwz, L::kSwzCode));
-      }
+      issue_pv<DH>(acc, pk, v_tile(st));
       wgmma_commit();
       wgmma_wait();
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x) reg_fence(acc[x]);
       __syncwarp();
-      if (lane == 0) mbar_arrive(empty(st));          // the stage is free
+      if (lane == 0) mbar_arrive(empty(st));         // the stage is free
     }
 
     bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
@@ -770,11 +820,11 @@ template <int DH>
 int launch_bf16(const Params& p, int KV, cudaStream_t st) {
   using L = Plan<DH>;
   const int64_t blocks =
-      static_cast<int64_t>((p.Sq + kBM - 1) / kBM) * p.B * p.H;
+      static_cast<int64_t>((p.Sq + L::kBM - 1) / L::kBM) * p.B * p.H;
   if (blocks == 0) return 0;
   if (p.Sk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv;
-  int err = make_map(&tq, p.q, p.H, p.Sq, p.B, DH, p.qs, L::kBox, kBM);
+  int err = make_map(&tq, p.q, p.H, p.Sq, p.B, DH, p.qs, L::kBox, L::kBM);
   if (!err) err = make_map(&tk, p.k, KV, p.Sk, p.B, DH, p.ks, L::kBox, kBN);
   if (!err) err = make_map(&tv, p.v, KV, p.Sk, p.B, DH, p.vs, L::kBox, kBN);
   if (err) return err;
@@ -782,7 +832,7 @@ int launch_bf16(const Params& p, int KV, cudaStream_t st) {
       flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_wgmma_kernel<DH><<<static_cast<unsigned>(blocks), 3 * kWG, L::kSmem,
+  flash_wgmma_kernel<DH><<<static_cast<unsigned>(blocks), L::kThreads, L::kSmem,
                            st>>>(tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
 }

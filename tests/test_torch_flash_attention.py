@@ -137,3 +137,45 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         q, k, v = (t.to("meta") for t in (q, k, v))
     with pytest.raises(ValueError):
         port_flash(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("view,in_place", [
+    ("model_layout", True),       # (B, S, H, Dh) transposed to (B, H, S, Dh)
+    ("fused_qkv_split", True),    # q sliced from one (B, S, (H+2KV) Dh)
+    ("dense", True),
+    ("size_one_dim_odd_stride", True),  # a dim of size 1 is never stepped
+    ("odd_row_stride", False),    # rows 33 elements apart
+    ("misaligned_start", False),  # starts 2 bytes past a 16-byte boundary
+    ("last_dim_strided", False),
+])
+def test_kernel_operand_reads_in_place_only_what_tma_allows(view, in_place):
+    """The bf16 kernel loads through TMA tensor maps: a view is read where
+    it lies if it starts 16-byte aligned, its last dim is dense and every
+    other stride of a dim longer than 1 is a multiple of 8 elements; else
+    the wrapper hands the kernel a dense copy (same values). float32 views
+    need only the dense last dim."""
+    from repro_torch.kernels.flash_attention import kernel_operand
+    base = torch.zeros(2 * 3 * 64 * 72, dtype=torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    if view == "model_layout":
+        t = base[:2 * 64 * 3 * 32].view(2, 64, 3, 32).transpose(1, 2)
+    elif view == "fused_qkv_split":
+        t = base[:2 * 64 * 5 * 32].view(2, 64, 5 * 32)[..., 32:96] \
+            .view(2, 64, 2, 32).transpose(1, 2)
+    elif view == "dense":
+        t = base[:2 * 3 * 64 * 32].view(2, 3, 64, 32)
+    elif view == "size_one_dim_odd_stride":
+        t = base[:3 * 64 * 32].as_strided((1, 3, 64, 32), (7, 2048, 32, 1))
+    elif view == "odd_row_stride":
+        t = base[:3 * 64 * 33].view(1, 3, 64, 33)[..., :32]
+    elif view == "misaligned_start":
+        t = base[1:1 + 3 * 64 * 32].view(1, 3, 64, 32)
+    else:
+        t = base[:3 * 64 * 64].view(1, 3, 64, 64)[..., ::2]
+    got = kernel_operand(t)
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    assert torch.equal(got, t)
+    if not in_place:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    f32 = torch.zeros(1, 3, 64, 33)[..., :32]     # the SIMT kernel's rule
+    assert kernel_operand(f32) is f32
