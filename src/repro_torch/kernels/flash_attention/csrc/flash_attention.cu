@@ -44,6 +44,12 @@
 //    tensor cores (the reference model's XLA attention rounds its
 //    probabilities to bf16 too), and l sums the same rounded weights: the
 //    one departure from the Pallas kernel's arithmetic besides the next.
+//    That sum runs on the tensor cores too: beside each P.V step, a
+//    m64n8k16 wgmma multiplies the same P fragment by a block of bf16 ones
+//    in shared memory, so every column of that accumulator is l (f32, like
+//    O), and the softmax spends no instructions on it. O and l are
+//    rescaled only when a row's max moved (alpha != 1), which late in a
+//    long causal row is rare.
 //    Scores are scaled by scale*log2(e) and exponentiated with ex2.approx,
 //    one MUFU op, where accurate expf takes several instructions around it:
 //    this moves last bits only (relative error ~2^-22, flushed below
@@ -281,7 +287,9 @@ struct Plan {
   static constexpr int kStages = DH == 128 ? 2 : 3;  // K/V tiles in flight
   static constexpr int kQBytes = kBM * DH * 2;       // Q, all the block's rows
   static constexpr int kTileBytes = kBN * DH * 2;    // one K or one V tile
-  static constexpr int kBars = kQBytes + 2 * kStages * kTileBytes;
+  // 1 KB of bf16 ones: the B of the wgmma that sums each row of P
+  static constexpr int kOnes = kQBytes + 2 * kStages * kTileBytes;
+  static constexpr int kBars = kOnes + 1024;
   // + full and empty barriers per stage and Q's, + slack to align the base
   static constexpr int kSmem = kBars + 8 * (2 * kStages + 1) + 1024;
   // the descriptors' swizzle code: 1 = 128 B, 2 = 64 B, 3 = 32 B
@@ -304,16 +312,10 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
          (static_cast<uint64_t>(sbo >> 4) << 32) | (swz << 62);
 }
 
-// two floats rounded to bf16 in one register (lo in the low half), and back
+// two floats rounded to bf16 in one register (lo in the low half)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
 }
 
 // ptx:begin -- the inline PTX of the bf16 kernel, one statement each
@@ -367,6 +369,12 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(s),
       "r"(b) : "memory");
+}
+
+// orders this thread's generic-proxy shared-memory stores before later
+// async-proxy reads (wgmma, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 template <int R>
@@ -431,8 +439,9 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D (64 x 16, f32) += A (64 x 16, bf16 in registers: per warp
-// the A fragment of an m16n8k16 product) . B (16 x 16, bf16 MN-major in shared memory)
+// D (64 x 16, f32) += A (64 x 16, bf16 in registers: per warp the A
+// fragment of an m16n8k16 product) . B (16 x 16, bf16, MN-major in shared
+// memory)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -447,8 +456,9 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 32, f32) += A (64 x 16, bf16 in registers: per warp
-// the A fragment of an m16n8k16 product) . B (16 x 32, bf16 MN-major in shared memory)
+// D (64 x 32, f32) += A (64 x 16, bf16 in registers: per warp the A
+// fragment of an m16n8k16 product) . B (16 x 32, bf16, MN-major in shared
+// memory)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -466,8 +476,9 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers: per warp
-// the A fragment of an m16n8k16 product) . B (16 x 64, bf16 MN-major in shared memory)
+// D (64 x 64, f32) += A (64 x 16, bf16 in registers: per warp the A
+// fragment of an m16n8k16 product) . B (16 x 64, bf16, MN-major in shared
+// memory)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t db) {
@@ -488,6 +499,20 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 8, f32) += A (64 x 16, bf16 in registers) . B (16 x 8, bf16,
+// K-major in shared memory)
+__device__ __forceinline__ void wgmma_rs_n8_kmajor(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -522,12 +547,15 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t sQ,
 
 // O += P V for one key tile, issued (not waited for); V straight from its
 // TMA tile as an MN-major B. pk[j][r] holds row g + 8r, keys 8j + 2 t4 and
-// + 1, so the A fragment for keys 16 kk .. + 15 is pk[2kk], pk[2kk + 1]
+// + 1, so the A fragment for keys 16 kk .. + 15 is pk[2kk], pk[2kk + 1].
+// The same fragments times a block of ones add P's row sums to accl.
 template <int DH>
 __device__ __forceinline__ void issue_pv(
-    float (&acc)[Plan<DH>::kBoxes][Plan<DH>::kBox / 2],
-    const uint32_t (&pk)[kBN / 8][2], uint32_t sV) {
+    float (&acc)[Plan<DH>::kBoxes][Plan<DH>::kBox / 2], float (&accl)[4],
+    const uint32_t (&pk)[kBN / 8][2], uint32_t sV, uint32_t sOnes) {
   using L = Plan<DH>;
+  // 8 rows of 16 ones, K-major, 32-byte swizzle (one atom: no offsets read)
+  const uint64_t d1 = gmma_desc(sOnes, 16, 256, 3);
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
     const uint32_t a[4] = {pk[2 * kk][0], pk[2 * kk][1], pk[2 * kk + 1][0],
@@ -538,18 +566,19 @@ __device__ __forceinline__ void issue_pv(
           acc[x], a,
           gmma_desc(sV + x * kBN * L::kSwz + kk * 16 * L::kSwz,
                     kBN * L::kSwz, 8 * L::kSwz, L::kSwzCode));
+    wgmma_rs_n8_kmajor(accl, a, d1);
   }
 }
 
 // The online softmax of one tile of scores `sc` (raw q.k) for the thread's
 // rows `row` and row + 8: updates the running max m (log2 units), returns
-// alpha = 2^(m_old - m_new), the weights p = 2^(s scale log2(e) - m) rounded
-// to bf16 in pk, and this thread's part of their row sums in rs. With
+// alpha = 2^(m_old - m_new) and the weights p = 2^(s scale log2(e) - m)
+// rounded to bf16 in pk. With
 // `masked`, keys at or past Sk, above the diagonal or outside the window
 // score NEG_INF (in log2 units, as the reference masks scaled scores).
 __device__ __forceinline__ void softmax_tile(
     float (&sc)[kBN / 2], uint32_t (&pk)[kBN / 8][2], float (&m)[2],
-    float (&alpha)[2], float (&rs)[2], bool masked, int64_t row, int64_t c0,
+    float (&alpha)[2], bool masked, int64_t row, int64_t c0,
     const Params& p, float sl2) {
   float mx[2] = {kNegInf, kNegInf};
   if (masked) {
@@ -579,7 +608,6 @@ __device__ __forceinline__ void softmax_tile(
     const float m_new = fmaxf(m[r], masked ? mx[r] : mx[r] * sl2);
     alpha[r] = ex2(m[r] - m_new);
     m[r] = m_new;
-    rs[r] = 0.0f;
   }
   // p = 2^(s - m): one FFMA from a raw score, one FADD from a masked tile's
   // scaled one (whose all-masked rows need s - m = -1e30 - -1e30 = 0 exactly)
@@ -598,11 +626,6 @@ __device__ __forceinline__ void softmax_tile(
         pk[j][r] = pack_bf16(ex2(fmaf(sc[4 * j + 2 * r], sl2, -m[r])),
                              ex2(fmaf(sc[4 * j + 2 * r + 1], sl2, -m[r])));
   }
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      rs[r] += bf16_lo(pk[j][r]) + bf16_hi(pk[j][r]);
 }
 
 // One block per (b, h, kBM query rows), longest rows first. Consumer
@@ -652,6 +675,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int t0 = kv_beg / kBN < t1 - 1 ? static_cast<int>(kv_beg / kBN)
                                          : t1 - 1;
 
+  {
+    uint32_t* ones = reinterpret_cast<uint32_t*>(
+        smem_raw + (base - smem_addr(smem_raw)) + L::kOnes);
+    for (int k = threadIdx.x; k < 256; k += L::kThreads) ones[k] = 0x3F803F80u;
+    fence_proxy_async();
+  }
   if (threadIdx.x == 0) {
     for (int st = 0; st < NS; ++st) {
       mbar_init(full(st), 1);
@@ -706,10 +735,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll
       for (int i = 0; i < L::kBox / 2; ++i) acc[x][i] = 0.0f;
-    // running max (log2 units) and this thread's part of the row sums of
-    // rows g and g + 8 of its warp (summed over the row's 4 threads at the end)
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-    float sc[kBN / 2], alpha[2], rs[2];
+    // running max (log2 units) of rows g and g + 8 of its warp, and their
+    // sums l of the rounded weights: an m64n8 accumulator whose elements 0,
+    // 1 hold row g's and 2, 3 row g + 8's
+    float m[2] = {kNegInf, kNegInf}, accl[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float sc[kBN / 2], alpha[2];
     uint32_t pk[kBN / 8][2];
 
     mbar_wait(q_bar, 0);
@@ -722,21 +752,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_commit();
       wgmma_wait();
       reg_fence(sc);
-      softmax_tile(sc, pk, m, alpha, rs, needs_mask(t), row,
+      softmax_tile(sc, pk, m, alpha, needs_mask(t), row,
                    static_cast<int64_t>(t) * kBN, p, sl2);
+      // rescale only if a row's max moved (alpha is then not 1): late in a
+      // long row it rarely does, and the branch is the same for the warp
+      if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f)) {
 #pragma unroll
-      for (int x = 0; x < L::kBoxes; ++x)
+        for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll
-        for (int i2 = 0; i2 < L::kBox / 2; ++i2)
-          acc[x][i2] *= alpha[(i2 >> 1) & 1];
+          for (int i2 = 0; i2 < L::kBox / 2; ++i2)
+            acc[x][i2] *= alpha[(i2 >> 1) & 1];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+        for (int i2 = 0; i2 < 4; ++i2) accl[i2] *= alpha[i2 >> 1];
+      }
       wgmma_fence();
-      issue_pv<DH>(acc, pk, v_tile(st));
+      issue_pv<DH>(acc, accl, pk, v_tile(st), base + L::kOnes);
       wgmma_commit();
       wgmma_wait();
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x) reg_fence(acc[x]);
+      reg_fence(accl);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(st));         // the stage is free
     }
@@ -744,11 +779,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     bf16* o = static_cast<bf16*>(p.o) + b * p.os.b + h * p.os.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       const int64_t s = q0 + 64 * wg + warp * 16 + g + 8 * r;
       if (s >= p.Sq) continue;
-      const float denom = fmaxf(l[r], 1e-30f);
+      const float denom = fmaxf(accl[2 * r], 1e-30f);
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll
@@ -794,9 +827,9 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
              int Dh, Strides st, int box_cols, int rows) {
   auto encode = tensor_map_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh),
-                        static_cast<cuuint64_t>(heads),
-                        static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(heads),
+      static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
   cuuint64_t strides[3] = {
       heads > 1 ? static_cast<cuuint64_t>(st.h) * 2 : dims[0] * 2,
       S > 1 ? static_cast<cuuint64_t>(st.s) * 2 : dims[0] * dims[1] * 2,
@@ -805,9 +838,10 @@ int make_map(CUtensorMap* map, const void* ptr, int heads, int S, int B,
   cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1,
                        static_cast<cuuint32_t>(rows), 1};
   cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = box_cols * 2 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : box_cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUtensorMapSwizzle swz =
+      box_cols * 2 == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols * 2 == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
   CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                       const_cast<void*>(ptr), dims, strides, box, unit,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
@@ -832,8 +866,9 @@ int launch_bf16(const Params& p, int KV, cudaStream_t st) {
       flash_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_wgmma_kernel<DH><<<static_cast<unsigned>(blocks), L::kThreads, L::kSmem,
-                           st>>>(tq, tk, tv, p);
+  flash_wgmma_kernel<DH>
+      <<<static_cast<unsigned>(blocks), L::kThreads, L::kSmem, st>>>(tq, tk,
+                                                                     tv, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,8 +31,8 @@ def rewrite(src: str) -> str:
         cfg = [c.strip() for c in m.group(2).split(",")]
         return (f"shim_launch([&] {{ {m.group(1)}({m.group(3)}); }}, "
                 f"{', '.join(cfg)});")
-    src = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", launch, src,
-                 flags=re.S)
+    src = re.sub(r"([\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\((.*?)\);", launch,
+                 src, flags=re.S)
     return f'#include "{SHIM}"\n' + src
 
 

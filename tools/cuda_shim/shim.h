@@ -1,6 +1,6 @@
 // Runs a CUDA source of the port on the CPU for rehearsal without a card:
 // one std::thread per CUDA thread, the blocks one after another. It stands
-// in for what the kernels use: __syncthreads, warp shuffles and
+// in for what the kernels use: __syncthreads, warp shuffles, votes and
 // __syncwarp, bf16 conversions, and the inline PTX statements of
 // flash_attention.cu (the functions between its "ptx:begin" and "ptx:end"
 // lines, which build.py drops): mbarriers (arrivals and transaction bytes
@@ -176,6 +176,17 @@ T __shfl_xor_sync(unsigned, T v, int mask) {
   __syncwarp();
   T out; std::memcpy(&out, &r, 4);
   return out;
+}
+
+inline int __any_sync(unsigned, int pred) {
+  const unsigned t = threadIdx.x, w = t / 32;
+  shim_blk->shfl[t] = pred ? 1.0f : 0.0f;
+  __syncwarp();
+  int any = 0;
+  for (unsigned i = 0; i < 32 && w * 32 + i < shim_blk->shfl.size(); ++i)
+    any |= shim_blk->shfl[w * 32 + i] != 0.0f;
+  __syncwarp();
+  return any;
 }
 
 // -- the kernels' PTX statements ----------------------------------------------
@@ -356,7 +367,7 @@ inline void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
   shim_wgmma<128>(d, nullptr, da, db, false, accumulate != 0);
 }
 
-template <int N>
+template <int N, bool kBMnMajor = true>
 inline void shim_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
   const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
   const int g = lane / 4, q = lane % 4;
@@ -367,12 +378,14 @@ inline void shim_wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
     A[(16 * w + rows[r]) * 16 + cols[r] + 1] = __uint_as_float(a[r] & 0xffff0000u);
   }
   shim_blk->wg[threadIdx.x / 128]->arrive_and_wait();
-  shim_wgmma<N>(d, A, 0, db, true, true);
+  shim_wgmma<N>(d, A, 0, db, kBMnMajor, true);
   shim_blk->wg[threadIdx.x / 128]->arrive_and_wait();
 }
 inline void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db) { shim_wgmma_rs<16>(d, a, db); }
 inline void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db) { shim_wgmma_rs<32>(d, a, db); }
 inline void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) { shim_wgmma_rs<64>(d, a, db); }
+inline void wgmma_rs_n8_kmajor(float (&d)[4], const uint32_t (&a)[4], uint64_t db) { shim_wgmma_rs<8, false>(d, a, db); }
+inline void fence_proxy_async() {}
 
 // -- launch --------------------------------------------------------------------
 // Runs the blocks one after another, each with one thread per CUDA thread
