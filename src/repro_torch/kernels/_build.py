@@ -37,7 +37,7 @@ SOURCES: Dict[str, Path] = {
 # accurate sqrtf, division and expf. Flash attention's bf16 kernel asks for
 # its one fast instruction itself (ex2.approx on scores scaled by log2(e):
 # last bits only, its weights are rounded to bf16). No -lcuda: it takes
-# cuTensorMapEncodeTiled from the driver at run time.
+# cuTensorMapEncodeTiled from libcuda at run time.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

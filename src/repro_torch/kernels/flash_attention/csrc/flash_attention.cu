@@ -798,8 +798,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // launch
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled, taken from the driver at run time, so the library
-// links no libcuda
+// cuTensorMapEncodeTiled, looked up in libcuda at run time, so the library
+// is not linked against it
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
   if (fn == nullptr) {

@@ -4,7 +4,7 @@
 // __syncwarp, bf16 conversions, and the inline PTX statements of
 // flash_attention.cu (the functions between its "ptx:begin" and "ptx:end"
 // lines, which build.py drops): mbarriers (arrivals and transaction bytes
-// per phase), TMA box loads (bounds, zero fill, the driver's alignment rules
+// per phase), TMA box loads (bounds, zero fill, the tensor map's alignment rules
 // and the swizzle on shared-memory address bits), setmaxnreg, and wgmma in
 // its SS and RS forms (bf16 in, f32 accumulate) reading shared memory
 // through its descriptors. A wgmma result lands at wgmma_wait; until then
@@ -63,7 +63,7 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= 232448 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// -- driver types of the tensor map -----------------------------------------
+// -- CUDA types of the tensor map ------------------------------------------
 typedef uint64_t cuuint64_t;
 typedef uint32_t cuuint32_t;
 typedef int CUresult;
@@ -89,7 +89,7 @@ typedef CUresult (*PFN_cuTensorMapEncodeTiled_v12000)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// The driver's checks that the port relies on: base 16-byte aligned,
+// cuTensorMapEncodeTiled's checks that the port relies on: base 16-byte aligned,
 // strides multiples of 16 below 2^40, box dims 1..256, the inner box row
 // within the swizzle span.
 inline CUresult shim_encode_tiled(
