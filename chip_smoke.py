@@ -57,7 +57,9 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               plain version keeps the kernel's sum order). K5 at the
               slice's shapes over the full key length, on the first, a
               middle and the last query tile, with a flat and a peaked
-              softmax, plus GQA, window 64 and a ragged Sq = 200. Each
+              softmax; at the serving shapes (B 4, S 2,000, H 32, KV 8
+              and 32, Dh 64, bf16) on every query tile; plus GQA, window
+              64 and a ragged Sq = 200. Each
               64-row query tile within 2e-5 absolute in f32, 3e-2 in bf16,
               and within 2^-12 (f32) or 2^-6 (bf16) of its largest
               |output|; outputs of broken kernels (zeros, one key tile,
@@ -1128,28 +1130,56 @@ def check_rmsnorm(seed: int) -> float:
     return err
 
 
+def k5_bound(want) -> float:
+    """K5_TOL's bound on one query tile of the plain output ``want``: the
+    absolute tolerance or the relative one times the tile's largest
+    |output|, whichever is smaller."""
+    a, r = K5_TOL[str(want.dtype).removeprefix("torch.")]
+    return min(a, r * float(want.abs().max()))
+
+
+def hold_k5(got, want, what: str = ""):
+    """Holds K5's output ``got`` to its plain version ``want``, both (B, H,
+    S, Dh), on every 64-row query tile within :func:`k5_bound`. Returns the
+    largest error and the largest error over its tile's largest |output|."""
+    abs_err = rel_err = 0.0
+    for r in range(0, want.shape[2], 64):
+        w = want[:, :, r:r + 64]
+        e, top = max_err([got[:, :, r:r + 64]], [w]), float(w.abs().max())
+        check(e <= k5_bound(w), f"flash attention kernel differs from its "
+              f"plain version: {e} at outputs up to {top}, bound "
+              f"{k5_bound(w)} ({what} {tuple(want.shape)} {want.dtype}, "
+              f"rows {r}..)")
+        abs_err, rel_err = max(abs_err, e), max(rel_err, e / top)
+    return abs_err, rel_err
+
+
 def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
     """K5 against its plain version: at the slice's shapes over the full
     key length, on the first, a middle and the last 64-row query tile, with
     q drawn at two scales: a flat softmax, whose outputs late in the
     sequence average 90k-180k keys and are near 0.005, and a peaked one (q
     four times larger, v four times smaller), whose outputs follow a few
-    keys and stay below about 1, where one bf16 step is under 3e-2. Plus
-    GQA, a ragged Sq = 200 and window 64.
+    keys and stay below about 1, where one bf16 step is under 3e-2. At the
+    serving shapes (llama3.2-1b's prefill, B 4, S 2,000, H 32, KV 8, and
+    zamba2's shared block, KV 32; Dh 64, bf16, in the model's layout: q and
+    k dense as RoPE leaves them, v a slice of the fused q|k|v projection),
+    on every 64-row tile of every sequence, at both scales. Plus GQA, a
+    ragged Sq = 200 and window 64.
 
-    Each 64-row query tile must agree within K5_TOL: the absolute tolerance
-    the reference sets on its own kernel, and a bound relative to the
-    tile's largest |output|, which holds the late tiles (and so the carry
-    of the online softmax across key tiles) to what their outputs' size
-    allows. Outputs a broken kernel would give, made from the plain version
-    (zeros, the first key tile alone, the first half of the keys, the last
-    key tiles alone: a lost carry), must fail the same bound, or the check
-    could not tell them apart. Returns (max abs error, max error over the
-    tile's largest |output|, the least control error over its bound)."""
+    Each 64-row query tile must agree within K5_TOL (:func:`hold_k5`): the
+    absolute tolerance the reference sets on its own kernel, and a bound
+    relative to the tile's largest |output|, which holds the late tiles
+    (and so the carry of the online softmax across key tiles) to what their
+    outputs' size allows. Outputs a broken kernel would give, made from the
+    plain version (zeros, the first key tile alone, the first half of the
+    keys, the last key tiles alone: a lost carry), must fail the same bound
+    on a middle and the last tile, or the check could not tell them apart.
+    Returns (max abs error, max error over the tile's largest |output|, the
+    least control error over its bound)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     f32, bf16 = torch.float32, torch.bfloat16
-    tol = {f32: K5_TOL["float32"], bf16: K5_TOL["bfloat16"]}
     g = torch.Generator(device=device).manual_seed(seed + 5)
     abs_err, rel_err, controls = 0.0, 0.0, []
 
@@ -1157,26 +1187,29 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
         return (scale * torch.randn(shape, device=device, generator=g)
                 ).to(dtype)
 
-    def bound(want):
-        a, r = tol[want.dtype]
-        return min(a, r * float(want.abs().max()))
-
-    def hold(got, want):            # (B, H, S, Dh), per 64-row query tile
+    def hold(got, want, what=""):   # (B, H, S, Dh), per 64-row query tile
         nonlocal abs_err, rel_err
-        for r in range(0, want.shape[2], 64):
-            w = want[:, :, r:r + 64]
-            e, top = max_err([got[:, :, r:r + 64]], [w]), float(w.abs().max())
-            check(e <= bound(w), f"flash attention kernel differs from its "
-                  f"plain version: {e} at outputs up to {top}, bound "
-                  f"{bound(w)} ({tuple(want.shape)} {want.dtype}, rows "
-                  f"{r}..)")
-            abs_err, rel_err = max(abs_err, e), max(rel_err, e / top)
+        e, r = hold_k5(got, want, what)
+        abs_err, rel_err = max(abs_err, e), max(rel_err, r)
 
     def reject(bad, want, what):
         e = max_err([bad], [want])
-        check(e > bound(want), f"the K5 check passes {what}: error {e}, "
-              f"bound {bound(want)}")
-        controls.append(e / bound(want))
+        check(e > k5_bound(want), f"the K5 check passes {what}: error {e}, "
+              f"bound {k5_bound(want)}")
+        controls.append(e / k5_bound(want))
+
+    def reject_broken(qt, kt, vt, r0, want):
+        """The controls for query rows r0 .. r0 + 63 (r0 > 0), whose plain
+        output is ``want``."""
+        qs, S, c = qt[:, :, r0:r0 + 64], kt.shape[2], r0 // 64 * 64
+
+        def part(lo, hi):
+            return fa.flash_attention_plain(
+                qs, kt[:, :, lo:hi], vt[:, :, lo:hi], q_offset=r0 - lo)
+        reject(torch.zeros_like(want), want, "zeros")
+        reject(part(0, 64), want, "the first key tile alone")
+        reject(part(0, r0 // 2), want, "the first half of the keys")
+        reject(part(c, S), want, "the last key tiles alone")
 
     S = tokens
     for H, KV, Dh, dt in ((4, 2, 32, bf16), (4, 2, 32, f32),
@@ -1188,21 +1221,24 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
             o = fa.flash_attention_op(q, k, v, causal=True).transpose(1, 2)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             for r0 in (0, S // 2 + 37, S - 64):     # first, middle, last
-                qs = qt[:, :, r0:r0 + 64]
-                want = fa.flash_attention_plain(qs, kt, vt, q_offset=r0)
+                want = fa.flash_attention_plain(qt[:, :, r0:r0 + 64], kt, vt,
+                                                q_offset=r0)
                 hold(o[:, :, r0:r0 + 64], want)
-                if r0 == 0:                         # one key tile
-                    continue
-                c = r0 // 64 * 64
-
-                def part(lo, hi):
-                    return fa.flash_attention_plain(
-                        qs, kt[:, :, lo:hi], vt[:, :, lo:hi],
-                        q_offset=r0 - lo)
-                reject(torch.zeros_like(want), want, "zeros")
-                reject(part(0, 64), want, "the first key tile alone")
-                reject(part(0, r0 // 2), want, "the first half of the keys")
-                reject(part(c, S), want, "the last key tiles alone")
+                if r0:                              # past one key tile
+                    reject_broken(qt, kt, vt, r0, want)
+    B, S, H, Dh = SERVE_BATCH, SERVE_PROMPT, 32, 64
+    for KV, arch in ((8, "llama3.2-1b"), (32, "zamba2-1.2b")):
+        for q_scale in (1.0, 4.0):
+            q = randn(B, S, H, Dh, dtype=bf16, scale=q_scale)
+            k = randn(B, S, KV, Dh, dtype=bf16)
+            v = randn(B, S, H + 2 * KV, Dh, dtype=bf16,
+                      scale=1 / q_scale)[:, :, H + KV:]
+            o = fa.flash_attention_op(q, k, v, causal=True).transpose(1, 2)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            want = fa.flash_attention_plain(qt, kt, vt)
+            hold(o, want, f"{arch} prefill")
+            for r0 in (S // 2 + 37, S - 64):        # a middle, the last
+                reject_broken(qt, kt, vt, r0, want[:, :, r0:r0 + 64])
     for dt in (f32, bf16):      # GQA, a ragged Sq = 200, masks on and off
         q = randn(2, 4, 200, 64, dtype=dt)
         k, v = (randn(2, 2, 200, 64, dtype=dt) for _ in range(2))

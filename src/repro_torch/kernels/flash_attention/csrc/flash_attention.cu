@@ -10,7 +10,12 @@
 //   * masks col < seq_k, causal row >= col, window row - col < window, where
 //     a masked score is NEG_INF = -1e30 (finite, not -inf: a row whose tile
 //     is wholly masked gets p = exp(0) = 1 there, and the first real column
-//     wipes it with alpha = exp(-1e30 - m) = 0; with -inf it would be NaN);
+//     wipes it with alpha = exp(-1e30 - m) = 0; with -inf it would be NaN).
+//     A row with no key at all (causal at a negative position, or a window
+//     that starts past the last key) averages v over the Sk keys, as the
+//     plain version does: its block visits every key tile, where the row
+//     gets p = 1 at every column, padding past Sk (v zero there) included,
+//     and its output is divided by Sk instead of l;
 //   * running max m, denominator l and accumulator in f32, l = l*alpha +
 //     sum p, acc = acc*alpha + p v; the output acc / max(l, 1e-30), rounded
 //     once to the output dtype;
@@ -102,6 +107,12 @@ struct Params {
   int64_t q_offset;
 };
 
+// True if the query at absolute position `pos` has no key to attend to.
+__device__ __forceinline__ bool no_key(int64_t pos, const Params& p) {
+  return (p.causal && pos < 0) ||
+         (p.window > 0 && pos - p.window + 1 >= p.Sk);
+}
+
 template <int DH>
 constexpr int smem_floats() {
   return (kBQ + 2 * kBK) * (DH + 1) + kBQ * (kBK + 1);
@@ -164,7 +175,9 @@ flash_fwd_kernel(Params p) {
   }
 
   int64_t kv_end = p.Sk;
-  if (p.causal) {  // the block's last row sees columns up to its position
+  // the block's last row sees columns up to its position (every column if
+  // its first row has no key)
+  if (p.causal && !no_key(p.q_offset + q0, p)) {
     const int64_t last = p.q_offset + q0 + kBQ - 1;
     kv_end = last + 1 < kv_end ? last + 1 : kv_end;
   }
@@ -248,7 +261,8 @@ flash_fwd_kernel(Params p) {
   for (int i = 0; i < kRows; ++i) {
     const int64_t s = q0 + r0 + i;
     if (s >= p.Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom =
+        fmaxf(no_key(p.q_offset + s, p) ? p.Sk : l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kOut; ++c)
       o[s * p.os.s + cg + 8 * c] = acc[i][c] / denom;
@@ -664,13 +678,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // the key tiles [t0, t1) that hold an unmasked key of some row: causal
   // stops at the last row's position, a window starts at the first row's
   // position - window + 1 (tiles outside both are exactly zero once a row
-  // has seen a real key; every row sees one in [t0, t1))
+  // has seen a real key; every row sees one in [t0, t1)), or every tile if
+  // a row of the block has no key (the header)
   const int64_t row_first = p.q_offset + q0;
   const int64_t row_last = p.q_offset + min(q0 + kBM, p.Sq) - 1;
   int64_t kv_end = p.Sk, kv_beg = 0;
   if (p.causal && row_last + 1 < kv_end) kv_end = row_last + 1;
   if (p.window > 0 && row_first - p.window + 1 > 0)
     kv_beg = row_first - p.window + 1;
+  if (no_key(row_first, p) || no_key(row_last, p)) kv_end = p.Sk, kv_beg = 0;
   const int t1 = kv_end > 0 ? static_cast<int>((kv_end + kBN - 1) / kBN) : 1;
   const int t0 = kv_beg / kBN < t1 - 1 ? static_cast<int>(kv_beg / kBN)
                                          : t1 - 1;
@@ -781,7 +797,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
       const int64_t s = q0 + 64 * wg + warp * 16 + g + 8 * r;
       if (s >= p.Sq) continue;
-      const float denom = fmaxf(accl[2 * r], 1e-30f);
+      const float denom =
+          fmaxf(no_key(p.q_offset + s, p) ? p.Sk : accl[2 * r], 1e-30f);
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x)
 #pragma unroll

@@ -23,6 +23,7 @@ runs), so a run can show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional
 
@@ -130,19 +131,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     B, H, Sq, Dh = q.shape
-    KV, Sk = k.shape[1], k.shape[2]
+    Sk = k.shape[2]
     if Dh not in HEAD_DIMS:
         raise ValueError(f"head dim {Dh} not compiled (have {HEAD_DIMS})")
     if max(Sq, Sk) >= 2 ** 31 or B * H * (-(-Sq // 64)) >= 2 ** 31:
         raise ValueError(f"too many rows: {tuple(q.shape)}")
+    out = run_kernel(
+        functools.partial(_build.launch, "flash_attention",
+                          "repro_flash_attention", _ARGTYPES),
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        stream=torch.cuda.current_stream(q.device).cuda_stream)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def run_kernel(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, window: Optional[int] = None,
+               q_offset: int = 0, stream=None) -> torch.Tensor:
+    """Call ``fn`` with the arguments of the C function
+    ``repro_flash_attention`` (``csrc/flash_attention.cu``) for q (B, H, Sq,
+    Dh) and k, v (B, KV, Sk, Dh), each read in place where the kernel can
+    (:func:`kernel_operand`), and return the output, laid out like q.
+    ``fn`` is that C function of a built library (``_ARGTYPES`` set), or a
+    function that calls it; a nonzero return raises. ``stream`` is a
+    ``cudaStream_t`` handle, None for the default stream. Counts no
+    launch."""
     q, k, v = (kernel_operand(t) for t in (q, k, v))
+    B, H, Sq, Dh = q.shape
     out = torch.empty_like(q)        # q's layout where q is dense
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    _build.launch("flash_attention", "repro_flash_attention", _ARGTYPES,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, Dh, *strides,
-                  1.0 / math.sqrt(Dh), int(causal),
-                  0 if window is None else int(window), int(q_offset),
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    LAUNCHES["flash_attention"] += 1
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, H, k.shape[1], Sq, k.shape[2], Dh,
+            *strides, 1.0 / math.sqrt(Dh), int(causal),
+            0 if window is None else int(window), int(q_offset), stream)
+    if rc:
+        raise RuntimeError(f"repro_flash_attention failed: error {rc}")
     return out

@@ -295,6 +295,25 @@ def test_flash_bf16_copies_a_misaligned_view(cuda):
     assert fa.kernel_operand(q).data_ptr() != q.data_ptr()
     _close(fa.flash_attention(q, k, v), fa.flash_attention_plain(q, k, v))
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 64, 330), (True, 64, 400), (False, 64, 400), (True, None, -20)])
+def test_flash_rows_with_no_key_average_every_key(cuda, dtype, D, causal,
+                                                  window, q_offset):
+    """Rows past the keys' end under a window of 64 (from row 363 at offset
+    330, all at 400), or before the first key (offset -20), see no key:
+    like the plain version the kernel averages v over all 300 keys, and the
+    padding of the ragged last key tile counts for nothing."""
+    g = torch.Generator().manual_seed(D)
+    q, k, v = (torch.randn(1, n, s, D, generator=g).to(dtype).to(cuda)
+               for n, s in ((4, 50), (2, 300), (2, 300)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _close(fa.flash_attention(q, k, v, **kw),
+           fa.flash_attention_plain(q, k, v, **kw))
+
+
 def test_new_wrappers_raise_and_never_fall_back(cuda):
     x = torch.zeros(4, 8, device=cuda)
     with pytest.raises(ValueError, match="dtype"):

@@ -16,7 +16,7 @@ runs the plain version for CPU tensors). Tolerance as on the card: each
 2^-12 of the tile's largest |output|.
 """
 import ctypes
-import math
+import functools
 import shutil
 import sys
 from pathlib import Path
@@ -25,7 +25,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels.flash_attention.flash_attention import _ARGTYPES
+from repro_torch.kernels.flash_attention.flash_attention import (
+    _ARGTYPES, run_kernel)
 
 ROOT = Path(__file__).resolve().parents[1]
 CU = ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -45,19 +46,7 @@ def kernel(tmp_path_factory):
                                 / "libflash_attention.so")))
     f = lib.repro_flash_attention
     f.argtypes, f.restype = _ARGTYPES, ctypes.c_int
-
-    def run(q, k, v, causal=True, window=None, q_offset=0):
-        q, k, v = (fa.kernel_operand(t) for t in (q, k, v))
-        B, H, Sq, Dh = q.shape
-        out = torch.empty_like(q)
-        st = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-        rc = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               {torch.float32: 0, torch.bfloat16: 1}[q.dtype], B, H,
-               k.shape[1], Sq, k.shape[2], Dh, *st, 1.0 / math.sqrt(Dh),
-               int(causal), window or 0, q_offset, None)
-        assert rc == 0
-        return out
-    return run
+    return functools.partial(run_kernel, f)
 
 
 def _close(got, want):
@@ -102,6 +91,20 @@ def test_offset_inside_a_tile(kernel, start):
 def test_window_skips_whole_tiles(kernel, causal):
     q, k, v = _qkv(1, 2, 1, 600, 600, 64, 6)
     kw = dict(causal=causal, window=64)
+    _close(kernel(q, k, v, **kw), fa.flash_attention_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, 64, 330),       # rows 363.. have no key in their window
+    (True, 64, 400),       # no row has a key
+    (False, 64, 400),
+    (True, None, -20),     # rows before the first key
+])
+def test_rows_with_no_key_average_every_key(kernel, dtype, causal, window,
+                                            q_offset):
+    q, k, v = _qkv(1, 2, 1, 50, 300, 64, 7, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     _close(kernel(q, k, v, **kw), fa.flash_attention_plain(q, k, v, **kw))
 
 

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import math
 import statistics
 import subprocess
 import sys
@@ -59,7 +58,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention.flash_attention import (
-        _ARGTYPES, HEAD_DIMS)
+        _ARGTYPES, HEAD_DIMS, run_kernel)
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,"
                            "power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60)
@@ -79,19 +78,10 @@ def main() -> int:
         f = ctypes.CDLL(str(libs[f"k5_{name}"])).repro_flash_attention
         f.argtypes, f.restype = _ARGTYPES, ctypes.c_int
 
-        def call(q, k, v, f=f, name=name):  # (B,S,H,Dh) bf16, causal
-            qt, kt, vt = (fa.kernel_operand(t.transpose(1, 2))
-                          for t in (q, k, v))
-            B, H, Sq, Dh = qt.shape
-            out = torch.empty_like(qt)
-            st = [s for t in (qt, kt, vt, out) for s in t.stride()[:3]]
-            rc = f(qt.data_ptr(), kt.data_ptr(), vt.data_ptr(),
-                   out.data_ptr(), 1, B, H, kt.shape[1], Sq, kt.shape[2],
-                   Dh, *st, 1.0 / math.sqrt(Dh), 1, 0, 0,
-                   torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"{name}: CUDA error {rc}")
-            return out.transpose(1, 2)
+        def call(q, k, v, f=f):      # (B, S, H, Dh) bf16, causal
+            return run_kernel(f, *(t.transpose(1, 2) for t in (q, k, v)),
+                              stream=torch.cuda.current_stream().cuda_stream
+                              ).transpose(1, 2)
         run[name] = call
     names = list(run)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -100,19 +90,13 @@ def main() -> int:
         return [torch.randn(B, S, n, Dh, device="cuda", generator=g)
                 .to(torch.bfloat16) for n in (H, KV, KV)]
 
-    a_tol, r_tol = chip_smoke.K5_TOL["bfloat16"]
     for Dh in HEAD_DIMS:                    # every compiled width, ragged S
         x = qkv(2, 1000, 4, 2, Dh)
         want = fa.flash_attention_plain(*(t.transpose(1, 2) for t in x))
         base = run["committed"](*x)
         for name in names:
-            got = run[name](*x).transpose(1, 2)
-            for r in range(0, 1000, 64):
-                w = want[:, :, r:r + 64].float()
-                e = (got[:, :, r:r + 64].float() - w).abs().max().item()
-                if e > min(a_tol, r_tol * w.abs().max().item()):
-                    raise SystemExit(f"{name} differs from the plain version "
-                                     f"at Dh {Dh}, rows {r}..: {e}")
+            chip_smoke.hold_k5(run[name](*x).transpose(1, 2), want,
+                               f"{name} at Dh {Dh}")
             print(f"Dh {Dh} {name}: within K5_TOL of the plain version, bit "
                   f"equal to the committed kernel "
                   f"{torch.equal(run[name](*x), base)}", flush=True)
