@@ -83,7 +83,8 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               power read while it runs.
               K6 and K7 at the serve phase's shapes (no single PyTorch
               call computes either: library null), bounded by what the
-              sequential recurrence needs.
+              sequential recurrence needs; K6's time is the whole call
+              (its four CUDA kernels), and torch.profiler splits it.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -142,6 +143,8 @@ CUT_PROMPT = 300
 # K6/K7 against their plain versions and the sequential oracles: relative
 # to max(1, max|ref|), the bound the reference holds its kernels to
 SCAN_TOL = 1e-4
+# the CUDA kernels one K6 call launches, in order (mamba2_ssd.cu)
+K6_KERNELS = ("ssd_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
 
 
 def log(*a):
@@ -836,9 +839,11 @@ def serve_phase(seed: int):
               f"{arch}: decode launches {dec['launches']}")
         us, total = prof["prefill"]["us"], sum(prof["prefill"]["us"].values())
         share = {}
-        for name in ("ssd_chunk_kernel", "wkv6_chunk_kernel",
-                     "flash_wgmma_kernel", "rmsnorm_kernel"):
-            t = sum(v for k, v in us.items() if name in k)
+        for name, kernels in (("ssd_chunked", K6_KERNELS),
+                              ("wkv6_chunk_kernel", ("wkv6_chunk_kernel",)),
+                              ("flash_wgmma_kernel", ("flash_wgmma_kernel",)),
+                              ("rmsnorm_kernel", ("rmsnorm_kernel",))):
+            t = sum(v for k, v in us.items() if any(n in k for n in kernels))
             share[name] = (t / 1e3, 100 * t / total if total else None)
         share["device_ms"] = total / 1e3
         share["busy_%_of_prefill_wall"] = total / 1e3 / pre["s"] / 10
@@ -1108,6 +1113,9 @@ def time_scans(timer, seed: int):
     for key, (ms, plain, b_ms, b_by, _) in out.items():
         log(f"time {key}: kernel {ms} ms, plain {plain} ms, bound {b_ms} ms "
             f"({b_by}), library none")
+    us = profile_kernels(lambda: k6.ssd_chunked(*a6, chunk=256))
+    log(f"profile ssd_chunked (us per launch; None: not in the trace): "
+        f"{ {k: us.get(k) for k in K6_KERNELS} }, all kernels {us}")
     return out
 
 

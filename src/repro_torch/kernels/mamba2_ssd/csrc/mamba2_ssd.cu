@@ -2,36 +2,54 @@
 // through ctypes (src/repro_torch/kernels/mamba2_ssd/mamba2_ssd.py).
 //
 // Replaces the Pallas kernel src/repro/kernels/mamba2_ssd/mamba2_ssd.py
-// _ssd_kernel (K6). Per (batch b, head h), over chunks of T steps in order,
-// with the (dh x N) f32 state S0 carried from chunk to chunk:
+// _ssd_kernel (K6). Per (batch b, head h), over chunks of T steps, with the
+// (dh x N) f32 state S carried from chunk to chunk:
 //   cum  = cumsum(lw) over the chunk                      (inclusive)
 //   y_t  = sum_{s<=t} (C_t . B_s) exp(cum_t - cum_s) x_s  (intra-chunk)
-//        + exp(cum_t) C_t S0^T                            (inter-chunk)
-//   S1   = exp(cum_T) S0 + sum_s exp(cum_T - cum_s) x_s B_s^T
+//        + exp(cum_t) C_t S^T                             (inter-chunk)
+//   S'   = exp(cum_T) S + sum_s exp(cum_T - cum_s) x_s B_s^T
 // x is already dt-weighted and lw = dt * A <= 0. A ragged last chunk is
 // padded with identity steps (x = 0, lw = 0, B = C = 0), which is what the
 // Pallas kernel's jnp.pad does; here the loads mask the rows past S. Unlike
 // the Pallas kernel, this one starts from a given state (or zero) and writes
 // the final state, which prefill hands to decode.
 //
-// Bound on an H100: the f32 FMAs. Per chunk and head the intra-chunk term
-// needs T(T+1)/2 (N + dh) FMAs and the inter-chunk term and the state
-// update T dh N each; at zamba2-1.2b's widths (H 64, dh 64, N 64, T 256)
-// that is 6.3M FMAs per chunk and head against 0.5 MB moved, ~25 FMAs per
-// byte, above the card's f32 ridge (67 TFLOP/s over 3.35 TB/s is 10 flops
-// per byte). TF32 tensor cores are not used: their ~1e-3 relative error
-// would break the 1e-4 tolerance the reference holds its kernel to.
+// Bound on an H100: the f32 FMAs. At zamba2-1.2b's serving shape (B 4, H 64,
+// S 2,000, dh = N = 64, T 256) the chunked form below does about 9.7G FMAs
+// (0.29 ms at 67 TFLOP/s) against ~0.3 GB moved (0.09 ms at 3.35 TB/s);
+// chip_smoke.scan_bound counts what the sequential recurrence needs, 2.1G
+// FMAs (0.125 ms). TF32 tensor cores are not used: their ~1e-3 relative
+// error would break the 1e-4 tolerance the reference holds its kernel to.
 //
-// Design, the simple one: one 256-thread block per (b, h), chunks in order
-// inside it. The chunk's rows are cut into 64-row tiles so that a chunk of
-// 256 never needs its (T x T) C B^T in shared memory (256 KB): for each
-// query tile, the key tiles at or below it are loaded in turn, the
-// 64 x 64 tile G = (C B^T o L) is formed in shared memory and multiplied
-// into the query tile's outputs, which each thread keeps as a 4 x 4 block
-// in registers (rows ty + 16 i, columns tx + 16 j). The tiles are the same
-// arithmetic as the chunk-256 algorithm, only blocked. The state stays in
-// shared memory across chunks. Tiles have a row stride of 65 floats so that
-// the column walks of B and S0 hit 32 distinct banks.
+// Design: the four steps of the SSD algorithm (Mamba-2, arXiv:2405.21060,
+// sec. 6-7), each a kernel, launched in order on the caller's stream, with
+// their intermediates in a workspace the caller allocates
+// (repro_ssd_workspace_bytes):
+//  1. ssd_cb, one block per (b, chunk, 64 x 64 tile at or below the
+//     diagonal): the chunk's C B^T, computed once for all H heads (B and C
+//     have no head axis), kept transposed ([s][t]) for step 4.
+//  2. ssd_chunk_state, one block per (b, h, chunk): the chunk's inclusive
+//     cum (a block-wide scan: per-thread runs, then warp shuffles), kept
+//     for step 4; exp(cum_T); and the chunk's own state
+//     dS = sum_s exp(cum_T - cum_s) x_s B_s^T (dh x N).
+//  3. ssd_state_pass, one thread per (b, h, d, n): S_c = exp(cum_T,c)
+//     S_{c-1} + dS_c in chunk order, from state_in or zero, 8 chunks' loads
+//     in flight at a time. Each chunk's entering state overwrites its dS;
+//     the last S is state_out.
+//  4. ssd_chunk_scan, one block per (b, h, chunk): per 64-row query tile,
+//     y = exp(cum_t) C_t S_{c-1}^T + (C B^T o L) x over the key tiles at or
+//     below it. Off the diagonal the decay factors around the query tile's
+//     first step r = cum_{q0}: exp(cum_t - cum_s) = exp(cum_t - r)
+//     exp(r - cum_s), both factors <= 1 (cum never rises), so it costs two
+//     exponentials a row instead of one a pair; the diagonal tile takes
+//     exp(cum_t - cum_s) per pair under the causal mask.
+// Every product is a 64 x 64 tile of f32 FMAs on 256 threads, each a 4 x 4
+// block in registers fed by two 16-byte shared loads per 16 FMAs, from
+// tiles stored k-major with a row stride of 72 floats. A tile is filled 8
+// elements a thread at a time, the 8 global loads issued before their
+// shared stores. Step 2 (at most 64 registers) and step 4 (at most 80, 3
+// blocks an SM: at 4, ptxas spills) use at most 56 KB of shared memory, so
+// several blocks share an SM and their products cover each other's loads.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -40,9 +58,10 @@
 namespace {
 
 constexpr int kTile = 64;        // rows of a tile; also the largest dh and N
-constexpr int kLd = kTile + 1;   // row stride of a tile in shared memory
+constexpr int kLd = 72;          // row stride of a tile in shared memory
 constexpr int kThreads = 256;    // 16 x 16 threads, a 4 x 4 block each
 constexpr int kTileFloats = kTile * kLd;
+constexpr int kTileElems = kTile * kTile;
 constexpr int kMaxSmem = 232448; // bytes a block may use on an H100
 
 struct SsdArgs {
@@ -53,185 +72,304 @@ struct SsdArgs {
   const float* state_in;                     // (B, H, dh, N) or null (zero)
   float* y;        int64_t y_b, y_h, y_s;    // (B, H, S, dh), dense last dim
   float* state_out;                          // (B, H, dh, N)
-  int H, S, dh, n, chunk;
+  float* cb;       // (B, nc, n_pairs, 64, 64): C B^T tiles, [s][t]
+  float* cum;      // (B, H, nc, T): cumsum of lw in each chunk
+  float* st;       // (B, H, nc, dh, N): dS, then each chunk's entering state
+  float* decay;    // (B, H, nc): exp(cum_T)
+  int H, S, dh, n, chunk, nc, n_pairs;
 };
 
-// rows of a (rows x width) matrix with row stride ld into a 64 x 64 tile,
-// zero at rows >= nrows and columns >= width
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t ld, int nrows, int width) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int r = e >> 6, c = e & 63;
-    dst[r * kLd + c] = (r < nrows && c < width) ? src[r * ld + c] : 0.0f;
+// A 64 x 64 tile's elements e = threadIdx.x + kThreads i: load(e) reads
+// one, store(e, v) puts it in shared memory. Each thread issues 8 loads
+// before their 8 stores: a shared store may alias a later global load, so
+// the compiler would not move the load above it, and the thread would wait
+// for memory once per element.
+template <typename Load, typename Store>
+__device__ __forceinline__ void fill_tile(Load load, Store store) {
+#pragma unroll
+  for (int h = 0; h < kTileElems / kThreads; h += 8) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = load(threadIdx.x + kThreads * (h + i));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) store(threadIdx.x + kThreads * (h + i), v[i]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) ssd_chunk_kernel(SsdArgs a) {
-  extern __shared__ float smem[];
-  float* Ct = smem;                // C of the query tile    [t][n]
-  float* Bt = Ct + kTileFloats;    // B of the key tile      [s][n]
-  float* Xt = Bt + kTileFloats;    // x of the key tile      [s][d]
-  float* G = Xt + kTileFloats;     // (C B^T o L) tile       [t][s]
-  float* St = G + kTileFloats;     // the state              [d][n]
-  float* cum = St + kTileFloats;   // cumsum of lw over the chunk [T]
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* x = a.x + b * a.x_b + h * a.x_h;
-  const float* lw = a.lw + b * a.lw_b + h * a.lw_h;
-  const float* bm = a.bm + b * a.bm_b;
-  const float* cm = a.cm + b * a.cm_b;
-  float* y = a.y + b * a.y_b + h * a.y_h;
-  const int64_t s_off = (static_cast<int64_t>(b) * a.H + h) * a.dh * a.n;
-
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int d = e >> 6, c = e & 63;
-    St[d * kLd + c] = (a.state_in != nullptr && d < a.dh && c < a.n)
-                          ? a.state_in[s_off + d * a.n + c] : 0.0f;
-  }
-  const int T = a.chunk;
-  const int n_tiles = (T + kTile - 1) / kTile;
-  const int n_chunks = (a.S + T - 1) / T;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int c0 = ch * T;
-    __syncthreads();               // the last chunk is done with cum and St
-    for (int t = threadIdx.x; t < T; t += kThreads)
-      cum[t] = (c0 + t < a.S) ? lw[static_cast<int64_t>(c0 + t) * a.lw_s]
-                              : 0.0f;
-    __syncthreads();
-    if (threadIdx.x == 0) {        // in order, as a sequential cumsum
-      float acc = 0.0f;
-      for (int t = 0; t < T; ++t) {
-        acc += cum[t];
-        cum[t] = acc;
-      }
-    }
-    for (int qt = 0; qt < n_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      const int q_rows = min(kTile, T - q0);            // rows in the chunk
-      const int q_valid = min(q_rows, a.S - (c0 + q0)); // rows before S
-      float acc[4][4] = {};
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int k0 = kt * kTile;
-        const int k_rows = min(kTile, T - k0);
-        const int k_valid = min(k_rows, a.S - (c0 + k0));
-        __syncthreads();           // the last tile is done with Bt, Xt, G
-        if (kt == 0)
-          load_tile(Ct, cm + static_cast<int64_t>(c0 + q0) * a.cm_s, a.cm_s,
-                    q_valid, a.n);
-        load_tile(Bt, bm + static_cast<int64_t>(c0 + k0) * a.bm_s, a.bm_s,
-                  k_valid, a.n);
-        load_tile(Xt, x + static_cast<int64_t>(c0 + k0) * a.x_s, a.x_s,
-                  k_valid, a.dh);
-        __syncthreads();
-        // G[t][s] = (C_t . B_s) exp(cum_t - cum_s) for s <= t, else 0
-        float g[4][4] = {};
-        for (int nn = 0; nn < a.n; ++nn) {
-          float cv[4], bv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) cv[i] = Ct[(ty + 16 * i) * kLd + nn];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bv[j] = Bt[(tx + 16 * j) * kLd + nn];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ti = ty + 16 * i, sj = tx + 16 * j;
-            const bool keep = ti < q_rows && sj < k_rows && k0 + sj <= q0 + ti;
-            G[ti * kLd + sj] =
-                keep ? g[i][j] * expf(cum[q0 + ti] - cum[k0 + sj]) : 0.0f;
-          }
-        }
-        __syncthreads();
-        for (int s = 0; s < kTile; ++s) {
-          float gv[4], xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) gv[i] = G[(ty + 16 * i) * kLd + s];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) xv[j] = Xt[s * kLd + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(gv[i], xv[j], acc[i][j]);
-        }
-      }
-      // inter-chunk: y_t += exp(cum_t) (C_t S0^T)
-      float z[4][4] = {};
-      for (int nn = 0; nn < a.n; ++nn) {
-        float cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) cv[i] = Ct[(ty + 16 * i) * kLd + nn];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = St[(tx + 16 * j) * kLd + nn];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) z[i][j] = fmaf(cv[i], sv[j], z[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ti = ty + 16 * i;
-        if (ti >= q_valid) continue;
-        const float e = expf(cum[q0 + ti]);
-        float* yr = y + static_cast<int64_t>(c0 + q0 + ti) * a.y_s;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = tx + 16 * j;
-          if (d < a.dh) yr[d] = acc[i][j] + e * z[i][j];
-        }
-      }
-    }
-    // S1[d][n] = exp(cum_T) S0[d][n] + sum_s x_s[d] exp(cum_T - cum_s) B_s[n]
-    const float cum_t = cum[T - 1];
-    float sacc[4][4] = {};
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * kTile;
-      const int k_valid = min(min(kTile, T - k0), a.S - (c0 + k0));
-      __syncthreads();             // every reader of Bt, Xt and St is done
-      load_tile(Bt, bm + static_cast<int64_t>(c0 + k0) * a.bm_s, a.bm_s,
-                k_valid, a.n);
-      for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
+// the 64 x 64 tile at rows [0, rows) and columns [0, width) of a matrix with
+// row stride ld, zero elsewhere, stored as it is: dst[r][c]
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          int64_t ld, int rows, int width) {
+  fill_tile(
+      [&](int e) {
         const int r = e >> 6, c = e & 63;
-        Xt[r * kLd + c] =
-            (r < k_valid && c < a.dh)
-                ? x[static_cast<int64_t>(c0 + k0 + r) * a.x_s + c] *
-                      expf(cum_t - cum[k0 + r])
-                : 0.0f;
-      }
-      __syncthreads();
-      for (int s = 0; s < kTile; ++s) {
-        float xv[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = Xt[s * kLd + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bt[s * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            sacc[i][j] = fmaf(xv[i], bv[j], sacc[i][j]);
-      }
-    }
-    const float p_t = expf(cum_t);
+        return (r < rows && c < width) ? src[r * ld + c] : 0.0f;
+      },
+      [&](int e, float v) { dst[(e >> 6) * kLd + (e & 63)] = v; });
+}
+
+// the same tile stored transposed, dst[c][r]; a warp reads 4 columns of 8
+// rows, so its stores hit 32 distinct banks
+__device__ __forceinline__ int t_row(int e) { return (e >> 2) & 63; }
+__device__ __forceinline__ int t_col(int e) { return ((e >> 8) << 2) | (e & 3); }
+__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
+                                            int64_t ld, int rows, int width) {
+  fill_tile(
+      [&](int e) {
+        const int r = t_row(e), c = t_col(e);
+        return (r < rows && c < width) ? src[r * ld + c] : 0.0f;
+      },
+      [&](int e, float v) { dst[t_col(e) * kLd + t_row(e)] = v; });
+}
+
+// acc += A^T B over k < K for a 64 x 64 output tile, with A and B stored
+// k-major (A[k][m], B[k][n]). Thread (ty, tx) of 16 x 16 owns rows 4 ty + i
+// and columns 4 tx + j; its value v is row acc_row(v), column acc_col(v).
+__device__ __forceinline__ int acc_row(int v) {
+  return 4 * (threadIdx.x >> 4) + (v >> 2);
+}
+__device__ __forceinline__ int acc_col(int v) {
+  return 4 * (threadIdx.x & 15) + (v & 3);
+}
+__device__ __forceinline__ void tile_product(float (&acc)[16], const float* A,
+                                             const float* B, int K) {
+  const float* a = A + 4 * (threadIdx.x >> 4);
+  const float* b = B + 4 * (threadIdx.x & 15);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k * kLd);
+    const float4 bv = *reinterpret_cast<const float4*>(b + k * kLd);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* sp = St + (ty + 16 * i) * kLd + tx + 16 * j;
-        *sp = p_t * *sp + sacc[i][j];
-      }
+      for (int j = 0; j < 4; ++j)
+        acc[4 * i + j] = fmaf(ar[i], br[j], acc[4 * i + j]);
+  }
+}
+
+// in-place inclusive prefix sum of v[0, T) over the block: each thread sums
+// a run of ceil(T / kThreads), the runs' totals are scanned with warp
+// shuffles and across the 8 warps through warp_tot, then each run is
+// rewritten. Starts and ends with every thread past a __syncthreads.
+__device__ void block_cumsum(float* v, int T, float* warp_tot) {
+  const int per = (T + kThreads - 1) / kThreads;
+  const int lo = min(static_cast<int>(threadIdx.x) * per, T);
+  const int hi = min(lo + per, T);
+  float run = 0.0f;
+  for (int i = lo; i < hi; ++i) run += v[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  float acc = incl - run;
+  for (int w = 0; w < warp; ++w) acc += warp_tot[w];
+  for (int i = lo; i < hi; ++i) {
+    acc += v[i];
+    v[i] = acc;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int d = e >> 6, c = e & 63;
-    if (d < a.dh && c < a.n) a.state_out[s_off + d * a.n + c] = St[d * kLd + c];
+}
+
+// step 1: tile p of chunk c's lower triangle of C B^T, transposed:
+// out[s][t] = C_{q0+t} . B_{k0+s}, zero past the chunk's rows
+__global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
+  extern __shared__ float smem[];
+  float* Bt = smem;                // B^T of the key rows   [n][s]
+  float* Ct = Bt + kTileFloats;    // C^T of the query rows [n][t]
+  const int p = blockIdx.x % a.n_pairs, c = blockIdx.x / a.n_pairs;
+  const int b = blockIdx.y;
+  int qt = 0;
+  while ((qt + 1) * (qt + 2) / 2 <= p) ++qt;
+  const int kt = p - qt * (qt + 1) / 2;
+  const int c0 = c * a.chunk;
+  const int valid = min(a.chunk, a.S - c0);
+  const int q0 = qt * kTile, k0 = kt * kTile;
+  if (q0 >= valid) return;         // rows past S: step 4 never reads them
+  const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
+  const float* cm = a.cm + b * a.cm_b + static_cast<int64_t>(c0) * a.cm_s;
+  load_tile_t(Bt, bm + k0 * a.bm_s, a.bm_s, min(kTile, valid - k0), a.n);
+  load_tile_t(Ct, cm + q0 * a.cm_s, a.cm_s, min(kTile, valid - q0), a.n);
+  __syncthreads();
+  float acc[16] = {};
+  tile_product(acc, Bt, Ct, a.n);
+  float* out = a.cb + ((static_cast<int64_t>(b) * a.nc + c) * a.n_pairs + p)
+                          * kTileElems;
+#pragma unroll
+  for (int v = 0; v < 16; ++v) out[acc_row(v) * kTile + acc_col(v)] = acc[v];
+}
+
+// step 2: the chunk's cum, exp(cum_T) and own state dS[d][n]
+__global__ void __launch_bounds__(kThreads, 4) ssd_chunk_state(SsdArgs a) {
+  extern __shared__ float smem[];
+  float* Bs = smem;                // B of the key rows             [s][n]
+  float* Xw = Bs + kTileFloats;    // x_s exp(cum_T - cum_s)        [s][d]
+  float* warp_tot = Xw + kTileFloats;
+  float* cum = warp_tot + 32;      // [T]
+  float* w = cum + a.chunk;        // exp(cum_T - cum_s)            [T]
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int T = a.chunk, c0 = c * T;
+  const int valid = min(T, a.S - c0);
+  const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
+  const float* lw = a.lw + b * a.lw_b + h * a.lw_h;
+  for (int t = threadIdx.x; t < T; t += kThreads)
+    cum[t] = t < valid ? lw[static_cast<int64_t>(c0 + t) * a.lw_s] : 0.0f;
+  __syncthreads();
+  block_cumsum(cum, T, warp_tot);
+  const float cum_T = cum[T - 1];
+  float* cum_out = a.cum + bhc * T;
+  for (int t = threadIdx.x; t < T; t += kThreads) {
+    cum_out[t] = cum[t];
+    w[t] = expf(cum_T - cum[t]);
   }
+  if (threadIdx.x == 0) a.decay[bhc] = expf(cum_T);
+  const float* x = a.x + b * a.x_b + h * a.x_h + static_cast<int64_t>(c0) * a.x_s;
+  const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
+  float acc[16] = {};
+  for (int k0 = 0; k0 < valid; k0 += kTile) {
+    const int rows = min(kTile, valid - k0);
+    __syncthreads();               // w is written; the last tile is done
+    load_tile(Bs, bm + k0 * a.bm_s, a.bm_s, rows, a.n);
+    fill_tile(
+        [&](int e) {
+          const int s = e >> 6, d = e & 63;
+          return (s < rows && d < a.dh)
+              ? x[static_cast<int64_t>(k0 + s) * a.x_s + d] * w[k0 + s]
+              : 0.0f;
+        },
+        [&](int e, float v) { Xw[(e >> 6) * kLd + (e & 63)] = v; });
+    __syncthreads();
+    tile_product(acc, Xw, Bs, rows);
+  }
+  float* out = a.st + bhc * a.n * a.dh;
+#pragma unroll
+  for (int v = 0; v < 16; ++v) {
+    const int d = acc_row(v), nn = acc_col(v);
+    if (d < a.dh && nn < a.n) out[d * a.n + nn] = acc[v];
+  }
+}
+
+// step 3: the states in chunk order, one thread per element (d, n)
+__global__ void __launch_bounds__(kThreads) ssd_state_pass(SsdArgs a) {
+  const int nd = a.n * a.dh;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= nd) return;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.H + blockIdx.y;
+  float s = a.state_in != nullptr ? a.state_in[bh * nd + e] : 0.0f;
+  float* st = a.st + bh * a.nc * nd + e;
+  const float* dec = a.decay + bh * a.nc;
+  for (int c0 = 0; c0 < a.nc; c0 += 8) {
+    float ds[8], dk[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ds[i] = c0 + i < a.nc ? st[static_cast<int64_t>(c0 + i) * nd] : 0.0f;
+      dk[i] = c0 + i < a.nc ? dec[c0 + i] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (c0 + i < a.nc) {
+        st[static_cast<int64_t>(c0 + i) * nd] = s;  // entering chunk c0 + i
+        s = dk[i] * s + ds[i];
+      }
+    }
+  }
+  a.state_out[bh * nd + e] = s;
+}
+
+// step 4: y of the chunk, 64 query rows at a time
+__global__ void __launch_bounds__(kThreads, 3) ssd_chunk_scan(SsdArgs a) {
+  extern __shared__ float smem[];
+  float* At = smem;                // C^T [n][t], then (C B^T o L)^T [s][t]
+  float* Xs = At + kTileFloats;    // x of the key rows             [s][d]
+  float* Ss = Xs + kTileFloats;    // the entering state, transposed [n][d]
+  float* fac = Ss + kTileFloats;   // a decay factor per row        [64]
+  float* cum = fac + kTile;        // [T]
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int T = a.chunk, c0 = c * T;
+  const int valid = min(T, a.S - c0);
+  const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
+  for (int t = threadIdx.x; t < T; t += kThreads) cum[t] = a.cum[bhc * T + t];
+  load_tile_t(Ss, a.st + bhc * a.n * a.dh, a.n, a.dh, a.n);
+  const float* x = a.x + b * a.x_b + h * a.x_h + static_cast<int64_t>(c0) * a.x_s;
+  const float* cm = a.cm + b * a.cm_b + static_cast<int64_t>(c0) * a.cm_s;
+  float* y = a.y + b * a.y_b + h * a.y_h + static_cast<int64_t>(c0) * a.y_s;
+  const float* cb = a.cb + (static_cast<int64_t>(b) * a.nc + c) * a.n_pairs
+                               * kTileElems;
+  for (int qt = 0; qt * kTile < valid; ++qt) {
+    const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
+    float acc[16] = {};
+    __syncthreads();               // the last query tile is done with At, Xs
+    load_tile_t(At, cm + q0 * a.cm_s, a.cm_s, q_valid, a.n);
+    __syncthreads();
+    tile_product(acc, At, Ss, a.n);              // C_t . S_d
+    const float ref = cum[q0];
+    const float e_ref = expf(ref);
+#pragma unroll
+    for (int v = 0; v < 16; ++v) acc[v] *= e_ref;
+    const float* g = cb + static_cast<int64_t>(qt * (qt + 1) / 2) * kTileElems;
+    for (int kt = 0; kt < qt; ++kt, g += kTileElems) {
+      const int k0 = kt * kTile;
+      __syncthreads();             // At, Xs and fac are free
+      if (threadIdx.x < kTile) fac[threadIdx.x] = expf(ref - cum[k0 + threadIdx.x]);
+      load_tile(Xs, x + k0 * a.x_s, a.x_s, kTile, a.dh);
+      __syncthreads();
+      fill_tile([&](int e) { return g[e]; },
+                [&](int e, float v) {
+                  At[(e >> 6) * kLd + (e & 63)] = v * fac[e >> 6];
+                });
+      __syncthreads();
+      tile_product(acc, At, Xs, kTile);
+    }
+    __syncthreads();               // At, Xs and fac are free
+    if (threadIdx.x < kTile)
+      fac[threadIdx.x] = threadIdx.x < q_valid
+          ? expf(cum[q0 + threadIdx.x] - ref) : 0.0f;
+    load_tile(Xs, x + q0 * a.x_s, a.x_s, q_valid, a.dh);
+    fill_tile([&](int e) { return g[e]; },
+              [&](int e, float v) {
+                const int s = e >> 6, t = e & 63;
+                At[s * kLd + t] = (s <= t && t < q_valid)
+                    ? v * expf(cum[q0 + t] - cum[q0 + s]) : 0.0f;
+              });
+    __syncthreads();
+#pragma unroll
+    for (int v = 0; v < 16; ++v) acc[v] *= fac[acc_row(v)];
+    tile_product(acc, At, Xs, q_valid);
+#pragma unroll
+    for (int v = 0; v < 16; ++v) {
+      const int t = acc_row(v), d = acc_col(v);
+      if (t < q_valid && d < a.dh)
+        y[static_cast<int64_t>(q0 + t) * a.y_s + d] = acc[v];
+    }
+  }
+}
+
+// the workspace's parts, in floats, each a multiple of 64
+struct Workspace {
+  int64_t cb, cum, st, decay;
+};
+
+Workspace workspace(int B, int H, int S, int dh, int n, int chunk) {
+  const int64_t nc = (static_cast<int64_t>(S) + chunk - 1) / chunk;
+  const int64_t tiles = (chunk + kTile - 1) / kTile;
+  auto up = [](int64_t v) { return (v + 63) / 64 * 64; };
+  return {up(B * nc * (tiles * (tiles + 1) / 2) * kTileElems),
+          up(static_cast<int64_t>(B) * H * nc * chunk),
+          up(static_cast<int64_t>(B) * H * nc * n * dh),
+          up(static_cast<int64_t>(B) * H * nc)};
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
@@ -242,11 +380,20 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Bytes of device memory repro_ssd_chunked needs as its workspace.
+size_t repro_ssd_workspace_bytes(int B, int H, int S, int dh, int n,
+                                 int chunk) {
+  if (B < 1 || H < 1 || S < 1 || chunk < 1) return 0;
+  const Workspace w = workspace(B, H, S, dh, n, chunk);
+  return static_cast<size_t>(w.cb + w.cum + w.st + w.decay) * sizeof(float);
+}
+
 // x, y: (B, H, S, dh) f32 with element strides (b, h, s) and a dense last
 // dim; lw: (B, H, S) f32, strides (b, h, s); bm, cm: (B, S, N) f32, strides
 // (b, s) and a dense last dim; state_in (or null) and state_out: (B, H, dh,
-// N) f32 contiguous. dh and N at most 64. Launches on `stream`; returns the
-// launch's cudaError_t (0 on success).
+// N) f32 contiguous; workspace: repro_ssd_workspace_bytes(...) bytes of
+// device memory, 16-byte aligned. dh and N at most 64. Launches the four
+// kernels on `stream`; returns the first cudaError_t (0 on success).
 int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
                       const void* lw, int64_t lw_b, int64_t lw_h,
                       int64_t lw_s, const void* bm, int64_t bm_b,
@@ -254,18 +401,20 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
                       int64_t cm_s, const void* state_in, void* y,
                       int64_t y_b, int64_t y_h, int64_t y_s, void* state_out,
                       int B, int H, int S, int dh, int n, int chunk,
-                      void* stream) {
+                      void* workspace_ptr, void* stream) {
   if (dh < 1 || dh > kTile || n < 1 || n > kTile || chunk < 1 || B < 0 ||
-      H < 0 || S < 0 || B > 65535)
+      H < 0 || S < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (5 * kTileFloats + chunk) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem))
+  const size_t smem_cb = 2 * kTileFloats * sizeof(float);
+  const size_t smem_state = (2 * kTileFloats + 32 + 2 * static_cast<size_t>(chunk))
+                            * sizeof(float);
+  const size_t smem_scan = (3 * kTileFloats + kTile + static_cast<size_t>(chunk))
+                           * sizeof(float);
+  if (smem_state > static_cast<size_t>(kMaxSmem) ||
+      smem_scan > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (chunk + kTile - 1) / kTile;
   SsdArgs a;
   a.x = static_cast<const float*>(x); a.x_b = x_b; a.x_h = x_h; a.x_s = x_s;
   a.lw = static_cast<const float*>(lw);
@@ -276,9 +425,35 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
   a.y = static_cast<float*>(y); a.y_b = y_b; a.y_h = y_h; a.y_s = y_s;
   a.state_out = static_cast<float*>(state_out);
   a.H = H; a.S = S; a.dh = dh; a.n = n; a.chunk = chunk;
-  ssd_chunk_kernel<<<dim3(H, B), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.nc = (S + chunk - 1) / chunk;
+  a.n_pairs = tiles * (tiles + 1) / 2;
+  const Workspace w = workspace(B, H, S, dh, n, chunk);
+  a.cb = static_cast<float*>(workspace_ptr);
+  a.cum = a.cb + w.cb;
+  a.st = a.cum + w.cum;
+  a.decay = a.st + w.st;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a.nc > 0) {
+    if (workspace_ptr == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if ((err = allow_smem(ssd_cb, smem_cb)) != cudaSuccess ||
+        (err = allow_smem(ssd_chunk_state, smem_state)) != cudaSuccess ||
+        (err = allow_smem(ssd_chunk_scan, smem_scan)) != cudaSuccess)
+      return static_cast<int>(err);
+    ssd_cb<<<dim3(a.n_pairs * a.nc, B), kThreads, smem_cb, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    ssd_chunk_state<<<dim3(a.nc, H, B), kThreads, smem_state, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  ssd_state_pass<<<dim3((n * dh + kThreads - 1) / kThreads, H, B), kThreads,
+                   0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (a.nc > 0) {
+    ssd_chunk_scan<<<dim3(a.nc, H, B), kThreads, smem_scan, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -11,14 +11,17 @@ mamba2_ssd.py:23``, ``_ssd_kernel``)::
 ``x`` is already dt-weighted and ``lw = dt * A``. A ragged last chunk is
 padded with identity steps (x = 0, lw = 0), as the Pallas kernel pads. The
 kernel is CUDA C++ in ``csrc/mamba2_ssd.cu`` (built by ``nvcc`` at first
-use, ``kernels/_build.py``). :func:`ssd_chunked` launches it for CUDA
-tensors and runs :func:`ssd_chunked_plain` only for CPU tensors. Unlike the
+use, ``kernels/_build.py``): four launches, the chunks in parallel, with
+their intermediates in a workspace allocated here. :func:`ssd_chunked`
+launches it for CUDA tensors and runs :func:`ssd_chunked_plain` only for
+CPU tensors. Unlike the
 Pallas kernel, both start from a given state (``None``: zero) and return
 the final state, which prefill hands to decode; from a zero state ``y`` is
 the Pallas kernel's ``y``.
 
-``LAUNCHES["ssd_chunked"]`` counts kernel launches (never plain-version
-runs), so a run can show that its main path went through the kernel.
+``LAUNCHES["ssd_chunked"]`` counts kernel launches, one per call however
+many CUDA kernels the call starts (never plain-version runs), so a run can
+show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ LAUNCHES: Dict[str, int] = {"ssd_chunked": 0}
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P, _I64, _I64,
              _P, _I64, _I64, _P, _P, _I64, _I64, _I64, _P,
-             _I, _I, _I, _I, _I, _I, _P]
+             _I, _I, _I, _I, _I, _I, _P, _P]
 
 
 def reset_launches():
@@ -116,6 +119,43 @@ def _f32_rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
+def run_kernel(lib, x: torch.Tensor, lw: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, *, chunk: int,
+               state: Optional[torch.Tensor] = None, stream=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Call ``repro_ssd_chunked`` of the built library ``lib`` (a
+    ``ctypes.CDLL`` of ``csrc/mamba2_ssd.cu``) on checked inputs, with a
+    workspace from ``torch.empty`` on x's device, and return (y, final
+    state). f32 inputs with a dense last dim are read in place. ``stream``
+    is a ``cudaStream_t`` handle, None for the default stream. A nonzero
+    return raises. Counts no launch."""
+    B, H, S, dh = x.shape
+    N = Bm.shape[-1]
+    x, Bm, Cm = _f32_rows(x), _f32_rows(Bm), _f32_rows(Cm)
+    lw = lw.float()
+    s_in = None if state is None else state.float().contiguous()
+    y = torch.empty_like(x)
+    s_out = torch.empty((B, H, dh, N), dtype=torch.float32, device=x.device)
+    f, ws_bytes = lib.repro_ssd_chunked, lib.repro_ssd_workspace_bytes
+    if f.argtypes is None:
+        f.argtypes, f.restype = _ARGTYPES, ctypes.c_int
+        ws_bytes.argtypes, ws_bytes.restype = [_I] * 6, ctypes.c_size_t
+        lib.repro_error_string.argtypes = [_I]
+        lib.repro_error_string.restype = ctypes.c_char_p
+    ws = torch.empty(ws_bytes(B, H, S, dh, N, chunk), dtype=torch.uint8,
+                     device=x.device)
+    rc = f(x.data_ptr(), *x.stride()[:3], lw.data_ptr(), *lw.stride(),
+           Bm.data_ptr(), *Bm.stride()[:2], Cm.data_ptr(), *Cm.stride()[:2],
+           None if s_in is None else s_in.data_ptr(),
+           y.data_ptr(), *y.stride()[:3], s_out.data_ptr(),
+           B, H, S, dh, N, chunk, ws.data_ptr() if ws.numel() else None,
+           stream)
+    if rc:
+        raise RuntimeError(f"repro_ssd_chunked failed to launch: CUDA error "
+                           f"{rc} ({lib.repro_error_string(rc).decode()})")
+    return y, s_out
+
+
 def ssd_chunked(x: torch.Tensor, lw: torch.Tensor, Bm: torch.Tensor,
                 Cm: torch.Tensor, *, chunk: int,
                 state: Optional[torch.Tensor] = None
@@ -132,21 +172,10 @@ def ssd_chunked(x: torch.Tensor, lw: torch.Tensor, Bm: torch.Tensor,
     N = Bm.shape[-1]
     if dh > MAX_WIDTH or N > MAX_WIDTH:
         raise ValueError(f"dh {dh} and N {N} must be at most {MAX_WIDTH}")
-    if max(B * H * S * dh, B * S * N) >= 2 ** 31 or B > 65535:
+    if max(B * H * S * dh, B * S * N) >= 2 ** 31 or max(B, H) > 65535:
         raise ValueError(f"too large: {tuple(x.shape)}, N {N}")
-    x, Bm, Cm = _f32_rows(x), _f32_rows(Bm), _f32_rows(Cm)
-    lw = lw.float()
-    s_in = None if state is None else state.float().contiguous()
-    y = torch.empty_like(x)
-    s_out = torch.empty((B, H, dh, N), dtype=torch.float32, device=x.device)
-    _build.launch("mamba2_ssd", "repro_ssd_chunked", _ARGTYPES,
-                  x.data_ptr(), *x.stride()[:3],
-                  lw.data_ptr(), *lw.stride(),
-                  Bm.data_ptr(), *Bm.stride()[:2],
-                  Cm.data_ptr(), *Cm.stride()[:2],
-                  None if s_in is None else s_in.data_ptr(),
-                  y.data_ptr(), *y.stride()[:3], s_out.data_ptr(),
-                  B, H, S, dh, N, chunk,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    out = run_kernel(_build.load("mamba2_ssd"), x, lw, Bm, Cm, chunk=chunk,
+                     state=state,
+                     stream=torch.cuda.current_stream(x.device).cuda_stream)
     LAUNCHES["ssd_chunked"] += 1
-    return y, s_out
+    return out

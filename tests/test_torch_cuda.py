@@ -353,7 +353,10 @@ def _ssd_inputs(B, H, S, dh, N, seed, model_layout):
 
 @pytest.mark.parametrize("B,H,S,dh,N,chunk", [
     (2, 3, 96, 32, 16, 32), (1, 2, 128, 64, 64, 128), (2, 2, 200, 32, 64, 64),
-    (1, 4, 520, 64, 64, 256), (2, 2, 77, 16, 8, 100)])
+    (1, 4, 520, 64, 64, 256), (2, 2, 77, 16, 8, 100),
+    # tests/test_torch_ssd_shim.py's shapes, and 32 chunks of 256
+    (2, 1, 300, 16, 16, 32), (1, 2, 300, 64, 32, 128), (1, 1, 600, 64, 64, 256),
+    (1, 1, 130, 16, 8, 130), (1, 1, 1, 16, 8, 32), (2, 4, 8192, 64, 64, 256)])
 @pytest.mark.parametrize("model_layout", [False, True])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_kernel_matches_plain(cuda, B, H, S, dh, N, chunk, model_layout,
@@ -372,8 +375,9 @@ def test_ssd_kernel_matches_plain(cuda, B, H, S, dh, N, chunk, model_layout,
         assert y.stride() == dev[0].stride()
 
 
-def test_ssd_kernel_matches_the_sequential_oracle(cuda):
-    x, lw, Bm, Cm, _ = _ssd_inputs(1, 4, 700, 64, 64, 9, True)
+@pytest.mark.parametrize("S", [700, 8192])
+def test_ssd_kernel_matches_the_sequential_oracle(cuda, S):
+    x, lw, Bm, Cm, _ = _ssd_inputs(1, 4, S, 64, 64, 9, True)
     x, lw, Bm, Cm = (t.to(cuda) for t in (x, lw, Bm, Cm))
     y, _ = k6.ssd_chunked(x, lw, Bm, Cm, chunk=256)
     assert _rel(y, k6.ssd_ref(x, lw, Bm, Cm)) < 1e-4

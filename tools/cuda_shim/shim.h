@@ -1,7 +1,8 @@
 // Runs a CUDA source of the port on the CPU for rehearsal without a card:
 // one std::thread per CUDA thread, the blocks one after another. It stands
-// in for what the kernels use: __syncthreads, warp shuffles, votes and
-// __syncwarp, bf16 conversions, and the inline PTX statements of
+// in for what the kernels use: 3-D grids, __syncthreads, warp shuffles,
+// votes and __syncwarp, float4, bf16 conversions, and the inline PTX
+// statements of
 // flash_attention.cu (the functions between its "ptx:begin" and "ptx:end"
 // lines, which build.py drops): mbarriers (arrivals and transaction bytes
 // per phase), TMA box loads (bounds, zero fill, the tensor map's alignment rules
@@ -42,6 +43,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3s { unsigned x = 0, y = 0, z = 0; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline thread_local uint3s threadIdx, blockIdx;
 inline thread_local dim3 blockDim;
 
@@ -147,6 +149,7 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int64_t min(int64_t a, int64_t b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 // -- blocks, warps, barriers -------------------------------------------------
 struct ShimBar { int count = 0, pending = 0; int64_t tx = 0; uint32_t phase = 0; };
@@ -173,6 +176,19 @@ T __shfl_xor_sync(unsigned, T v, int mask) {
   shim_blk->shfl[t] = f;
   __syncwarp();
   float r = shim_blk->shfl[w * 32 + ((t % 32) ^ unsigned(mask))];
+  __syncwarp();
+  T out; std::memcpy(&out, &r, 4);
+  return out;
+}
+
+template <typename T>
+T __shfl_up_sync(unsigned, T v, unsigned delta) {   // lanes < delta keep v
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  float f; std::memcpy(&f, &v, 4);
+  const unsigned t = threadIdx.x, lane = t % 32;
+  shim_blk->shfl[t] = f;
+  __syncwarp();
+  float r = lane >= delta ? shim_blk->shfl[t - delta] : f;
   __syncwarp();
   T out; std::memcpy(&out, &r, 4);
   return out;
@@ -388,11 +404,14 @@ inline void wgmma_rs_n8_kmajor(float (&d)[4], const uint32_t (&a)[4], uint64_t d
 inline void fence_proxy_async() {}
 
 // -- launch --------------------------------------------------------------------
-// Runs the blocks one after another, each with one thread per CUDA thread
-// and its dynamic shared memory filled with 0xff (NaN as bf16 and f32).
+// Runs the blocks one after another (x fastest, then y, then z), each with
+// one thread per CUDA thread and its dynamic shared memory filled with 0xff
+// (NaN as bf16 and f32).
 inline void shim_launch(const std::function<void()>& k, dim3 grid, dim3 block,
                         int smem, cudaStream_t = nullptr) {
   const unsigned n = block.x;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+  for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     ShimBlock blk;
     std::vector<uint8_t> buf(size_t(smem) + 2048);
@@ -408,9 +427,11 @@ inline void shim_launch(const std::function<void()>& k, dim3 grid, dim3 block,
     blk.wg_a.assign(((n + 127) / 128) * 64 * 16, 0.0f);
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < n; ++t)
-      ts.emplace_back([&, t, bx] {
+      ts.emplace_back([&, t, bx, by, bz] {
         threadIdx.x = t;
         blockIdx.x = bx;
+        blockIdx.y = by;
+        blockIdx.z = bz;
         blockDim = block;
         shim_blk = &blk;
         k();
