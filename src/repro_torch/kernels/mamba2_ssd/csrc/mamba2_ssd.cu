@@ -15,11 +15,19 @@
 // the final state, which prefill hands to decode.
 //
 // Bound on an H100: the f32 FMAs. At zamba2-1.2b's serving shape (B 4, H 64,
-// S 2,000, dh = N = 64, T 256) the chunked form below does about 9.7G FMAs
-// (0.29 ms at 67 TFLOP/s) against ~0.3 GB moved (0.09 ms at 3.35 TB/s);
-// chip_smoke.scan_bound counts what the sequential recurrence needs, 2.1G
-// FMAs (0.125 ms). TF32 tensor cores are not used: their ~1e-3 relative
-// error would break the 1e-4 tolerance the reference holds its kernel to.
+// S 2,000, dh = N = 64, T 256) the chunked form below does about 9.7G
+// multiply-adds (0.29 ms at the 67 TFLOP/s of f32 FMAs); chip_smoke.scan_bound
+// counts what the sequential recurrence needs, 2.1G FMAs (0.125 ms), and
+// its inputs and outputs, ~0.27 GB (0.081 ms at 3.35 TB/s). The four kernels
+// below move ~0.53 GB (x read twice, y, the state scratch four times:
+// 0.16 ms). The products run on the tensor cores in split TF32 ("3xTF32",
+// CUTLASS's fast f32): each f32 operand x is hi = rna_tf32(x) plus lo =
+// x - hi (exact in f32; the tensor core reads lo's top 11 significant bits),
+// and a product is lo_a hi_b + hi_a lo_b + hi_a hi_b, accumulated in f32.
+// What is dropped (lo_a lo_b, lo's last bits) is ~2^-21 relative, where one
+// TF32 product (~1e-3) would break the 1e-4 tolerance the reference holds
+// its kernel to. The decay mask and exponentials are applied in f32 before
+// the split.
 //
 // Design: the four steps of the SSD algorithm (Mamba-2, arXiv:2405.21060,
 // sec. 6-7), each a kernel, launched in order on the caller's stream, with
@@ -27,29 +35,40 @@
 // (repro_ssd_workspace_bytes):
 //  1. ssd_cb, one block per (b, chunk, 64 x 64 tile at or below the
 //     diagonal): the chunk's C B^T, computed once for all H heads (B and C
-//     have no head axis), kept transposed ([s][t]) for step 4.
+//     have no head axis), kept transposed ([s][t]) for step 4; the
+//     diagonal's blocks also keep their C^T tile ([n][t]) for step 4.
 //  2. ssd_chunk_state, one block per (b, h, chunk): the chunk's inclusive
 //     cum (a block-wide scan: per-thread runs, then warp shuffles), kept
 //     for step 4; exp(cum_T); and the chunk's own state
-//     dS = sum_s exp(cum_T - cum_s) x_s B_s^T (dh x N).
-//  3. ssd_state_pass, one thread per (b, h, d, n): S_c = exp(cum_T,c)
+//     dS = sum_s exp(cum_T - cum_s) x_s B_s^T, kept transposed (N x dh),
+//     over 64-row key tiles, the next tile's copy in flight while this one
+//     is multiplied.
+//  3. ssd_state_pass, one thread per (b, h, n, d): S_c = exp(cum_T,c)
 //     S_{c-1} + dS_c in chunk order, from state_in or zero, 8 chunks' loads
 //     in flight at a time. Each chunk's entering state overwrites its dS;
-//     the last S is state_out.
+//     the last S is state_out (state_in and state_out, dh x N, are read
+//     and written across their rows: 1 MB each at the serving shape).
 //  4. ssd_chunk_scan, one block per (b, h, chunk): per 64-row query tile,
 //     y = exp(cum_t) C_t S_{c-1}^T + (C B^T o L) x over the key tiles at or
 //     below it. Off the diagonal the decay factors around the query tile's
 //     first step r = cum_{q0}: exp(cum_t - cum_s) = exp(cum_t - r)
 //     exp(r - cum_s), both factors <= 1 (cum never rises), so it costs two
-//     exponentials a row instead of one a pair; the diagonal tile takes
-//     exp(cum_t - cum_s) per pair under the causal mask.
-// Every product is a 64 x 64 tile of f32 FMAs on 256 threads, each a 4 x 4
-// block in registers fed by two 16-byte shared loads per 16 FMAs, from
-// tiles stored k-major with a row stride of 72 floats. A tile is filled 8
-// elements a thread at a time, the 8 global loads issued before their
-// shared stores. Step 2 (at most 64 registers) and step 4 (at most 80, 3
-// blocks an SM: at 4, ptxas spills) use at most 56 KB of shared memory, so
-// several blocks share an SM and their products cover each other's loads.
+//     exponentials a row instead of one a pair, applied to the rows of x
+//     as the product reads them and to the output rows; the diagonal tile
+//     takes exp(cum_t - cum_s) per pair under the causal mask. The block
+//     walks its jobs (per query tile: the inter-chunk term, each key tile
+//     below, the diagonal) with the next job's tiles copied in while this
+//     one is multiplied.
+// Every product is a 64 x 64 output tile on 8 warps, each a 16 x 32 strip:
+// per 8 steps of k, four mma.sync.m16n8k8 TF32 tiles, three mmas each,
+// with fragments read from shared tiles stored k-major with a row stride
+// of 72 floats (8 q + g: a fragment load hits 32 distinct banks; the
+// inline PTX is in small functions between the ptx:begin and ptx:end
+// lines, for which tools/cuda_shim stands in). Steps 2 and 4 copy their
+// tiles with cp.async into two stages (no registers held, zero fill past
+// the edges), so a block always has a copy in flight: with one stage and
+// 3-4 blocks an SM, each block waited on ~50 load round trips and the
+// tensor cores saved nothing. Step 1 copies its two tiles the same way.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,7 +78,7 @@ namespace {
 
 constexpr int kTile = 64;        // rows of a tile; also the largest dh and N
 constexpr int kLd = 72;          // row stride of a tile in shared memory
-constexpr int kThreads = 256;    // 16 x 16 threads, a 4 x 4 block each
+constexpr int kThreads = 256;    // 8 warps, a 16 x 32 strip of a tile each
 constexpr int kTileFloats = kTile * kLd;
 constexpr int kTileElems = kTile * kTile;
 constexpr int kMaxSmem = 232448; // bytes a block may use on an H100
@@ -73,79 +92,155 @@ struct SsdArgs {
   float* y;        int64_t y_b, y_h, y_s;    // (B, H, S, dh), dense last dim
   float* state_out;                          // (B, H, dh, N)
   float* cb;       // (B, nc, n_pairs, 64, 64): C B^T tiles, [s][t]
+  float* ct;       // (B, nc, n_tiles, 64, 64): C^T tiles, [n][t]
   float* cum;      // (B, H, nc, T): cumsum of lw in each chunk
-  float* st;       // (B, H, nc, dh, N): dS, then each chunk's entering state
+  float* st;       // (B, H, nc, N, dh): dS, then each chunk's entering state
   float* decay;    // (B, H, nc): exp(cum_T)
-  int H, S, dh, n, chunk, nc, n_pairs;
+  int H, S, dh, n, chunk, nc, n_tiles, n_pairs;
 };
 
-// A 64 x 64 tile's elements e = threadIdx.x + kThreads i: load(e) reads
-// one, store(e, v) puts it in shared memory. Each thread issues 8 loads
-// before their 8 stores: a shared store may alias a later global load, so
-// the compiler would not move the load above it, and the thread would wait
-// for memory once per element.
-template <typename Load, typename Store>
-__device__ __forceinline__ void fill_tile(Load load, Store store) {
+// element e of a tile copied transposed: a warp reads 4 columns of 8 rows,
+// so its stores hit 32 distinct banks
+__device__ __forceinline__ int t_row(int e) { return (e >> 2) & 63; }
+__device__ __forceinline__ int t_col(int e) { return ((e >> 8) << 2) | (e & 3); }
+
+// ptx:begin -- the tensor-core and async-copy statements, one each
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// the bits below it zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// asynchronous copies global -> shared of 4 or 16 bytes, of which `bytes`
+// are read (0: zero fill, nothing read); a group is committed, then waited
+// for while at most N younger groups stay in flight
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// d += a b for a 16 x 8 (row) by 8 x 8 (col) TF32 tile, f32 accumulate.
+// Lane (g, q) = (lane / 4, lane % 4) holds a: (g, q) (g + 8, q) (g, q + 4)
+// (g + 8, q + 4); b: (q, g) (q + 4, g); d: (g, 2q) (g, 2q + 1) (g + 8, 2q)
+// (g + 8, 2q + 1).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// ptx:end
+
+// cp.async copies of a 64 x 64 tile into dst (row stride kLd): rows [0,
+// rows) and columns [0, width) of src (row stride ld), zero elsewhere,
+// stored as they are (copy_tile; 16 bytes a copy where src, ld and width
+// allow) or transposed (copy_tile_t); or a dense 64 x 64 block of the
+// workspace (copy_dense_tile, 16 bytes a copy)
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          int64_t ld, int rows, int width) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (ld & 3) == 0 &&
+      (width & 3) == 0) {
 #pragma unroll
-  for (int h = 0; h < kTileElems / kThreads; h += 8) {
-    float v[8];
+    for (int i = 0; i < kTileElems / (4 * kThreads); ++i) {
+      const int e = threadIdx.x + kThreads * i, r = e >> 4, c = 4 * (e & 15);
+      const bool in = r < rows && c < width;
+      cp_async16(dst + r * kLd + c, in ? src + r * ld + c : src, in ? 16 : 0);
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int i = 0; i < kTileElems / kThreads; ++i) {
+    const int e = threadIdx.x + kThreads * i, r = e >> 6, c = e & 63;
+    const bool in = r < rows && c < width;
+    cp_async4(dst + r * kLd + c, in ? src + r * ld + c : src, in ? 4 : 0);
+  }
+}
+__device__ __forceinline__ void copy_tile_t(float* dst, const float* src,
+                                            int64_t ld, int rows, int width) {
+#pragma unroll 4
+  for (int i = 0; i < kTileElems / kThreads; ++i) {
+    const int e = threadIdx.x + kThreads * i, r = t_row(e), c = t_col(e);
+    const bool in = r < rows && c < width;
+    cp_async4(dst + c * kLd + r, in ? src + r * ld + c : src, in ? 4 : 0);
+  }
+}
+__device__ __forceinline__ void copy_dense_tile(float* dst, const float* src) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = load(threadIdx.x + kThreads * (h + i));
-#pragma unroll
-    for (int i = 0; i < 8; ++i) store(threadIdx.x + kThreads * (h + i), v[i]);
+  for (int i = 0; i < kTileElems / (4 * kThreads); ++i) {
+    const int e = threadIdx.x + kThreads * i, r = e >> 4, c = 4 * (e & 15);
+    cp_async16(dst + r * kLd + c, src + r * kTile + c, 16);
   }
 }
 
-// the 64 x 64 tile at rows [0, rows) and columns [0, width) of a matrix with
-// row stride ld, zero elsewhere, stored as it is: dst[r][c]
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t ld, int rows, int width) {
-  fill_tile(
-      [&](int e) {
-        const int r = e >> 6, c = e & 63;
-        return (r < rows && c < width) ? src[r * ld + c] : 0.0f;
-      },
-      [&](int e, float v) { dst[(e >> 6) * kLd + (e & 63)] = v; });
+// x = hi + lo: hi rounded to TF32, lo = x - hi exact in f32 (the tensor
+// core reads its top 11 significant bits: at most ~2^-22 of x is dropped)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// the same tile stored transposed, dst[c][r]; a warp reads 4 columns of 8
-// rows, so its stores hit 32 distinct banks
-__device__ __forceinline__ int t_row(int e) { return (e >> 2) & 63; }
-__device__ __forceinline__ int t_col(int e) { return ((e >> 8) << 2) | (e & 3); }
-__device__ __forceinline__ void load_tile_t(float* dst, const float* src,
-                                            int64_t ld, int rows, int width) {
-  fill_tile(
-      [&](int e) {
-        const int r = t_row(e), c = t_col(e);
-        return (r < rows && c < width) ? src[r * ld + c] : 0.0f;
-      },
-      [&](int e, float v) { dst[t_col(e) * kLd + t_row(e)] = v; });
-}
-
-// acc += A^T B over k < K for a 64 x 64 output tile, with A and B stored
-// k-major (A[k][m], B[k][n]). Thread (ty, tx) of 16 x 16 owns rows 4 ty + i
-// and columns 4 tx + j; its value v is row acc_row(v), column acc_col(v).
+// acc += A^T diag(kscale) B over k < K (rounded up to 8; the tiles are
+// zero there, kscale finite) for a 64 x 64 output tile, with A and B
+// stored k-major (A[k][m], B[k][n]); kScaled false: no kscale. The scale
+// goes on A's fragment, which has half as many values a lane as B's.
+// kLower: A is zero at k > m (a causal diagonal tile), so a warp stops
+// at k = its last row + 1.
+// Warp w owns rows 16 (w % 4) + [0, 16) and columns 32 (w / 4) + [0, 32):
+// four m16n8 tiles, value v of a thread is row acc_row(v), column
+// acc_col(v) (the mma's d fragment of tile v / 4).
 __device__ __forceinline__ int acc_row(int v) {
-  return 4 * (threadIdx.x >> 4) + (v >> 2);
+  return 16 * ((threadIdx.x >> 5) & 3) + ((threadIdx.x & 31) >> 2) +
+         8 * ((v >> 1) & 1);
 }
 __device__ __forceinline__ int acc_col(int v) {
-  return 4 * (threadIdx.x & 15) + (v & 3);
+  return 32 * (threadIdx.x >> 7) + 8 * (v >> 2) + 2 * (threadIdx.x & 3) +
+         (v & 1);
 }
+template <bool kScaled = false, bool kLower = false>
 __device__ __forceinline__ void tile_product(float (&acc)[16], const float* A,
-                                             const float* B, int K) {
-  const float* a = A + 4 * (threadIdx.x >> 4);
-  const float* b = B + 4 * (threadIdx.x & 15);
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * kLd);
-    const float4 bv = *reinterpret_cast<const float4*>(b + k * kLd);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+                                             const float* B, int K,
+                                             const float* kscale = nullptr) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (kLower) K = min(K, 16 * (w & 3) + 16);
+  const float* a = A + (lane & 3) * kLd + 16 * (w & 3) + (lane >> 2);
+  const float* b = B + (lane & 3) * kLd + 32 * (w >> 2) + (lane >> 2);
+  for (int k = 0; k < K; k += 8) {
+    const float s0 = kScaled ? kscale[k + (lane & 3)] : 1.0f;
+    const float s1 = kScaled ? kscale[k + 4 + (lane & 3)] : 1.0f;
+    uint32_t ah[4], al[4];
+    split_tf32(a[k * kLd] * s0, ah[0], al[0]);
+    split_tf32(a[k * kLd + 8] * s0, ah[1], al[1]);
+    split_tf32(a[(k + 4) * kLd] * s1, ah[2], al[2]);
+    split_tf32(a[(k + 4) * kLd + 8] * s1, ah[3], al[3]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[4 * i + j] = fmaf(ar[i], br[j], acc[4 * i + j]);
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bh[2], bl[2];
+      split_tf32(b[k * kLd + 8 * j], bh[0], bl[0]);
+      split_tf32(b[(k + 4) * kLd + 8 * j], bh[1], bl[1]);
+      mma_tf32(acc + 4 * j, al, bh);     // the small terms first
+      mma_tf32(acc + 4 * j, ah, bl);
+      mma_tf32(acc + 4 * j, ah, bh);
+    }
   }
 }
 
@@ -194,9 +289,17 @@ __global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
   if (q0 >= valid) return;         // rows past S: step 4 never reads them
   const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
   const float* cm = a.cm + b * a.cm_b + static_cast<int64_t>(c0) * a.cm_s;
-  load_tile_t(Bt, bm + k0 * a.bm_s, a.bm_s, min(kTile, valid - k0), a.n);
-  load_tile_t(Ct, cm + q0 * a.cm_s, a.cm_s, min(kTile, valid - q0), a.n);
+  copy_tile_t(Bt, bm + k0 * a.bm_s, a.bm_s, min(kTile, valid - k0), a.n);
+  copy_tile_t(Ct, cm + q0 * a.cm_s, a.cm_s, min(kTile, valid - q0), a.n);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
+  if (kt == qt) {                  // C^T of the query rows, for step 4
+    float* ct = a.ct + ((static_cast<int64_t>(b) * a.nc + c) * a.n_tiles + qt)
+                           * kTileElems;
+    for (int e = threadIdx.x; e < kTileElems; e += kThreads)
+      ct[e] = Ct[(e >> 6) * kLd + (e & 63)];
+  }
   float acc[16] = {};
   tile_product(acc, Bt, Ct, a.n);
   float* out = a.cb + ((static_cast<int64_t>(b) * a.nc + c) * a.n_pairs + p)
@@ -205,18 +308,27 @@ __global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
   for (int v = 0; v < 16; ++v) out[acc_row(v) * kTile + acc_col(v)] = acc[v];
 }
 
-// step 2: the chunk's cum, exp(cum_T) and own state dS[d][n]
-__global__ void __launch_bounds__(kThreads, 4) ssd_chunk_state(SsdArgs a) {
+// step 2: the chunk's cum, exp(cum_T) and own state, transposed: dS[n][d]
+__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(SsdArgs a) {
   extern __shared__ float smem[];
-  float* Bs = smem;                // B of the key rows             [s][n]
-  float* Xw = Bs + kTileFloats;    // x_s exp(cum_T - cum_s)        [s][d]
-  float* warp_tot = Xw + kTileFloats;
+  float* Xs = smem;                // x of the key rows, two stages [s][d]
+  float* Bs = Xs + 2 * kTileFloats;  // B of the key rows, two stages [s][n]
+  float* warp_tot = Bs + 2 * kTileFloats;
   float* cum = warp_tot + 32;      // [T]
-  float* w = cum + a.chunk;        // exp(cum_T - cum_s)            [T]
+  float* w = cum + a.chunk;        // exp(cum_T - cum_s), zero past T
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int T = a.chunk, c0 = c * T;
   const int valid = min(T, a.S - c0);
   const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
+  const float* x = a.x + b * a.x_b + h * a.x_h + static_cast<int64_t>(c0) * a.x_s;
+  const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
+  auto issue = [&](int k0, int stage) {
+    const int rows = min(kTile, valid - k0);
+    copy_tile(Xs + stage * kTileFloats, x + k0 * a.x_s, a.x_s, rows, a.dh);
+    copy_tile(Bs + stage * kTileFloats, bm + k0 * a.bm_s, a.bm_s, rows, a.n);
+    cp_async_commit();
+  };
+  issue(0, 0);                     // in flight during the scan
   const float* lw = a.lw + b * a.lw_b + h * a.lw_h;
   for (int t = threadIdx.x; t < T; t += kThreads)
     cum[t] = t < valid ? lw[static_cast<int64_t>(c0 + t) * a.lw_s] : 0.0f;
@@ -224,44 +336,41 @@ __global__ void __launch_bounds__(kThreads, 4) ssd_chunk_state(SsdArgs a) {
   block_cumsum(cum, T, warp_tot);
   const float cum_T = cum[T - 1];
   float* cum_out = a.cum + bhc * T;
-  for (int t = threadIdx.x; t < T; t += kThreads) {
-    cum_out[t] = cum[t];
-    w[t] = expf(cum_T - cum[t]);
+  const int T64 = (T + kTile - 1) / kTile * kTile;
+  for (int t = threadIdx.x; t < T64; t += kThreads) {
+    if (t < T) cum_out[t] = cum[t];
+    w[t] = t < T ? expf(cum_T - cum[t]) : 0.0f;
   }
   if (threadIdx.x == 0) a.decay[bhc] = expf(cum_T);
-  const float* x = a.x + b * a.x_b + h * a.x_h + static_cast<int64_t>(c0) * a.x_s;
-  const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
   float acc[16] = {};
-  for (int k0 = 0; k0 < valid; k0 += kTile) {
-    const int rows = min(kTile, valid - k0);
-    __syncthreads();               // w is written; the last tile is done
-    load_tile(Bs, bm + k0 * a.bm_s, a.bm_s, rows, a.n);
-    fill_tile(
-        [&](int e) {
-          const int s = e >> 6, d = e & 63;
-          return (s < rows && d < a.dh)
-              ? x[static_cast<int64_t>(k0 + s) * a.x_s + d] * w[k0 + s]
-              : 0.0f;
-        },
-        [&](int e, float v) { Xw[(e >> 6) * kLd + (e & 63)] = v; });
-    __syncthreads();
-    tile_product(acc, Xw, Bs, rows);
+  for (int k0 = 0, stage = 0; k0 < valid; k0 += kTile, stage ^= 1) {
+    if (k0 + kTile < valid) {
+      issue(k0 + kTile, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();               // this stage and w are in place
+    tile_product<true>(acc, Xs + stage * kTileFloats, Bs + stage * kTileFloats,
+                       min(kTile, valid - k0), w + k0);
+    __syncthreads();               // this stage is free again
   }
   float* out = a.st + bhc * a.n * a.dh;
 #pragma unroll
   for (int v = 0; v < 16; ++v) {
     const int d = acc_row(v), nn = acc_col(v);
-    if (d < a.dh && nn < a.n) out[d * a.n + nn] = acc[v];
+    if (d < a.dh && nn < a.n) out[nn * a.dh + d] = acc[v];
   }
 }
 
-// step 3: the states in chunk order, one thread per element (d, n)
+// step 3: the states in chunk order, one thread per element e = n dh + d
 __global__ void __launch_bounds__(kThreads) ssd_state_pass(SsdArgs a) {
   const int nd = a.n * a.dh;
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= nd) return;
   const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.H + blockIdx.y;
-  float s = a.state_in != nullptr ? a.state_in[bh * nd + e] : 0.0f;
+  const int64_t at = bh * nd + (e % a.dh) * a.n + e / a.dh;   // (d, n)
+  float s = a.state_in != nullptr ? a.state_in[at] : 0.0f;
   float* st = a.st + bh * a.nc * nd + e;
   const float* dec = a.decay + bh * a.nc;
   for (int c0 = 0; c0 < a.nc; c0 += 8) {
@@ -279,80 +388,104 @@ __global__ void __launch_bounds__(kThreads) ssd_state_pass(SsdArgs a) {
       }
     }
   }
-  a.state_out[bh * nd + e] = s;
+  a.state_out[at] = s;
 }
 
-// step 4: y of the chunk, 64 query rows at a time
+// step 4: y of the chunk, 64 query rows at a time. Jobs in order, for
+// each query tile qt: kt = -1 (the inter-chunk term: C of the query rows
+// against the entering state), kt = 0 .. qt - 1 (key tiles below the
+// diagonal), kt = qt (the diagonal, then y is stored).
 __global__ void __launch_bounds__(kThreads, 3) ssd_chunk_scan(SsdArgs a) {
   extern __shared__ float smem[];
-  float* At = smem;                // C^T [n][t], then (C B^T o L)^T [s][t]
-  float* Xs = At + kTileFloats;    // x of the key rows             [s][d]
-  float* Ss = Xs + kTileFloats;    // the entering state, transposed [n][d]
-  float* fac = Ss + kTileFloats;   // a decay factor per row        [64]
-  float* cum = fac + kTile;        // [T]
+  float* At = smem;                // C^T [n][t] or (C B^T)^T [s][t], 2 stages
+  float* Xs = At + 2 * kTileFloats;  // x [s][d] or the entering state^T
+                                     // [n][d], 2 stages
+  float* rowf = Xs + 2 * kTileFloats;  // exp(cum_t - r) per query row [64]
+  float* cum = rowf + kTile;       // [T]
+  float* kexp = cum + a.chunk;     // exp(r - cum_s) per key row [T]
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int T = a.chunk, c0 = c * T;
   const int valid = min(T, a.S - c0);
+  const int n_q = (valid + kTile - 1) / kTile;
   const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
-  for (int t = threadIdx.x; t < T; t += kThreads) cum[t] = a.cum[bhc * T + t];
-  load_tile_t(Ss, a.st + bhc * a.n * a.dh, a.n, a.dh, a.n);
   const float* x = a.x + b * a.x_b + h * a.x_h + static_cast<int64_t>(c0) * a.x_s;
-  const float* cm = a.cm + b * a.cm_b + static_cast<int64_t>(c0) * a.cm_s;
   float* y = a.y + b * a.y_b + h * a.y_h + static_cast<int64_t>(c0) * a.y_s;
   const float* cb = a.cb + (static_cast<int64_t>(b) * a.nc + c) * a.n_pairs
                                * kTileElems;
-  for (int qt = 0; qt * kTile < valid; ++qt) {
+  const float* ct = a.ct + (static_cast<int64_t>(b) * a.nc + c) * a.n_tiles
+                               * kTileElems;
+  auto issue = [&](int qt, int kt, int stage) {
+    const int q0 = qt * kTile;
+    float* A = At + stage * kTileFloats;
+    if (kt < 0) {
+      copy_dense_tile(A, ct + static_cast<int64_t>(qt) * kTileElems);
+      copy_tile(Xs + stage * kTileFloats, a.st + bhc * a.n * a.dh, a.dh,
+                a.n, a.dh);
+    } else {
+      copy_dense_tile(A, cb + static_cast<int64_t>(qt * (qt + 1) / 2 + kt)
+                                  * kTileElems);
+      copy_tile(Xs + stage * kTileFloats, x + kt * kTile * a.x_s, a.x_s,
+                min(kTile, valid - kt * kTile), a.dh);
+    }
+    cp_async_commit();
+  };
+  issue(0, -1, 0);
+  for (int t = threadIdx.x; t < T; t += kThreads) cum[t] = a.cum[bhc * T + t];
+  float acc[16];
+  for (int qt = 0, kt = -1, stage = 0; qt < n_q; stage ^= 1) {
+    const int next_qt = kt < qt ? qt : qt + 1, next_kt = kt < qt ? kt + 1 : -1;
+    if (next_qt < n_q) {
+      issue(next_qt, next_kt, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();               // this job's tiles (and cum) are in place
     const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
-    float acc[16] = {};
-    __syncthreads();               // the last query tile is done with At, Xs
-    load_tile_t(At, cm + q0 * a.cm_s, a.cm_s, q_valid, a.n);
-    __syncthreads();
-    tile_product(acc, At, Ss, a.n);              // C_t . S_d
-    const float ref = cum[q0];
-    const float e_ref = expf(ref);
+    float* A = At + stage * kTileFloats;
+    const float* X = Xs + stage * kTileFloats;
+    if (kt < 0) {                  // acc = exp(r) C S^T, and this tile's decays
 #pragma unroll
-    for (int v = 0; v < 16; ++v) acc[v] *= e_ref;
-    const float* g = cb + static_cast<int64_t>(qt * (qt + 1) / 2) * kTileElems;
-    for (int kt = 0; kt < qt; ++kt, g += kTileElems) {
-      const int k0 = kt * kTile;
-      __syncthreads();             // At, Xs and fac are free
-      if (threadIdx.x < kTile) fac[threadIdx.x] = expf(ref - cum[k0 + threadIdx.x]);
-      load_tile(Xs, x + k0 * a.x_s, a.x_s, kTile, a.dh);
+      for (int v = 0; v < 16; ++v) acc[v] = 0.0f;
+      tile_product(acc, A, X, a.n);
+      const float ref = cum[q0], e_ref = expf(ref);
+#pragma unroll
+      for (int v = 0; v < 16; ++v) acc[v] *= e_ref;
+      for (int t = threadIdx.x; t < q0; t += kThreads)
+        kexp[t] = expf(ref - cum[t]);
+      if (threadIdx.x < kTile)
+        rowf[threadIdx.x] = threadIdx.x < q_valid
+            ? expf(cum[q0 + threadIdx.x] - ref) : 0.0f;
+    } else if (kt < qt) {          // (C B^T) diag(exp(r - cum_s)) x
+      tile_product<true>(acc, A, X, kTile, kexp + kt * kTile);
+    } else {                       // the diagonal: mask and decay in place
+#pragma unroll 4
+      for (int i = 0; i < kTileElems / kThreads; ++i) {
+        const int e = threadIdx.x + kThreads * i, s = e >> 6, t = e & 63;
+        float* g = A + s * kLd + t;
+        *g = (s <= t && t < q_valid) ? *g * expf(cum[q0 + t] - cum[q0 + s])
+                                     : 0.0f;
+      }
       __syncthreads();
-      fill_tile([&](int e) { return g[e]; },
-                [&](int e, float v) {
-                  At[(e >> 6) * kLd + (e & 63)] = v * fac[e >> 6];
-                });
-      __syncthreads();
-      tile_product(acc, At, Xs, kTile);
-    }
-    __syncthreads();               // At, Xs and fac are free
-    if (threadIdx.x < kTile)
-      fac[threadIdx.x] = threadIdx.x < q_valid
-          ? expf(cum[q0 + threadIdx.x] - ref) : 0.0f;
-    load_tile(Xs, x + q0 * a.x_s, a.x_s, q_valid, a.dh);
-    fill_tile([&](int e) { return g[e]; },
-              [&](int e, float v) {
-                const int s = e >> 6, t = e & 63;
-                At[s * kLd + t] = (s <= t && t < q_valid)
-                    ? v * expf(cum[q0 + t] - cum[q0 + s]) : 0.0f;
-              });
-    __syncthreads();
 #pragma unroll
-    for (int v = 0; v < 16; ++v) acc[v] *= fac[acc_row(v)];
-    tile_product(acc, At, Xs, q_valid);
+      for (int v = 0; v < 16; ++v) acc[v] *= rowf[acc_row(v)];
+      tile_product<false, true>(acc, A, X, q_valid);
 #pragma unroll
-    for (int v = 0; v < 16; ++v) {
-      const int t = acc_row(v), d = acc_col(v);
-      if (t < q_valid && d < a.dh)
-        y[static_cast<int64_t>(q0 + t) * a.y_s + d] = acc[v];
+      for (int v = 0; v < 16; ++v) {
+        const int t = acc_row(v), d = acc_col(v);
+        if (t < q_valid && d < a.dh)
+          y[static_cast<int64_t>(q0 + t) * a.y_s + d] = acc[v];
+      }
     }
+    __syncthreads();               // this stage, kexp and rowf are read
+    qt = next_qt;
+    kt = next_kt;
   }
 }
 
 // the workspace's parts, in floats, each a multiple of 64
 struct Workspace {
-  int64_t cb, cum, st, decay;
+  int64_t cb, ct, cum, st, decay;
 };
 
 Workspace workspace(int B, int H, int S, int dh, int n, int chunk) {
@@ -360,6 +493,7 @@ Workspace workspace(int B, int H, int S, int dh, int n, int chunk) {
   const int64_t tiles = (chunk + kTile - 1) / kTile;
   auto up = [](int64_t v) { return (v + 63) / 64 * 64; };
   return {up(B * nc * (tiles * (tiles + 1) / 2) * kTileElems),
+          up(B * nc * tiles * kTileElems),
           up(static_cast<int64_t>(B) * H * nc * chunk),
           up(static_cast<int64_t>(B) * H * nc * n * dh),
           up(static_cast<int64_t>(B) * H * nc)};
@@ -385,7 +519,8 @@ size_t repro_ssd_workspace_bytes(int B, int H, int S, int dh, int n,
                                  int chunk) {
   if (B < 1 || H < 1 || S < 1 || chunk < 1) return 0;
   const Workspace w = workspace(B, H, S, dh, n, chunk);
-  return static_cast<size_t>(w.cb + w.cum + w.st + w.decay) * sizeof(float);
+  return static_cast<size_t>(w.cb + w.ct + w.cum + w.st + w.decay) *
+         sizeof(float);
 }
 
 // x, y: (B, H, S, dh) f32 with element strides (b, h, s) and a dense last
@@ -406,9 +541,9 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
       H < 0 || S < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem_cb = 2 * kTileFloats * sizeof(float);
-  const size_t smem_state = (2 * kTileFloats + 32 + 2 * static_cast<size_t>(chunk))
-                            * sizeof(float);
-  const size_t smem_scan = (3 * kTileFloats + kTile + static_cast<size_t>(chunk))
+  const size_t T64 = (static_cast<size_t>(chunk) + kTile - 1) / kTile * kTile;
+  const size_t smem_state = (4 * kTileFloats + 32 + chunk + T64) * sizeof(float);
+  const size_t smem_scan = (4 * kTileFloats + kTile + 2 * static_cast<size_t>(chunk))
                            * sizeof(float);
   if (smem_state > static_cast<size_t>(kMaxSmem) ||
       smem_scan > static_cast<size_t>(kMaxSmem))
@@ -426,10 +561,12 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
   a.state_out = static_cast<float*>(state_out);
   a.H = H; a.S = S; a.dh = dh; a.n = n; a.chunk = chunk;
   a.nc = (S + chunk - 1) / chunk;
+  a.n_tiles = tiles;
   a.n_pairs = tiles * (tiles + 1) / 2;
   const Workspace w = workspace(B, H, S, dh, n, chunk);
   a.cb = static_cast<float*>(workspace_ptr);
-  a.cum = a.cb + w.cb;
+  a.ct = a.cb + w.cb;
+  a.cum = a.ct + w.ct;
   a.st = a.cum + w.cum;
   a.decay = a.st + w.st;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,12 +3,18 @@
 // in for what the kernels use: 3-D grids, __syncthreads, warp shuffles,
 // votes and __syncwarp, float4, bf16 conversions, and the inline PTX
 // statements of
-// flash_attention.cu (the functions between its "ptx:begin" and "ptx:end"
-// lines, which build.py drops): mbarriers (arrivals and transaction bytes
-// per phase), TMA box loads (bounds, zero fill, the tensor map's alignment rules
-// and the swizzle on shared-memory address bits), setmaxnreg, and wgmma in
-// its SS and RS forms (bf16 in, f32 accumulate) reading shared memory
-// through its descriptors. A wgmma result lands at wgmma_wait; until then
+// flash_attention.cu and mamba2_ssd.cu (the functions between their
+// "ptx:begin" and "ptx:end" lines, which build.py drops): mbarriers
+// (arrivals and transaction bytes per phase), TMA box loads (bounds, zero
+// fill, the tensor map's alignment rules and the swizzle on shared-memory
+// address bits), setmaxnreg, wgmma in its SS and RS forms (bf16 in, f32
+// accumulate) reading shared memory through its descriptors, and
+// cvt.rna.tf32.f32 and mma.sync.m16n8k8 TF32 (the warp's fragments
+// gathered in PTX's layout, products in double, the bits below TF32 of
+// each operand ignored, as the tensor cores ignore them), and cp.async in
+// commit groups (a destination reads NaN from the copy's issue until a
+// wait_group lets its group complete, so a read before the wait, or a copy
+// into a stage that is still being read, shows). A wgmma result lands at wgmma_wait; until then
 // its accumulator registers read as NaN, so a read before the wait shows.
 // An mbarrier wait that does not complete in 30 s aborts with the barrier
 // and the waiting thread, so a wrong phase shows as a message, not a hang.
@@ -159,6 +165,7 @@ struct ShimBlock {
   std::vector<std::unique_ptr<std::barrier<>>> warp, wg;
   std::vector<float> shfl;                 // one word per thread
   std::vector<float> wg_a;                 // per warpgroup: A, 64 x 16
+  std::vector<float> mma_a, mma_b;         // per warp: A 16 x 8, B 8 x 8
   std::mutex mu;
   std::map<uint32_t, ShimBar> bars;
 };
@@ -306,6 +313,74 @@ inline void tma_load(uint32_t dst, const CUtensorMap* m, uint32_t bar, int c0,
   shim_complete_tx(bar, bytes);
 }
 
+// x to TF32: to nearest, ties away from zero (on the magnitude), the 13
+// bits below it zero; NaN and infinity keep their class
+inline uint32_t tf32_rna(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) == 0x7f800000u)
+    return (u & 0x007fffffu) ? 0x7fffe000u : u;
+  return (u + 0x1000u) & 0xffffe000u;
+}
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a b: lane (g, q)
+// = (lane / 4, lane % 4) holds a (g, q) (g + 8, q) (g, q + 4) (g + 8, q + 4),
+// b (k q, n g) (k q + 4, n g) and d (g, 2q) (g, 2q + 1) (g + 8, 2q)
+// (g + 8, 2q + 1); every lane of the warp must call it
+inline void mma_tf32(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const unsigned t = threadIdx.x, w = t / 32, lane = t % 32;
+  const unsigned g = lane / 4, q = lane % 4;
+  float* A = &shim_blk->mma_a[w * 128];
+  float* B = &shim_blk->mma_b[w * 64];
+  auto tf = [](uint32_t v) { return __uint_as_float(v & 0xffffe000u); };
+  A[g * 8 + q] = tf(a[0]);
+  A[(g + 8) * 8 + q] = tf(a[1]);
+  A[g * 8 + q + 4] = tf(a[2]);
+  A[(g + 8) * 8 + q + 4] = tf(a[3]);
+  B[q * 8 + g] = tf(b[0]);
+  B[(q + 4) * 8 + g] = tf(b[1]);
+  __syncwarp();
+  for (int e = 0; e < 4; ++e) {
+    const unsigned row = g + 8 * (e >> 1), col = 2 * q + (e & 1);
+    double s = d[e];
+    for (int k = 0; k < 8; ++k) s += double(A[row * 8 + k]) * double(B[k * 8 + col]);
+    d[e] = float(s);
+  }
+  __syncwarp();
+}
+
+// cp.async: the thread's copies, in groups; the open group is the one not
+// committed yet
+struct ShimCopy { uint8_t* dst; const uint8_t* src; int bytes, size; };
+inline thread_local std::vector<std::vector<ShimCopy>> shim_cp_groups;
+inline thread_local std::vector<ShimCopy> shim_cp_open;
+inline void shim_cp(void* dst, const void* src, int bytes, int size) {
+  const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
+  if (d % size || (bytes && reinterpret_cast<uintptr_t>(src) % size) ||
+      static_cast<uint8_t*>(dst) < shim_blk->smem) {
+    std::fprintf(stderr, "shim: cp.async of %d bytes misaligned or not to "
+                 "shared memory\n", size);
+    std::abort();
+  }
+  std::memset(dst, 0xff, size_t(size));   // NaN until the copy lands
+  shim_cp_open.push_back({static_cast<uint8_t*>(dst),
+                          static_cast<const uint8_t*>(src), bytes, size});
+}
+inline void cp_async4(float* dst, const float* src, int bytes) { shim_cp(dst, src, bytes, 4); }
+inline void cp_async16(float* dst, const float* src, int bytes) { shim_cp(dst, src, bytes, 16); }
+inline void cp_async_commit() {
+  shim_cp_groups.push_back(std::move(shim_cp_open));
+  shim_cp_open.clear();
+}
+template <int N> inline void cp_async_wait() {
+  while (shim_cp_groups.size() > size_t(N)) {
+    for (const ShimCopy& c : shim_cp_groups.front()) {
+      std::memset(c.dst, 0, size_t(c.size));
+      if (c.bytes) std::memcpy(c.dst, c.src, size_t(c.bytes));
+    }
+    shim_cp_groups.erase(shim_cp_groups.begin());
+  }
+}
+
 template <int R> inline void regs_inc() {}
 template <int R> inline void regs_dec() {}
 
@@ -425,6 +500,8 @@ inline void shim_launch(const std::function<void()>& k, dim3 grid, dim3 block,
       blk.wg.push_back(std::make_unique<std::barrier<>>(std::min(128u, n - 128 * w)));
     blk.shfl.assign(n, 0.0f);
     blk.wg_a.assign(((n + 127) / 128) * 64 * 16, 0.0f);
+    blk.mma_a.assign(((n + 31) / 32) * 128, NAN);
+    blk.mma_b.assign(((n + 31) / 32) * 64, NAN);
     std::vector<std::thread> ts;
     for (unsigned t = 0; t < n; ++t)
       ts.emplace_back([&, t, bx, by, bz] {
@@ -437,6 +514,10 @@ inline void shim_launch(const std::function<void()>& k, dim3 grid, dim3 block,
         k();
         if (!shim_pending.empty()) {
           std::fprintf(stderr, "shim: wgmma results never waited for\n");
+          std::abort();
+        }
+        if (!shim_cp_groups.empty() || !shim_cp_open.empty()) {
+          std::fprintf(stderr, "shim: cp.async copies never waited for\n");
           std::abort();
         }
       });

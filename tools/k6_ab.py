@@ -3,7 +3,8 @@
 other versions of its source, in one process on one GPU, in alternating
 rounds.
 
-    python3 tools/k6_ab.py [--variant NAME=PATH ...] [--rounds 6] [--reps 5]
+    python3 tools/k6_ab.py [--variant NAME=PATH ...] [--unchecked NAME=PATH ...]
+                           [--contiguous] [--rounds 6] [--reps 5]
 
 Run from a checkout of the repository, on a card. Each ``--variant`` is a
 CUDA source with the C function ``repro_ssd_chunked``, for example an
@@ -13,10 +14,13 @@ the port's nvcc flags (``kernels/_build.py``) beside the committed source.
 A source without ``repro_ssd_workspace_bytes`` is called with the one-kernel
 interface of PR 13 (no workspace argument). Before it is timed, every
 version must agree with the plain version within ``chip_smoke.SCAN_TOL`` on
-ragged shapes from a zero and a random state, and at the serving shape.
+ragged shapes from a zero and a random state, and at the serving shape;
+an ``--unchecked`` one is a diagnostic (a version with part of its work
+taken out, to see what that part costs) and is timed without the check.
 The serving shape is zamba2-1.2b's prefill (x (4, 64, 2,000, 64) f32 in
 the model's strided layout, B/C (4, 2,000, 64) slices of one projection,
-chunk 256, from a zero state). Each round times every version once (the
+chunk 256, from a zero state; ``--contiguous``: x and lw copied to
+(B, H, S, ...) order first). Each round times every version once (the
 median of ``--reps`` runs, CUDA events, L2 flushed, ``chip_smoke.Timer``),
 in turn forward and backward. Prints the card's name and power limit, each
 version's ptxas lines, its device time per CUDA kernel (torch.profiler)
@@ -68,6 +72,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=PATH")
+    ap.add_argument("--unchecked", action="append", default=[],
+                    metavar="NAME=PATH")
+    ap.add_argument("--contiguous", action="store_true")
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -84,9 +91,10 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60)
     print(card.stdout.strip(), flush=True)
     sources = {"committed": _build.SOURCES["mamba2_ssd"]}
-    for spec in args.variant:
+    for spec in args.variant + args.unchecked:
         name, _, path = spec.partition("=")
         sources[name] = Path(path).resolve()
+    unchecked = {spec.partition("=")[0] for spec in args.unchecked}
     for name, path in sources.items():
         _build.SOURCES[f"k6_{name}"] = path
     libs = _build.build_all([f"k6_{n}" for n in sources])
@@ -103,7 +111,7 @@ def main() -> int:
             return call(*a, stream=torch.cuda.current_stream().cuda_stream,
                         **kw)
         run[name] = go
-    names = list(run)
+    names = [n for n in run if n not in unchecked]
 
     g = torch.Generator().manual_seed(5)
     for B, H, S, dh, N, T in ((2, 3, 1000, 64, 64, 256),
@@ -127,14 +135,18 @@ def main() -> int:
                       f"max|ref|)", flush=True)
     a6, _ = chip_smoke._scan_inputs("ssd_chunked", "reference",
                                     torch.Generator().manual_seed(12))
+    if args.contiguous:
+        a6 = (a6[0].contiguous(), a6[1].contiguous(), *a6[2:])
     yp, sp = k6.ssd_chunked_plain(*a6, chunk=256)
-    for name in names:
+    for name in run:
         y, st = run[name](*a6, chunk=256)
         e = max(chip_smoke._scan_rel(y, yp), chip_smoke._scan_rel(st, sp))
-        chip_smoke.check(e < chip_smoke.SCAN_TOL, f"{name} serving: {e}")
+        if name not in unchecked:
+            chip_smoke.check(e < chip_smoke.SCAN_TOL, f"{name} serving: {e}")
         us = chip_smoke.profile_kernels(lambda n=name: run[n](*a6, chunk=256))
         print(f"{name} at the serving shape: {e} of max(1, max|ref|); "
               f"device us per launch by kernel {us}", flush=True)
+    names = list(run)
     bound = chip_smoke.scan_bound("ssd_chunked", 4, 64, 2000, 64, 64)
     timer = chip_smoke.Timer()
     times = {n: [] for n in names}
