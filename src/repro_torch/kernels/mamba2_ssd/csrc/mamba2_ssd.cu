@@ -33,10 +33,9 @@
 // sec. 6-7), each a kernel, launched in order on the caller's stream, with
 // their intermediates in a workspace the caller allocates
 // (repro_ssd_workspace_bytes):
-//  1. ssd_cb, one block per (b, chunk, 64 x 64 tile at or below the
-//     diagonal): the chunk's C B^T, computed once for all H heads (B and C
-//     have no head axis), kept transposed ([s][t]) for step 4; the
-//     diagonal's blocks also keep their C^T tile ([n][t]) for step 4.
+//  1. ssd_cb, one block per (b, chunk, 64-row tile): the tile's diagonal
+//     block of C B^T, computed once for all H heads (B and C have no head
+//     axis), kept transposed ([s][t]), and the tile's C^T ([n][t]).
 //  2. ssd_chunk_state, one block per (b, h, chunk): the chunk's inclusive
 //     cum (a block-wide scan: per-thread runs, then warp shuffles), kept
 //     for step 4; exp(cum_T); and the chunk's own state
@@ -48,27 +47,27 @@
 //     in flight at a time. Each chunk's entering state overwrites its dS;
 //     the last S is state_out (state_in and state_out, dh x N, are read
 //     and written across their rows: 1 MB each at the serving shape).
-//  4. ssd_chunk_scan, one block per (b, h, chunk): per 64-row query tile,
-//     y = exp(cum_t) C_t S_{c-1}^T + (C B^T o L) x over the key tiles at or
-//     below it. Off the diagonal the decay factors around the query tile's
-//     first step r = cum_{q0}: exp(cum_t - cum_s) = exp(cum_t - r)
-//     exp(r - cum_s), both factors <= 1 (cum never rises), so it costs two
-//     exponentials a row instead of one a pair, applied to the rows of x
-//     as the product reads them and to the output rows; the diagonal tile
-//     takes exp(cum_t - cum_s) per pair under the causal mask. The block
-//     walks its jobs (per query tile: the inter-chunk term, each key tile
-//     below, the diagonal) with the next job's tiles copied in while this
-//     one is multiplied.
+//  4. ssd_chunk_scan, one block per (b, h, chunk): the chunk's 64-row
+//     tiles in order, with the state R entering each tile carried in
+//     shared memory (R_0 = S_{c-1}): with r = cum of the row before the
+//     tile (0 for the first) and q1 the tile's last row,
+//       y_t     = exp(cum_t - r) C_t R^T + sum_{s<=t in the tile}
+//                 (C_t . B_s) exp(cum_t - cum_s) x_s
+//       R_next  = exp(cum_q1 - r) R + sum_{s in the tile}
+//                 exp(cum_q1 - cum_s) B_s x_s^T
+//     the SSD recurrence itself at 64-step granularity (every factor <= 1:
+//     cum never rises), so a tile costs three products (the carried state,
+//     the causal diagonal, the update) and no tile of the chunk below the
+//     diagonal is read. The next tile's C^T and C B^T are copied in while
+//     the update is multiplied.
 // Every product is a 64 x 64 output tile on 8 warps, each a 16 x 32 strip:
 // per 8 steps of k, four mma.sync.m16n8k8 TF32 tiles, three mmas each,
 // with fragments read from shared tiles stored k-major with a row stride
 // of 72 floats (8 q + g: a fragment load hits 32 distinct banks; the
 // inline PTX is in small functions between the ptx:begin and ptx:end
-// lines, for which tools/cuda_shim stands in). Steps 2 and 4 copy their
-// tiles with cp.async into two stages (no registers held, zero fill past
-// the edges), so a block always has a copy in flight: with one stage and
-// 3-4 blocks an SM, each block waited on ~50 load round trips and the
-// tensor cores saved nothing. Step 1 copies its two tiles the same way.
+// lines, for which tools/cuda_shim stands in). Tiles are copied with
+// cp.async (no registers held, zero fill past the edges, 16 bytes a copy
+// where the rows allow); step 2 double-buffers its key tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,12 +90,12 @@ struct SsdArgs {
   const float* state_in;                     // (B, H, dh, N) or null (zero)
   float* y;        int64_t y_b, y_h, y_s;    // (B, H, S, dh), dense last dim
   float* state_out;                          // (B, H, dh, N)
-  float* cb;       // (B, nc, n_pairs, 64, 64): C B^T tiles, [s][t]
+  float* cb;       // (B, nc, n_tiles, 64, 64): diagonal C B^T tiles, [s][t]
   float* ct;       // (B, nc, n_tiles, 64, 64): C^T tiles, [n][t]
   float* cum;      // (B, H, nc, T): cumsum of lw in each chunk
   float* st;       // (B, H, nc, N, dh): dS, then each chunk's entering state
   float* decay;    // (B, H, nc): exp(cum_T)
-  int H, S, dh, n, chunk, nc, n_tiles, n_pairs;
+  int H, S, dh, n, chunk, nc, n_tiles;
 };
 
 // element e of a tile copied transposed: a warp reads 4 columns of 8 rows,
@@ -272,40 +271,33 @@ __device__ void block_cumsum(float* v, int T, float* warp_tot) {
   __syncthreads();
 }
 
-// step 1: tile p of chunk c's lower triangle of C B^T, transposed:
-// out[s][t] = C_{q0+t} . B_{k0+s}, zero past the chunk's rows
+// step 1: tile qt of chunk c: its diagonal block of C B^T, transposed,
+// out[s][t] = C_{q0+t} . B_{q0+s}, zero past the chunk's rows, and C^T
 __global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
   extern __shared__ float smem[];
-  float* Bt = smem;                // B^T of the key rows   [n][s]
-  float* Ct = Bt + kTileFloats;    // C^T of the query rows [n][t]
-  const int p = blockIdx.x % a.n_pairs, c = blockIdx.x / a.n_pairs;
+  float* Bt = smem;                // B^T of the tile's rows [n][s]
+  float* Ct = Bt + kTileFloats;    // C^T of the tile's rows [n][t]
+  const int qt = blockIdx.x % a.n_tiles, c = blockIdx.x / a.n_tiles;
   const int b = blockIdx.y;
-  int qt = 0;
-  while ((qt + 1) * (qt + 2) / 2 <= p) ++qt;
-  const int kt = p - qt * (qt + 1) / 2;
-  const int c0 = c * a.chunk;
+  const int c0 = c * a.chunk, q0 = qt * kTile;
   const int valid = min(a.chunk, a.S - c0);
-  const int q0 = qt * kTile, k0 = kt * kTile;
   if (q0 >= valid) return;         // rows past S: step 4 never reads them
-  const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
-  const float* cm = a.cm + b * a.cm_b + static_cast<int64_t>(c0) * a.cm_s;
-  copy_tile_t(Bt, bm + k0 * a.bm_s, a.bm_s, min(kTile, valid - k0), a.n);
-  copy_tile_t(Ct, cm + q0 * a.cm_s, a.cm_s, min(kTile, valid - q0), a.n);
+  const int rows = min(kTile, valid - q0);
+  const int64_t row0 = static_cast<int64_t>(c0 + q0);
+  copy_tile_t(Bt, a.bm + b * a.bm_b + row0 * a.bm_s, a.bm_s, rows, a.n);
+  copy_tile_t(Ct, a.cm + b * a.cm_b + row0 * a.cm_s, a.cm_s, rows, a.n);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (kt == qt) {                  // C^T of the query rows, for step 4
-    float* ct = a.ct + ((static_cast<int64_t>(b) * a.nc + c) * a.n_tiles + qt)
-                           * kTileElems;
-    for (int e = threadIdx.x; e < kTileElems; e += kThreads)
-      ct[e] = Ct[(e >> 6) * kLd + (e & 63)];
-  }
+  const int64_t tile = ((static_cast<int64_t>(b) * a.nc + c) * a.n_tiles + qt)
+                       * kTileElems;
+  for (int e = threadIdx.x; e < kTileElems; e += kThreads)
+    a.ct[tile + e] = Ct[(e >> 6) * kLd + (e & 63)];
   float acc[16] = {};
   tile_product(acc, Bt, Ct, a.n);
-  float* out = a.cb + ((static_cast<int64_t>(b) * a.nc + c) * a.n_pairs + p)
-                          * kTileElems;
 #pragma unroll
-  for (int v = 0; v < 16; ++v) out[acc_row(v) * kTile + acc_col(v)] = acc[v];
+  for (int v = 0; v < 16; ++v)
+    a.cb[tile + acc_row(v) * kTile + acc_col(v)] = acc[v];
 }
 
 // step 2: the chunk's cum, exp(cum_T) and own state, transposed: dS[n][d]
@@ -391,95 +383,85 @@ __global__ void __launch_bounds__(kThreads) ssd_state_pass(SsdArgs a) {
   a.state_out[at] = s;
 }
 
-// step 4: y of the chunk, 64 query rows at a time. Jobs in order, for
-// each query tile qt: kt = -1 (the inter-chunk term: C of the query rows
-// against the entering state), kt = 0 .. qt - 1 (key tiles below the
-// diagonal), kt = qt (the diagonal, then y is stored).
-__global__ void __launch_bounds__(kThreads, 3) ssd_chunk_scan(SsdArgs a) {
+// step 4: y of the chunk, a 64-row tile at a time, the state carried
+__global__ void __launch_bounds__(kThreads, 2) ssd_chunk_scan(SsdArgs a) {
   extern __shared__ float smem[];
-  float* At = smem;                // C^T [n][t] or (C B^T)^T [s][t], 2 stages
-  float* Xs = At + 2 * kTileFloats;  // x [s][d] or the entering state^T
-                                     // [n][d], 2 stages
-  float* rowf = Xs + 2 * kTileFloats;  // exp(cum_t - r) per query row [64]
-  float* cum = rowf + kTile;       // [T]
-  float* kexp = cum + a.chunk;     // exp(r - cum_s) per key row [T]
+  float* Ct = smem;                // C^T of the tile's rows         [n][t]
+  float* G = Ct + kTileFloats;     // (C B^T)^T of the diagonal       [s][t]
+  float* Xs = G + kTileFloats;     // x of the tile's rows            [s][d]
+  float* Bs = Xs + kTileFloats;    // B of the tile's rows            [s][n]
+  float* R = Bs + kTileFloats;     // the state entering the tile, ^T [n][d]
+  float* rowf = R + kTileFloats;   // exp(cum_t - r)                  [64]
+  float* wq = rowf + kTile;        // exp(cum_q1 - cum_s)             [64]
+  float* cum = wq + kTile;         // [T]
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int T = a.chunk, c0 = c * T;
   const int valid = min(T, a.S - c0);
   const int n_q = (valid + kTile - 1) / kTile;
   const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
   const float* x = a.x + b * a.x_b + h * a.x_h + static_cast<int64_t>(c0) * a.x_s;
+  const float* bm = a.bm + b * a.bm_b + static_cast<int64_t>(c0) * a.bm_s;
   float* y = a.y + b * a.y_b + h * a.y_h + static_cast<int64_t>(c0) * a.y_s;
-  const float* cb = a.cb + (static_cast<int64_t>(b) * a.nc + c) * a.n_pairs
-                               * kTileElems;
-  const float* ct = a.ct + (static_cast<int64_t>(b) * a.nc + c) * a.n_tiles
-                               * kTileElems;
-  auto issue = [&](int qt, int kt, int stage) {
-    const int q0 = qt * kTile;
-    float* A = At + stage * kTileFloats;
-    if (kt < 0) {
-      copy_dense_tile(A, ct + static_cast<int64_t>(qt) * kTileElems);
-      copy_tile(Xs + stage * kTileFloats, a.st + bhc * a.n * a.dh, a.dh,
-                a.n, a.dh);
-    } else {
-      copy_dense_tile(A, cb + static_cast<int64_t>(qt * (qt + 1) / 2 + kt)
-                                  * kTileElems);
-      copy_tile(Xs + stage * kTileFloats, x + kt * kTile * a.x_s, a.x_s,
-                min(kTile, valid - kt * kTile), a.dh);
-    }
+  const int64_t tiles = (static_cast<int64_t>(b) * a.nc + c) * a.n_tiles;
+  auto issue_c = [&](int qt) {     // C^T and the diagonal's C B^T
+    copy_dense_tile(Ct, a.ct + (tiles + qt) * kTileElems);
+    copy_dense_tile(G, a.cb + (tiles + qt) * kTileElems);
     cp_async_commit();
   };
-  issue(0, -1, 0);
+  auto issue_xb = [&](int qt) {    // x and B of the tile's rows
+    const int rows = min(kTile, valid - qt * kTile);
+    copy_tile(Xs, x + qt * kTile * a.x_s, a.x_s, rows, a.dh);
+    copy_tile(Bs, bm + qt * kTile * a.bm_s, a.bm_s, rows, a.n);
+    cp_async_commit();
+  };
+  copy_tile(R, a.st + bhc * a.n * a.dh, a.dh, a.n, a.dh);
+  issue_c(0);
+  issue_xb(0);
   for (int t = threadIdx.x; t < T; t += kThreads) cum[t] = a.cum[bhc * T + t];
-  float acc[16];
-  for (int qt = 0, kt = -1, stage = 0; qt < n_q; stage ^= 1) {
-    const int next_qt = kt < qt ? qt : qt + 1, next_kt = kt < qt ? kt + 1 : -1;
-    if (next_qt < n_q) {
-      issue(next_qt, next_kt, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();               // this job's tiles (and cum) are in place
+  __syncthreads();                 // cum is in place
+  for (int qt = 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
-    float* A = At + stage * kTileFloats;
-    const float* X = Xs + stage * kTileFloats;
-    if (kt < 0) {                  // acc = exp(r) C S^T, and this tile's decays
-#pragma unroll
-      for (int v = 0; v < 16; ++v) acc[v] = 0.0f;
-      tile_product(acc, A, X, a.n);
-      const float ref = cum[q0], e_ref = expf(ref);
-#pragma unroll
-      for (int v = 0; v < 16; ++v) acc[v] *= e_ref;
-      for (int t = threadIdx.x; t < q0; t += kThreads)
-        kexp[t] = expf(ref - cum[t]);
-      if (threadIdx.x < kTile)
-        rowf[threadIdx.x] = threadIdx.x < q_valid
-            ? expf(cum[q0 + threadIdx.x] - ref) : 0.0f;
-    } else if (kt < qt) {          // (C B^T) diag(exp(r - cum_s)) x
-      tile_product<true>(acc, A, X, kTile, kexp + kt * kTile);
-    } else {                       // the diagonal: mask and decay in place
-#pragma unroll 4
-      for (int i = 0; i < kTileElems / kThreads; ++i) {
-        const int e = threadIdx.x + kThreads * i, s = e >> 6, t = e & 63;
-        float* g = A + s * kLd + t;
-        *g = (s <= t && t < q_valid) ? *g * expf(cum[q0 + t] - cum[q0 + s])
-                                     : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int v = 0; v < 16; ++v) acc[v] *= rowf[acc_row(v)];
-      tile_product<false, true>(acc, A, X, q_valid);
-#pragma unroll
-      for (int v = 0; v < 16; ++v) {
-        const int t = acc_row(v), d = acc_col(v);
-        if (t < q_valid && d < a.dh)
-          y[static_cast<int64_t>(q0 + t) * a.y_s + d] = acc[v];
-      }
+    const int q1 = min(q0 + kTile, T) - 1;
+    const float r = q0 > 0 ? cum[q0 - 1] : 0.0f;
+    if (threadIdx.x < kTile) {
+      const bool in = threadIdx.x < q_valid;
+      rowf[threadIdx.x] = in ? expf(cum[q0 + threadIdx.x] - r) : 0.0f;
+      wq[threadIdx.x] = in ? expf(cum[q1] - cum[q0 + threadIdx.x]) : 0.0f;
     }
-    __syncthreads();               // this stage, kexp and rowf are read
-    qt = next_qt;
-    kt = next_kt;
+    cp_async_wait<0>();
+    __syncthreads();               // the tile's copies, R and the decays
+#pragma unroll 4
+    for (int i = 0; i < kTileElems / kThreads; ++i) {  // mask, decay
+      const int e = threadIdx.x + kThreads * i, s = e >> 6, t = e & 63;
+      float* g = G + s * kLd + t;
+      *g = (s <= t && t < q_valid) ? *g * expf(cum[q0 + t] - cum[q0 + s])
+                                   : 0.0f;
+    }
+    __syncthreads();
+    float acc[16] = {};
+    tile_product(acc, Ct, R, a.n);
+#pragma unroll
+    for (int v = 0; v < 16; ++v) acc[v] *= rowf[acc_row(v)];
+    tile_product<false, true>(acc, G, Xs, q_valid);
+#pragma unroll
+    for (int v = 0; v < 16; ++v) {
+      const int t = acc_row(v), d = acc_col(v);
+      if (t < q_valid && d < a.dh)
+        y[static_cast<int64_t>(q0 + t) * a.y_s + d] = acc[v];
+    }
+    if (qt + 1 == n_q) break;
+    __syncthreads();               // Ct, G and R are read
+    issue_c(qt + 1);
+    float upd[16] = {};            // B^T diag(exp(cum_q1 - cum_s)) x
+    tile_product<true>(upd, Bs, Xs, q_valid, wq);
+    const float decay = expf(cum[q1] - r);
+#pragma unroll
+    for (int v = 0; v < 16; ++v) {
+      float* rv = R + acc_row(v) * kLd + acc_col(v);
+      *rv = decay * *rv + upd[v];
+    }
+    __syncthreads();               // Bs and Xs are read
+    issue_xb(qt + 1);
   }
 }
 
@@ -492,7 +474,7 @@ Workspace workspace(int B, int H, int S, int dh, int n, int chunk) {
   const int64_t nc = (static_cast<int64_t>(S) + chunk - 1) / chunk;
   const int64_t tiles = (chunk + kTile - 1) / kTile;
   auto up = [](int64_t v) { return (v + 63) / 64 * 64; };
-  return {up(B * nc * (tiles * (tiles + 1) / 2) * kTileElems),
+  return {up(B * nc * tiles * kTileElems),
           up(B * nc * tiles * kTileElems),
           up(static_cast<int64_t>(B) * H * nc * chunk),
           up(static_cast<int64_t>(B) * H * nc * n * dh),
@@ -543,7 +525,7 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
   const size_t smem_cb = 2 * kTileFloats * sizeof(float);
   const size_t T64 = (static_cast<size_t>(chunk) + kTile - 1) / kTile * kTile;
   const size_t smem_state = (4 * kTileFloats + 32 + chunk + T64) * sizeof(float);
-  const size_t smem_scan = (4 * kTileFloats + kTile + 2 * static_cast<size_t>(chunk))
+  const size_t smem_scan = (5 * kTileFloats + 2 * kTile + static_cast<size_t>(chunk))
                            * sizeof(float);
   if (smem_state > static_cast<size_t>(kMaxSmem) ||
       smem_scan > static_cast<size_t>(kMaxSmem))
@@ -562,7 +544,6 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
   a.H = H; a.S = S; a.dh = dh; a.n = n; a.chunk = chunk;
   a.nc = (S + chunk - 1) / chunk;
   a.n_tiles = tiles;
-  a.n_pairs = tiles * (tiles + 1) / 2;
   const Workspace w = workspace(B, H, S, dh, n, chunk);
   a.cb = static_cast<float*>(workspace_ptr);
   a.ct = a.cb + w.cb;
@@ -578,7 +559,7 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
         (err = allow_smem(ssd_chunk_state, smem_state)) != cudaSuccess ||
         (err = allow_smem(ssd_chunk_scan, smem_scan)) != cudaSuccess)
       return static_cast<int>(err);
-    ssd_cb<<<dim3(a.n_pairs * a.nc, B), kThreads, smem_cb, s>>>(a);
+    ssd_cb<<<dim3(a.n_tiles * a.nc, B), kThreads, smem_cb, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     ssd_chunk_state<<<dim3(a.nc, H, B), kThreads, smem_state, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

@@ -2,12 +2,15 @@
 through ``tools/cuda_shim`` and held against its plain version.
 
 The shim runs ``mamba2_ssd.cu`` with one thread per CUDA thread, its four
-kernels in order, so the kernels' own logic runs here: the C B^T tiles
-shared by the heads, the block-wide cumsum, the state pass over the chunks,
-the decay factored around each query tile, the masks of ragged chunks and
-tiles, and strided views. What the shim cannot show (that the card compiles
-the source, and its speed) the card tests show: ``tests/test_torch_cuda.py``
-with the ``cuda`` marker, on a GPU.
+kernels in order, and stands in for its inline PTX: the split-TF32
+``mma.sync`` fragments in PTX's layout, ``cvt.rna.tf32`` and the
+``cp.async`` stages (a copy's destination reads NaN until its wait). So
+the kernels' own logic runs here: the C B^T tiles shared by the heads, the
+block-wide cumsum, the state pass over the chunks, the decay factored
+around each query tile, the two-stage copies, the masks of ragged chunks
+and tiles, and strided views. What the shim cannot show (that the card
+compiles the source, and its speed) the card tests show:
+``tests/test_torch_cuda.py`` with the ``cuda`` marker, on a GPU.
 
 The C function is called directly with CPU pointers through
 ``mamba2_ssd.run_kernel`` (the wrapper itself runs the plain version for

@@ -155,7 +155,6 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
 }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int64_t min(int64_t a, int64_t b) { return a < b ? a : b; }
-inline int max(int a, int b) { return a > b ? a : b; }
 
 // -- blocks, warps, barriers -------------------------------------------------
 struct ShimBar { int count = 0, pending = 0; int64_t tx = 0; uint32_t phase = 0; };

@@ -4,7 +4,7 @@ other versions of its source, in one process on one GPU, in alternating
 rounds.
 
     python3 tools/k6_ab.py [--variant NAME=PATH ...] [--unchecked NAME=PATH ...]
-                           [--contiguous] [--rounds 6] [--reps 5]
+                           [--rounds 6] [--reps 5]
 
 Run from a checkout of the repository, on a card. Each ``--variant`` is a
 CUDA source with the C function ``repro_ssd_chunked``, for example an
@@ -19,8 +19,7 @@ an ``--unchecked`` one is a diagnostic (a version with part of its work
 taken out, to see what that part costs) and is timed without the check.
 The serving shape is zamba2-1.2b's prefill (x (4, 64, 2,000, 64) f32 in
 the model's strided layout, B/C (4, 2,000, 64) slices of one projection,
-chunk 256, from a zero state; ``--contiguous``: x and lw copied to
-(B, H, S, ...) order first). Each round times every version once (the
+chunk 256, from a zero state). Each round times every version once (the
 median of ``--reps`` runs, CUDA events, L2 flushed, ``chip_smoke.Timer``),
 in turn forward and backward. Prints the card's name and power limit, each
 version's ptxas lines, its device time per CUDA kernel (torch.profiler)
@@ -74,7 +73,6 @@ def main() -> int:
                     metavar="NAME=PATH")
     ap.add_argument("--unchecked", action="append", default=[],
                     metavar="NAME=PATH")
-    ap.add_argument("--contiguous", action="store_true")
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -135,8 +133,6 @@ def main() -> int:
                       f"max|ref|)", flush=True)
     a6, _ = chip_smoke._scan_inputs("ssd_chunked", "reference",
                                     torch.Generator().manual_seed(12))
-    if args.contiguous:
-        a6 = (a6[0].contiguous(), a6[1].contiguous(), *a6[2:])
     yp, sp = k6.ssd_chunked_plain(*a6, chunk=256)
     for name in run:
         y, st = run[name](*a6, chunk=256)
