@@ -11,8 +11,8 @@ CUDA source with the C function ``repro_ssd_chunked``, for example an
 earlier commit's ``mamba2_ssd.cu`` (``git show
 REV:src/repro_torch/kernels/mamba2_ssd/csrc/mamba2_ssd.cu``), built with
 the port's nvcc flags (``kernels/_build.py``) beside the committed source.
-A source without ``repro_ssd_workspace_bytes`` is called with the one-kernel
-interface of PR 13 (no workspace argument). Before it is timed, every
+A source without ``repro_ssd_workspace_bytes`` is called with the first
+version's one-kernel interface (no workspace argument). Before it is timed, every
 version must agree with the plain version within ``chip_smoke.SCAN_TOL`` on
 ragged shapes from a zero and a random state, and at the serving shape;
 an ``--unchecked`` one is a diagnostic (a version with part of its work
@@ -41,8 +41,8 @@ sys.path.insert(0, str(ROOT))
 
 
 def _one_kernel_call(lib):
-    """A caller of PR 13's ``repro_ssd_chunked``, which takes no
-    workspace."""
+    """A caller of the first version's ``repro_ssd_chunked``, which takes
+    no workspace."""
     import torch
     from repro_torch.kernels.mamba2_ssd.mamba2_ssd import _ARGTYPES, _f32_rows
     f = lib.repro_ssd_chunked
