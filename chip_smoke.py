@@ -83,8 +83,9 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               power read while it runs.
               K6 and K7 at the serve phase's shapes (no single PyTorch
               call computes either: library null), bounded by what the
-              sequential recurrence needs; K6's time is the whole call
-              (its four CUDA kernels), and torch.profiler splits it.
+              sequential recurrence needs; K6's and K7's times are the
+              whole call (four and three CUDA kernels), and torch.profiler
+              splits them.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Without CUDA, or outside
@@ -145,6 +146,8 @@ CUT_PROMPT = 300
 SCAN_TOL = 1e-4
 # the CUDA kernels one K6 call launches, in order (mamba2_ssd.cu)
 K6_KERNELS = ("ssd_cb", "ssd_chunk_state", "ssd_state_pass", "ssd_chunk_scan")
+# the CUDA kernels one K7 call launches, in order (rwkv6.cu)
+K7_KERNELS = ("wkv6_chunk_state", "wkv6_state_pass", "wkv6_chunk_out")
 
 
 def log(*a):
@@ -840,7 +843,7 @@ def serve_phase(seed: int):
         us, total = prof["prefill"]["us"], sum(prof["prefill"]["us"].values())
         share = {}
         for name, kernels in (("ssd_chunked", K6_KERNELS),
-                              ("wkv6_chunk_kernel", ("wkv6_chunk_kernel",)),
+                              ("wkv6_chunked", K7_KERNELS),
                               ("flash_wgmma_kernel", ("flash_wgmma_kernel",)),
                               ("rmsnorm_kernel", ("rmsnorm_kernel",))):
             t = sum(v for k, v in us.items() if any(n in k for n in kernels))
@@ -1113,9 +1116,15 @@ def time_scans(timer, seed: int):
     for key, (ms, plain, b_ms, b_by, _) in out.items():
         log(f"time {key}: kernel {ms} ms, plain {plain} ms, bound {b_ms} ms "
             f"({b_by}), library none")
-    us = profile_kernels(lambda: k6.ssd_chunked(*a6, chunk=256))
-    log(f"profile ssd_chunked (us per launch; None: not in the trace): "
-        f"{ {k: us.get(k) for k in K6_KERNELS} }, all kernels {us}")
+    for key, kernels, fn in (
+            ("ssd_chunked", K6_KERNELS, lambda: k6.ssd_chunked(*a6, chunk=256)),
+            ("wkv6_chunked", K7_KERNELS,
+             lambda: k7.wkv6_chunked(*a7, chunk=128))):
+        us = profile_kernels(fn)
+        mine = {n: [v for k, v in us.items() if n in k] for n in kernels}
+        log(f"profile {key} (us per launch; None: not in the trace): "
+            f"{ {n: sum(v) if v else None for n, v in mine.items()} }, all "
+            f"kernels {us}")
     return out
 
 

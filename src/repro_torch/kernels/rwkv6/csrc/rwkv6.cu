@@ -2,41 +2,64 @@
 // through ctypes (src/repro_torch/kernels/rwkv6/rwkv6.py).
 //
 // Replaces the Pallas kernel src/repro/kernels/rwkv6/rwkv6.py _wkv_kernel
-// (K7). Per (batch b, head h), over chunks of T steps in order, with the
-// (dh x dh) f32 state S0 carried from chunk to chunk and per-channel
-// log-decays lw < 0:
-//   cum   = cumsum(lw) over the chunk (inclusive), cumex = cum - lw
+// (K7). Per (batch b, head h), over chunks of T steps, with the (dh x dh)
+// f32 state S carried from chunk to chunk and per-channel log-decays lw < 0:
+//   cum   = cumsum(lw) over the chunk (inclusive), cumex_t = cum_{t-1}
 //   out_t = sum_{s<t} [sum_d r_t[d] k_s[d] exp(cumex_t[d] - cum_s[d])] v_s
 //         + (sum_d u[d] r_t[d] k_t[d]) v_t                  (the bonus)
-//         + (r_t o exp(cumex_t)) S0                         (inter-chunk)
-//   S1    = diag(exp(cum_T)) S0 + sum_s (k_s o exp(cum_T - cum_s))^T v_s
+//         + (r_t o exp(cumex_t)) S                          (inter-chunk)
+//   S'    = diag(exp(cum_T)) S + sum_s (k_s o exp(cum_T - cum_s))^T v_s
 // r, k, v are read in their dtype (f32 or bf16) and widened to f32, as the
 // Pallas kernel's astype(f32) does. A ragged last chunk is padded with
 // identity steps (r = k = v = 0, lw = 0); here the loads mask the rows past
 // S. Unlike the Pallas kernel, this one starts from a given state (or zero)
-// and writes the final state, which prefill hands to decode.
+// and writes the final state, which prefill hands to decode. cumex_t is
+// taken as the scan's row t - 1 (0 at t = 0), which is cum_t - lw_t without
+// the rounding of the subtraction.
 //
-// The pairwise decay is kept as one exponential of a difference,
-// exp(cumex_t - cum_s) <= 1 for s < t. Splitting it into exp(cumex_t) and
-// exp(-cum_s) overflows: lw reaches -20 per step, so exp(-cum_s) passes
-// f32's range within five steps. The Pallas kernel materialises the
-// (T, T, dh) decay tensor (4 MB at T 128, dh 64); here it never exists:
-// each score is summed over d as its factors are formed.
+// Bound on an H100: the bytes. At rwkv6-1.6b's serving shape (B 4, H 32,
+// S 2,000, dh 64, T 128; r, k, v in bf16) the inputs and outputs are ~0.23
+// GB (0.069 ms at 3.35 TB/s, chip_smoke.scan_bound); the chunked form below
+// does ~4.5G multiply-adds (0.13 ms at 67 TFLOP/s) and moves ~0.49 GB (k,
+// v and lw read twice, the state scratch four times: 0.15 ms).
 //
-// Bound on an H100: the exponentials, T(T-1)/2 dh per chunk and head (0.52M
-// at T 128, dh 64), against ~2.6M flops of products and 0.06 MB moved per
-// chunk and head. Each uses the accurate expf (the reference's tolerance is
-// 1e-4 relative; the MUFU's ex2.approx alone would be a later trade).
+// Decays. A decay exp(x - y) is only ever formed with x - y <= 0 (clamped
+// at 0, so rounding cannot push it past 1): split into exp(x) exp(-y) it
+// overflows, since lw reaches -20 a step and exp(-cum) passes f32's range
+// within five steps. The chunk's rows are cut into sub-chunks of 16; with
+// B_i = cum at the row before sub-chunk i (B_0 = 0), a pair (t, s) with t
+// in sub-chunk i and s in an earlier sub-chunk j factors as
+//   exp(cumex_t - cum_s) = exp(cumex_t - B_i) exp(B_i - B_{j+1}) exp(B_{j+1} - cum_s)
+// (B_{j+1} is cum at j's last row), each exponent <= 0. So the scores of
+// such pairs are a product, sum_d q_t[d] D_ij[d] kk_s[d], with q = r o
+// exp(cumex - B_i) and kk = k o exp(B_{j+1} - cum) formed once a row and
+// D_ij once a pair of sub-chunks. A factor underflows to 0 only where the
+// weight it bounds is already below f32's range. Pairs inside one
+// sub-chunk keep the pairwise exp(cumex_t - cum_s), for s < t only; the
+// inter-chunk term is (q_t o exp(B_i)) S.
 //
-// Design, the simple one: one 256-thread block per (b, h), chunks in order
-// inside it; the chunk's cumsum, the state and 64-row tiles of r, cumex, k,
-// v and the scores sit in shared memory (row stride 65 floats, so column
-// walks hit distinct banks); each thread keeps a 4 x 4 block of a 64 x 64
-// output tile in registers (rows ty + 16 i, columns tx + 16 j). For each
-// query tile the key tiles at or below it come in turn; a score tile is
-// formed whole (its upper triangle on the diagonal tile is computed and
-// then dropped by a select, so an overflowing exponent there is harmless)
-// and multiplied into the outputs.
+// Design: three kernels, launched in order on the caller's stream, with
+// their intermediates in a workspace the caller allocates
+// (repro_wkv6_workspace_bytes):
+//  1. wkv6_chunk_state, one block per (b, h, chunk): the chunk's cum (a
+//     block-wide scan: per-thread runs of a column, combined with warp
+//     shuffles), exp(cum_T), and the chunk's own state
+//     dS = sum_s (k_s o exp(cum_T - cum_s))^T v_s over 64-row key tiles.
+//  2. wkv6_state_pass, one thread per (b, h, d, e): S_c = exp(cum_T,c-1)
+//     S_{c-1} + dS_{c-1} in chunk order, from state_in or zero, 8 chunks'
+//     loads in flight at a time; each chunk's entering state overwrites its
+//     dS, and the last S is state_out.
+//  3. wkv6_chunk_out, one block per (b, h, chunk): the chunk's cum again,
+//     then its 64-row query tiles in order. For each, the diagonal key tile
+//     first: its sub-chunks' pairwise scores (and the bonus on the
+//     diagonal) from the raw r and k, then q and kk in place, the
+//     inter-chunk product with the entering state, and the factored
+//     scores; then each earlier key tile's factored scores; each score tile
+//     times v.
+// Every product is a 64 x 64 output tile over a shared-memory depth, with
+// both operands stored k-major (row stride 72 floats); a thread owns a 4 x
+// 4 block of it, and a sub-chunk's rows or columns, so its per-depth scale
+// (exp(B_i) or D_ij) is one value a step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,9 +69,11 @@
 namespace {
 
 constexpr int kTile = 64;        // rows of a tile; also the largest dh
-constexpr int kLd = kTile + 1;   // row stride of a tile in shared memory
+constexpr int kSub = 16;         // rows of a sub-chunk
+constexpr int kLd = 72;          // row stride of a tile in shared memory
 constexpr int kThreads = 256;    // 16 x 16 threads, a 4 x 4 block each
 constexpr int kTileFloats = kTile * kLd;
+constexpr int kTileElems = kTile * kTile;
 constexpr int kMaxSmem = 232448; // bytes a block may use on an H100
 
 // value dtype codes, mirrored by _DTYPE_CODES in rwkv6.py
@@ -68,239 +93,352 @@ struct WkvArgs {
   const float* state_in;                     // (B, H, dh, dh) or null (zero)
   float* out; int64_t o_b, o_h, o_s;         // (B, H, S, dh) f32
   float* state_out;                          // (B, H, dh, dh)
-  int H, S, dh, chunk;
+  float* st;       // (B, H, nc, dh, dh): dS, then each chunk's entering state
+  float* decay;    // (B, H, nc, dh): exp(cum_T)
+  int H, S, dh, chunk, nc, t64;              // t64: chunk rounded up to 64
 };
 
-// rows of a (rows x width) matrix with row stride ld into a 64 x 64 f32
-// tile, zero at rows >= nrows and columns >= width
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t ld, int nrows, int width) {
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int r = e >> 6, c = e & 63;
-    dst[r * kLd + c] = (r < nrows && c < width) ? to_f32(src[r * ld + c])
-                                                : 0.0f;
+// A 64 x 64 tile's elements e = threadIdx.x + kThreads i: load(e) reads
+// one, store(e, v) puts it in shared memory. Each thread issues 8 loads
+// before their 8 stores, so it waits for memory once per 8 elements.
+template <typename Load, typename Store>
+__device__ __forceinline__ void fill_tile(Load load, Store store) {
+#pragma unroll
+  for (int h = 0; h < kTileElems / kThreads; h += 8) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = load(threadIdx.x + kThreads * (h + i));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) store(threadIdx.x + kThreads * (h + i), v[i]);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) wkv6_chunk_kernel(WkvArgs a) {
-  extern __shared__ float smem[];
-  float* Rq = smem;                // r of the query tile, then r o exp(cumex)
-  float* Eq = Rq + kTileFloats;    // cumex of the query tile       [t][d]
-  float* Kk = Eq + kTileFloats;    // k of the key tile             [s][d]
-  float* Vk = Kk + kTileFloats;    // v of the key tile             [s][e]
-  float* P = Vk + kTileFloats;     // scores                        [t][s]
-  float* St = P + kTileFloats;     // the state                     [d][e]
-  float* cum = St + kTileFloats;   // cumsum of lw over the chunk   [t][d]
+// element e of a tile copied transposed: a warp reads 4 columns of 8 rows,
+// so its stores hit 32 distinct banks
+__device__ __forceinline__ int t_row(int e) { return (e >> 2) & 63; }
+__device__ __forceinline__ int t_col(int e) { return ((e >> 8) << 2) | (e & 3); }
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const T* r = static_cast<const T*>(a.r) + b * a.r_b + h * a.r_h;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_b + h * a.k_h;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h;
-  const float* lw = a.lw + b * a.lw_b + h * a.lw_h;
-  const float* u = a.u + static_cast<int64_t>(h) * a.dh;
-  float* out = a.out + b * a.o_b + h * a.o_h;
-  const int64_t s_off = (static_cast<int64_t>(b) * a.H + h) * a.dh * a.dh;
+// rows [0, rows) and columns [0, width) of a matrix with row stride ld
+// into a 64 x 64 f32 tile, zero elsewhere, times scale(row, column) (which
+// is only called inside the matrix): dst[r][c], or dst[c][r] (kTransposed)
+template <bool kTransposed, typename T, typename Scale>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t ld,
+                                          int rows, int width, Scale scale) {
+  fill_tile(
+      [&](int e) {
+        const int r = kTransposed ? t_row(e) : e >> 6;
+        const int c = kTransposed ? t_col(e) : e & 63;
+        return (r < rows && c < width) ? to_f32(src[r * ld + c]) * scale(r, c)
+                                       : 0.0f;
+      },
+      [&](int e, float v) {
+        if (kTransposed) dst[t_col(e) * kLd + t_row(e)] = v;
+        else dst[(e >> 6) * kLd + (e & 63)] = v;
+      });
+}
+template <bool kTransposed, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t ld,
+                                          int rows, int width) {
+  load_tile<kTransposed>(dst, src, ld, rows, width,
+                         [](int, int) { return 1.0f; });
+}
 
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int d = e >> 6, c = e & 63;
-    St[d * kLd + c] = (a.state_in != nullptr && d < a.dh && c < a.dh)
-                          ? a.state_in[s_off + d * a.dh + c] : 0.0f;
+// exp(x) for x <= 0 by construction; the clamp keeps rounding from
+// lifting a decay past 1
+__device__ __forceinline__ float decay_exp(float x) {
+  return expf(fminf(x, 0.0f));
+}
+
+// acc += A^T diag(scale) B over k < K for a 64 x 64 output tile, with A and
+// B stored k-major (A[k][m], B[k][n]); scale null: none. Thread (ty, tx) of
+// 16 x 16 owns rows 4 ty + i and columns 4 tx + j, so its rows lie in one
+// 16-row sub-chunk (acc_row(0) / kSub) and its columns in one too; its
+// value v is row acc_row(v), column acc_col(v).
+__device__ __forceinline__ int acc_row(int v) {
+  return 4 * (threadIdx.x >> 4) + (v >> 2);
+}
+__device__ __forceinline__ int acc_col(int v) {
+  return 4 * (threadIdx.x & 15) + (v & 3);
+}
+__device__ __forceinline__ void tile_product(float (&acc)[16], const float* A,
+                                             const float* B, int K,
+                                             const float* scale = nullptr) {
+  const float* a = A + 4 * (threadIdx.x >> 4);
+  const float* b = B + 4 * (threadIdx.x & 15);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float4 av = *reinterpret_cast<const float4*>(a + k * kLd);
+    const float4 bv = *reinterpret_cast<const float4*>(b + k * kLd);
+    const float s = scale != nullptr ? scale[k] : 1.0f;
+    const float ar[4] = {av.x * s, av.y * s, av.z * s, av.w * s};
+    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        acc[4 * i + j] = fmaf(ar[i], br[j], acc[4 * i + j]);
   }
-  const int T_ = a.chunk;
-  const int n_tiles = (T_ + kTile - 1) / kTile;
-  const int n_chunks = (a.S + T_ - 1) / T_;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int c0 = ch * T_;
-    __syncthreads();               // the last chunk is done with cum and St
-    // lw of the chunk, zero past S and in the rows that round it up to tiles
-    for (int e = threadIdx.x; e < n_tiles * kTile * kTile; e += kThreads) {
-      const int t = e >> 6, d = e & 63;
-      cum[t * kLd + d] = (t < T_ && c0 + t < a.S && d < a.dh)
-                             ? lw[static_cast<int64_t>(c0 + t) * a.lw_s + d]
-                             : 0.0f;
-    }
-    __syncthreads();
-    if (threadIdx.x < a.dh) {      // one column each, in order
-      float acc = 0.0f;
-      for (int t = 0; t < T_; ++t) {
-        acc += cum[t * kLd + threadIdx.x];
-        cum[t * kLd + threadIdx.x] = acc;
-      }
-    }
-    for (int qt = 0; qt < n_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      const int q_rows = min(kTile, T_ - q0);             // rows in the chunk
-      const int q_valid = min(q_rows, a.S - (c0 + q0));   // rows before S
-      float acc[4][4] = {};
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int k0 = kt * kTile;
-        const int k_rows = min(kTile, T_ - k0);
-        const int k_valid = min(k_rows, a.S - (c0 + k0));
-        __syncthreads();           // the last tile is done with Kk, Vk, P
-        if (kt == 0) {
-          load_tile(Rq, r + static_cast<int64_t>(c0 + q0) * a.r_s, a.r_s,
-                    q_valid, a.dh);
-          for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-            const int t = e >> 6, d = e & 63;
-            Eq[t * kLd + d] =
-                (t < q_valid && d < a.dh)
-                    ? cum[(q0 + t) * kLd + d] -
-                          lw[static_cast<int64_t>(c0 + q0 + t) * a.lw_s + d]
-                    : 0.0f;
-          }
-        }
-        load_tile(Kk, k + static_cast<int64_t>(c0 + k0) * a.k_s, a.k_s,
-                  k_valid, a.dh);
-        load_tile(Vk, v + static_cast<int64_t>(c0 + k0) * a.v_s, a.v_s,
-                  k_valid, a.dh);
-        __syncthreads();
-        // P[t][s] = sum_d r_t[d] k_s[d] exp(cumex_t[d] - cum_s[d]), s < t
-        float p[4][4] = {};
-        const float* ck = cum + k0 * kLd;
-        for (int d = 0; d < a.dh; ++d) {
-          float rv[4], ev[4], kv[4], cv[4];
+}
+
+// cum[t][d] (row stride kLd, rows t < t64) <- the inclusive cumsum over t
+// of lw's column d, lw zero at rows >= valid and columns >= dh. Thread
+// (d, part) = (tid / 4, tid % 4) sums a run of t64 / 4 rows of column d;
+// the four runs of a column sit in neighbouring lanes of one warp and are
+// scanned with shuffles; then each run is rewritten. Ends past a
+// __syncthreads.
+__device__ void chunk_cumsum(float* cum, const float* lw, int64_t ld,
+                             int valid, int dh, int t64) {
+  for (int t0 = 0; t0 < t64; t0 += kTile)
+    load_tile<false>(cum + t0 * kLd, lw + t0 * ld, ld, valid - t0, dh);
+  __syncthreads();
+  const int d = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const int run = t64 / 4;
+  float* col = cum + part * run * kLd + d;
+  float sum = 0.0f;
+  for (int i = 0; i < run; ++i) sum += col[i * kLd];
+  float incl = sum;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            rv[i] = Rq[(ty + 16 * i) * kLd + d];
-            ev[i] = Eq[(ty + 16 * i) * kLd + d];
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            kv[j] = Kk[(tx + 16 * j) * kLd + d];
-            cv[j] = ck[(tx + 16 * j) * kLd + d];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              p[i][j] = fmaf(rv[i] * kv[j], expf(ev[i] - cv[j]), p[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ti = ty + 16 * i, sj = tx + 16 * j;
-            const bool keep = ti < q_rows && sj < k_rows && k0 + sj < q0 + ti;
-            P[ti * kLd + sj] = keep ? p[i][j] : 0.0f;
-          }
-        }
-        __syncthreads();
-        for (int s = 0; s < kTile; ++s) {
-          float pv[4], vv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) pv[i] = P[(ty + 16 * i) * kLd + s];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) vv[j] = Vk[s * kLd + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-        }
-      }
-      // the bonus: Kk and Vk now hold the query tile's own rows
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ti = ty + 16 * i;
-        float du = 0.0f;
-        for (int d = 0; d < a.dh; ++d)
-          du = fmaf(u[d] * Rq[ti * kLd + d], Kk[ti * kLd + d], du);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = fmaf(du, Vk[ti * kLd + tx + 16 * j], acc[i][j]);
-      }
-      __syncthreads();             // every reader of the raw Rq is done
-      for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-        const int t = e >> 6, d = e & 63;
-        Rq[t * kLd + d] *= expf(Eq[t * kLd + d]);
-      }
-      __syncthreads();
-      // inter-chunk: out_t += (r_t o exp(cumex_t)) S0
-      float z[4][4] = {};
-      for (int d = 0; d < a.dh; ++d) {
-        float rv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) rv[i] = Rq[(ty + 16 * i) * kLd + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = St[d * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) z[i][j] = fmaf(rv[i], sv[j], z[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ti = ty + 16 * i;
-        if (ti >= q_valid) continue;
-        float* orow = out + static_cast<int64_t>(c0 + q0 + ti) * a.o_s;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int e = tx + 16 * j;
-          if (e < a.dh) orow[e] = acc[i][j] + z[i][j];
-        }
-      }
-    }
-    // S1[d][e] = exp(cum_T[d]) S0[d][e] + sum_s k_s[d] exp(cum_T[d] - cum_s[d]) v_s[e]
-    const float* cum_t = cum + (T_ - 1) * kLd;
-    float sacc[4][4] = {};
-    for (int kt = 0; kt < n_tiles; ++kt) {
-      const int k0 = kt * kTile;
-      const int k_valid = min(min(kTile, T_ - k0), a.S - (c0 + k0));
-      __syncthreads();             // every reader of Kk, Vk and St is done
-      for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-        const int s = e >> 6, d = e & 63;
-        Kk[s * kLd + d] =
-            (s < k_valid && d < a.dh)
-                ? to_f32(k[static_cast<int64_t>(c0 + k0 + s) * a.k_s + d]) *
-                      expf(cum_t[d] - cum[(k0 + s) * kLd + d])
-                : 0.0f;
-      }
-      load_tile(Vk, v + static_cast<int64_t>(c0 + k0) * a.v_s, a.v_s,
-                k_valid, a.dh);
-      __syncthreads();
-      for (int s = 0; s < kTile; ++s) {
-        float kv[4], vv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) kv[i] = Kk[s * kLd + ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = Vk[s * kLd + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            sacc[i][j] = fmaf(kv[i], vv[j], sacc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int d = ty + 16 * i;
-      const float p_t = expf(cum_t[d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float* sp = St + d * kLd + tx + 16 * j;
-        *sp = p_t * *sp + sacc[i][j];
-      }
-    }
+  for (int off = 1; off < 4; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (part >= off) incl += o;
+  }
+  float acc = __shfl_up_sync(0xffffffffu, incl, 1);   // the runs before
+  if (part == 0) acc = 0.0f;
+  for (int i = 0; i < run; ++i) {
+    acc += col[i * kLd];
+    col[i * kLd] = acc;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < kTile * kTile; e += kThreads) {
-    const int d = e >> 6, c = e & 63;
-    if (d < a.dh && c < a.dh)
-      a.state_out[s_off + d * a.dh + c] = St[d * kLd + c];
+}
+
+// step 1: the chunk's exp(cum_T) and own state dS[d][e]
+template <typename T>
+__global__ void __launch_bounds__(kThreads) wkv6_chunk_state(WkvArgs a) {
+  extern __shared__ float smem[];
+  float* cum = smem;                   // [t64][kLd]
+  float* Kw = cum + a.t64 * kLd;       // k o exp(cum_T - cum_s) [s][d]
+  float* Vs = Kw + kTileFloats;        // v of the key tile      [s][e]
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * a.chunk, valid = min(a.chunk, a.S - c0);
+  const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_b + h * a.k_h +
+               static_cast<int64_t>(c0) * a.k_s;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h +
+               static_cast<int64_t>(c0) * a.v_s;
+  chunk_cumsum(cum, a.lw + b * a.lw_b + h * a.lw_h +
+                        static_cast<int64_t>(c0) * a.lw_s,
+               a.lw_s, valid, a.dh, a.t64);
+  const float* cum_T = cum + (a.chunk - 1) * kLd;
+  if (threadIdx.x < a.dh)
+    a.decay[bhc * a.dh + threadIdx.x] = expf(cum_T[threadIdx.x]);
+  float acc[16] = {};
+  for (int k0 = 0; k0 < valid; k0 += kTile) {
+    const int rows = min(kTile, valid - k0);
+    if (k0 > 0) __syncthreads();       // the last tile is read
+    load_tile<false>(Kw, k + k0 * a.k_s, a.k_s, rows, a.dh,
+                     [&](int s, int d) {
+                       return decay_exp(cum_T[d] - cum[(k0 + s) * kLd + d]);
+                     });
+    load_tile<false>(Vs, v + k0 * a.v_s, a.v_s, rows, a.dh);
+    __syncthreads();
+    tile_product(acc, Kw, Vs, rows);
+  }
+  float* out = a.st + bhc * a.dh * a.dh;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = acc_row(i), e = acc_col(i);
+    if (d < a.dh && e < a.dh) out[d * a.dh + e] = acc[i];
   }
 }
 
+// step 2: the states in chunk order, one thread per element d dh + e
+__global__ void __launch_bounds__(kThreads) wkv6_state_pass(WkvArgs a) {
+  const int dd = a.dh * a.dh;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= dd) return;
+  const int64_t bh = static_cast<int64_t>(blockIdx.z) * a.H + blockIdx.y;
+  float s = a.state_in != nullptr ? a.state_in[bh * dd + e] : 0.0f;
+  float* st = a.st + bh * a.nc * dd + e;
+  const float* dec = a.decay + bh * a.nc * a.dh + e / a.dh;
+  for (int c0 = 0; c0 < a.nc; c0 += 8) {
+    float ds[8], dk[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ds[i] = c0 + i < a.nc ? st[static_cast<int64_t>(c0 + i) * dd] : 0.0f;
+      dk[i] = c0 + i < a.nc ? dec[static_cast<int64_t>(c0 + i) * a.dh] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (c0 + i < a.nc) {
+        st[static_cast<int64_t>(c0 + i) * dd] = s;  // entering chunk c0 + i
+        s = dk[i] * s + ds[i];
+      }
+    }
+  }
+  a.state_out[bh * dd + e] = s;
+}
+
+// step 3: out of the chunk, a 64-row query tile at a time
 template <typename T>
-int launch(const WkvArgs& a, int B, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv6_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wkv6_chunk_kernel<T><<<dim3(a.H, B), kThreads, smem, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kThreads) wkv6_chunk_out(WkvArgs a) {
+  extern __shared__ float smem[];
+  float* cum = smem;                   // [t64][kLd]
+  float* Q = cum + a.t64 * kLd;        // r, then q = r o exp(cumex - B_i) [d][t]
+  float* K = Q + kTileFloats;          // k, then kk = k o exp(B_j+1 - cum) [d][s]
+  float* V = K + kTileFloats;          // v of the key tile                 [s][e]
+  float* P = V + kTileFloats;          // scores                            [s][t]
+  float* St = P + kTileFloats;         // the state entering the chunk      [d][e]
+  float* esc = St + kTileFloats;       // exp(B_i), the tile's sub-chunks   [4][64]
+  float* dsc = esc + 4 * kTile;        // D_ij = exp(B_i - B_j+1), j < i    [4][4][64]
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c0 = c * a.chunk, valid = min(a.chunk, a.S - c0);
+  const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
+  const T* r = static_cast<const T*>(a.r) + b * a.r_b + h * a.r_h +
+               static_cast<int64_t>(c0) * a.r_s;
+  const T* k = static_cast<const T*>(a.k) + b * a.k_b + h * a.k_h +
+               static_cast<int64_t>(c0) * a.k_s;
+  const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h +
+               static_cast<int64_t>(c0) * a.v_s;
+  const float* u = a.u + static_cast<int64_t>(h) * a.dh;
+  float* out = a.out + b * a.o_b + h * a.o_h + static_cast<int64_t>(c0) * a.o_s;
+  load_tile<false>(St, a.st + bhc * a.dh * a.dh, a.dh, a.dh, a.dh);
+  chunk_cumsum(cum, a.lw + b * a.lw_b + h * a.lw_h +
+                        static_cast<int64_t>(c0) * a.lw_s,
+               a.lw_s, valid, a.dh, a.t64);
+  // B_g: cum at the row before sub-chunk g; cumex_t: cum at row t - 1
+  auto bnd = [&](int g, int d) { return g > 0 ? cum[(kSub * g - 1) * kLd + d] : 0.0f; };
+  auto cumex = [&](int t, int d) { return t > 0 ? cum[(t - 1) * kLd + d] : 0.0f; };
+  const int row_sub = acc_row(0) / kSub, col_sub = acc_col(0) / kSub;
+  const int n_q = (valid + kTile - 1) / kTile;
+  for (int qt = 0; qt < n_q; ++qt) {
+    const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
+    float acc[16] = {};
+    for (int kt = qt; kt >= 0; --kt) {  // the diagonal tile first
+      const int k0 = kt * kTile, k_valid = min(kTile, valid - k0);
+      const bool diag = kt == qt;
+      __syncthreads();                 // every reader of the last tile is done
+      if (diag) {                      // raw: the pairwise scores need them
+        load_tile<true>(Q, r + q0 * a.r_s, a.r_s, q_valid, a.dh);
+        load_tile<true>(K, k + k0 * a.k_s, a.k_s, k_valid, a.dh);
+        for (int e = threadIdx.x; e < 4 * kTile; e += kThreads)
+          esc[e] = decay_exp(bnd(4 * qt + (e >> 6), e & 63));
+      } else {
+        load_tile<true>(K, k + k0 * a.k_s, a.k_s, k_valid, a.dh,
+                        [&](int s, int d) {
+                          const int j = (k0 + s) / kSub;
+                          return decay_exp(bnd(j + 1, d) - cum[(k0 + s) * kLd + d]);
+                        });
+      }
+      load_tile<false>(V, v + k0 * a.v_s, a.v_s, k_valid, a.dh);
+      for (int e = threadIdx.x; e < 16 * kTile; e += kThreads) {
+        const int gi = 4 * qt + (e >> 8), gj = 4 * kt + ((e >> 6) & 3);
+        const int d = e & 63;
+        dsc[e] = gj < gi ? decay_exp(bnd(gi, d) - bnd(gj + 1, d)) : 0.0f;
+      }
+      __syncthreads();
+      if (diag) {
+        // the four 16 x 16 diagonal blocks: thread (sub-chunk i, row t,
+        // part) takes columns s = part + 4 m <= t of its block
+        const int i = threadIdx.x >> 6, tl = (threadIdx.x >> 2) & 15;
+        const int part = threadIdx.x & 3, t = kSub * i + tl;
+        float p[4] = {};
+        for (int d = 0; d < a.dh; ++d) {
+          const float rt = Q[d * kLd + t], ct = cumex(q0 + t, d);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int sl = part + 4 * m, s = kSub * i + sl;
+            if (sl < tl)
+              p[m] = fmaf(rt * K[d * kLd + s],
+                          decay_exp(ct - cum[(q0 + s) * kLd + d]), p[m]);
+            else if (sl == tl)
+              p[m] = fmaf(u[d] * rt, K[d * kLd + s], p[m]);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int sl = part + 4 * m;
+          P[(kSub * i + sl) * kLd + t] = sl <= tl ? p[m] : 0.0f;
+        }
+        __syncthreads();               // every reader of the raw Q, K is done
+        fill_tile(
+            [&](int e) {
+              const int d = e >> 6, t = e & 63;
+              const float x = Q[d * kLd + t];
+              return x * decay_exp(cumex(q0 + t, d) - bnd((q0 + t) / kSub, d));
+            },
+            [&](int e, float x) { Q[(e >> 6) * kLd + (e & 63)] = x; });
+        fill_tile(
+            [&](int e) {
+              const int d = e >> 6, s = e & 63;
+              const float x = K[d * kLd + s];
+              const int j = (k0 + s) / kSub;
+              return x * decay_exp(bnd(j + 1, d) - cum[(k0 + s) * kLd + d]);
+            },
+            [&](int e, float x) { K[(e >> 6) * kLd + (e & 63)] = x; });
+        __syncthreads();
+        // inter-chunk: out_t += (q_t o exp(B_i)) S
+        tile_product(acc, Q, St, a.dh, esc + row_sub * kTile);
+      }
+      // the factored scores of earlier sub-chunks; the diagonal blocks are
+      // written above, later sub-chunks are zero
+      const int gi = 4 * qt + row_sub, gj = 4 * kt + col_sub;
+      if (gj != gi) {
+        float p[16] = {};
+        if (gj < gi)
+          tile_product(p, Q, K, a.dh, dsc + (4 * row_sub + col_sub) * kTile);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) P[acc_col(i) * kLd + acc_row(i)] = p[i];
+      }
+      __syncthreads();
+      tile_product(acc, P, V, k_valid);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int t = acc_row(i), e = acc_col(i);
+      if (t < q_valid && e < a.dh)
+        out[static_cast<int64_t>(q0 + t) * a.o_s + e] = acc[i];
+    }
+  }
+}
+
+// the workspace's parts, in floats, each a multiple of 64
+struct Workspace {
+  int64_t st, decay;
+};
+
+Workspace workspace(int B, int H, int S, int dh, int chunk) {
+  const int64_t nc = (static_cast<int64_t>(S) + chunk - 1) / chunk;
+  const int64_t bhc = static_cast<int64_t>(B) * H * nc;
+  auto up = [](int64_t v) { return (v + 63) / 64 * 64; };
+  return {up(bhc * dh * dh), up(bhc * dh)};
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T>
+int launch(const WkvArgs& a, int B, size_t smem_state, size_t smem_out,
+           cudaStream_t s) {
+  cudaError_t err;
+  if (a.nc > 0) {
+    if ((err = allow_smem(wkv6_chunk_state<T>, smem_state)) != cudaSuccess ||
+        (err = allow_smem(wkv6_chunk_out<T>, smem_out)) != cudaSuccess)
+      return static_cast<int>(err);
+    wkv6_chunk_state<T><<<dim3(a.nc, a.H, B), kThreads, smem_state, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  wkv6_state_pass<<<dim3((a.dh * a.dh + kThreads - 1) / kThreads, a.H, B),
+                    kThreads, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (a.nc > 0) {
+    wkv6_chunk_out<T><<<dim3(a.nc, a.H, B), kThreads, smem_out, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // namespace
@@ -311,11 +449,20 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Bytes of device memory repro_wkv6_chunked needs as its workspace.
+size_t repro_wkv6_workspace_bytes(int B, int H, int S, int dh, int chunk) {
+  if (B < 1 || H < 1 || S < 1 || dh < 1 || chunk < 1) return 0;
+  const Workspace w = workspace(B, H, S, dh, chunk);
+  return static_cast<size_t>(w.st + w.decay) * sizeof(float);
+}
+
 // r, k, v: (B, H, S, dh) of dtype `dtype` with element strides (b, h, s) and
 // a dense last dim; lw: (B, H, S, dh) f32, the same kind of strides; u:
 // (H, dh) f32 contiguous; out: (B, H, S, dh) f32, strides (b, h, s);
-// state_in (or null) and state_out: (B, H, dh, dh) f32 contiguous. dh at
-// most 64. Launches on `stream`; returns the launch's cudaError_t.
+// state_in (or null) and state_out: (B, H, dh, dh) f32 contiguous;
+// workspace: repro_wkv6_workspace_bytes(...) bytes of device memory,
+// 16-byte aligned. dh at most 64. Launches the three kernels on `stream`;
+// returns the first cudaError_t (0 on success).
 int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
                        const void* k, int64_t k_b, int64_t k_h, int64_t k_s,
                        const void* v, int64_t v_b, int64_t v_h, int64_t v_s,
@@ -323,14 +470,17 @@ int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
                        int64_t lw_s, const void* u, const void* state_in,
                        void* out, int64_t o_b, int64_t o_h, int64_t o_s,
                        void* state_out, int B, int H, int S, int dh,
-                       int chunk, int dtype, void* stream) {
+                       int chunk, int dtype, void* workspace_ptr,
+                       void* stream) {
   if (dh < 1 || dh > kTile || chunk < 1 || B < 0 || H < 0 || S < 0 ||
-      B > 65535)
+      B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int n_tiles = (chunk + kTile - 1) / kTile;
-  const size_t smem = (6 * kTileFloats + n_tiles * kTile * kLd) *
-                      sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmem))
+  const size_t t64 = (static_cast<size_t>(chunk) + kTile - 1) / kTile * kTile;
+  const size_t smem_state = (t64 * kLd + 2 * kTileFloats) * sizeof(float);
+  const size_t smem_out = (t64 * kLd + 5 * kTileFloats + 20 * kTile) *
+                          sizeof(float);
+  if (smem_state > static_cast<size_t>(kMaxSmem) ||
+      smem_out > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   WkvArgs a;
@@ -344,10 +494,17 @@ int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
   a.out = static_cast<float*>(out); a.o_b = o_b; a.o_h = o_h; a.o_s = o_s;
   a.state_out = static_cast<float*>(state_out);
   a.H = H; a.S = S; a.dh = dh; a.chunk = chunk;
+  a.nc = (S + chunk - 1) / chunk;
+  a.t64 = static_cast<int>(t64);
+  const Workspace w = workspace(B, H, S, dh, chunk);
+  a.st = static_cast<float*>(workspace_ptr);
+  a.decay = a.st + w.st;
+  if (a.nc > 0 && workspace_ptr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case F32: return launch<float>(a, B, smem, st);
-    case BF16: return launch<__nv_bfloat16>(a, B, smem, st);
+    case F32: return launch<float>(a, B, smem_state, smem_out, st);
+    case BF16: return launch<__nv_bfloat16>(a, B, smem_state, smem_out, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -9,18 +9,21 @@ dh) f32 state carried across chunks (``repro/kernels/rwkv6/rwkv6.py:20``,
             + (sum_d u r_t k_t) v_t + (r_t o exp(cumex_t)) S0
     S1 = diag(exp(cum_T)) S0 + sum_s (k_s o exp(cum_T - cum_s))^T v_s
 
-The pairwise decay stays one exponential of a difference (<= 1): split into
+A decay is only ever one exponential of a difference (<= 1): split into
 exp(cumex) exp(-cum) it overflows, since lw reaches -20 per step. A ragged
 last chunk is padded with identity steps (r = k = v = 0, lw = 0), as the
 Pallas kernel pads. The kernel is CUDA C++ in ``csrc/rwkv6.cu`` (built by
-``nvcc`` at first use, ``kernels/_build.py``). :func:`wkv6_chunked`
+``nvcc`` at first use, ``kernels/_build.py``): three launches, the chunks
+in parallel, with their intermediates in a workspace allocated here; it
+factors the decays around 16-step sub-chunks. :func:`wkv6_chunked`
 launches it for CUDA tensors and runs :func:`wkv6_chunked_plain` only for
 CPU tensors. Unlike the Pallas kernel, both start from a given state
 (``None``: zero) and return the final state; from a zero state ``out`` is
 the Pallas kernel's ``out``.
 
-``LAUNCHES["wkv6_chunked"]`` counts kernel launches (never plain-version
-runs), so a run can show that its main path went through the kernel.
+``LAUNCHES["wkv6_chunked"]`` counts kernel launches, one per call however
+many CUDA kernels the call starts (never plain-version runs), so a run can
+show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ LAUNCHES: Dict[str, int] = {"wkv6_chunked": 0}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _I64] * 4 + [_P, _P, _P, _I64, _I64, _I64, _P,
-                                          _I, _I, _I, _I, _I, _I, _P]
+                                          _I, _I, _I, _I, _I, _I, _P, _P]
 
 
 def reset_launches():
@@ -117,6 +120,44 @@ def _dense_rows(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
+def run_kernel(lib, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, *, chunk: int,
+               state: Optional[torch.Tensor] = None, stream=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Call ``repro_wkv6_chunked`` of the built library ``lib`` (a
+    ``ctypes.CDLL`` of ``csrc/rwkv6.cu``) on checked inputs (r, k, v of one
+    dtype in ``_DTYPE_CODES``), with a workspace from ``torch.empty`` on r's
+    device, and return (out, final state). Inputs with a dense last dim are
+    read in place. ``stream`` is a ``cudaStream_t`` handle, None for the
+    default stream. A nonzero return raises. Counts no launch."""
+    B, H, S, dh = r.shape
+    r, k, v = (_dense_rows(t) for t in (r, k, v))
+    logw = _dense_rows(logw.float())
+    uf = u.float().contiguous()
+    s_in = None if state is None else state.float().contiguous()
+    out = torch.empty_like(r, dtype=torch.float32)
+    s_out = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
+    f, ws_bytes = lib.repro_wkv6_chunked, lib.repro_wkv6_workspace_bytes
+    if f.argtypes is None:
+        f.argtypes, f.restype = _ARGTYPES, ctypes.c_int
+        ws_bytes.argtypes, ws_bytes.restype = [_I] * 5, ctypes.c_size_t
+        lib.repro_error_string.argtypes = [_I]
+        lib.repro_error_string.restype = ctypes.c_char_p
+    ws = torch.empty(ws_bytes(B, H, S, dh, chunk), dtype=torch.uint8,
+                     device=r.device)
+    rc = f(r.data_ptr(), *r.stride()[:3], k.data_ptr(), *k.stride()[:3],
+           v.data_ptr(), *v.stride()[:3], logw.data_ptr(),
+           *logw.stride()[:3], uf.data_ptr(),
+           None if s_in is None else s_in.data_ptr(),
+           out.data_ptr(), *out.stride()[:3], s_out.data_ptr(),
+           B, H, S, dh, chunk, _DTYPE_CODES[r.dtype],
+           ws.data_ptr() if ws.numel() else None, stream)
+    if rc:
+        raise RuntimeError(f"repro_wkv6_chunked failed to launch: CUDA error "
+                           f"{rc} ({lib.repro_error_string(rc).decode()})")
+    return out, s_out
+
+
 def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  logw: torch.Tensor, u: torch.Tensor, *, chunk: int,
                  state: Optional[torch.Tensor] = None
@@ -138,21 +179,10 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{sorted(map(str, _DTYPE_CODES))})")
     if dh > MAX_WIDTH:
         raise ValueError(f"dh {dh} must be at most {MAX_WIDTH}")
-    if B * H * S * dh >= 2 ** 31 or B > 65535:
+    if B * H * S * dh >= 2 ** 31 or max(B, H) > 65535:
         raise ValueError(f"too large: {tuple(r.shape)}")
-    r, k, v = (_dense_rows(t) for t in (r, k, v))
-    logw = _dense_rows(logw.float())
-    uf = u.float().contiguous()
-    s_in = None if state is None else state.float().contiguous()
-    out = torch.empty_like(r, dtype=torch.float32)
-    s_out = torch.empty((B, H, dh, dh), dtype=torch.float32, device=r.device)
-    _build.launch("rwkv6", "repro_wkv6_chunked", _ARGTYPES,
-                  r.data_ptr(), *r.stride()[:3], k.data_ptr(),
-                  *k.stride()[:3], v.data_ptr(), *v.stride()[:3],
-                  logw.data_ptr(), *logw.stride()[:3], uf.data_ptr(),
-                  None if s_in is None else s_in.data_ptr(),
-                  out.data_ptr(), *out.stride()[:3], s_out.data_ptr(),
-                  B, H, S, dh, chunk, _DTYPE_CODES[r.dtype],
-                  torch.cuda.current_stream(r.device).cuda_stream)
+    out = run_kernel(_build.load("rwkv6"), r, k, v, logw, u, chunk=chunk,
+                     state=state,
+                     stream=torch.cuda.current_stream(r.device).cuda_stream)
     LAUNCHES["wkv6_chunked"] += 1
-    return out, s_out
+    return out
