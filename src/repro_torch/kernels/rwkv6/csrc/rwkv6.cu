@@ -11,17 +11,18 @@
 //   S'    = diag(exp(cum_T)) S + sum_s (k_s o exp(cum_T - cum_s))^T v_s
 // r, k, v are read in their dtype (f32 or bf16) and widened to f32, as the
 // Pallas kernel's astype(f32) does. A ragged last chunk is padded with
-// identity steps (r = k = v = 0, lw = 0); here the loads mask the rows past
-// S. Unlike the Pallas kernel, this one starts from a given state (or zero)
-// and writes the final state, which prefill hands to decode. cumex_t is
-// taken as the scan's row t - 1 (0 at t = 0), which is cum_t - lw_t without
-// the rounding of the subtraction.
+// identity steps (r = k = v = 0, lw = 0); here the copies zero the rows
+// past S. Unlike the Pallas kernel, this one starts from a given state (or
+// zero) and writes the final state, which prefill hands to decode. cumex_t
+// is taken as the scan's row t - 1 (0 at t = 0), which is cum_t - lw_t
+// without the rounding of the subtraction.
 //
 // Bound on an H100: the bytes. At rwkv6-1.6b's serving shape (B 4, H 32,
 // S 2,000, dh 64, T 128; r, k, v in bf16) the inputs and outputs are ~0.23
-// GB (0.069 ms at 3.35 TB/s, chip_smoke.scan_bound); the chunked form below
-// does ~4.5G multiply-adds (0.13 ms at 67 TFLOP/s) and moves ~0.49 GB (k,
-// v and lw read twice, the state scratch four times: 0.15 ms).
+// GB (0.069 ms at 3.35 TB/s, chip_smoke.scan_bound). The kernels below move
+// ~0.49 GB (k, v and lw read twice, the state scratch four times: 0.15 ms)
+// and do ~3.4G multiply-adds on the tensor cores and ~0.2G accurate
+// exponentials.
 //
 // Decays. A decay exp(x - y) is only ever formed with x - y <= 0 (clamped
 // at 0, so rounding cannot push it past 1): split into exp(x) exp(-y) it
@@ -35,8 +36,16 @@
 // exp(cumex - B_i) and kk = k o exp(B_{j+1} - cum) formed once a row and
 // D_ij once a pair of sub-chunks. A factor underflows to 0 only where the
 // weight it bounds is already below f32's range. Pairs inside one
-// sub-chunk keep the pairwise exp(cumex_t - cum_s), for s < t only; the
-// inter-chunk term is (q_t o exp(B_i)) S.
+// sub-chunk keep the pairwise exp(cumex_t - cum_s), for s < t only.
+//
+// Products. They run on the tensor cores in split TF32 ("3xTF32",
+// CUTLASS's fast f32): each f32 operand x is hi = rna_tf32(x) plus lo = x -
+// hi (exact in f32; the tensor core reads lo's top 11 significant bits),
+// and a product is lo_a hi_b + hi_a lo_b + hi_a hi_b, accumulated in f32.
+// v in bf16 is exact in TF32, so a product with it as B has no lo_b term.
+// What is dropped is ~2^-21 relative, where one TF32 product (~1e-3) would
+// break the 1e-4 tolerance the reference holds its kernel to. Decays are
+// applied in f32 before the split.
 //
 // Design: three kernels, launched in order on the caller's stream, with
 // their intermediates in a workspace the caller allocates
@@ -49,17 +58,29 @@
 //     S_{c-1} + dS_{c-1} in chunk order, from state_in or zero, 8 chunks'
 //     loads in flight at a time; each chunk's entering state overwrites its
 //     dS, and the last S is state_out.
-//  3. wkv6_chunk_out, one block per (b, h, chunk): the chunk's cum again,
-//     then its 64-row query tiles in order. For each, the diagonal key tile
-//     first: its sub-chunks' pairwise scores (and the bonus on the
-//     diagonal) from the raw r and k, then q and kk in place, the
-//     inter-chunk product with the entering state, and the factored
-//     scores; then each earlier key tile's factored scores; each score tile
-//     times v.
-// Every product is a 64 x 64 output tile over a shared-memory depth, with
-// both operands stored k-major (row stride 72 floats); a thread owns a 4 x
-// 4 block of it, and a sub-chunk's rows or columns, so its per-depth scale
-// (exp(B_i) or D_ij) is one value a step.
+//  3. wkv6_chunk_out, one block per (b, h, chunk): the chunk's cum again
+//     (it bounds the chunk: T x 64 floats of shared memory), then its
+//     64-row tiles in order, with the state R entering each tile carried in
+//     shared memory (R_0 = S_c): with q0 the tile's first row and q1 its
+//     last, per tile
+//       - the four sub-chunks' pairwise scores (and the bonus on their
+//         diagonals), one pair of rows a thread, from the raw r and k;
+//       - q and kk of the tile's rows;
+//       - out_t = (q_t o exp(B_i - cum_{q0-1})) R        (the state)
+//               + sum_{s in an earlier sub-chunk of the tile} (q_t D_ij . kk_s) v_s
+//               + sum_{s <= t in t's sub-chunk} pairwise_ts v_s;
+//       - R = diag(exp(cum_q1 - cum_{q0-1})) R
+//             + sum_{s in the tile} (kk_s o exp(cum_q1 - B_{j+1}))^T v_s,
+//     the recurrence at 64-step granularity (every factor <= 1), so no
+//     tile is read twice and no score tile lies off the diagonal.
+// Every product is a 64 x 64 output tile on 8 warps, each a 16 x 32 strip
+// (a sub-chunk's rows), per 8 steps of depth mma.sync.m16n8k8 TF32 tiles,
+// with fragments read from shared tiles whose row strides keep a fragment
+// load on 32 distinct banks (68 floats where the tile is read along its
+// rows, 72 where along its columns; the inline PTX is in small functions
+// between the ptx:begin and ptx:end lines, for which tools/cuda_shim
+// stands in). Tiles are copied with cp.async (no registers held, zero fill
+// past the edges, 16 bytes a copy where the rows allow).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,10 +91,13 @@ namespace {
 
 constexpr int kTile = 64;        // rows of a tile; also the largest dh
 constexpr int kSub = 16;         // rows of a sub-chunk
-constexpr int kLd = 72;          // row stride of a tile in shared memory
-constexpr int kThreads = 256;    // 16 x 16 threads, a 4 x 4 block each
-constexpr int kTileFloats = kTile * kLd;
+constexpr int kLdR = 68;         // row stride of a tile read along rows
+constexpr int kLdC = 72;         // row stride of a tile read along columns
+constexpr int kThreads = 256;    // 8 warps, a 16 x 32 strip of a tile each
+constexpr int kRowTile = kTile * kLdR;
+constexpr int kColTile = kTile * kLdC;
 constexpr int kTileElems = kTile * kTile;
+constexpr int kPairs = kSub * (kSub + 1) / 2;   // a sub-chunk's s <= t
 constexpr int kMaxSmem = 232448; // bytes a block may use on an H100
 
 // value dtype codes, mirrored by _DTYPE_CODES in rwkv6.py
@@ -82,6 +106,11 @@ enum DType : int { F32 = 0, BF16 = 1 };
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T zero_of();
+template <> __device__ __forceinline__ float zero_of<float>() { return 0.0f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.0f);
 }
 
 struct WkvArgs {
@@ -98,104 +127,150 @@ struct WkvArgs {
   int H, S, dh, chunk, nc, t64;              // t64: chunk rounded up to 64
 };
 
-// A 64 x 64 tile's elements e = threadIdx.x + kThreads i: load(e) reads
-// one, store(e, v) puts it in shared memory. Each thread issues 8 loads
-// before their 8 stores, so it waits for memory once per 8 elements.
-template <typename Load, typename Store>
-__device__ __forceinline__ void fill_tile(Load load, Store store) {
+// ptx:begin -- the tensor-core and async-copy statements, one each
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero),
+// the bits below it zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// asynchronous copies global -> shared of 16 bytes, of which `bytes` are
+// read (0: zero fill, nothing read); a group is committed, then waited for
+// while at most N younger groups stay in flight
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// d += a b for a 16 x 8 (row) by 8 x 8 (col) TF32 tile, f32 accumulate.
+// Lane (g, q) = (lane / 4, lane % 4) holds a: (g, q) (g + 8, q) (g, q + 4)
+// (g + 8, q + 4); b: (q, g) (q + 4, g); d: (g, 2q) (g, 2q + 1) (g + 8, 2q)
+// (g + 8, 2q + 1).
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// ptx:end
+
+// cp.async copies of rows [0, rows) and columns [0, width) of a matrix of T
+// with row stride ld into a 64 x 64 tile dst (row stride ldd elements, a
+// multiple of 16 bytes), zero elsewhere: 16 bytes a copy where src, ld and
+// width allow, else one element at a time through registers
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, int ldd, const T* src,
+                                          int64_t ld, int rows, int width) {
+  constexpr int kVec = 16 / sizeof(T);
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && ld % kVec == 0 &&
+      width % kVec == 0) {
 #pragma unroll
-  for (int h = 0; h < kTileElems / kThreads; h += 8) {
-    float v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = load(threadIdx.x + kThreads * (h + i));
-#pragma unroll
-    for (int i = 0; i < 8; ++i) store(threadIdx.x + kThreads * (h + i), v[i]);
+    for (int i = 0; i < kTileElems / (kVec * kThreads); ++i) {
+      const int e = threadIdx.x + kThreads * i;
+      const int r = e / (kTile / kVec), c = kVec * (e % (kTile / kVec));
+      const bool in = r < rows && c < width;
+      cp_async16(dst + r * ldd + c, in ? src + r * ld + c : src, in ? 16 : 0);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < kTileElems; e += kThreads) {
+    const int r = e >> 6, c = e & 63;
+    dst[r * ldd + c] = (r < rows && c < width) ? src[r * ld + c] : zero_of<T>();
   }
 }
 
-// element e of a tile copied transposed: a warp reads 4 columns of 8 rows,
-// so its stores hit 32 distinct banks
-__device__ __forceinline__ int t_row(int e) { return (e >> 2) & 63; }
-__device__ __forceinline__ int t_col(int e) { return ((e >> 8) << 2) | (e & 3); }
-
-// rows [0, rows) and columns [0, width) of a matrix with row stride ld
-// into a 64 x 64 f32 tile, zero elsewhere, times scale(row, column) (which
-// is only called inside the matrix): dst[r][c], or dst[c][r] (kTransposed)
-template <bool kTransposed, typename T, typename Scale>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t ld,
-                                          int rows, int width, Scale scale) {
-  fill_tile(
-      [&](int e) {
-        const int r = kTransposed ? t_row(e) : e >> 6;
-        const int c = kTransposed ? t_col(e) : e & 63;
-        return (r < rows && c < width) ? to_f32(src[r * ld + c]) * scale(r, c)
-                                       : 0.0f;
-      },
-      [&](int e, float v) {
-        if (kTransposed) dst[t_col(e) * kLd + t_row(e)] = v;
-        else dst[(e >> 6) * kLd + (e & 63)] = v;
-      });
-}
-template <bool kTransposed, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int64_t ld,
-                                          int rows, int width) {
-  load_tile<kTransposed>(dst, src, ld, rows, width,
-                         [](int, int) { return 1.0f; });
+// x = hi + lo: hi rounded to TF32, lo = x - hi exact in f32 (the tensor
+// core reads its top 11 significant bits: at most ~2^-22 of x is dropped)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// exp(x) for x <= 0 by construction; the clamp keeps rounding from
+// acc[4 j + v] += sum_{k < K} A(m, k) B(k, n) over K rounded up to 8 (the
+// operands are zero there), for the warp's 16 rows from m0 and NT 8-column
+// tiles from n0: value v of tile j is row m0 + g + 8 (v / 2), column n0 +
+// 8 j + 2q + v % 2, the mma's d fragment. a(m, k) and b(k, n) read the
+// operands' f32 values; kExactB: B's values are exact in TF32 (bf16), so
+// B has no lo part and a tile takes two mmas instead of three.
+template <int NT, bool kExactB, typename FA, typename FB>
+__device__ __forceinline__ void warp_mma(float* acc, int m0, int n0, int K,
+                                         FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  for (int k = 0; k < K; k += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(a(m0 + g, k + q), ah[0], al[0]);
+    split_tf32(a(m0 + g + 8, k + q), ah[1], al[1]);
+    split_tf32(a(m0 + g, k + q + 4), ah[2], al[2]);
+    split_tf32(a(m0 + g + 8, k + q + 4), ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + 8 * j + g;
+      uint32_t bh[2], bl[2];
+      if (kExactB) {
+        bh[0] = __float_as_uint(b(k + q, n));
+        bh[1] = __float_as_uint(b(k + q + 4, n));
+      } else {
+        split_tf32(b(k + q, n), bh[0], bl[0]);
+        split_tf32(b(k + q + 4, n), bh[1], bl[1]);
+      }
+      mma_tf32(acc + 4 * j, al, bh);     // the small terms first
+      if (!kExactB) mma_tf32(acc + 4 * j, ah, bl);
+      mma_tf32(acc + 4 * j, ah, bh);
+    }
+  }
+}
+
+// the warp's 16 x 32 strip of a 64 x 64 tile: rows 16 (w % 4) + [0, 16),
+// a sub-chunk; columns 32 (w / 4) + [0, 32); value v of acc[16] is row
+// acc_row(v), column acc_col(v)
+__device__ __forceinline__ int warp_rows() { return (threadIdx.x >> 5) & 3; }
+__device__ __forceinline__ int warp_cols() { return threadIdx.x >> 7; }
+__device__ __forceinline__ int acc_row(int v) {
+  return 16 * warp_rows() + ((threadIdx.x & 31) >> 2) + 8 * ((v >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int v) {
+  return 32 * warp_cols() + 8 * (v >> 2) + 2 * (threadIdx.x & 3) + (v & 1);
+}
+
+// the exponential of x <= 0 by construction; the clamp keeps rounding from
 // lifting a decay past 1
 __device__ __forceinline__ float decay_exp(float x) {
   return expf(fminf(x, 0.0f));
 }
 
-// acc += A^T diag(scale) B over k < K for a 64 x 64 output tile, with A and
-// B stored k-major (A[k][m], B[k][n]); scale null: none. Thread (ty, tx) of
-// 16 x 16 owns rows 4 ty + i and columns 4 tx + j, so its rows lie in one
-// 16-row sub-chunk (acc_row(0) / kSub) and its columns in one too; its
-// value v is row acc_row(v), column acc_col(v).
-__device__ __forceinline__ int acc_row(int v) {
-  return 4 * (threadIdx.x >> 4) + (v >> 2);
-}
-__device__ __forceinline__ int acc_col(int v) {
-  return 4 * (threadIdx.x & 15) + (v & 3);
-}
-__device__ __forceinline__ void tile_product(float (&acc)[16], const float* A,
-                                             const float* B, int K,
-                                             const float* scale = nullptr) {
-  const float* a = A + 4 * (threadIdx.x >> 4);
-  const float* b = B + 4 * (threadIdx.x & 15);
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    const float4 av = *reinterpret_cast<const float4*>(a + k * kLd);
-    const float4 bv = *reinterpret_cast<const float4*>(b + k * kLd);
-    const float s = scale != nullptr ? scale[k] : 1.0f;
-    const float ar[4] = {av.x * s, av.y * s, av.z * s, av.w * s};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[4 * i + j] = fmaf(ar[i], br[j], acc[4 * i + j]);
-  }
-}
-
-// cum[t][d] (row stride kLd, rows t < t64) <- the inclusive cumsum over t
-// of lw's column d, lw zero at rows >= valid and columns >= dh. Thread
-// (d, part) = (tid / 4, tid % 4) sums a run of t64 / 4 rows of column d;
-// the four runs of a column sit in neighbouring lanes of one warp and are
-// scanned with shuffles; then each run is rewritten. Ends past a
-// __syncthreads.
+// cum[t][d] (row stride kLdR, rows t < t64; row -1 is zero) <- cp.async
+// copies of lw (zero at rows >= valid and columns >= dh), then their
+// inclusive cumsum over t: thread (d, part) = (tid / 4, tid % 4) sums a run
+// of t64 / 4 rows of column d; the four runs of a column sit in
+// neighbouring lanes of one warp and are scanned with shuffles; then each
+// run is rewritten. Ends past a __syncthreads.
 __device__ void chunk_cumsum(float* cum, const float* lw, int64_t ld,
                              int valid, int dh, int t64) {
   for (int t0 = 0; t0 < t64; t0 += kTile)
-    load_tile<false>(cum + t0 * kLd, lw + t0 * ld, ld, valid - t0, dh);
+    copy_tile(cum + t0 * kLdR, kLdR, lw + t0 * ld, ld, valid - t0, dh);
+  cp_async_commit();
+  if (threadIdx.x < kLdR) cum[static_cast<int>(threadIdx.x) - kLdR] = 0.0f;
+  cp_async_wait<0>();
   __syncthreads();
   const int d = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int run = t64 / 4;
-  float* col = cum + part * run * kLd + d;
+  float* col = cum + part * run * kLdR + d;
   float sum = 0.0f;
-  for (int i = 0; i < run; ++i) sum += col[i * kLd];
+  for (int i = 0; i < run; ++i) sum += col[i * kLdR];
   float incl = sum;
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -205,19 +280,23 @@ __device__ void chunk_cumsum(float* cum, const float* lw, int64_t ld,
   float acc = __shfl_up_sync(0xffffffffu, incl, 1);   // the runs before
   if (part == 0) acc = 0.0f;
   for (int i = 0; i < run; ++i) {
-    acc += col[i * kLd];
-    col[i * kLd] = acc;
+    acc += col[i * kLdR];
+    col[i * kLdR] = acc;
   }
   __syncthreads();
 }
 
 // step 1: the chunk's exp(cum_T) and own state dS[d][e]
 template <typename T>
-__global__ void __launch_bounds__(kThreads) wkv6_chunk_state(WkvArgs a) {
+__global__ void __launch_bounds__(kThreads, 3) wkv6_chunk_state(WkvArgs a) {
   extern __shared__ float smem[];
-  float* cum = smem;                   // [t64][kLd]
-  float* Kw = cum + a.t64 * kLd;       // k o exp(cum_T - cum_s) [s][d]
-  float* Vs = Kw + kTileFloats;        // v of the key tile      [s][e]
+  float* cum = smem + kLdR;            // [t64][kLdR], row -1 before it
+  float* Kw = cum + a.t64 * kLdR;      // k o exp(cum_T - cum_s)  [s][d]
+  T* Vs = reinterpret_cast<T*>(Kw + kColTile);   // v            [s][e]
+  // the raw k: in Kw itself (f32; each thread then rewrites the elements
+  // it read), or behind v (bf16, dense rows)
+  T* Kr = sizeof(T) == 4 ? reinterpret_cast<T*>(Kw) : Vs + kColTile;
+  const int ldk = sizeof(T) == 4 ? kLdC : kTile;
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int c0 = c * a.chunk, valid = min(a.chunk, a.S - c0);
   const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
@@ -228,20 +307,35 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_state(WkvArgs a) {
   chunk_cumsum(cum, a.lw + b * a.lw_b + h * a.lw_h +
                         static_cast<int64_t>(c0) * a.lw_s,
                a.lw_s, valid, a.dh, a.t64);
-  const float* cum_T = cum + (a.chunk - 1) * kLd;
+  const float* cum_T = cum + (a.chunk - 1) * kLdR;
   if (threadIdx.x < a.dh)
     a.decay[bhc * a.dh + threadIdx.x] = expf(cum_T[threadIdx.x]);
   float acc[16] = {};
   for (int k0 = 0; k0 < valid; k0 += kTile) {
     const int rows = min(kTile, valid - k0);
     if (k0 > 0) __syncthreads();       // the last tile is read
-    load_tile<false>(Kw, k + k0 * a.k_s, a.k_s, rows, a.dh,
-                     [&](int s, int d) {
-                       return decay_exp(cum_T[d] - cum[(k0 + s) * kLd + d]);
-                     });
-    load_tile<false>(Vs, v + k0 * a.v_s, a.v_s, rows, a.dh);
+    copy_tile(Kr, ldk, k + k0 * a.k_s, a.k_s, rows, a.dh);
+    copy_tile(Vs, kLdC, v + k0 * a.v_s, a.v_s, rows, a.dh);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    tile_product(acc, Kw, Vs, rows);
+    float x[kTileElems / kThreads];
+#pragma unroll
+    for (int i = 0; i < kTileElems / kThreads; ++i) {
+      const int e = threadIdx.x + kThreads * i, s = e >> 6, d = e & 63;
+      x[i] = to_f32(Kr[s * ldk + d]) *
+             decay_exp(cum_T[d] - cum[(k0 + s) * kLdR + d]);
+    }
+#pragma unroll
+    for (int i = 0; i < kTileElems / kThreads; ++i) {
+      const int e = threadIdx.x + kThreads * i;
+      Kw[(e >> 6) * kLdC + (e & 63)] = x[i];
+    }
+    __syncthreads();
+    warp_mma<4, sizeof(T) == 2>(
+        acc, 16 * warp_rows(), 32 * warp_cols(), rows,
+        [&](int d, int s) { return Kw[s * kLdC + d]; },
+        [&](int s, int e) { return to_f32(Vs[s * kLdC + e]); });
   }
   float* out = a.st + bhc * a.dh * a.dh;
 #pragma unroll
@@ -278,18 +372,37 @@ __global__ void __launch_bounds__(kThreads) wkv6_state_pass(WkvArgs a) {
   a.state_out[bh * dd + e] = s;
 }
 
-// step 3: out of the chunk, a 64-row query tile at a time
+// 4 values of a row from element d: f32 as one float4, bf16 as 8 bytes
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xffff0000u));
+}
+
+// step 3: out of the chunk, a 64-row tile at a time, the state carried
 template <typename T>
-__global__ void __launch_bounds__(kThreads) wkv6_chunk_out(WkvArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
   extern __shared__ float smem[];
-  float* cum = smem;                   // [t64][kLd]
-  float* Q = cum + a.t64 * kLd;        // r, then q = r o exp(cumex - B_i) [d][t]
-  float* K = Q + kTileFloats;          // k, then kk = k o exp(B_j+1 - cum) [d][s]
-  float* V = K + kTileFloats;          // v of the key tile                 [s][e]
-  float* P = V + kTileFloats;          // scores                            [s][t]
-  float* St = P + kTileFloats;         // the state entering the chunk      [d][e]
-  float* esc = St + kTileFloats;       // exp(B_i), the tile's sub-chunks   [4][64]
-  float* dsc = esc + 4 * kTile;        // D_ij = exp(B_i - B_j+1), j < i    [4][4][64]
+  float* cum = smem + kLdR;            // [t64][kLdR], row -1 before it
+  float* Qh = cum + a.t64 * kLdR;      // q of the tile, then the scores P [t][d], [t][s]
+  float* Kh = Qh + kRowTile;           // kk of the tile                     [s][d]
+  float* R = Kh + kRowTile;            // the state entering the tile        [d][e]
+  T* Vs = reinterpret_cast<T*>(R + kColTile);   // v of the tile            [s][e]
+  float* Pd = reinterpret_cast<float*>(Vs + kColTile);  // pairwise   [4][16][16]
+  float* E = Pd + 4 * kSub * kSub;     // exp(B_i - cum_{q0-1})              [4][64]
+  float* D = E + 4 * kTile;            // exp(B_i - B_j+1), j < i            [4][4][64]
+  float* U = D + 16 * kTile;           // exp(cum_q1 - B_j+1)                [4][64]
+  float* decR = U + 4 * kTile;         // exp(cum_q1 - cum_{q0-1})           [64]
+  float* us = decR + kTile;            // u                                  [64]
+  // the raw r and k: in Qh and Kh themselves (f32), or in the last 8 KB of
+  // each (bf16, dense rows); read into registers before q and kk overwrite
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kLdRaw = kF32 ? kLdR : kTile;
+  T* Rr = reinterpret_cast<T*>(Qh + (kF32 ? 0 : kRowTile - kTileElems / 2));
+  T* Kr = reinterpret_cast<T*>(Kh + (kF32 ? 0 : kRowTile - kTileElems / 2));
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int c0 = c * a.chunk, valid = min(a.chunk, a.S - c0);
   const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
@@ -299,106 +412,153 @@ __global__ void __launch_bounds__(kThreads) wkv6_chunk_out(WkvArgs a) {
                static_cast<int64_t>(c0) * a.k_s;
   const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h +
                static_cast<int64_t>(c0) * a.v_s;
-  const float* u = a.u + static_cast<int64_t>(h) * a.dh;
   float* out = a.out + b * a.o_b + h * a.o_h + static_cast<int64_t>(c0) * a.o_s;
-  load_tile<false>(St, a.st + bhc * a.dh * a.dh, a.dh, a.dh, a.dh);
+  copy_tile(R, kLdC, a.st + bhc * a.dh * a.dh, a.dh, a.dh, a.dh);
+  if (threadIdx.x < kTile)
+    us[threadIdx.x] = threadIdx.x < a.dh ? a.u[h * a.dh + threadIdx.x] : 0.0f;
   chunk_cumsum(cum, a.lw + b * a.lw_b + h * a.lw_h +
                         static_cast<int64_t>(c0) * a.lw_s,
                a.lw_s, valid, a.dh, a.t64);
-  // B_g: cum at the row before sub-chunk g; cumex_t: cum at row t - 1
-  auto bnd = [&](int g, int d) { return g > 0 ? cum[(kSub * g - 1) * kLd + d] : 0.0f; };
-  auto cumex = [&](int t, int d) { return t > 0 ? cum[(t - 1) * kLd + d] : 0.0f; };
-  const int row_sub = acc_row(0) / kSub, col_sub = acc_col(0) / kSub;
+  // B_g: cum at the row before sub-chunk g (row -1: zero)
+  auto bnd = [&](int g, int d) { return cum[(kSub * g - 1) * kLdR + d]; };
+  const int wr = warp_rows(), wc = warp_cols();
   const int n_q = (valid + kTile - 1) / kTile;
+  const int dh8 = (a.dh + 7) & ~7;
   for (int qt = 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
-    float acc[16] = {};
-    for (int kt = qt; kt >= 0; --kt) {  // the diagonal tile first
-      const int k0 = kt * kTile, k_valid = min(kTile, valid - k0);
-      const bool diag = kt == qt;
-      __syncthreads();                 // every reader of the last tile is done
-      if (diag) {                      // raw: the pairwise scores need them
-        load_tile<true>(Q, r + q0 * a.r_s, a.r_s, q_valid, a.dh);
-        load_tile<true>(K, k + k0 * a.k_s, a.k_s, k_valid, a.dh);
-        for (int e = threadIdx.x; e < 4 * kTile; e += kThreads)
-          esc[e] = decay_exp(bnd(4 * qt + (e >> 6), e & 63));
+    const int g0 = 4 * qt;             // the tile's first sub-chunk
+    copy_tile(Rr, kLdRaw, r + q0 * a.r_s, a.r_s, q_valid, a.dh);
+    copy_tile(Kr, kLdRaw, k + q0 * a.k_s, a.k_s, q_valid, a.dh);
+    copy_tile(Vs, kLdC, v + q0 * a.v_s, a.v_s, q_valid, a.dh);
+    cp_async_commit();
+    for (int e = threadIdx.x; e < 25 * kTile; e += kThreads) {
+      const int row = e >> 6, d = e & 63;
+      if (row < 4) {
+        E[e] = decay_exp(bnd(g0 + row, d) - bnd(g0, d));
+      } else if (row < 20) {
+        const int i = (row - 4) >> 2, j = (row - 4) & 3;
+        D[e - 4 * kTile] = j < i ? decay_exp(bnd(g0 + i, d) - bnd(g0 + j + 1, d))
+                                 : 0.0f;
+      } else if (row < 24) {
+        U[e - 20 * kTile] = decay_exp(bnd(g0 + 4, d) - bnd(g0 + row - 19, d));
       } else {
-        load_tile<true>(K, k + k0 * a.k_s, a.k_s, k_valid, a.dh,
-                        [&](int s, int d) {
-                          const int j = (k0 + s) / kSub;
-                          return decay_exp(bnd(j + 1, d) - cum[(k0 + s) * kLd + d]);
-                        });
+        decR[d] = decay_exp(bnd(g0 + 4, d) - bnd(g0, d));
       }
-      load_tile<false>(V, v + k0 * a.v_s, a.v_s, k_valid, a.dh);
-      for (int e = threadIdx.x; e < 16 * kTile; e += kThreads) {
-        const int gi = 4 * qt + (e >> 8), gj = 4 * kt + ((e >> 6) & 3);
-        const int d = e & 63;
-        dsc[e] = gj < gi ? decay_exp(bnd(gi, d) - bnd(gj + 1, d)) : 0.0f;
-      }
-      __syncthreads();
-      if (diag) {
-        // the four 16 x 16 diagonal blocks: thread (sub-chunk i, row t,
-        // part) takes columns s = part + 4 m <= t of its block
-        const int i = threadIdx.x >> 6, tl = (threadIdx.x >> 2) & 15;
-        const int part = threadIdx.x & 3, t = kSub * i + tl;
-        float p[4] = {};
-        for (int d = 0; d < a.dh; ++d) {
-          const float rt = Q[d * kLd + t], ct = cumex(q0 + t, d);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            const int sl = part + 4 * m, s = kSub * i + sl;
-            if (sl < tl)
-              p[m] = fmaf(rt * K[d * kLd + s],
-                          decay_exp(ct - cum[(q0 + s) * kLd + d]), p[m]);
-            else if (sl == tl)
-              p[m] = fmaf(u[d] * rt, K[d * kLd + s], p[m]);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int sl = part + 4 * m;
-          P[(kSub * i + sl) * kLd + t] = sl <= tl ? p[m] : 0.0f;
-        }
-        __syncthreads();               // every reader of the raw Q, K is done
-        fill_tile(
-            [&](int e) {
-              const int d = e >> 6, t = e & 63;
-              const float x = Q[d * kLd + t];
-              return x * decay_exp(cumex(q0 + t, d) - bnd((q0 + t) / kSub, d));
-            },
-            [&](int e, float x) { Q[(e >> 6) * kLd + (e & 63)] = x; });
-        fill_tile(
-            [&](int e) {
-              const int d = e >> 6, s = e & 63;
-              const float x = K[d * kLd + s];
-              const int j = (k0 + s) / kSub;
-              return x * decay_exp(bnd(j + 1, d) - cum[(k0 + s) * kLd + d]);
-            },
-            [&](int e, float x) { K[(e >> 6) * kLd + (e & 63)] = x; });
-        __syncthreads();
-        // inter-chunk: out_t += (q_t o exp(B_i)) S
-        tile_product(acc, Q, St, a.dh, esc + row_sub * kTile);
-      }
-      // the factored scores of earlier sub-chunks; the diagonal blocks are
-      // written above, later sub-chunks are zero
-      const int gi = 4 * qt + row_sub, gj = 4 * kt + col_sub;
-      if (gj != gi) {
-        float p[16] = {};
-        if (gj < gi)
-          tile_product(p, Q, K, a.dh, dsc + (4 * row_sub + col_sub) * kTile);
-#pragma unroll
-        for (int i = 0; i < 16; ++i) P[acc_col(i) * kLd + acc_row(i)] = p[i];
-      }
-      __syncthreads();
-      tile_product(acc, P, V, k_valid);
     }
+    cp_async_wait<0>();
+    __syncthreads();                   // the tile's copies and the factors
+    // the pairwise scores, and the bonus on the diagonal: pair p of
+    // sub-chunk i is (t, s) = (tl, sl) in row-major order of s <= t
+    for (int p = threadIdx.x; p < 4 * kPairs; p += kThreads) {
+      const int i = p / kPairs, pp = p - kPairs * i;
+      const int tl = static_cast<int>((sqrtf(8.0f * pp + 1.0f) - 1.0f) * 0.5f);
+      const int sl = pp - tl * (tl + 1) / 2;
+      const int t = kSub * i + tl, s = kSub * i + sl;
+      const T* rt = Rr + t * kLdRaw;
+      const T* ks = Kr + s * kLdRaw;
+      const float* ct = cum + (q0 + t - 1) * kLdR;   // cumex_t
+      const float* cs = cum + (q0 + s) * kLdR;
+      float acc = 0.0f;
+      for (int d = 0; d < dh8; d += 4) {
+        const float4 rv = load4(rt + d), kv = load4(ks + d);
+        const float4 cx = load4(ct + d), cy = load4(cs + d), uv = load4(us + d);
+        const float w0 = s < t ? decay_exp(cx.x - cy.x) : uv.x;
+        const float w1 = s < t ? decay_exp(cx.y - cy.y) : uv.y;
+        const float w2 = s < t ? decay_exp(cx.z - cy.z) : uv.z;
+        const float w3 = s < t ? decay_exp(cx.w - cy.w) : uv.w;
+        acc = fmaf(rv.x * kv.x, w0, acc);
+        acc = fmaf(rv.y * kv.y, w1, acc);
+        acc = fmaf(rv.z * kv.z, w2, acc);
+        acc = fmaf(rv.w * kv.w, w3, acc);
+      }
+      Pd[(i * kSub + tl) * kSub + sl] = acc;
+    }
+    // q = r o exp(cumex_t - B_i) and kk = k o exp(B_j+1 - cum_s), read
+    // into registers, then written over the raw values
+    float xq[kTileElems / kThreads], xk[kTileElems / kThreads];
+#pragma unroll
+    for (int i = 0; i < kTileElems / kThreads; ++i) {
+      const int e = threadIdx.x + kThreads * i, t = e >> 6, d = e & 63;
+      xq[i] = to_f32(Rr[t * kLdRaw + d]) *
+              decay_exp(cum[(q0 + t - 1) * kLdR + d] - bnd(g0 + t / kSub, d));
+      xk[i] = to_f32(Kr[t * kLdRaw + d]) *
+              decay_exp(bnd(g0 + t / kSub + 1, d) - cum[(q0 + t) * kLdR + d]);
+    }
+    __syncthreads();                   // every raw r and k is read
+#pragma unroll
+    for (int i = 0; i < kTileElems / kThreads; ++i) {
+      const int e = threadIdx.x + kThreads * i, t = e >> 6, d = e & 63;
+      Qh[t * kLdR + d] = xq[i];
+      Kh[t * kLdR + d] = xk[i];
+    }
+    __syncthreads();
+    // the state: (q_t o exp(B_i - cum_{q0-1})) R
+    float acc[16] = {};
+    const float* e_i = E + wr * kTile;
+    warp_mma<4, false>(acc, 16 * wr, 32 * wc, dh8,
+                       [&](int t, int d) { return Qh[t * kLdR + d] * e_i[d]; },
+                       [&](int d, int e) { return R[d * kLdC + e]; });
+    // the scores of the warp's two key sub-chunks 2 wc, 2 wc + 1 that lie
+    // before its own (wr); held until every warp has read q
+    float p[16] = {};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * wc + half;
+      if (j >= wr) continue;
+      const float* d_ij = D + (4 * wr + j) * kTile;
+      warp_mma<2, false>(p + 8 * half, 16 * wr, kSub * j, dh8,
+                         [&](int t, int d) { return Qh[t * kLdR + d] * d_ij[d]; },
+                         [&](int d, int s) { return Kh[s * kLdR + d]; });
+    }
+    __syncthreads();                   // every read of q is done
+    float* P = Qh;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int t = acc_row(i), s = acc_col(i);
+      const int j = s / kSub, tl = t - kSub * wr, sl = s - kSub * wr;
+      P[t * kLdR + s] = j < wr ? p[i]
+                               : j == wr && sl <= tl ? Pd[(wr * kSub + tl) * kSub + sl]
+                                                     : 0.0f;
+    }
+    __syncthreads();
+    // the scores (zero past the warp's sub-chunk) times v
+    warp_mma<4, !kF32>(acc, 16 * wr, 32 * wc, kSub * (wr + 1),
+                       [&](int t, int s) { return P[t * kLdR + s]; },
+                       [&](int s, int e) { return to_f32(Vs[s * kLdC + e]); });
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int t = acc_row(i), e = acc_col(i);
       if (t < q_valid && e < a.dh)
         out[static_cast<int64_t>(q0 + t) * a.o_s + e] = acc[i];
     }
+    if (qt + 1 == n_q) break;
+    // R = diag(exp(cum_q1 - cum_{q0-1})) R + (kk o exp(cum_q1 - B_j+1))^T v;
+    // every read of R (the state's product) is behind the last barrier
+    float upd[16] = {};
+    warp_mma<4, !kF32>(upd, 16 * wr, 32 * wc, kTile,
+                       [&](int d, int s) {
+                         return Kh[s * kLdR + d] * U[(s / kSub) * kTile + d];
+                       },
+                       [&](int s, int e) { return to_f32(Vs[s * kLdC + e]); });
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float* rv = R + acc_row(i) * kLdC + acc_col(i);
+      *rv = decR[acc_row(i)] * *rv + upd[i];
+    }
+    __syncthreads();                   // R is new; Qh, Kh, Vs are free
   }
+}
+
+// shared memory of each kernel, in bytes
+size_t smem_state(int t64, int vbytes) {
+  return (static_cast<size_t>(t64 + 1) * kLdR + kColTile) * sizeof(float) +
+         static_cast<size_t>(kColTile) * vbytes +
+         (vbytes == 2 ? static_cast<size_t>(kTileElems) * vbytes : 0);
+}
+size_t smem_out(int t64, int vbytes) {
+  return (static_cast<size_t>(t64 + 1) * kLdR + 2 * kRowTile + kColTile +
+          4 * kSub * kSub + 26 * kTile) * sizeof(float) +
+         static_cast<size_t>(kColTile) * vbytes;
 }
 
 // the workspace's parts, in floats, each a multiple of 64
@@ -421,21 +581,25 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T>
-int launch(const WkvArgs& a, int B, size_t smem_state, size_t smem_out,
-           cudaStream_t s) {
+int launch(const WkvArgs& a, int B, cudaStream_t s) {
+  const size_t sm_state = smem_state(a.t64, sizeof(T));
+  const size_t sm_out = smem_out(a.t64, sizeof(T));
+  if (sm_state > static_cast<size_t>(kMaxSmem) ||
+      sm_out > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (a.nc > 0) {
-    if ((err = allow_smem(wkv6_chunk_state<T>, smem_state)) != cudaSuccess ||
-        (err = allow_smem(wkv6_chunk_out<T>, smem_out)) != cudaSuccess)
+    if ((err = allow_smem(wkv6_chunk_state<T>, sm_state)) != cudaSuccess ||
+        (err = allow_smem(wkv6_chunk_out<T>, sm_out)) != cudaSuccess)
       return static_cast<int>(err);
-    wkv6_chunk_state<T><<<dim3(a.nc, a.H, B), kThreads, smem_state, s>>>(a);
+    wkv6_chunk_state<T><<<dim3(a.nc, a.H, B), kThreads, sm_state, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   wkv6_state_pass<<<dim3((a.dh * a.dh + kThreads - 1) / kThreads, a.H, B),
                     kThreads, 0, s>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (a.nc > 0) {
-    wkv6_chunk_out<T><<<dim3(a.nc, a.H, B), kThreads, smem_out, s>>>(a);
+    wkv6_chunk_out<T><<<dim3(a.nc, a.H, B), kThreads, sm_out, s>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -461,8 +625,9 @@ size_t repro_wkv6_workspace_bytes(int B, int H, int S, int dh, int chunk) {
 // (H, dh) f32 contiguous; out: (B, H, S, dh) f32, strides (b, h, s);
 // state_in (or null) and state_out: (B, H, dh, dh) f32 contiguous;
 // workspace: repro_wkv6_workspace_bytes(...) bytes of device memory,
-// 16-byte aligned. dh at most 64. Launches the three kernels on `stream`;
-// returns the first cudaError_t (0 on success).
+// 16-byte aligned. dh at most 64; the chunk at most what the shared memory
+// holds (T x 64 floats of its cumsum: a few hundred steps). Launches the
+// three kernels on `stream`; returns the first cudaError_t (0 on success).
 int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
                        const void* k, int64_t k_b, int64_t k_h, int64_t k_s,
                        const void* v, int64_t v_b, int64_t v_h, int64_t v_s,
@@ -472,15 +637,8 @@ int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
                        void* state_out, int B, int H, int S, int dh,
                        int chunk, int dtype, void* workspace_ptr,
                        void* stream) {
-  if (dh < 1 || dh > kTile || chunk < 1 || B < 0 || H < 0 || S < 0 ||
-      B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t t64 = (static_cast<size_t>(chunk) + kTile - 1) / kTile * kTile;
-  const size_t smem_state = (t64 * kLd + 2 * kTileFloats) * sizeof(float);
-  const size_t smem_out = (t64 * kLd + 5 * kTileFloats + 20 * kTile) *
-                          sizeof(float);
-  if (smem_state > static_cast<size_t>(kMaxSmem) ||
-      smem_out > static_cast<size_t>(kMaxSmem))
+  if (dh < 1 || dh > kTile || chunk < 1 || chunk > kMaxSmem || B < 0 ||
+      H < 0 || S < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   WkvArgs a;
@@ -495,7 +653,7 @@ int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
   a.state_out = static_cast<float*>(state_out);
   a.H = H; a.S = S; a.dh = dh; a.chunk = chunk;
   a.nc = (S + chunk - 1) / chunk;
-  a.t64 = static_cast<int>(t64);
+  a.t64 = (chunk + kTile - 1) / kTile * kTile;
   const Workspace w = workspace(B, H, S, dh, chunk);
   a.st = static_cast<float*>(workspace_ptr);
   a.decay = a.st + w.st;
@@ -503,8 +661,8 @@ int repro_wkv6_chunked(const void* r, int64_t r_b, int64_t r_h, int64_t r_s,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case F32: return launch<float>(a, B, smem_state, smem_out, st);
-    case BF16: return launch<__nv_bfloat16>(a, B, smem_state, smem_out, st);
+    case F32: return launch<float>(a, B, st);
+    case BF16: return launch<__nv_bfloat16>(a, B, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

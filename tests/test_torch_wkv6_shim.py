@@ -41,13 +41,15 @@ SCAN_TOL = 1e-4
 BROKEN = {
     # every chunk enters with the given state: nothing carried
     "state pass dropped": ("s = dk[i] * s + ds[i];", "s = s;"),
-    # out without (r o exp(cumex)) S
-    "inter-chunk term dropped": ("tile_product(acc, Q, St, a.dh,",
-                                 "if (false) tile_product(acc, Q, St, a.dh,"),
-    # the boundaries B_i taken one step early: the last key of each
-    # sub-chunk loses its decay factor
+    # each chunk's entering state read as zero: out without (r o exp(cumex)) S
+    "inter-chunk term dropped": (
+        "copy_tile(R, kLdC, a.st + bhc * a.dh * a.dh, a.dh, a.dh, a.dh);",
+        "copy_tile(R, kLdC, a.st + bhc * a.dh * a.dh, a.dh, 0, a.dh);"),
+    # q's reference step one row late (the sub-chunk's first row, not the
+    # row before it), while D and the state's factor keep the right one
     "sub-chunk reference step off by one": (
-        "cum[(kSub * g - 1) * kLd + d]", "cum[(kSub * g - 2) * kLd + d]"),
+        "- bnd(g0 + t / kSub, d));",
+        "- cum[kSub * (g0 + t / kSub) * kLdR + d]);"),
 }
 
 
@@ -100,17 +102,21 @@ def _inputs(B, H, S, dh, seed, dtype, decay):
     return [t.transpose(1, 2) for t in (r, k, v, lw)] + [u], s0
 
 
-# ragged S everywhere; chunks 32, 100 (no multiple of 16 or 64) and 128 (the
-# model's); dh 16, 32 and 64; 10 chunks in the first case
-SHAPES = [(2, 1, 300, 16, 32), (1, 2, 250, 64, 128), (2, 1, 177, 32, 100),
-          (1, 1, 130, 64, 128)]
+F32, BF16 = torch.float32, torch.bfloat16
+# ragged S everywhere; chunks 32 (5 of them), 100 (no multiple of 16 or 64)
+# and 128 (the model's); dh 16, 32 and 64; both dtypes, every decay law and
+# no state, a zero one and a given one, each at least twice
+CASES = [(2, 1, 150, 16, 32, F32, "slow", "none"),
+         (2, 1, 150, 16, 32, BF16, "strong", "given"),
+         (1, 2, 177, 32, 100, BF16, "slow", "zero"),
+         (1, 2, 177, 32, 100, F32, "strong", "given"),
+         (1, 1, 250, 64, 128, BF16, "reference", "given"),
+         (1, 1, 250, 64, 128, F32, "slow", "none"),
+         (1, 1, 130, 64, 128, BF16, "strong", "zero"),
+         (1, 1, 130, 32, 128, F32, "reference", "given")]
 
 
-@pytest.mark.parametrize("B,H,S,dh,chunk", SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("decay,state", [("slow", "none"),
-                                         ("strong", "given"),
-                                         ("reference", "zero")])
+@pytest.mark.parametrize("B,H,S,dh,chunk,dtype,decay,state", CASES)
 def test_kernel_matches_plain(kernel, B, H, S, dh, chunk, dtype, decay,
                               state):
     args, s0 = _inputs(B, H, S, dh, S + chunk, dtype, decay)
@@ -134,7 +140,7 @@ def test_short_and_odd_chunks(kernel, S, chunk):
 
 @pytest.mark.parametrize("decay", ["reference", "strong"])
 def test_kernel_matches_the_sequential_oracle(kernel, decay):
-    args, _ = _inputs(1, 2, 300, 64, 5, torch.float32, decay)
+    args, _ = _inputs(1, 1, 300, 64, 5, torch.float32, decay)
     o, _ = kernel(*args, chunk=128)
     assert _rel(o, k7.wkv6_ref(*args)) < SCAN_TOL
 
@@ -158,7 +164,7 @@ def test_broken_kernels_fail_the_check(shim_dir, broken):
     bad = _build(path, path.with_suffix(".so"))
     errors = []
     for decay in ("slow", "reference"):
-        args, s0 = _inputs(1, 1, 300, 32, 3, torch.bfloat16, decay)
+        args, s0 = _inputs(1, 1, 150, 32, 3, torch.bfloat16, decay)
         o, st = bad(*args, chunk=32, state=s0)
         op, sp = k7.wkv6_chunked_plain(*args, chunk=32, state=s0)
         errors.append(max(_rel(o, op), _rel(st, sp)))

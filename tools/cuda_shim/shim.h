@@ -3,7 +3,7 @@
 // in for what the kernels use: 3-D grids, __syncthreads, warp shuffles,
 // votes and __syncwarp, float4, bf16 conversions, and the inline PTX
 // statements of
-// flash_attention.cu and mamba2_ssd.cu (the functions between their
+// flash_attention.cu, mamba2_ssd.cu and rwkv6.cu (the functions between their
 // "ptx:begin" and "ptx:end" lines, which build.py drops): mbarriers
 // (arrivals and transaction bytes per phase), TMA box loads (bounds, zero
 // fill, the tensor map's alignment rules and the swizzle on shared-memory
@@ -50,6 +50,8 @@ struct dim3 {
 };
 struct uint3s { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { uint32_t x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline thread_local uint3s threadIdx, blockIdx;
 inline thread_local dim3 blockDim;
 
@@ -364,8 +366,8 @@ inline void shim_cp(void* dst, const void* src, int bytes, int size) {
   shim_cp_open.push_back({static_cast<uint8_t*>(dst),
                           static_cast<const uint8_t*>(src), bytes, size});
 }
-inline void cp_async4(float* dst, const float* src, int bytes) { shim_cp(dst, src, bytes, 4); }
-inline void cp_async16(float* dst, const float* src, int bytes) { shim_cp(dst, src, bytes, 16); }
+inline void cp_async4(void* dst, const void* src, int bytes) { shim_cp(dst, src, bytes, 4); }
+inline void cp_async16(void* dst, const void* src, int bytes) { shim_cp(dst, src, bytes, 16); }
 inline void cp_async_commit() {
   shim_cp_groups.push_back(std::move(shim_cp_open));
   shim_cp_open.clear();
