@@ -55,7 +55,7 @@
 //     shuffles), exp(cum_T), and the chunk's own state
 //     dS = sum_s (k_s o exp(cum_T - cum_s))^T v_s over 64-row key tiles.
 //  2. wkv6_state_pass, one thread per (b, h, d, e): S_c = exp(cum_T,c-1)
-//     S_{c-1} + dS_{c-1} in chunk order, from state_in or zero, 8 chunks'
+//     S_{c-1} + dS_{c-1} in chunk order, from state_in or zero, 16 chunks'
 //     loads in flight at a time; each chunk's entering state overwrites its
 //     dS, and the last S is state_out.
 //  3. wkv6_chunk_out, one block per (b, h, chunk): the chunk's cum again
@@ -97,7 +97,9 @@ constexpr int kThreads = 256;    // 8 warps, a 16 x 32 strip of a tile each
 constexpr int kRowTile = kTile * kLdR;
 constexpr int kColTile = kTile * kLdC;
 constexpr int kTileElems = kTile * kTile;
-constexpr int kPairs = kSub * (kSub + 1) / 2;   // a sub-chunk's s <= t
+constexpr int kPairs = kSub * (kSub - 1) / 2;   // a sub-chunk's s < t
+constexpr int kNs = kTile / kSub;                // sub-chunks a tile
+constexpr int kNp = kNs * (kNs - 1) / 2;         // their pairs j < i
 constexpr int kMaxSmem = 232448; // bytes a block may use on an H100
 
 // value dtype codes, mirrored by _DTYPE_CODES in rwkv6.py
@@ -151,6 +153,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// 2^x (ex2.approx: within 2^-22 relative; results below f32's normal
+// range flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // d += a b for a 16 x 8 (row) by 8 x 8 (col) TF32 tile, f32 accumulate.
@@ -251,20 +261,29 @@ __device__ __forceinline__ int acc_col(int v) {
 __device__ __forceinline__ float decay_exp(float x) {
   return expf(fminf(x, 0.0f));
 }
+// the pairwise decays inside a sub-chunk (most of the exponentials)
+__device__ __forceinline__ float pair_exp(float x) { return decay_exp(x); }
+
+// the pair of sub-chunks j < i, packed
+__device__ __forceinline__ int pair_index(int i, int j) {
+  return i * (i - 1) / 2 + j;
+}
 
 // cum[t][d] (row stride kLdR, rows t < t64; row -1 is zero) <- cp.async
-// copies of lw (zero at rows >= valid and columns >= dh), then their
-// inclusive cumsum over t: thread (d, part) = (tid / 4, tid % 4) sums a run
-// of t64 / 4 rows of column d; the four runs of a column sit in
-// neighbouring lanes of one warp and are scanned with shuffles; then each
-// run is rewritten. Ends past a __syncthreads.
-__device__ void chunk_cumsum(float* cum, const float* lw, int64_t ld,
-                             int valid, int dh, int t64) {
+// copies of lw, zero at rows >= valid and columns >= dh (issue_lw; the
+// caller commits and waits), then their inclusive cumsum over t
+// (chunk_cumsum): thread (d, part) = (tid / 4, tid % 4) sums a run of
+// t64 / 4 rows of column d; the four runs of a column sit in neighbouring
+// lanes of one warp and are scanned with shuffles; then each run is
+// rewritten. chunk_cumsum starts and ends with a __syncthreads.
+__device__ __forceinline__ void issue_lw(float* cum, const float* lw,
+                                         int64_t ld, int valid, int dh,
+                                         int t64) {
   for (int t0 = 0; t0 < t64; t0 += kTile)
     copy_tile(cum + t0 * kLdR, kLdR, lw + t0 * ld, ld, valid - t0, dh);
-  cp_async_commit();
   if (threadIdx.x < kLdR) cum[static_cast<int>(threadIdx.x) - kLdR] = 0.0f;
-  cp_async_wait<0>();
+}
+__device__ void chunk_cumsum(float* cum, int t64) {
   __syncthreads();
   const int d = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int run = t64 / 4;
@@ -304,19 +323,29 @@ __global__ void __launch_bounds__(kThreads, 3) wkv6_chunk_state(WkvArgs a) {
                static_cast<int64_t>(c0) * a.k_s;
   const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h +
                static_cast<int64_t>(c0) * a.v_s;
-  chunk_cumsum(cum, a.lw + b * a.lw_b + h * a.lw_h +
-                        static_cast<int64_t>(c0) * a.lw_s,
-               a.lw_s, valid, a.dh, a.t64);
+  auto issue = [&](int k0) {           // k and v of the key tile from k0
+    const int rows = min(kTile, valid - k0);
+    copy_tile(Kr, ldk, k + k0 * a.k_s, a.k_s, rows, a.dh);
+    copy_tile(Vs, kLdC, v + k0 * a.v_s, a.v_s, rows, a.dh);
+    cp_async_commit();
+  };
+  issue_lw(cum, a.lw + b * a.lw_b + h * a.lw_h +
+                    static_cast<int64_t>(c0) * a.lw_s,
+           a.lw_s, valid, a.dh, a.t64);
+  cp_async_commit();
+  issue(0);                            // in flight during the scan
+  cp_async_wait<1>();
+  chunk_cumsum(cum, a.t64);
   const float* cum_T = cum + (a.chunk - 1) * kLdR;
   if (threadIdx.x < a.dh)
     a.decay[bhc * a.dh + threadIdx.x] = expf(cum_T[threadIdx.x]);
   float acc[16] = {};
   for (int k0 = 0; k0 < valid; k0 += kTile) {
     const int rows = min(kTile, valid - k0);
-    if (k0 > 0) __syncthreads();       // the last tile is read
-    copy_tile(Kr, ldk, k + k0 * a.k_s, a.k_s, rows, a.dh);
-    copy_tile(Vs, kLdC, v + k0 * a.v_s, a.v_s, rows, a.dh);
-    cp_async_commit();
+    if (k0 > 0) {
+      __syncthreads();                 // the last tile is read
+      issue(k0);
+    }
     cp_async_wait<0>();
     __syncthreads();
     float x[kTileElems / kThreads];
@@ -354,15 +383,15 @@ __global__ void __launch_bounds__(kThreads) wkv6_state_pass(WkvArgs a) {
   float s = a.state_in != nullptr ? a.state_in[bh * dd + e] : 0.0f;
   float* st = a.st + bh * a.nc * dd + e;
   const float* dec = a.decay + bh * a.nc * a.dh + e / a.dh;
-  for (int c0 = 0; c0 < a.nc; c0 += 8) {
-    float ds[8], dk[8];
+  for (int c0 = 0; c0 < a.nc; c0 += 16) {
+    float ds[16], dk[16];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 16; ++i) {
       ds[i] = c0 + i < a.nc ? st[static_cast<int64_t>(c0 + i) * dd] : 0.0f;
       dk[i] = c0 + i < a.nc ? dec[static_cast<int64_t>(c0 + i) * a.dh] : 0.0f;
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < 16; ++i) {
       if (c0 + i < a.nc) {
         st[static_cast<int64_t>(c0 + i) * dd] = s;  // entering chunk c0 + i
         s = dk[i] * s + ds[i];
@@ -391,12 +420,13 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
   float* Kh = Qh + kRowTile;           // kk of the tile                     [s][d]
   float* R = Kh + kRowTile;            // the state entering the tile        [d][e]
   T* Vs = reinterpret_cast<T*>(R + kColTile);   // v of the tile            [s][e]
-  float* Pd = reinterpret_cast<float*>(Vs + kColTile);  // pairwise   [4][16][16]
-  float* E = Pd + 4 * kSub * kSub;     // exp(B_i - cum_{q0-1})              [4][64]
-  float* D = E + 4 * kTile;            // exp(B_i - B_j+1), j < i            [4][4][64]
-  float* U = D + 16 * kTile;           // exp(cum_q1 - B_j+1)                [4][64]
-  float* decR = U + 4 * kTile;         // exp(cum_q1 - cum_{q0-1})           [64]
+  float* Pd = reinterpret_cast<float*>(Vs + kColTile);  // pairwise [kNs][kSub][kSub]
+  float* E = Pd + kNs * kSub * kSub;   // exp(B_i - cum_{q0-1})              [kNs][64]
+  float* D = E + kNs * kTile;          // exp(B_i - B_j+1), j < i, packed    [kNp][64]
+  float* U = D + kNp * kTile;          // exp(cum_q1 - B_j+1)                [kNs][64]
+  float* decR = U + kNs * kTile;       // exp(cum_q1 - cum_{q0-1})           [64]
   float* us = decR + kTile;            // u                                  [64]
+  float* zrow = us + kTile;            // zeros                              [64]
   // the raw r and k: in Qh and Kh themselves (f32), or in the last 8 KB of
   // each (bf16, dense rows); read into registers before q and kk overwrite
   constexpr bool kF32 = sizeof(T) == 4;
@@ -413,12 +443,25 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
   const T* v = static_cast<const T*>(a.v) + b * a.v_b + h * a.v_h +
                static_cast<int64_t>(c0) * a.v_s;
   float* out = a.out + b * a.o_b + h * a.o_h + static_cast<int64_t>(c0) * a.o_s;
+  auto issue = [&](int q0) {           // r, k and v of the tile from q0
+    const int rows = min(kTile, valid - q0);
+    copy_tile(Rr, kLdRaw, r + q0 * a.r_s, a.r_s, rows, a.dh);
+    copy_tile(Kr, kLdRaw, k + q0 * a.k_s, a.k_s, rows, a.dh);
+    copy_tile(Vs, kLdC, v + q0 * a.v_s, a.v_s, rows, a.dh);
+    cp_async_commit();
+  };
   copy_tile(R, kLdC, a.st + bhc * a.dh * a.dh, a.dh, a.dh, a.dh);
-  if (threadIdx.x < kTile)
+  issue_lw(cum, a.lw + b * a.lw_b + h * a.lw_h +
+                    static_cast<int64_t>(c0) * a.lw_s,
+           a.lw_s, valid, a.dh, a.t64);
+  cp_async_commit();
+  issue(0);                            // in flight during the scan
+  if (threadIdx.x < kTile) {
     us[threadIdx.x] = threadIdx.x < a.dh ? a.u[h * a.dh + threadIdx.x] : 0.0f;
-  chunk_cumsum(cum, a.lw + b * a.lw_b + h * a.lw_h +
-                        static_cast<int64_t>(c0) * a.lw_s,
-               a.lw_s, valid, a.dh, a.t64);
+    zrow[threadIdx.x] = 0.0f;
+  }
+  cp_async_wait<1>();
+  chunk_cumsum(cum, a.t64);
   // B_g: cum at the row before sub-chunk g (row -1: zero)
   auto bnd = [&](int g, int d) { return cum[(kSub * g - 1) * kLdR + d]; };
   const int wr = warp_rows(), wc = warp_cols();
@@ -426,33 +469,50 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
   const int dh8 = (a.dh + 7) & ~7;
   for (int qt = 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
-    const int g0 = 4 * qt;             // the tile's first sub-chunk
-    copy_tile(Rr, kLdRaw, r + q0 * a.r_s, a.r_s, q_valid, a.dh);
-    copy_tile(Kr, kLdRaw, k + q0 * a.k_s, a.k_s, q_valid, a.dh);
-    copy_tile(Vs, kLdC, v + q0 * a.v_s, a.v_s, q_valid, a.dh);
-    cp_async_commit();
-    for (int e = threadIdx.x; e < 25 * kTile; e += kThreads) {
+    const int g0 = kNs * qt;           // the tile's first sub-chunk
+    if (qt > 0) issue(q0);
+    // the factors: rows [0, kNs) E, then kNs x kNs candidates (i, j) of D,
+    // then kNs of U, then decR
+    for (int e = threadIdx.x; e < (kNs * kNs + 2 * kNs + 1) * kTile;
+         e += kThreads) {
       const int row = e >> 6, d = e & 63;
-      if (row < 4) {
+      if (row < kNs) {
         E[e] = decay_exp(bnd(g0 + row, d) - bnd(g0, d));
-      } else if (row < 20) {
-        const int i = (row - 4) >> 2, j = (row - 4) & 3;
-        D[e - 4 * kTile] = j < i ? decay_exp(bnd(g0 + i, d) - bnd(g0 + j + 1, d))
-                                 : 0.0f;
-      } else if (row < 24) {
-        U[e - 20 * kTile] = decay_exp(bnd(g0 + 4, d) - bnd(g0 + row - 19, d));
+      } else if (row < kNs + kNs * kNs) {
+        const int i = (row - kNs) / kNs, j = (row - kNs) % kNs;
+        if (j < i)
+          D[(pair_index(i, j)) * kTile + d] =
+              decay_exp(bnd(g0 + i, d) - bnd(g0 + j + 1, d));
+      } else if (row < 2 * kNs + kNs * kNs) {
+        const int j = row - kNs - kNs * kNs;
+        U[j * kTile + d] = decay_exp(bnd(g0 + kNs, d) - bnd(g0 + j + 1, d));
       } else {
-        decR[d] = decay_exp(bnd(g0 + 4, d) - bnd(g0, d));
+        decR[d] = decay_exp(bnd(g0 + kNs, d) - bnd(g0, d));
       }
     }
     cp_async_wait<0>();
     __syncthreads();                   // the tile's copies and the factors
-    // the pairwise scores, and the bonus on the diagonal: pair p of
-    // sub-chunk i is (t, s) = (tl, sl) in row-major order of s <= t
-    for (int p = threadIdx.x; p < 4 * kPairs; p += kThreads) {
+    // the bonus on the sub-chunks' diagonals, sum_d u r_t k_t, a row a
+    // thread, and the pairwise scores inside them, a pair a thread: pair p
+    // of sub-chunk i is (t, s) = (tl, sl) in row-major order of s < t
+    if (threadIdx.x < kTile) {
+      const int t = threadIdx.x, tl = t % kSub;
+      const T* rt = Rr + t * kLdRaw;
+      const T* kt = Kr + t * kLdRaw;
+      float acc = 0.0f;
+      for (int d = 0; d < dh8; d += 4) {
+        const float4 rv = load4(rt + d), kv = load4(kt + d), uv = load4(us + d);
+        acc = fmaf(rv.x * kv.x, uv.x, acc);
+        acc = fmaf(rv.y * kv.y, uv.y, acc);
+        acc = fmaf(rv.z * kv.z, uv.z, acc);
+        acc = fmaf(rv.w * kv.w, uv.w, acc);
+      }
+      Pd[t * kSub + tl] = acc;
+    }
+    for (int p = threadIdx.x; p < kNs * kPairs; p += kThreads) {
       const int i = p / kPairs, pp = p - kPairs * i;
-      const int tl = static_cast<int>((sqrtf(8.0f * pp + 1.0f) - 1.0f) * 0.5f);
-      const int sl = pp - tl * (tl + 1) / 2;
+      const int tl = static_cast<int>((1.0f + sqrtf(8.0f * pp + 1.0f)) * 0.5f);
+      const int sl = pp - tl * (tl - 1) / 2;
       const int t = kSub * i + tl, s = kSub * i + sl;
       const T* rt = Rr + t * kLdRaw;
       const T* ks = Kr + s * kLdRaw;
@@ -461,17 +521,13 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
       float acc = 0.0f;
       for (int d = 0; d < dh8; d += 4) {
         const float4 rv = load4(rt + d), kv = load4(ks + d);
-        const float4 cx = load4(ct + d), cy = load4(cs + d), uv = load4(us + d);
-        const float w0 = s < t ? decay_exp(cx.x - cy.x) : uv.x;
-        const float w1 = s < t ? decay_exp(cx.y - cy.y) : uv.y;
-        const float w2 = s < t ? decay_exp(cx.z - cy.z) : uv.z;
-        const float w3 = s < t ? decay_exp(cx.w - cy.w) : uv.w;
-        acc = fmaf(rv.x * kv.x, w0, acc);
-        acc = fmaf(rv.y * kv.y, w1, acc);
-        acc = fmaf(rv.z * kv.z, w2, acc);
-        acc = fmaf(rv.w * kv.w, w3, acc);
+        const float4 cx = load4(ct + d), cy = load4(cs + d);
+        acc = fmaf(rv.x * kv.x, pair_exp(cx.x - cy.x), acc);
+        acc = fmaf(rv.y * kv.y, pair_exp(cx.y - cy.y), acc);
+        acc = fmaf(rv.z * kv.z, pair_exp(cx.z - cy.z), acc);
+        acc = fmaf(rv.w * kv.w, pair_exp(cx.w - cy.w), acc);
       }
-      Pd[(i * kSub + tl) * kSub + sl] = acc;
+      Pd[t * kSub + sl] = acc;
     }
     // q = r o exp(cumex_t - B_i) and kk = k o exp(B_j+1 - cum_s), read
     // into registers, then written over the raw values
@@ -492,37 +548,47 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
       Kh[t * kLdR + d] = xk[i];
     }
     __syncthreads();
-    // the state: (q_t o exp(B_i - cum_{q0-1})) R
+    // the state: (q_t o exp(B_i - cum_{q0-1})) R; a lane's rows g and g + 8
+    // of the warp's 16 lie in sub-chunks i0 and i1 (one, if kSub is 16)
+    const int i0 = 16 * wr / kSub, i1 = (16 * wr + 8) / kSub;
     float acc[16] = {};
-    const float* e_i = E + wr * kTile;
-    warp_mma<4, false>(acc, 16 * wr, 32 * wc, dh8,
-                       [&](int t, int d) { return Qh[t * kLdR + d] * e_i[d]; },
-                       [&](int d, int e) { return R[d * kLdC + e]; });
-    // the scores of the warp's two key sub-chunks 2 wc, 2 wc + 1 that lie
-    // before its own (wr); held until every warp has read q
+    {
+      const float* e0 = E + i0 * kTile;
+      const float* e1 = E + i1 * kTile;
+      warp_mma<4, false>(acc, 16 * wr, 32 * wc, dh8,
+                         [&](int t, int d) {
+                           return Qh[t * kLdR + d] * (t & 8 ? e1 : e0)[d];
+                         },
+                         [&](int d, int e) { return R[d * kLdC + e]; });
+    }
+    // the scores of the key sub-chunks in the warp's columns that lie
+    // before a sub-chunk of its rows (zero elsewhere); held until every
+    // warp has read q
     float p[16] = {};
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int j = 2 * wc + half;
-      if (j >= wr) continue;
-      const float* d_ij = D + (4 * wr + j) * kTile;
-      warp_mma<2, false>(p + 8 * half, 16 * wr, kSub * j, dh8,
-                         [&](int t, int d) { return Qh[t * kLdR + d] * d_ij[d]; },
-                         [&](int d, int s) { return Kh[s * kLdR + d]; });
+    for (int jj = 0; jj < 32 / kSub; ++jj) {
+      const int j = 32 * wc / kSub + jj;
+      if (j >= i1) continue;
+      const float* d0 = j < i0 ? D + pair_index(i0, j) * kTile : zrow;
+      const float* d1 = D + pair_index(i1, j) * kTile;
+      warp_mma<kSub / 8, false>(
+          p + 4 * (kSub / 8) * jj, 16 * wr, kSub * j, dh8,
+          [&](int t, int d) { return Qh[t * kLdR + d] * (t & 8 ? d1 : d0)[d]; },
+          [&](int d, int s) { return Kh[s * kLdR + d]; });
     }
     __syncthreads();                   // every read of q is done
     float* P = Qh;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int t = acc_row(i), s = acc_col(i);
-      const int j = s / kSub, tl = t - kSub * wr, sl = s - kSub * wr;
-      P[t * kLdR + s] = j < wr ? p[i]
-                               : j == wr && sl <= tl ? Pd[(wr * kSub + tl) * kSub + sl]
+      const int it = t / kSub, j = s / kSub, tl = t % kSub, sl = s % kSub;
+      P[t * kLdR + s] = j < it ? p[i]
+                               : j == it && sl <= tl ? Pd[t * kSub + sl]
                                                      : 0.0f;
     }
     __syncthreads();
-    // the scores (zero past the warp's sub-chunk) times v
-    warp_mma<4, !kF32>(acc, 16 * wr, 32 * wc, kSub * (wr + 1),
+    // the scores (zero past the warp's rows) times v
+    warp_mma<4, !kF32>(acc, 16 * wr, 32 * wc, 16 * (wr + 1),
                        [&](int t, int s) { return P[t * kLdR + s]; },
                        [&](int s, int e) { return to_f32(Vs[s * kLdC + e]); });
 #pragma unroll
@@ -557,7 +623,7 @@ size_t smem_state(int t64, int vbytes) {
 }
 size_t smem_out(int t64, int vbytes) {
   return (static_cast<size_t>(t64 + 1) * kLdR + 2 * kRowTile + kColTile +
-          4 * kSub * kSub + 26 * kTile) * sizeof(float) +
+          kNs * kSub * kSub + (2 * kNs + kNp + 3) * kTile) * sizeof(float) +
          static_cast<size_t>(kColTile) * vbytes;
 }
 
