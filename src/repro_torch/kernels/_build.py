@@ -33,11 +33,12 @@ SOURCES: Dict[str, Path] = {
 }
 
 # no --use_fast_math and no -ftz: the checksum kernels keep subnormals, and
-# rmsnorm, the two chunk scans and flash attention's f32 kernel keep
-# accurate sqrtf, division and expf. Flash attention's bf16 kernel asks for
-# its one fast instruction itself (ex2.approx on scores scaled by log2(e):
-# last bits only, its weights are rounded to bf16). No -lcuda: it takes
-# cuTensorMapEncodeTiled from libcuda at run time.
+# rmsnorm, the SSD scan and flash attention's f32 kernel keep accurate
+# sqrtf, division and expf. Flash attention's bf16 kernel and the WKV scan
+# ask for their one fast instruction themselves (ex2.approx of x log2(e):
+# last bits only, where flash attention rounds its weights to bf16 and the
+# WKV scan holds 1e-4). No -lcuda: it takes cuTensorMapEncodeTiled from
+# libcuda at run time.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,8 +21,8 @@
 // S 2,000, dh 64, T 128; r, k, v in bf16) the inputs and outputs are ~0.23
 // GB (0.069 ms at 3.35 TB/s, chip_smoke.scan_bound). The kernels below move
 // ~0.49 GB (k, v and lw read twice, the state scratch four times: 0.15 ms)
-// and do ~3.4G multiply-adds on the tensor cores and ~0.2G accurate
-// exponentials.
+// and do ~3.4G multiply-adds on the tensor cores and ~0.2G exponentials
+// (ex2.approx; the SIMT kernel before them did 1.61G accurate expf).
 //
 // Decays. A decay exp(x - y) is only ever formed with x - y <= 0 (clamped
 // at 0, so rounding cannot push it past 1): split into exp(x) exp(-y) it
@@ -256,13 +256,13 @@ __device__ __forceinline__ int acc_col(int v) {
   return 32 * warp_cols() + 8 * (v >> 2) + 2 * (threadIdx.x & 3) + (v & 1);
 }
 
-// the exponential of x <= 0 by construction; the clamp keeps rounding from
-// lifting a decay past 1
+// a decay exp(x), x <= 0 by construction (the clamp keeps rounding from
+// lifting it past 1), as ex2.approx of x log2(e): within 2^-22 + |x| 2^-24
+// relative, so within 1.2e-6 of every weight above 1e-9 (the tolerance is
+// 1e-4); below f32's normal range it is 0
 __device__ __forceinline__ float decay_exp(float x) {
-  return expf(fminf(x, 0.0f));
+  return ex2(fminf(x, 0.0f) * 1.44269504f);
 }
-// the pairwise decays inside a sub-chunk (most of the exponentials)
-__device__ __forceinline__ float pair_exp(float x) { return decay_exp(x); }
 
 // the pair of sub-chunks j < i, packed
 __device__ __forceinline__ int pair_index(int i, int j) {
@@ -427,12 +427,14 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
   float* decR = U + kNs * kTile;       // exp(cum_q1 - cum_{q0-1})           [64]
   float* us = decR + kTile;            // u                                  [64]
   float* zrow = us + kTile;            // zeros                              [64]
-  // the raw r and k: in Qh and Kh themselves (f32), or in the last 8 KB of
-  // each (bf16, dense rows); read into registers before q and kk overwrite
+  // the raw r and k: in Qh and Kh themselves (f32), or in the last 9 KB of
+  // each (bf16, rows of 144 bytes, so the pairwise scores' reads of
+  // different rows fall on different banks); read into registers before q
+  // and kk overwrite them
   constexpr bool kF32 = sizeof(T) == 4;
-  constexpr int kLdRaw = kF32 ? kLdR : kTile;
-  T* Rr = reinterpret_cast<T*>(Qh + (kF32 ? 0 : kRowTile - kTileElems / 2));
-  T* Kr = reinterpret_cast<T*>(Kh + (kF32 ? 0 : kRowTile - kTileElems / 2));
+  constexpr int kLdRaw = kF32 ? kLdR : kLdC;
+  T* Rr = reinterpret_cast<T*>(Qh + (kF32 ? 0 : kRowTile - kColTile / 2));
+  T* Kr = reinterpret_cast<T*>(Kh + (kF32 ? 0 : kRowTile - kColTile / 2));
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int c0 = c * a.chunk, valid = min(a.chunk, a.S - c0);
   const int64_t bhc = (static_cast<int64_t>(b) * a.H + h) * a.nc + c;
@@ -522,10 +524,10 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
       for (int d = 0; d < dh8; d += 4) {
         const float4 rv = load4(rt + d), kv = load4(ks + d);
         const float4 cx = load4(ct + d), cy = load4(cs + d);
-        acc = fmaf(rv.x * kv.x, pair_exp(cx.x - cy.x), acc);
-        acc = fmaf(rv.y * kv.y, pair_exp(cx.y - cy.y), acc);
-        acc = fmaf(rv.z * kv.z, pair_exp(cx.z - cy.z), acc);
-        acc = fmaf(rv.w * kv.w, pair_exp(cx.w - cy.w), acc);
+        acc = fmaf(rv.x * kv.x, decay_exp(cx.x - cy.x), acc);
+        acc = fmaf(rv.y * kv.y, decay_exp(cx.y - cy.y), acc);
+        acc = fmaf(rv.z * kv.z, decay_exp(cx.z - cy.z), acc);
+        acc = fmaf(rv.w * kv.w, decay_exp(cx.w - cy.w), acc);
       }
       Pd[t * kSub + sl] = acc;
     }
