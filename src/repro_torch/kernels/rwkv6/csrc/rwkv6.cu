@@ -272,10 +272,11 @@ __device__ __forceinline__ int pair_index(int i, int j) {
 // cum[t][d] (row stride kLdR, rows t < t64; row -1 is zero) <- cp.async
 // copies of lw, zero at rows >= valid and columns >= dh (issue_lw; the
 // caller commits and waits), then their inclusive cumsum over t
-// (chunk_cumsum): thread (d, part) = (tid / 4, tid % 4) sums a run of
-// t64 / 4 rows of column d; the four runs of a column sit in neighbouring
-// lanes of one warp and are scanned with shuffles; then each run is
-// rewritten. chunk_cumsum starts and ends with a __syncthreads.
+// (chunk_cumsum): thread (d, part) = (tid % 64, tid / 64) sums a run of
+// t64 / 4 rows of column d (a warp reads 32 columns of one row: 32 banks),
+// the runs' totals meet in tot[4][64], and each run is rewritten from the
+// total of the runs before it. chunk_cumsum starts and ends with a
+// __syncthreads.
 __device__ __forceinline__ void issue_lw(float* cum, const float* lw,
                                          int64_t ld, int valid, int dh,
                                          int t64) {
@@ -283,21 +284,17 @@ __device__ __forceinline__ void issue_lw(float* cum, const float* lw,
     copy_tile(cum + t0 * kLdR, kLdR, lw + t0 * ld, ld, valid - t0, dh);
   if (threadIdx.x < kLdR) cum[static_cast<int>(threadIdx.x) - kLdR] = 0.0f;
 }
-__device__ void chunk_cumsum(float* cum, int t64) {
+__device__ void chunk_cumsum(float* cum, int t64, float* tot) {
   __syncthreads();
-  const int d = threadIdx.x >> 2, part = threadIdx.x & 3;
+  const int d = threadIdx.x & 63, part = threadIdx.x >> 6;
   const int run = t64 / 4;
   float* col = cum + part * run * kLdR + d;
   float sum = 0.0f;
   for (int i = 0; i < run; ++i) sum += col[i * kLdR];
-  float incl = sum;
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (part >= off) incl += o;
-  }
-  float acc = __shfl_up_sync(0xffffffffu, incl, 1);   // the runs before
-  if (part == 0) acc = 0.0f;
+  tot[threadIdx.x] = sum;
+  __syncthreads();
+  float acc = 0.0f;                    // the runs before
+  for (int p = 0; p < part; ++p) acc += tot[p * kTile + d];
   for (int i = 0; i < run; ++i) {
     acc += col[i * kLdR];
     col[i * kLdR] = acc;
@@ -309,7 +306,8 @@ __device__ void chunk_cumsum(float* cum, int t64) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3) wkv6_chunk_state(WkvArgs a) {
   extern __shared__ float smem[];
-  float* cum = smem + kLdR;            // [t64][kLdR], row -1 before it
+  float* tot = smem;                   // the scan's run totals   [4][64]
+  float* cum = tot + 4 * kTile + kLdR; // [t64][kLdR], row -1 before it
   float* Kw = cum + a.t64 * kLdR;      // k o exp(cum_T - cum_s)  [s][d]
   T* Vs = reinterpret_cast<T*>(Kw + kColTile);   // v            [s][e]
   // the raw k: in Kw itself (f32; each thread then rewrites the elements
@@ -335,7 +333,7 @@ __global__ void __launch_bounds__(kThreads, 3) wkv6_chunk_state(WkvArgs a) {
   cp_async_commit();
   issue(0);                            // in flight during the scan
   cp_async_wait<1>();
-  chunk_cumsum(cum, a.t64);
+  chunk_cumsum(cum, a.t64, tot);
   const float* cum_T = cum + (a.chunk - 1) * kLdR;
   if (threadIdx.x < a.dh)
     a.decay[bhc * a.dh + threadIdx.x] = expf(cum_T[threadIdx.x]);
@@ -463,11 +461,14 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
     zrow[threadIdx.x] = 0.0f;
   }
   cp_async_wait<1>();
-  chunk_cumsum(cum, a.t64);
+  chunk_cumsum(cum, a.t64, E);         // E, D, U are free until the factors
   // B_g: cum at the row before sub-chunk g (row -1: zero)
   auto bnd = [&](int g, int d) { return cum[(kSub * g - 1) * kLdR + d]; };
   const int wr = warp_rows(), wc = warp_cols();
   const int n_q = (valid + kTile - 1) / kTile;
+  // out's rows take 8-byte stores of a column pair
+  const bool pairs_out = (reinterpret_cast<uintptr_t>(out) & 7) == 0 &&
+                         a.o_s % 2 == 0;
   const int dh8 = (a.dh + 7) & ~7;
   for (int qt = 0; qt < n_q; ++qt) {
     const int q0 = qt * kTile, q_valid = min(kTile, valid - q0);
@@ -559,7 +560,8 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
       const float* e1 = E + i1 * kTile;
       warp_mma<4, false>(acc, 16 * wr, 32 * wc, dh8,
                          [&](int t, int d) {
-                           return Qh[t * kLdR + d] * (t & 8 ? e1 : e0)[d];
+                           return Qh[t * kLdR + d] *
+                                  (kSub < 16 && (t & 8) ? e1 : e0)[d];
                          },
                          [&](int d, int e) { return R[d * kLdC + e]; });
     }
@@ -575,7 +577,9 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
       const float* d1 = D + pair_index(i1, j) * kTile;
       warp_mma<kSub / 8, false>(
           p + 4 * (kSub / 8) * jj, 16 * wr, kSub * j, dh8,
-          [&](int t, int d) { return Qh[t * kLdR + d] * (t & 8 ? d1 : d0)[d]; },
+          [&](int t, int d) {
+            return Qh[t * kLdR + d] * (kSub < 16 && (t & 8) ? d1 : d0)[d];
+          },
           [&](int d, int s) { return Kh[s * kLdR + d]; });
     }
     __syncthreads();                   // every read of q is done
@@ -594,10 +598,16 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
                        [&](int t, int s) { return P[t * kLdR + s]; },
                        [&](int s, int e) { return to_f32(Vs[s * kLdC + e]); });
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
+    for (int i = 0; i < 16; i += 2) {  // columns e, e + 1 of row t
       const int t = acc_row(i), e = acc_col(i);
-      if (t < q_valid && e < a.dh)
-        out[static_cast<int64_t>(q0 + t) * a.o_s + e] = acc[i];
+      float* o = out + static_cast<int64_t>(q0 + t) * a.o_s + e;
+      if (t >= q_valid || e >= a.dh) continue;
+      if (pairs_out && e + 1 < a.dh) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[i], acc[i + 1]);
+      } else {
+        o[0] = acc[i];
+        if (e + 1 < a.dh) o[1] = acc[i + 1];
+      }
     }
     if (qt + 1 == n_q) break;
     // R = diag(exp(cum_q1 - cum_{q0-1})) R + (kk o exp(cum_q1 - B_j+1))^T v;
@@ -619,7 +629,8 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
 
 // shared memory of each kernel, in bytes
 size_t smem_state(int t64, int vbytes) {
-  return (static_cast<size_t>(t64 + 1) * kLdR + kColTile) * sizeof(float) +
+  return (static_cast<size_t>(t64 + 1) * kLdR + kColTile + 4 * kTile) *
+             sizeof(float) +
          static_cast<size_t>(kColTile) * vbytes +
          (vbytes == 2 ? static_cast<size_t>(kTileElems) * vbytes : 0);
 }

@@ -1,10 +1,10 @@
 // Runs a CUDA source of the port on the CPU for rehearsal without a card:
 // one std::thread per CUDA thread, the blocks one after another. It stands
 // in for what the kernels use: 3-D grids, __syncthreads, warp shuffles,
-// votes and __syncwarp, float4, bf16 conversions, and the inline PTX
-// statements of
-// flash_attention.cu, mamba2_ssd.cu and rwkv6.cu (the functions between their
-// "ptx:begin" and "ptx:end" lines, which build.py drops): mbarriers
+// votes and __syncwarp, float2, float4, uint2, bf16 conversions, and the
+// inline PTX statements of flash_attention.cu, mamba2_ssd.cu and rwkv6.cu
+// (the functions between their "ptx:begin" and "ptx:end" lines, which
+// build.py drops): mbarriers
 // (arrivals and transaction bytes per phase), TMA box loads (bounds, zero
 // fill, the tensor map's alignment rules and the swizzle on shared-memory
 // address bits), setmaxnreg, wgmma in its SS and RS forms (bf16 in, f32
@@ -14,8 +14,9 @@
 // each operand ignored, as the tensor cores ignore them), and cp.async in
 // commit groups (a destination reads NaN from the copy's issue until a
 // wait_group lets its group complete, so a read before the wait, or a copy
-// into a stage that is still being read, shows). A wgmma result lands at wgmma_wait; until then
-// its accumulator registers read as NaN, so a read before the wait shows.
+// into a stage that is still being read, shows; a write into it meanwhile
+// aborts). A wgmma result lands at wgmma_wait; until then its accumulator
+// registers read as NaN, so a read before the wait shows.
 // An mbarrier wait that does not complete in 30 s aborts with the barrier
 // and the waiting thread, so a wrong phase shows as a message, not a hang.
 // What it cannot show: the PTX's syntax, register pressure, and whether the
@@ -51,6 +52,8 @@ struct dim3 {
 struct uint3s { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) uint2 { uint32_t x, y; };
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline thread_local uint3s threadIdx, blockIdx;
 inline thread_local dim3 blockDim;
@@ -375,6 +378,12 @@ inline void cp_async_commit() {
 template <int N> inline void cp_async_wait() {
   while (shim_cp_groups.size() > size_t(N)) {
     for (const ShimCopy& c : shim_cp_groups.front()) {
+      for (int i = 0; i < c.size; ++i)
+        if (c.dst[i] != 0xff) {
+          std::fprintf(stderr, "shim: shared memory written while a cp.async "
+                       "into it was in flight\n");
+          std::abort();
+        }
       std::memset(c.dst, 0, size_t(c.size));
       if (c.bytes) std::memcpy(c.dst, c.src, size_t(c.bytes));
     }
