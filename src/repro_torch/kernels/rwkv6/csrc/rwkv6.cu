@@ -51,8 +51,8 @@
 // their intermediates in a workspace the caller allocates
 // (repro_wkv6_workspace_bytes):
 //  1. wkv6_chunk_state, one block per (b, h, chunk): the chunk's cum (a
-//     block-wide scan: per-thread runs of a column, combined with warp
-//     shuffles), exp(cum_T), and the chunk's own state
+//     block-wide scan: per-thread runs of a column, combined through
+//     shared memory), exp(cum_T), and the chunk's own state
 //     dS = sum_s (k_s o exp(cum_T - cum_s))^T v_s over 64-row key tiles.
 //  2. wkv6_state_pass, one thread per (b, h, d, e): S_c = exp(cum_T,c-1)
 //     S_{c-1} + dS_{c-1} in chunk order, from state_in or zero, 16 chunks'
@@ -63,8 +63,8 @@
 //     64-row tiles in order, with the state R entering each tile carried in
 //     shared memory (R_0 = S_c): with q0 the tile's first row and q1 its
 //     last, per tile
-//       - the four sub-chunks' pairwise scores (and the bonus on their
-//         diagonals), one pair of rows a thread, from the raw r and k;
+//       - the four sub-chunks' pairwise scores, a pair a thread, and the
+//         bonus on their diagonals, a row a thread, from the raw r and k;
 //       - q and kk of the tile's rows;
 //       - out_t = (q_t o exp(B_i - cum_{q0-1})) R        (the state)
 //               + sum_{s in an earlier sub-chunk of the tile} (q_t D_ij . kk_s) v_s
