@@ -90,16 +90,15 @@
 namespace {
 
 constexpr int kTile = 64;        // rows of a tile; also the largest dh
-constexpr int kSub = 16;         // rows of a sub-chunk
+constexpr int kSub = 16;         // rows of a sub-chunk: a warp's rows
 constexpr int kLdR = 68;         // row stride of a tile read along rows
 constexpr int kLdC = 72;         // row stride of a tile read along columns
 constexpr int kThreads = 256;    // 8 warps, a 16 x 32 strip of a tile each
 constexpr int kRowTile = kTile * kLdR;
 constexpr int kColTile = kTile * kLdC;
 constexpr int kTileElems = kTile * kTile;
-constexpr int kPairs = kSub * (kSub - 1) / 2;   // a sub-chunk's s < t
 constexpr int kNs = kTile / kSub;                // sub-chunks a tile
-constexpr int kNp = kNs * (kNs - 1) / 2;         // their pairs j < i
+constexpr int kPairs = kSub * (kSub - 1) / 2;   // a sub-chunk's s < t
 constexpr int kMaxSmem = 232448; // bytes a block may use on an H100
 
 // value dtype codes, mirrored by _DTYPE_CODES in rwkv6.py
@@ -264,11 +263,6 @@ __device__ __forceinline__ float decay_exp(float x) {
   return ex2(fminf(x, 0.0f) * 1.44269504f);
 }
 
-// the pair of sub-chunks j < i, packed
-__device__ __forceinline__ int pair_index(int i, int j) {
-  return i * (i - 1) / 2 + j;
-}
-
 // cum[t][d] (row stride kLdR, rows t < t64; row -1 is zero) <- cp.async
 // copies of lw, zero at rows >= valid and columns >= dh (issue_lw; the
 // caller commits and waits), then their inclusive cumsum over t
@@ -420,11 +414,10 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
   T* Vs = reinterpret_cast<T*>(R + kColTile);   // v of the tile            [s][e]
   float* Pd = reinterpret_cast<float*>(Vs + kColTile);  // pairwise [kNs][kSub][kSub]
   float* E = Pd + kNs * kSub * kSub;   // exp(B_i - cum_{q0-1})              [kNs][64]
-  float* D = E + kNs * kTile;          // exp(B_i - B_j+1), j < i, packed    [kNp][64]
-  float* U = D + kNp * kTile;          // exp(cum_q1 - B_j+1)                [kNs][64]
+  float* D = E + kNs * kTile;          // exp(B_i - B_j+1), j < i; else 0    [kNs][kNs][64]
+  float* U = D + kNs * kNs * kTile;    // exp(cum_q1 - B_j+1)                [kNs][64]
   float* decR = U + kNs * kTile;       // exp(cum_q1 - cum_{q0-1})           [64]
   float* us = decR + kTile;            // u                                  [64]
-  float* zrow = us + kTile;            // zeros                              [64]
   // the raw r and k: in Qh and Kh themselves (f32), or in the last 9 KB of
   // each (bf16, rows of 144 bytes, so the pairwise scores' reads of
   // different rows fall on different banks); read into registers before q
@@ -456,10 +449,8 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
            a.lw_s, valid, a.dh, a.t64);
   cp_async_commit();
   issue(0);                            // in flight during the scan
-  if (threadIdx.x < kTile) {
+  if (threadIdx.x < kTile)
     us[threadIdx.x] = threadIdx.x < a.dh ? a.u[h * a.dh + threadIdx.x] : 0.0f;
-    zrow[threadIdx.x] = 0.0f;
-  }
   cp_async_wait<1>();
   chunk_cumsum(cum, a.t64, E);         // E, D, U are free until the factors
   // B_g: cum at the row before sub-chunk g (row -1: zero)
@@ -483,9 +474,8 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
         E[e] = decay_exp(bnd(g0 + row, d) - bnd(g0, d));
       } else if (row < kNs + kNs * kNs) {
         const int i = (row - kNs) / kNs, j = (row - kNs) % kNs;
-        if (j < i)
-          D[(pair_index(i, j)) * kTile + d] =
-              decay_exp(bnd(g0 + i, d) - bnd(g0 + j + 1, d));
+        D[e - kNs * kTile] = j < i ? decay_exp(bnd(g0 + i, d) - bnd(g0 + j + 1, d))
+                                   : 0.0f;
       } else if (row < 2 * kNs + kNs * kNs) {
         const int j = row - kNs - kNs * kNs;
         U[j * kTile + d] = decay_exp(bnd(g0 + kNs, d) - bnd(g0 + j + 1, d));
@@ -551,50 +541,38 @@ __global__ void __launch_bounds__(kThreads, 2) wkv6_chunk_out(WkvArgs a) {
       Kh[t * kLdR + d] = xk[i];
     }
     __syncthreads();
-    // the state: (q_t o exp(B_i - cum_{q0-1})) R; a lane's rows g and g + 8
-    // of the warp's 16 lie in sub-chunks i0 and i1 (one, if kSub is 16)
-    const int i0 = 16 * wr / kSub, i1 = (16 * wr + 8) / kSub;
+    // the state: (q_t o exp(B_i - cum_{q0-1})) R, the warp's rows being
+    // sub-chunk wr
     float acc[16] = {};
-    {
-      const float* e0 = E + i0 * kTile;
-      const float* e1 = E + i1 * kTile;
-      warp_mma<4, false>(acc, 16 * wr, 32 * wc, dh8,
-                         [&](int t, int d) {
-                           return Qh[t * kLdR + d] *
-                                  (kSub < 16 && (t & 8) ? e1 : e0)[d];
-                         },
-                         [&](int d, int e) { return R[d * kLdC + e]; });
-    }
-    // the scores of the key sub-chunks in the warp's columns that lie
-    // before a sub-chunk of its rows (zero elsewhere); held until every
-    // warp has read q
+    const float* e_i = E + wr * kTile;
+    warp_mma<4, false>(acc, 16 * wr, 32 * wc, dh8,
+                       [&](int t, int d) { return Qh[t * kLdR + d] * e_i[d]; },
+                       [&](int d, int e) { return R[d * kLdC + e]; });
+    // the scores of the warp's two key sub-chunks 2 wc, 2 wc + 1 that lie
+    // before its own; held until every warp has read q
     float p[16] = {};
 #pragma unroll
-    for (int jj = 0; jj < 32 / kSub; ++jj) {
-      const int j = 32 * wc / kSub + jj;
-      if (j >= i1) continue;
-      const float* d0 = j < i0 ? D + pair_index(i0, j) * kTile : zrow;
-      const float* d1 = D + pair_index(i1, j) * kTile;
-      warp_mma<kSub / 8, false>(
-          p + 4 * (kSub / 8) * jj, 16 * wr, kSub * j, dh8,
-          [&](int t, int d) {
-            return Qh[t * kLdR + d] * (kSub < 16 && (t & 8) ? d1 : d0)[d];
-          },
-          [&](int d, int s) { return Kh[s * kLdR + d]; });
+    for (int half = 0; half < 2; ++half) {
+      const int j = 2 * wc + half;
+      if (j >= wr) continue;
+      const float* d_ij = D + (kNs * wr + j) * kTile;
+      warp_mma<2, false>(p + 8 * half, 16 * wr, kSub * j, dh8,
+                         [&](int t, int d) { return Qh[t * kLdR + d] * d_ij[d]; },
+                         [&](int d, int s) { return Kh[s * kLdR + d]; });
     }
     __syncthreads();                   // every read of q is done
     float* P = Qh;
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int t = acc_row(i), s = acc_col(i);
-      const int it = t / kSub, j = s / kSub, tl = t % kSub, sl = s % kSub;
-      P[t * kLdR + s] = j < it ? p[i]
-                               : j == it && sl <= tl ? Pd[t * kSub + sl]
+      const int j = s / kSub, tl = t % kSub, sl = s % kSub;
+      P[t * kLdR + s] = j < wr ? p[i]
+                               : j == wr && sl <= tl ? Pd[t * kSub + sl]
                                                      : 0.0f;
     }
     __syncthreads();
-    // the scores (zero past the warp's rows) times v
-    warp_mma<4, !kF32>(acc, 16 * wr, 32 * wc, 16 * (wr + 1),
+    // the scores (zero past the warp's sub-chunk) times v
+    warp_mma<4, !kF32>(acc, 16 * wr, 32 * wc, kSub * (wr + 1),
                        [&](int t, int s) { return P[t * kLdR + s]; },
                        [&](int s, int e) { return to_f32(Vs[s * kLdC + e]); });
 #pragma unroll
@@ -636,7 +614,8 @@ size_t smem_state(int t64, int vbytes) {
 }
 size_t smem_out(int t64, int vbytes) {
   return (static_cast<size_t>(t64 + 1) * kLdR + 2 * kRowTile + kColTile +
-          kNs * kSub * kSub + (2 * kNs + kNp + 3) * kTile) * sizeof(float) +
+          kNs * kSub * kSub + (2 * kNs + kNs * kNs + 2) * kTile) *
+             sizeof(float) +
          static_cast<size_t>(kColTile) * vbytes;
 }
 
