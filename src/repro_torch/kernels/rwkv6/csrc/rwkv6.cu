@@ -22,7 +22,7 @@
 // GB (0.069 ms at 3.35 TB/s, chip_smoke.scan_bound). The kernels below move
 // ~0.49 GB (k, v and lw read twice, the state scratch four times: 0.15 ms)
 // and do ~3.4G multiply-adds on the tensor cores and ~0.2G exponentials
-// (ex2.approx; the SIMT kernel before them did 1.61G accurate expf).
+// (ex2.approx).
 //
 // Decays. A decay exp(x - y) is only ever formed with x - y <= 0 (clamped
 // at 0, so rounding cannot push it past 1): split into exp(x) exp(-y) it
