@@ -66,19 +66,113 @@ def reset_launches():
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGNATURES = {
     "repro_qa_checksum": [_P, _I64, _I64, _INT, _INT, _I64, _I64, _I64, _I64,
-                          _I64, _P, _P, _P, _P, _P],
+                          _I64, _P, _P, _P, _P, _P, _P],
     "repro_qa_chunk": [_P, _I64, _INT, _INT, _I64, _I64, _I64, _I64, _I64,
-                       _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+                       _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "repro_device_checksum": [_P, _I64, _P, _P],
+    "repro_qa_scratch_bytes": [_I64, _I64],
+    "repro_qa_sync_words": [_I64, _I64],
 }
 
+# (device, stream) -> its zeroed ticket buffer (int32), which every K1/K2
+# call leaves zero; calls on other streams may run at once, so each stream
+# has its own
+_SYNC: Dict[Tuple[str, Optional[int]], torch.Tensor] = {}
 
-def _launch(name: str, *args):
-    _build.launch("checksum", name, _SIGNATURES[name], *args)
+
+def _fn(lib: ctypes.CDLL, name: str):
+    f = getattr(lib, name)
+    if f.argtypes is None:
+        f.argtypes = _SIGNATURES[name]
+        f.restype = ctypes.c_int64 if name.endswith(("_bytes", "_words")) \
+            else ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+    return f
+
+
+def _call(lib: ctypes.CDLL, name: str, *args):
+    rc = _fn(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {rc} "
+                           f"({lib.repro_error_string(rc).decode()})")
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _sync_buffer(device: torch.device, stream: Optional[int],
+                 words: int) -> torch.Tensor:
+    key = (str(device), stream)
+    buf = _SYNC.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SYNC[key] = torch.zeros(max(words, 64), dtype=torch.int32,
+                                       device=device)
+    return buf
+
+
+def _scratch(lib, device, G: int, nsteps: int, sync, stream):
+    """The scratch (from ``torch.empty``) and ticket buffer of one K1/K2
+    call: ``sync`` as given (zeroed, left zero), or this stream's own."""
+    scratch = torch.empty(_fn(lib, "repro_qa_scratch_bytes")(G, nsteps),
+                          dtype=torch.uint8, device=device)
+    if sync is None:
+        sync = _sync_buffer(device, stream,
+                            _fn(lib, "repro_qa_sync_words")(G, nsteps))
+    return scratch, sync
+
+
+def run_qa(lib: ctypes.CDLL, vals: torch.Tensor, *, blk: int = 1024,
+           sync: Optional[torch.Tensor] = None, stream=None) -> Carry:
+    """Call K1's ``repro_qa_checksum`` of the built library ``lib`` (a
+    ``ctypes.CDLL`` of ``csrc/checksum.cu``) on ``vals`` (G, nv), G >= 1,
+    contiguous, a dtype of ``_DTYPE_CODES``, with a scratch from
+    ``torch.empty`` on its device. ``sync``: a zeroed int32 ticket buffer
+    of ``repro_qa_sync_words`` words (None: this stream's own). ``stream``
+    is a ``cudaStream_t`` handle, None for the default stream. A nonzero
+    return raises. Counts no launch."""
+    G, nv = vals.shape
+    itemsize = vals.element_size()
+    blk_v, nw, nsteps = _geometry(nv, itemsize, blk)
+    out = (torch.empty((G, 2), dtype=torch.int32, device=vals.device),
+           torch.empty((G, 3), dtype=torch.float32, device=vals.device),
+           torch.empty((G, 1), dtype=torch.int32, device=vals.device))
+    scratch, sync = _scratch(lib, vals.device, G, nsteps, sync, stream)
+    _call(lib, "repro_qa_checksum", vals.data_ptr(), nv * itemsize,
+          nv * itemsize, _dtype_code(vals.dtype), itemsize, blk_v, nsteps, G,
+          nw, nv, *(o.data_ptr() for o in out), scratch.data_ptr(),
+          sync.data_ptr(), stream)
+    return out
+
+
+def run_chunk(lib: ctypes.CDLL, data: torch.Tensor,
+              off: Tuple[int, int, int, int], carry: Carry, *,
+              dtype: torch.dtype, blk_v: int, nblocks: int,
+              sync: Optional[torch.Tensor] = None, stream=None) -> Carry:
+    """Call K2's ``repro_qa_chunk`` of ``lib`` on checked chunk bytes
+    ``data`` (uint8, contiguous) and a contiguous ``carry`` on its device;
+    returns the new carry. ``sync`` and ``stream`` as for
+    :func:`run_qa`. Counts no launch."""
+    w0, v0, nw, nv = (int(o) for o in off)
+    out = tuple(torch.empty_like(c) for c in carry)
+    scratch, sync = _scratch(lib, data.device, 1, nblocks, sync, stream)
+    _call(lib, "repro_qa_chunk", data.data_ptr(), data.numel(),
+          _dtype_code(dtype), dtype.itemsize, blk_v, nblocks, w0, v0, nw, nv,
+          *(c.data_ptr() for c in carry), *(o.data_ptr() for o in out),
+          scratch.data_ptr(), sync.data_ptr(), stream)
+    return out
+
+
+def run_device_checksum(lib: ctypes.CDLL, x: torch.Tensor,
+                        stream=None) -> torch.Tensor:
+    """Call K3's ``repro_device_checksum`` of ``lib`` on ``x``'s bytes.
+    Counts no launch."""
+    b = x.contiguous().reshape(-1)
+    out = torch.zeros(2, dtype=torch.int32, device=x.device)
+    _call(lib, "repro_device_checksum", b.data_ptr(),
+          b.numel() * b.element_size(), out.data_ptr(), stream)
+    return out
 
 
 def _dtype_code(dtype: torch.dtype) -> int:
@@ -225,10 +319,7 @@ def device_checksum(x: torch.Tensor) -> torch.Tensor:
     ``x``'s device (the reference's ``device_checksum``)."""
     if _placement(x) == "cpu":
         return device_checksum_plain(x)
-    b = x.contiguous().reshape(-1)
-    out = torch.zeros(2, dtype=torch.int32, device=x.device)
-    _launch("repro_device_checksum", b.data_ptr(),
-            b.numel() * b.element_size(), out.data_ptr(), _stream(out))
+    out = run_device_checksum(_build.load("checksum"), x, _stream(x))
     LAUNCHES["device_checksum"] += 1
     return out
 
@@ -255,20 +346,11 @@ def _qa_checksum_2d(vals: torch.Tensor, blk: int) -> Carry:
     if _placement(vals) == "cpu":
         return qa_checksum_batched_plain(vals, blk=blk)
     vals = vals.contiguous()
-    G, nv = vals.shape
-    code = _dtype_code(vals.dtype)
-    itemsize = vals.element_size()
-    blk_v, nw, nsteps = _geometry(nv, itemsize, blk)
-    if G == 0:
+    _dtype_code(vals.dtype)
+    if vals.shape[0] == 0:
         return _empty_carry(0, vals.device)
-    out = (torch.empty((G, 2), dtype=torch.int32, device=vals.device),
-           torch.empty((G, 3), dtype=torch.float32, device=vals.device),
-           torch.empty((G, 1), dtype=torch.int32, device=vals.device))
-    scratch = torch.empty(6 * G * nsteps, dtype=torch.int32,
-                          device=vals.device)
-    _launch("repro_qa_checksum", vals.data_ptr(), nv * itemsize,
-            nv * itemsize, code, itemsize, blk_v, nsteps, G, nw, nv,
-            *(o.data_ptr() for o in out), scratch.data_ptr(), _stream(vals))
+    out = run_qa(_build.load("checksum"), vals, blk=blk,
+                 stream=_stream(vals))
     LAUNCHES["qa_checksum"] += 1
     return out
 
@@ -354,16 +436,10 @@ def qa_checksum_chunk(data: torch.Tensor, off: Tuple[int, int, int, int],
         return qa_checksum_chunk_plain(data, off, carry, dtype=dtype,
                                        blk_v=blk_v, nblocks=nblocks)
     data = _chunk_bytes(data, dtype, blk_v, nblocks)
-    w0, v0, nw, nv = (int(o) for o in off)
     if any(c.device != data.device or not c.is_contiguous() for c in carry):
         raise ValueError("carry must be contiguous and on the chunk's device")
-    itemsize = dtype.itemsize
-    out = tuple(torch.empty_like(c) for c in carry)
-    scratch = torch.empty(6 * nblocks, dtype=torch.int32, device=data.device)
-    _launch("repro_qa_chunk", data.data_ptr(), data.numel(),
-            _dtype_code(dtype), itemsize, blk_v, nblocks, w0, v0, nw, nv,
-            *(c.data_ptr() for c in carry), *(o.data_ptr() for o in out),
-            scratch.data_ptr(), _stream(data))
+    out = run_chunk(_build.load("checksum"), data, off, carry, dtype=dtype,
+                    blk_v=blk_v, nblocks=nblocks, stream=_stream(data))
     LAUNCHES["qa_checksum_chunk"] += 1
     return out
 

@@ -15,22 +15,32 @@
 // Bit-exactness with ref.py is the contract, so:
 //   * integers are uint32 (Pallas int32 wraps; signed overflow is UB here).
 //     Their sums are associative mod 2^32, so any order and atomics are fine;
-//   * each block of blk_v values is summed by the exact halving tree of
-//     ref.tree_sum_f32 (element j pairs with j + n/2 at each level), which is
-//     the classic shared-memory reduction; the per-block sums are then added
-//     SEQUENTIALLY in block order by one thread (qa_fold_kernel), starting
-//     from 0.0f (K1) or the carry (K2) -- the reference's cross-block order;
+//   * each step of blk_v values is summed by the exact halving tree of
+//     ref.tree_sum_f32 (element j pairs with j + n/2 at each level); the
+//     step sums are then added SEQUENTIALLY in step order by one thread,
+//     starting from 0.0f (K1) or the carry (K2) -- the reference's
+//     cross-step order;
 //   * min/max/count are order-free; min/max compare by value;
 //   * built without --use_fast_math and without -ftz: subnormals are kept.
 //
-// Bound on an H100 (3.35 TB/s HBM3, 700 W part): memory. Each input byte is
-// read once, so a 256x256x176 f32 volume (46 MB) needs at least 13.8 us. The
-// design is the simple one: one 256-thread block per 1024-value block step,
-// coalesced loads, and the value tree in shared memory. Two costs stand
-// above the bound and are left for a later change: each f32 byte is loaded
-// twice (word view and value view; the second load hits L1/L2), and the
-// sequential fold is a chain of nsteps dependent f32 adds (11,264 for the
-// volume above), which the bit-exact contract does not allow to reorder.
+// K1 and K2 are one kernel, qa_kernel, one launch a call. A warp sums one
+// step at a time with the tree in registers: lane l holds the step's
+// 16-byte groups l, l + 32, ... (V values each), so the tree's levels fall
+// in the lane (pairs 32 V or more apart), across lanes (__shfl_down_sync by
+// 16 .. 1) and inside a group (pairs closer than V), each level pairing as
+// the reference does. One 16-byte load feeds the words and the values. A
+// row whose start is not 16-byte aligned, or whose steps hold fewer than 32
+// groups, takes a scalar path with the same pairs. Each step's sum goes to
+// scratch; each block reduces its order-free partials; the last block of a
+// row to finish (a ticket after __threadfence) folds the row: the step
+// sums through shared memory in pieces, chained by one thread at FADD
+// latency while the other warps load the next piece.
+//
+// Bound on an H100 (3.35 TB/s HBM3, 700 W part): the larger of the bytes
+// (each input byte read once: 13.8 us for a 256x256x176 f32 volume) and the
+// chain of nsteps dependent f32 adds that the contract fixes (11,264 at ~4
+// cycles: ~23 us at 1.98 GHz). The fold runs after the last step is read,
+// so this design takes about their sum.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -44,6 +54,16 @@ constexpr uint32_t kMPos = 65521u;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlkV = 4096;
+constexpr unsigned kFull = 0xffffffffu;
+// resident qa_kernel blocks an SM that the grid is sized for: 256 threads
+// at <= 64 registers (ptxas) and 17 KB of shared memory fit 4
+constexpr int kBlocksPerSM = 4;
+// step sums a fold piece holds; two pieces in shared memory
+constexpr int kPiece = 2048;
+// qa_kernel's shared memory, in words: per-warp partials, the last-block
+// flag, then the fold's two pieces (16-byte aligned)
+constexpr int kRedWords = 128;
+constexpr int kQASmemBytes = (kRedWords + 2 * kPiece) * 4;
 
 // value dtype codes, mirrored by _DTYPE_CODES in checksum.py
 enum DType : int { F32 = 0, F16 = 1, BF16 = 2, I8 = 3, U8 = 4, I16 = 5,
@@ -62,20 +82,20 @@ __device__ __forceinline__ uint32_t load_word(const uint8_t* base, int64_t off,
   return w;
 }
 
-// Element k of `base` cast to f32 with round-to-nearest (numpy's astype).
-__device__ __forceinline__ float load_value(const uint8_t* base, int64_t k,
-                                            int dtype) {
+// A value's bits (its low `itemsize` bytes) cast to f32 with
+// round-to-nearest (numpy's astype).
+__device__ __forceinline__ float to_f32(uint32_t b, int dtype) {
   switch (dtype) {
-    case F32: return reinterpret_cast<const float*>(base)[k];
-    case F16: return __half2float(reinterpret_cast<const __half*>(base)[k]);
-    case BF16:
-      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[k]);
-    case I8: return static_cast<float>(reinterpret_cast<const int8_t*>(base)[k]);
-    case U8: return static_cast<float>(base[k]);
-    case I16: return static_cast<float>(reinterpret_cast<const int16_t*>(base)[k]);
-    case U16: return static_cast<float>(reinterpret_cast<const uint16_t*>(base)[k]);
-    case I32: return __int2float_rn(reinterpret_cast<const int32_t*>(base)[k]);
-    case U32: return __uint2float_rn(reinterpret_cast<const uint32_t*>(base)[k]);
+    case F32: return __uint_as_float(b);
+    case F16:
+      return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+    case BF16: return __uint_as_float(b << 16);
+    case I8: return static_cast<float>(static_cast<int8_t>(b));
+    case U8: return static_cast<float>(static_cast<uint8_t>(b));
+    case I16: return static_cast<float>(static_cast<int16_t>(b));
+    case U16: return static_cast<float>(static_cast<uint16_t>(b));
+    case I32: return __int2float_rn(static_cast<int32_t>(b));
+    case U32: return __uint2float_rn(b);
     default: return 0.0f;
   }
 }
@@ -89,9 +109,6 @@ __device__ __forceinline__ uint32_t word_pos(int64_t gw) {
 struct AddU32 {
   __device__ uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
 };
-struct AddI32 {
-  __device__ int32_t operator()(int32_t a, int32_t b) const { return a + b; }
-};
 struct MinF {
   __device__ float operator()(float a, float b) const { return b < a ? b : a; }
 };
@@ -100,10 +117,10 @@ struct MaxF {
 };
 
 // Block-wide reduction with an associative, commutative op; the result is
-// valid in thread 0 only. `sh` holds kWarps values.
+// valid in thread 0 only. `sh` holds kWarps values (shared memory).
 template <typename T, typename Op>
 __device__ __forceinline__ T block_reduce(T v, Op op, T* sh) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(kFull, v, o));
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   __syncthreads();  // `sh` may still be read by the previous reduction
@@ -114,127 +131,442 @@ __device__ __forceinline__ T block_reduce(T v, Op op, T* sh) {
   return v;
 }
 
-struct Partials {
-  float* sum;
-  float* min;
-  float* max;
-  int32_t* cnt;
-  uint32_t* s1;
-  uint32_t* s2;
-};
-
-// One CUDA block per (block step i, row g): the reference's per-grid-step
-// body, writing its partials instead of adding them into a carry.
-__global__ void __launch_bounds__(kThreads)
-qa_blocks_kernel(const uint8_t* __restrict__ data, int64_t row_stride,
-                 int64_t row_bytes, int dtype, int itemsize, int blk_v,
-                 int blk_w, int64_t nsteps, int64_t w0, int64_t v0,
-                 int64_t nw, int64_t nv, Partials part) {
-  __shared__ float tree[kMaxBlkV];
-  __shared__ uint32_t red_u[kWarps];
-  __shared__ int32_t red_i[kWarps];
-  __shared__ float red_f[kWarps];
-  const int64_t i = blockIdx.x;
-  const int64_t g = blockIdx.y;
-  const uint8_t* row = data + g * row_stride;
-  const int t = threadIdx.x;
-
+// The order-free partials of one thread, a warp, a block or a row.
+struct Stats {
   uint32_t s1 = 0, s2 = 0;
-  for (int j = t; j < blk_w; j += kThreads) {
-    const int64_t lw = i * blk_w + j;   // word index within these bytes
-    const int64_t gw = w0 + lw;         // global word index
-    if (gw < nw) {
-      const uint32_t w = load_word(row, lw * 4, row_bytes);
-      s1 += w;
-      s2 += w * word_pos(gw);
-    }
-  }
-
   int32_t cnt = 0;
   float mn = INFINITY, mx = -INFINITY;
-  for (int k = t; k < blk_v; k += kThreads) {
-    const int64_t lv = i * blk_v + k;
-    float v = 0.0f;
-    if (v0 + lv < nv) {
-      // a value past the row's bytes reads as zero, like the words
-      v = (lv + 1) * itemsize <= row_bytes ? load_value(row, lv, dtype) : 0.0f;
-      if (isfinite(v)) {
-        ++cnt;
-        mn = v < mn ? v : mn;
-        mx = v > mx ? v : mx;
-      } else {
-        v = 0.0f;
-      }
-    }
-    tree[k] = v;
-  }
-  __syncthreads();
-  // ref.tree_sum_f32: v[:n] + v[n:2n], halving n each level
-  for (int s = blk_v >> 1; s > 0; s >>= 1) {
-    for (int k = t; k < s; k += kThreads) tree[k] += tree[k + s];
-    __syncthreads();
-  }
 
-  s1 = block_reduce(s1, AddU32(), red_u);
-  s2 = block_reduce(s2, AddU32(), red_u);
-  cnt = block_reduce(cnt, AddI32(), red_i);
-  mn = block_reduce(mn, MinF(), red_f);
-  mx = block_reduce(mx, MaxF(), red_f);
-  if (t == 0) {
-    const int64_t p = g * nsteps + i;
-    part.sum[p] = tree[0];
-    part.min[p] = mn;
-    part.max[p] = mx;
-    part.cnt[p] = cnt;
-    part.s1[p] = s1;
-    part.s2[p] = s2;
+  __device__ __forceinline__ void word(uint32_t w, uint32_t pos) {
+    s1 += w;
+    s2 += w * pos;
+  }
+  // counts `v` if it is inside the array and finite; otherwise the tree
+  // gets 0.0f in its place
+  __device__ __forceinline__ void value(float& v, bool inside) {
+    if (inside && isfinite(v)) {
+      ++cnt;
+      mn = v < mn ? v : mn;
+      mx = v > mx ? v : mx;
+    } else {
+      v = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void add(const Stats& o) {
+    s1 += o.s1;
+    s2 += o.s2;
+    cnt += o.cnt;
+    mn = MinF()(mn, o.mn);
+    mx = MaxF()(mx, o.mx);
+  }
+  __device__ __forceinline__ void warp_reduce() {
+    for (int o = 16; o > 0; o >>= 1) {
+      Stats p;
+      p.s1 = __shfl_xor_sync(kFull, s1, o);
+      p.s2 = __shfl_xor_sync(kFull, s2, o);
+      p.cnt = __shfl_xor_sync(kFull, cnt, o);
+      p.mn = __shfl_xor_sync(kFull, mn, o);
+      p.mx = __shfl_xor_sync(kFull, mx, o);
+      add(p);
+    }
+  }
+  __device__ __forceinline__ void store(uint32_t* p) const {
+    p[0] = s1;
+    p[1] = s2;
+    p[2] = static_cast<uint32_t>(cnt);
+    p[3] = __float_as_uint(mn);
+    p[4] = __float_as_uint(mx);
+  }
+  // from shared memory, or (`global`) another block's, past L1
+  __device__ __forceinline__ static Stats load(const uint32_t* p,
+                                               bool global = false) {
+    uint32_t w[5];
+    for (int k = 0; k < 5; ++k) w[k] = global ? __ldcg(p + k) : p[k];
+    Stats s;
+    s.s1 = w[0];
+    s.s2 = w[1];
+    s.cnt = static_cast<int32_t>(w[2]);
+    s.mn = __uint_as_float(w[3]);
+    s.mx = __uint_as_float(w[4]);
+    return s;
+  }
+};
+
+__device__ __forceinline__ int bitrev(int t, int bits) {
+  int r = 0;
+  for (int b = 0; b < bits; ++b) r |= ((t >> b) & 1) << (bits - 1 - b);
+  return r;
+}
+
+template <int V>
+struct Vec {
+  float v[V];
+};
+
+template <int V>
+__device__ __forceinline__ Vec<V> operator+(const Vec<V>& a, const Vec<V>& b) {
+  Vec<V> c;
+#pragma unroll
+  for (int k = 0; k < V; ++k) c.v[k] = a.v[k] + b.v[k];
+  return c;
+}
+
+// The halving tree of ref.tree_sum_f32 over a sequence y of 2^L values,
+// fed in bit-reversed order: leaf t is y[bitrev(t)]. The tree's last add
+// is T(y[even]) + T(y[odd]), and so inside each half, so neighbouring
+// leaves of that order pair exactly as the tree pairs them: a binary
+// counter of partial sums runs it, with L + 1 of them live (the scalar
+// path's run-time form, in local memory; the vector path's is ptree).
+struct Tree {
+  float st[8];
+
+  __device__ __forceinline__ void push(float x, int t) {
+    int top = __popc(t);  // partials live before leaf t
+    for (int u = t; u & 1; u >>= 1) x = st[--top] + x;
+    st[top] = x;
+  }
+};
+
+// The limits of one step inside its row: bytes, words and values of it
+// that lie inside the row's bytes / the array, and the position of its
+// first word mod 65521.
+struct Step {
+  const uint8_t* p;
+  int bytes, words, vals;
+  uint32_t pos;
+};
+
+struct QAArgs {
+  const uint8_t* data;
+  int64_t row_stride, row_bytes;
+  int dtype, itemsize, blk_v, blk_w;
+  int64_t nsteps, w0, v0, nw, nv;
+  int64_t spb;                            // steps per block
+  const uint32_t* carry_sums;             // (G, 2) or null
+  const float* carry_qa;                  // (G, 3) or null
+  const int32_t* carry_cnt;               // (G, 1) or null
+  uint32_t* out_sums;
+  float* out_qa;
+  int32_t* out_cnt;
+  float* sums;                            // (G, nsteps) step sums
+  uint32_t* part;                         // (G, B, 8) block partials
+  uint32_t* sync;                         // (G) tickets, zero between calls
+};
+
+__device__ __forceinline__ int clamp_to(int64_t v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : static_cast<int>(v));
+}
+
+__device__ __forceinline__ Step step_at(const QAArgs& a, const uint8_t* row,
+                                        int64_t i) {
+  const int blk_bytes = a.blk_v * a.itemsize;
+  Step s;
+  s.p = row + i * blk_bytes;
+  s.bytes = clamp_to(a.row_bytes - i * blk_bytes, blk_bytes);
+  s.words = clamp_to(a.nw - a.w0 - i * a.blk_w, a.blk_w);
+  s.vals = clamp_to(a.nv - a.v0 - i * a.blk_v, a.blk_v);
+  s.pos = word_pos(a.w0 + i * a.blk_w);
+  return s;
+}
+
+// 16 bytes at `off` of a 16-byte aligned step, zero past its `bytes`.
+__device__ __forceinline__ uint4 load_group(const Step& s, int off) {
+  if (off + 16 <= s.bytes)
+    return *reinterpret_cast<const uint4*>(s.p + off);
+  uint4 r;
+  r.x = load_word(s.p, off, s.bytes);
+  r.y = load_word(s.p, off + 4, s.bytes);
+  r.z = load_word(s.p, off + 8, s.bytes);
+  r.w = load_word(s.p, off + 12, s.bytes);
+  return r;
+}
+
+// The V values of a 16-byte group of dtype D, in memory order.
+template <int V, int D>
+__device__ __forceinline__ void decode_as(const uint32_t (&w)[4],
+                                          float (&x)[V]) {
+  constexpr int kPer = V / 4;             // values a word
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      x[q * kPer + e] = to_f32(kPer == 1 ? w[q] : w[q] >> (32 / kPer * e), D);
+}
+
+// One branch a group (the whole warp takes the same one).
+template <int V>
+__device__ __forceinline__ void decode(const uint32_t (&w)[4], int dtype,
+                                       float (&x)[V]) {
+  if constexpr (V == 4) {
+    if (dtype == F32) decode_as<V, F32>(w, x);
+    else if (dtype == I32) decode_as<V, I32>(w, x);
+    else decode_as<V, U32>(w, x);
+  } else if constexpr (V == 8) {
+    if (dtype == F16) decode_as<V, F16>(w, x);
+    else if (dtype == BF16) decode_as<V, BF16>(w, x);
+    else if (dtype == I16) decode_as<V, I16>(w, x);
+    else decode_as<V, U16>(w, x);
+  } else {
+    if (dtype == I8) decode_as<V, I8>(w, x);
+    else decode_as<V, U8>(w, x);
   }
 }
 
-// One CUDA block per row: fold the row's partials into its carry. A null
-// carry starts from the reference's init (0, 0, +inf, -inf, 0.0f, 0).
-__global__ void __launch_bounds__(kThreads)
-qa_fold_kernel(int64_t nsteps, Partials part, const uint32_t* carry_sums,
-               const float* carry_qa, const int32_t* carry_cnt,
-               uint32_t* out_sums, float* out_qa, int32_t* out_cnt) {
-  __shared__ uint32_t red_u[kWarps];
-  __shared__ int32_t red_i[kWarps];
-  __shared__ float red_f[kWarps];
-  const int64_t g = blockIdx.x;
-  const int64_t base = g * nsteps;
+// The lane's group r of the step, loaded as `raw`: its words into s1/s2
+// (pl: the position of the lane's first word, not yet reduced), its values
+// into the partials; returns the values the tree adds.
+template <int V>
+__device__ __forceinline__ Vec<V> leaf(const Step& s, const uint4& raw, int r,
+                                       int dtype, uint32_t pl, Stats& st) {
+  const int g = (threadIdx.x & 31) + 32 * r;
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t p = pl + 128 * r + q;        // < 2 * 65521: one subtraction
+    p = p >= kMPos ? p - kMPos : p;
+    st.word(4 * g + q < s.words ? w[q] : 0u, p);
+  }
+  Vec<V> x;
+  decode<V>(w, dtype, x.v);
+#pragma unroll
+  for (int k = 0; k < V; ++k) st.value(x.v[k], V * g + k < s.vals);
+  return x;
+}
 
-  uint32_t s1 = 0, s2 = 0;
-  int32_t cnt = 0;
-  float mn = INFINITY, mx = -INFINITY;
-  for (int64_t i = threadIdx.x; i < nsteps; i += kThreads) {
-    s1 += part.s1[base + i];
-    s2 += part.s2[base + i];
-    cnt += part.cnt[base + i];
-    mn = MinF()(mn, part.min[base + i]);
-    mx = MaxF()(mx, part.max[base + i]);
+// The in-lane levels: the halving tree over the lane's groups r in
+// [0, 2^L), as the pairwise tree of leaves in bit-reversed order (leaf t =
+// group bitrev(t); see Tree). Leaves [T0, T0 + N) are one subtree; a batch
+// of them (32 values) is loaded before any is added, so those loads are in
+// flight together. Every index is known at compile time.
+template <int V, int L, int T0, int N>
+__device__ __forceinline__ Vec<V> ptree(const Step& s, int dtype, uint32_t pl,
+                                        Stats& st) {
+  if constexpr (N > 32 / V) {
+    const Vec<V> a = ptree<V, L, T0, N / 2>(s, dtype, pl, st);
+    const Vec<V> b = ptree<V, L, T0 + N / 2, N / 2>(s, dtype, pl, st);
+    return a + b;
+  } else {
+    const int lane = threadIdx.x & 31;
+    uint4 raw[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+      raw[u] = load_group(s, 16 * (lane + 32 * bitrev(T0 + u, L)));
+    Vec<V> x[N];
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+      x[u] = leaf<V>(s, raw[u], bitrev(T0 + u, L), dtype, pl, st);
+#pragma unroll
+    for (int w = 1; w < N; w *= 2)
+#pragma unroll
+      for (int u = 0; u < N; u += 2 * w) x[u] = x[u] + x[u + w];
+    return x[0];
   }
-  s1 = block_reduce(s1, AddU32(), red_u);
-  s2 = block_reduce(s2, AddU32(), red_u);
-  cnt = block_reduce(cnt, AddI32(), red_i);
-  mn = block_reduce(mn, MinF(), red_f);
-  mx = block_reduce(mx, MaxF(), red_f);
+}
+
+// One step by one warp, vector path: lane l holds the step's 16-byte
+// groups l + 32 r, r < R. Returns the step's tree sum in lane 0.
+template <int V, int R>
+__device__ __forceinline__ float step_vec(const Step& s, int dtype,
+                                          Stats& st) {
+  constexpr int L = R >= 32 ? 5 : R >= 16 ? 4 : R >= 8 ? 3 : R >= 4 ? 2
+                    : R >= 2 ? 1 : 0;
+  Vec<V> x = ptree<V, L, 0, R>(s, dtype, s.pos + 4 * (threadIdx.x & 31), st);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)         // lanes: pairs 16 V .. V apart
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      x.v[k] += __shfl_down_sync(kFull, x.v[k], d);
+#pragma unroll
+  for (int h = V / 2; h > 0; h >>= 1)      // inside the group
+#pragma unroll
+    for (int k = 0; k < h; ++k) x.v[k] += x.v[k + h];
+  return x.v[0];
+}
+
+// One step by one warp, scalar path (any alignment, any blk_v): value j of
+// the step is leaf m of lane j % 32, m = j / 32, so the tree runs over m in
+// the lane and then across lanes, with the reference's pairs.
+__device__ __forceinline__ float step_scalar(const QAArgs& a, const Step& s,
+                                             Stats& st) {
+  const int lane = threadIdx.x & 31;
+  for (int j = lane; j < a.blk_w; j += 32) {
+    uint32_t p = s.pos + j;                // < 65521 + 4096
+    p = p >= kMPos ? p - kMPos : p;
+    st.word(j < s.words ? load_word(s.p, 4 * j, s.bytes) : 0u, p);
+  }
+  const int n = a.blk_v < 32 ? 1 : a.blk_v / 32;   // leaves a lane
+  const int L = 31 - __clz(n);
+  Tree tree;
+  for (int t = 0; t < n; ++t) {
+    const int j = lane + 32 * bitrev(t, L);
+    float x = 0.0f;
+    if (j < a.blk_v) {
+      const int off = j * a.itemsize;
+      uint32_t b = 0;
+      for (int e = 0; e < a.itemsize; ++e)
+        if (off + e < s.bytes) b |= static_cast<uint32_t>(s.p[off + e]) << (8 * e);
+      x = to_f32(b, a.dtype);
+      st.value(x, j < s.vals);
+    }
+    tree.push(x, t);
+  }
+  float v = tree.st[0];
+  for (int d = (a.blk_v < 32 ? a.blk_v : 32) / 2; d > 0; d >>= 1)
+    v += __shfl_down_sync(kFull, v, d);
+  return v;
+}
+
+// Each warp of the block takes the block's steps i0 + warp, + kWarps, ...
+// on the vector path (R > 0 and a 16-byte aligned row) or the scalar one.
+template <int V, int R>
+__device__ __forceinline__ void run_steps(const QAArgs& a, const uint8_t* row,
+                                          int64_t g, int64_t i0, int64_t i1,
+                                          Stats& st) {
+  bool vec = false;
+  if constexpr (R > 0) vec = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  for (int64_t i = i0 + (threadIdx.x >> 5); i < i1; i += kWarps) {
+    const Step s = step_at(a, row, i);
+    float v;
+    if constexpr (R > 0)
+      v = vec ? step_vec<V, R>(s, a.dtype, st) : step_scalar(a, s, st);
+    else
+      v = step_scalar(a, s, st);
+    if ((threadIdx.x & 31) == 0) a.sums[g * a.nsteps + i] = v;
+  }
+}
+
+// acc + s[0] + s[1] + ... + s[n-1], one add at a time in this order; `s` is
+// 16-byte aligned shared memory. Batches of 16 go into two register sets
+// in turn, each loaded a batch ahead of its adds and without a branch (the
+// index clamped), so ptxas issues the loads before the other set's adds
+// and the chain waits on the adds, not on the loads.
+__device__ __forceinline__ float add16(float acc, const float4 (&x)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    acc += x[u].x;
+    acc += x[u].y;
+    acc += x[u].z;
+    acc += x[u].w;
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float chain(float acc, const float* s, int n) {
+  const float4* s4 = reinterpret_cast<const float4*>(s);
+  const int nb = n / 16;                  // batches of 16
+  if (nb > 0) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) x[u] = s4[u];
+    int b = 0;
+    for (; b + 1 < nb; b += 2) {
+      const int bx = b + 2 < nb ? b + 2 : nb - 1;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) y[u] = s4[4 * (b + 1) + u];
+      acc = add16(acc, x);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) x[u] = s4[4 * bx + u];
+      acc = add16(acc, y);
+    }
+    if (b < nb) acc = add16(acc, x);      // an odd count: batch nb - 1
+  }
+  for (int j = 16 * nb; j < n; ++j) acc += s[j];
+  return acc;
+}
+
+// The fold of row g by the last of its B blocks: the block partials and the
+// carry, and the step sums in step order.
+__device__ void fold_row(const QAArgs& a, int64_t g, int B, uint32_t* smem) {
+  float* buf = reinterpret_cast<float*>(smem + kRedWords);
+  const float* sums = a.sums + g * a.nsteps;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int64_t n = a.nsteps;
+  const int64_t np = (n + kPiece - 1) / kPiece;
+  // the carry first: its loads fly beside the first piece's
+  Stats carry;
+  float acc = 0.0f;
+  if (t == 0 && a.carry_qa) {
+    carry.s1 = a.carry_sums[g * 2];
+    carry.s2 = a.carry_sums[g * 2 + 1];
+    carry.cnt = a.carry_cnt[g];
+    carry.mn = a.carry_qa[g * 3];
+    carry.mx = a.carry_qa[g * 3 + 1];
+    acc = a.carry_qa[g * 3 + 2];
+  }
+  for (int64_t j = t; j < n && j < kPiece; j += kThreads)
+    buf[j] = __ldcg(sums + j);
+  __syncthreads();
+  Stats st;
+  for (int64_t p = 0; p < np; ++p) {
+    if (t == 0) {
+      acc = chain(acc, buf + (p & 1) * kPiece,
+                  static_cast<int>(n - p * kPiece < kPiece ? n - p * kPiece
+                                                           : kPiece));
+    } else if (warp > 0) {                // the next piece, meanwhile
+      if (p + 1 < np) {
+        float* dst = buf + ((p + 1) & 1) * kPiece;
+        const int64_t base = (p + 1) * kPiece;
+        for (int64_t j = t - 32; j < kPiece && base + j < n;
+             j += kThreads - 32)
+          dst[j] = __ldcg(sums + base + j);
+      }
+      if (p == 0)
+        for (int b = t - 32; b < B; b += kThreads - 32)
+          st.add(Stats::load(a.part + (g * B + b) * 8, true));
+    }
+    __syncthreads();
+  }
+  st.warp_reduce();
+  if (lane == 0) st.store(smem + 8 * warp);
+  __syncthreads();
+  if (t == 0) {
+    for (int w = 1; w < kWarps; ++w) carry.add(Stats::load(smem + 8 * w));
+    carry.add(st);                        // the carry's min/max first
+    a.out_sums[g * 2] = carry.s1;
+    a.out_sums[g * 2 + 1] = carry.s2;
+    a.out_qa[g * 3] = carry.mn;
+    a.out_qa[g * 3 + 1] = carry.mx;
+    a.out_qa[g * 3 + 2] = acc;
+    a.out_cnt[g] = carry.cnt;
+    a.sync[g] = 0;                        // the row's ticket, for the next call
+  }
+}
+
+// Grid (B, G): block b of row g sums steps [b spb, (b + 1) spb), publishes
+// the step sums and its partials, and takes a ticket; the last one folds.
+// One instance per (V, R): V values a 16-byte group (16 / itemsize), R
+// groups a lane a step (blk_v / (32 V)); R = 0 is the scalar path alone
+// (steps of fewer than 32 groups). Each instance has its own registers.
+template <int V, int R>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+qa_kernel(const QAArgs a) {
+  extern __shared__ uint32_t smem[];
+  const int64_t g = blockIdx.y;
+  const int B = gridDim.x;
+  const uint8_t* row = a.data + g * a.row_stride;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * a.spb;
+  const int64_t i1 = i0 + a.spb < a.nsteps ? i0 + a.spb : a.nsteps;
+  Stats st;
+  run_steps<V, R>(a, row, g, i0, i1, st);
+
+  const int warp = threadIdx.x >> 5;
+  st.warp_reduce();
+  if ((threadIdx.x & 31) == 0) st.store(smem + 8 * warp);
+  __syncthreads();
   if (threadIdx.x == 0) {
-    // the reference's cross-block order: one scalar add per block, in order
-    float acc = carry_qa ? carry_qa[g * 3 + 2] : 0.0f;
-#pragma unroll 8
-    for (int64_t i = 0; i < nsteps; ++i) acc += part.sum[base + i];
-    const uint32_t c1 = carry_sums ? carry_sums[g * 2] : 0u;
-    const uint32_t c2 = carry_sums ? carry_sums[g * 2 + 1] : 0u;
-    const float cmn = carry_qa ? carry_qa[g * 3] : INFINITY;
-    const float cmx = carry_qa ? carry_qa[g * 3 + 1] : -INFINITY;
-    const int32_t cc = carry_cnt ? carry_cnt[g] : 0;
-    out_sums[g * 2] = c1 + s1;
-    out_sums[g * 2 + 1] = c2 + s2;
-    out_qa[g * 3] = MinF()(cmn, mn);
-    out_qa[g * 3 + 1] = MaxF()(cmx, mx);
-    out_qa[g * 3 + 2] = acc;
-    out_cnt[g] = cc + cnt;
+    for (int w = 1; w < kWarps; ++w) st.add(Stats::load(smem + 8 * w));
+    st.store(a.part + (g * B + blockIdx.x) * 8);
   }
+  // threadFenceReduction: the step sums and partials are visible before
+  // the ticket, and the last block reads them after it
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    smem[kRedWords - 1] = atomicAdd(&a.sync[g], 1u) == static_cast<unsigned>(B - 1);
+  __syncthreads();
+  if (!smem[kRedWords - 1]) return;
+  __threadfence();
+  fold_row(a, g, B, smem);
 }
 
 // Transfer checksum: grid-stride over words, then one atomic add per block
@@ -242,7 +574,7 @@ qa_fold_kernel(int64_t nsteps, Partials part, const uint32_t* carry_sums,
 __global__ void __launch_bounds__(kThreads)
 checksum_kernel(const uint8_t* __restrict__ data, int64_t nbytes, int64_t nw,
                 uint32_t* out) {
-  __shared__ uint32_t red_u[kWarps];
+  extern __shared__ uint32_t red_u[];
   uint32_t s1 = 0, s2 = 0;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -259,35 +591,92 @@ checksum_kernel(const uint8_t* __restrict__ data, int64_t nbytes, int64_t nw,
   }
 }
 
+using QAKernel = void (*)(QAArgs);
+
+// The instance for V values a group and r groups a lane (0: scalar).
+QAKernel pick_kernel(int V, int r) {
+  if (V == 4) {
+    switch (r) {
+      case 1: return qa_kernel<4, 1>;
+      case 2: return qa_kernel<4, 2>;
+      case 4: return qa_kernel<4, 4>;
+      case 8: return qa_kernel<4, 8>;
+      case 16: return qa_kernel<4, 16>;
+      case 32: return qa_kernel<4, 32>;
+    }
+  } else if (V == 8) {
+    switch (r) {
+      case 1: return qa_kernel<8, 1>;
+      case 2: return qa_kernel<8, 2>;
+      case 4: return qa_kernel<8, 4>;
+      case 8: return qa_kernel<8, 8>;
+      case 16: return qa_kernel<8, 16>;
+    }
+  } else {
+    switch (r) {
+      case 1: return qa_kernel<16, 1>;
+      case 2: return qa_kernel<16, 2>;
+      case 4: return qa_kernel<16, 4>;
+      case 8: return qa_kernel<16, 8>;
+    }
+  }
+  return qa_kernel<4, 0>;
+}
+
+// Blocks a row: enough for every SM, at most one a warp's step.
+int64_t blocks_per_row(int64_t G, int64_t nsteps, int64_t* spb) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    sms = 1;
+  const int64_t want = (static_cast<int64_t>(sms) * kBlocksPerSM + G - 1) / G;
+  int64_t b = (nsteps + kWarps - 1) / kWarps;
+  if (b > want) b = want;
+  int64_t s = (nsteps + b - 1) / b;
+  if (s > kWarps) s = (s + kWarps - 1) / kWarps * kWarps;
+  *spb = s;
+  return (nsteps + s - 1) / s;
+}
+
 int launch_qa(const void* data, int64_t row_stride, int64_t row_bytes,
               int dtype, int itemsize, int64_t blk_v, int64_t nsteps,
               int64_t G, int64_t w0, int64_t v0, int64_t nw, int64_t nv,
               const void* carry_sums, const void* carry_qa,
               const void* carry_cnt, void* out_sums, void* out_qa,
-              void* out_cnt, void* scratch, void* stream) {
+              void* out_cnt, void* scratch, void* sync, void* stream) {
   if (blk_v < 8 || blk_v > kMaxBlkV || (blk_v & (blk_v - 1)) != 0 ||
-      itemsize < 1 || itemsize > 4 || (blk_v * itemsize) % 4 != 0 ||
-      nsteps < 1 || nsteps > 0x7fffffffLL || G < 1 || G > 65535 ||
-      dtype < F32 || dtype > U32)
+      (itemsize != 1 && itemsize != 2 && itemsize != 4) ||
+      (blk_v * itemsize) % 4 != 0 || nsteps < 1 || nsteps > 0x7fffffffLL ||
+      G < 1 || G > 65535 || dtype < F32 || dtype > U32 || sync == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blk_w = static_cast<int>(blk_v * itemsize / 4);
-  const int64_t n = G * nsteps;
-  uint32_t* s = static_cast<uint32_t*>(scratch);  // 6 * G * nsteps words
-  Partials part{reinterpret_cast<float*>(s), reinterpret_cast<float*>(s + n),
-                reinterpret_cast<float*>(s + 2 * n),
-                reinterpret_cast<int32_t*>(s + 3 * n), s + 4 * n, s + 5 * n};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  qa_blocks_kernel<<<dim3(static_cast<unsigned>(nsteps),
-                          static_cast<unsigned>(G)), kThreads, 0, st>>>(
-      static_cast<const uint8_t*>(data), row_stride, row_bytes, dtype,
-      itemsize, static_cast<int>(blk_v), blk_w, nsteps, w0, v0, nw, nv, part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  qa_fold_kernel<<<static_cast<unsigned>(G), kThreads, 0, st>>>(
-      nsteps, part, static_cast<const uint32_t*>(carry_sums),
-      static_cast<const float*>(carry_qa),
-      static_cast<const int32_t*>(carry_cnt), static_cast<uint32_t*>(out_sums),
-      static_cast<float*>(out_qa), static_cast<int32_t*>(out_cnt));
+  QAArgs a;
+  a.data = static_cast<const uint8_t*>(data);
+  a.row_stride = row_stride;
+  a.row_bytes = row_bytes;
+  a.dtype = dtype;
+  a.itemsize = itemsize;
+  a.blk_v = static_cast<int>(blk_v);
+  a.blk_w = static_cast<int>(blk_v * itemsize / 4);
+  a.nsteps = nsteps;
+  a.w0 = w0;
+  a.v0 = v0;
+  a.nw = nw;
+  a.nv = nv;
+  const int64_t B = blocks_per_row(G, nsteps, &a.spb);
+  a.carry_sums = static_cast<const uint32_t*>(carry_sums);
+  a.carry_qa = static_cast<const float*>(carry_qa);
+  a.carry_cnt = static_cast<const int32_t*>(carry_cnt);
+  a.out_sums = static_cast<uint32_t*>(out_sums);
+  a.out_qa = static_cast<float*>(out_qa);
+  a.out_cnt = static_cast<int32_t*>(out_cnt);
+  a.sums = static_cast<float*>(scratch);
+  a.part = static_cast<uint32_t*>(scratch) + G * nsteps;
+  a.sync = static_cast<uint32_t*>(sync);
+  QAKernel kernel = pick_kernel(16 / itemsize, static_cast<int>(
+      blk_v / (32 * (16 / itemsize))));
+  kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(G)),
+           kThreads, kQASmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,16 +688,30 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Bytes of the scratch that K1 and K2 take for G rows of nsteps steps: the
+// step sums and, at most one block a warp's step, 8 words a block.
+int64_t repro_qa_scratch_bytes(int64_t G, int64_t nsteps) {
+  return 4 * G * nsteps + 32 * G * ((nsteps + kWarps - 1) / kWarps);
+}
+
+// Words of the ticket buffer that K1 and K2 take for G rows: zero before
+// the first call, and every call leaves it zero. Calls that may run at
+// once (other streams) need buffers of their own.
+int64_t repro_qa_sync_words(int64_t G, int64_t nsteps) {
+  (void)nsteps;
+  return G;
+}
+
 // K1: G rows of `row_bytes` bytes each, `row_stride` apart; nv values and nw
 // words per row. Outputs uint32 (G,2), f32 (G,3), int32 (G,1).
 int repro_qa_checksum(const void* data, int64_t row_stride, int64_t row_bytes,
                       int dtype, int itemsize, int64_t blk_v, int64_t nsteps,
                       int64_t G, int64_t nw, int64_t nv, void* out_sums,
-                      void* out_qa, void* out_cnt, void* scratch,
+                      void* out_qa, void* out_cnt, void* scratch, void* sync,
                       void* stream) {
   return launch_qa(data, row_stride, row_bytes, dtype, itemsize, blk_v, nsteps,
                    G, 0, 0, nw, nv, nullptr, nullptr, nullptr, out_sums,
-                   out_qa, out_cnt, scratch, stream);
+                   out_qa, out_cnt, scratch, sync, stream);
 }
 
 // K2: `nbytes` bytes (a whole number of values) of one array starting at
@@ -318,13 +721,14 @@ int repro_qa_chunk(const void* data, int64_t nbytes, int dtype, int itemsize,
                    int64_t blk_v, int64_t nsteps, int64_t w0, int64_t v0,
                    int64_t nw, int64_t nv, const void* carry_sums,
                    const void* carry_qa, const void* carry_cnt, void* out_sums,
-                   void* out_qa, void* out_cnt, void* scratch, void* stream) {
+                   void* out_qa, void* out_cnt, void* scratch, void* sync,
+                   void* stream) {
   if (carry_sums == nullptr || carry_qa == nullptr || carry_cnt == nullptr ||
       itemsize < 1 || nbytes % itemsize != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_qa(data, nbytes, nbytes, dtype, itemsize, blk_v, nsteps, 1, w0,
                    v0, nw, nv, carry_sums, carry_qa, carry_cnt, out_sums,
-                   out_qa, out_cnt, scratch, stream);
+                   out_qa, out_cnt, scratch, sync, stream);
 }
 
 // K3: s1/s2 over the words of `nbytes` bytes, added into out[2] (zeroed by
@@ -336,7 +740,8 @@ int repro_device_checksum(const void* data, int64_t nbytes, void* out,
   int64_t blocks = (nw + kThreads * 4 - 1) / (kThreads * 4);
   if (blocks < 1) blocks = 1;
   if (blocks > 4096) blocks = 4096;
-  checksum_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  checksum_kernel<<<static_cast<unsigned>(blocks), kThreads,
+                    kWarps * sizeof(uint32_t),
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(data), nbytes, nw,
       static_cast<uint32_t*>(out));

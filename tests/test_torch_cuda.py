@@ -124,6 +124,60 @@ def test_chunk_kernel_equals_plain_at_an_offset(cuda):
     _equal(got, qa_checksum_chunk(data, off, carry, **args))
 
 
+@pytest.mark.parametrize("dtype", list(TORCH_DTYPES))
+@pytest.mark.parametrize("blk", [8, 256, 1024, 4096])
+@pytest.mark.parametrize("G,nv", [(200, 3001), (2, 250_007), (1, 1_000_000)])
+def test_qa_checksum_rows_and_steps(cuda, dtype, blk, G, nv):
+    """Many rows, rows that are not 16-byte aligned (odd nv), steps from 8
+    values (the scalar path) to 4096 (32 groups a lane in f32), a ragged
+    last step."""
+    x = _values((G, nv), dtype, seed=blk + G, raw=False)
+    _equal(qa_checksum_batched(x.to(cuda), blk=blk),
+           qa_checksum_batched(x, blk=blk))
+    assert LAUNCHES["qa_checksum"] == 1
+
+
+@pytest.mark.parametrize("dtype", ACCUMULATOR_DTYPES)
+@pytest.mark.parametrize("blk_v,head,nb", [(1024, 63, 4), (64, 1022, 5),
+                                           (4096, 31, 3)])
+def test_chunk_kernel_from_a_carry(cuda, dtype, blk_v, head, nb):
+    """One chunk at a word offset that crosses a multiple of 65,521, from a
+    carry holding a subnormal sum and inf min/max, ending ragged."""
+    tdt = TORCH_DTYPES[dtype]
+    n = (head + nb) * blk_v - 3
+    x = _values((n,), dtype, seed=head, raw=False)
+    data = x.view(torch.uint8)[head * blk_v * tdt.itemsize:]
+    carry = (torch.tensor([7, -9], dtype=torch.int32),
+             torch.tensor([-np.inf, np.inf, 1e-40]),
+             torch.tensor([11], dtype=torch.int32))
+    off = (head * blk_v * tdt.itemsize // 4, head * blk_v,
+           (n * tdt.itemsize + 3) // 4, n)
+    kw = dict(dtype=tdt, blk_v=blk_v, nblocks=nb)
+    got = qa_checksum_chunk(data.to(cuda), off,
+                            tuple(c.to(cuda) for c in carry), **kw)
+    _equal(got, qa_checksum_chunk(data, off, carry, **kw))
+    assert LAUNCHES["qa_checksum_chunk"] == 1
+
+
+def test_qa_checksum_on_two_streams_at_once(cuda):
+    """Calls in flight on two streams take tickets of their own."""
+    xs = [_values((3, 400_001), "float32", seed=s, raw=False)
+          for s in range(2)]
+    want = [qa_checksum_batched(x) for x in xs]
+    dev = [x.to(cuda) for x in xs]
+    torch.cuda.synchronize()                 # the copies, before the streams
+    streams = [torch.cuda.Stream() for _ in xs]
+    got = [[], []]
+    for _ in range(8):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[k].append(qa_checksum_batched(dev[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for g in got[k]:
+            _equal(g, want[k])
+
+
 def test_kernel_failure_raises(cuda):
     with pytest.raises(RuntimeError, match="failed to launch"):
         # a 32768-value block is past the kernel's shared-memory tree

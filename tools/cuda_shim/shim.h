@@ -1,7 +1,9 @@
 // Runs a CUDA source of the port on the CPU for rehearsal without a card:
 // one std::thread per CUDA thread, the blocks one after another. It stands
-// in for what the kernels use: 3-D grids, __syncthreads, warp shuffles,
-// votes and __syncwarp, float2, float4, uint2, bf16 conversions, and the
+// in for what the kernels use: 3-D grids (blockIdx, blockDim, gridDim), __syncthreads, warp shuffles,
+// votes and __syncwarp, float2, float4, uint2, uint4, bf16 and f16
+// conversions, atomics on u32 (atomicAdd, atomicCAS), __threadfence,
+// __ldcg, the device's SM count (2 here), and the
 // inline PTX statements of flash_attention.cu, mamba2_ssd.cu and rwkv6.cu
 // (the functions between their "ptx:begin" and "ptx:end" lines, which
 // build.py drops): mbarriers
@@ -31,6 +33,8 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <atomic>
+#include <bit>
 #include <map>
 #include <memory>
 #include <mutex>
@@ -52,11 +56,12 @@ struct dim3 {
 struct uint3s { unsigned x = 0, y = 0, z = 0; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) uint2 { uint32_t x, y; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline thread_local uint3s threadIdx, blockIdx;
-inline thread_local dim3 blockDim;
+inline thread_local dim3 blockDim, gridDim;
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
@@ -70,6 +75,13 @@ inline cudaError_t cudaGetLastError() {
 }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "shim error";
+}
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  if (a != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *v = 2;
+  return cudaSuccess;
 }
 template <typename F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
@@ -158,6 +170,32 @@ inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(uint32_t
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
+// -- f16, integer conversions, bit counts -----------------------------------
+struct __half { uint16_t x; };
+inline __half __ushort_as_half(unsigned short u) { return {u}; }
+inline float __half2float(__half h) {   // exact, subnormals, inf and NaN
+  const uint32_t sign = uint32_t(h.x >> 15) << 31, e = (h.x >> 10) & 0x1f,
+                 m = h.x & 0x3ff;
+  if (e == 31) return __uint_as_float(sign | 0x7f800000u | (m << 13));
+  const float f = e ? std::ldexp(float(m | 0x400), int(e) - 25)
+                    : std::ldexp(float(m), -24);
+  return sign ? -f : f;
+}
+inline float __int2float_rn(int x) { return static_cast<float>(x); }
+inline float __uint2float_rn(unsigned x) { return static_cast<float>(x); }
+inline int __popc(unsigned x) { return std::popcount(x); }
+inline int __clz(int x) { return std::countl_zero(static_cast<uint32_t>(x)); }
+
+// -- memory: loads past L1, fences, atomics (threads of a block run at once) --
+template <typename T> inline T __ldcg(const T* p) { return *p; }
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicCAS(unsigned* p, unsigned cmp, unsigned v) {
+  std::atomic_ref<unsigned>(*p).compare_exchange_strong(cmp, v);
+  return cmp;
+}
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int64_t min(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -187,6 +225,20 @@ T __shfl_xor_sync(unsigned, T v, int mask) {
   shim_blk->shfl[t] = f;
   __syncwarp();
   float r = shim_blk->shfl[w * 32 + ((t % 32) ^ unsigned(mask))];
+  __syncwarp();
+  T out; std::memcpy(&out, &r, 4);
+  return out;
+}
+
+template <typename T>
+T __shfl_down_sync(unsigned, T v, unsigned delta) {   // lanes >= 32 - delta keep v
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  float f; std::memcpy(&f, &v, 4);
+  const unsigned t = threadIdx.x, lane = t % 32;
+  shim_blk->shfl[t] = f;
+  __syncwarp();
+  float r = lane + delta < 32 && t + delta < shim_blk->shfl.size()
+                ? shim_blk->shfl[t + delta] : f;
   __syncwarp();
   T out; std::memcpy(&out, &r, 4);
   return out;
@@ -520,6 +572,7 @@ inline void shim_launch(const std::function<void()>& k, dim3 grid, dim3 block,
         blockIdx.y = by;
         blockIdx.z = bz;
         blockDim = block;
+        gridDim = grid;
         shim_blk = &blk;
         k();
         if (!shim_pending.empty()) {
