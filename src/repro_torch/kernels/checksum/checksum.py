@@ -117,9 +117,11 @@ def _scratch(lib, device, G: int, nsteps: int, sync, stream):
     call: ``sync`` as given (zeroed, left zero), or this stream's own."""
     scratch = torch.empty(_fn(lib, "repro_qa_scratch_bytes")(G, nsteps),
                           dtype=torch.uint8, device=device)
+    words = _fn(lib, "repro_qa_sync_words")(G, nsteps)
     if sync is None:
-        sync = _sync_buffer(device, stream,
-                            _fn(lib, "repro_qa_sync_words")(G, nsteps))
+        sync = _sync_buffer(device, stream, words)
+    elif sync.dtype != torch.int32 or sync.numel() < words:
+        raise ValueError(f"the ticket buffer needs {words} int32 words")
     return scratch, sync
 
 

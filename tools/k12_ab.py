@@ -107,7 +107,7 @@ class OneKernelCall:
         self.lib = lib
         # a ticket buffer of its own: a diagnostic copy may leave its
         # tickets set (one that never folds), and must not take others'
-        self.sync = torch.zeros(4096, dtype=torch.int32, device="cuda")
+        self.sync = torch.zeros(1 << 20, dtype=torch.int32, device="cuda")
 
     def qa(self, vals, blk=1024, stream=None):
         from repro_torch.kernels.checksum.checksum import run_qa
