@@ -600,8 +600,8 @@ def run(args, work: Path):
     log(f"time qa_checksum at DWI {DWI}: kernel {dwi_ms} ms, bound "
         f"{b_dwi[0]} ms ({b_dwi[1]}; bytes {b_dwi[2]} ms)")
     for name in ("qa_checksum", "qa_checksum_chunk"):
-        for kernel, us in profile_kernels(calls[name][0]).items():
-            log(f"profile {name}: {kernel} {us} us per launch")
+        log(f"profile {name} (us per launch by CUDA kernel; one kernel a "
+            f"call): {profile_kernels(calls[name][0])}")
 
     # ingest split: kernel time = launches x median time at that shape
     n_dwi = sum(1 for r in qa_recs if r.source.endswith("_dwi.npz"))

@@ -61,9 +61,13 @@ constexpr int kBlocksPerSM = 4;
 // step sums a fold piece holds; two pieces in shared memory
 constexpr int kPiece = 2048;
 // qa_kernel's shared memory, in words: per-warp partials, the last-block
-// flag, then the fold's two pieces (16-byte aligned)
+// flag, then the fold's two pieces (16-byte aligned), or one piece of the
+// row's nsteps where they fit in one
 constexpr int kRedWords = 128;
-constexpr int kQASmemBytes = (kRedWords + 2 * kPiece) * 4;
+int qa_smem_bytes(int64_t nsteps) {
+  const int64_t piece = nsteps <= kPiece ? (nsteps + 3) / 4 * 4 : 2 * kPiece;
+  return static_cast<int>((kRedWords + piece) * 4);
+}
 
 // value dtype codes, mirrored by _DTYPE_CODES in checksum.py
 enum DType : int { F32 = 0, F16 = 1, BF16 = 2, I8 = 3, U8 = 4, I16 = 5,
@@ -142,15 +146,14 @@ struct Stats {
     s2 += w * pos;
   }
   // counts `v` if it is inside the array and finite; otherwise the tree
-  // gets 0.0f in its place
+  // gets 0.0f in its place. No branch; min/max by value (no NaN reaches
+  // fminf/fmaxf, and -0.0 == +0.0)
   __device__ __forceinline__ void value(float& v, bool inside) {
-    if (inside && isfinite(v)) {
-      ++cnt;
-      mn = v < mn ? v : mn;
-      mx = v > mx ? v : mx;
-    } else {
-      v = 0.0f;
-    }
+    const bool f = inside && isfinite(v);
+    cnt += f;
+    mn = fminf(mn, f ? v : INFINITY);
+    mx = fmaxf(mx, f ? v : -INFINITY);
+    v = f ? v : 0.0f;
   }
   __device__ __forceinline__ void add(const Stats& o) {
     s1 += o.s1;
@@ -241,7 +244,7 @@ struct QAArgs {
   int64_t row_stride, row_bytes;
   int dtype, itemsize, blk_v, blk_w;
   int64_t nsteps, w0, v0, nw, nv;
-  int64_t sync_stride;                    // ticket words a row
+  int64_t spb;                            // steps per block
   const uint32_t* carry_sums;             // (G, 2) or null
   const float* carry_qa;                  // (G, 3) or null
   const int32_t* carry_cnt;               // (G, 1) or null
@@ -250,20 +253,8 @@ struct QAArgs {
   int32_t* out_cnt;
   float* sums;                            // (G, nsteps) step sums
   uint32_t* part;                         // (G, B, 8) block partials
-  uint32_t* sync;                         // (G, sync_stride), zero between calls
+  uint32_t* sync;                         // (G) tickets, zero between calls
 };
-
-// A row's ticket words: the lock, the slices chained so far, the chain's
-// running sum, then one counter a slice (the row's blocks that are done
-// with it).
-constexpr int kLock = 0, kPos = 1, kAcc = 2, kSyncHead = 4;
-// slices a row is cut into at least, where its steps allow: the chain of
-// one runs while the next ones are read
-constexpr int kMinSlices = 4;
-// words of qa_kernel's shared memory that thread 0 broadcasts through
-constexpr int kFlag = kRedWords - 1, kGot = kRedWords - 2,
-              kAt = kRedWords - 3, kMore = kRedWords - 4,
-              kAgain = kRedWords - 5;
 
 __device__ __forceinline__ int clamp_to(int64_t v, int hi) {
   return v < 0 ? 0 : (v > hi ? hi : static_cast<int>(v));
@@ -324,24 +315,38 @@ __device__ __forceinline__ void decode(const uint32_t (&w)[4], int dtype,
   }
 }
 
-// The lane's group r of the step, loaded as `raw`: its words into s1/s2
-// (pl: the position of the lane's first word, not yet reduced), its values
-// into the partials; returns the values the tree adds.
-template <int V>
+// What a lane carries through a step: pl, the position of its first word
+// (not yet reduced), and on a full step the step's word sum and its
+// sum of w c (c: a word's offset from the lane's first), from which
+// s2 += pl s1 + sum w c, the positions not wrapping there.
+struct LaneAcc {
+  uint32_t pl, s1 = 0, wc = 0;
+};
+
+// The lane's group r of the step, loaded as `raw`: its words into s1/s2,
+// its values into the partials; returns the values the tree adds. kFull:
+// every byte, word and value of the step inside the row and the array,
+// and the lane's positions below 65521 (no masks, no reduction).
+template <int V, bool kFull>
 __device__ __forceinline__ Vec<V> leaf(const Step& s, const uint4& raw, int r,
-                                       int dtype, uint32_t pl, Stats& st) {
+                                       int dtype, LaneAcc& la, Stats& st) {
   const int g = (threadIdx.x & 31) + 32 * r;
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    uint32_t p = pl + 128 * r + q;        // < 2 * 65521: one subtraction
-    p = p >= kMPos ? p - kMPos : p;
-    st.word(4 * g + q < s.words ? w[q] : 0u, p);
+    if constexpr (kFull) {
+      la.s1 += w[q];
+      la.wc += w[q] * static_cast<uint32_t>(128 * r + q);
+    } else {
+      uint32_t p = la.pl + 128 * r + q;   // < 2 * 65521: one subtraction
+      p = p >= kMPos ? p - kMPos : p;
+      st.word(4 * g + q < s.words ? w[q] : 0u, p);
+    }
   }
   Vec<V> x;
   decode<V>(w, dtype, x.v);
 #pragma unroll
-  for (int k = 0; k < V; ++k) st.value(x.v[k], V * g + k < s.vals);
+  for (int k = 0; k < V; ++k) st.value(x.v[k], kFull || V * g + k < s.vals);
   return x;
 }
 
@@ -350,23 +355,30 @@ __device__ __forceinline__ Vec<V> leaf(const Step& s, const uint4& raw, int r,
 // group bitrev(t); see Tree). Leaves [T0, T0 + N) are one subtree; a batch
 // of them (32 values) is loaded before any is added, so those loads are in
 // flight together. Every index is known at compile time.
-template <int V, int L, int T0, int N>
-__device__ __forceinline__ Vec<V> ptree(const Step& s, int dtype, uint32_t pl,
+template <int V, bool kFull, int L, int T0, int N>
+__device__ __forceinline__ Vec<V> ptree(const Step& s, int dtype, LaneAcc& la,
                                         Stats& st) {
   if constexpr (N > 32 / V) {
-    const Vec<V> a = ptree<V, L, T0, N / 2>(s, dtype, pl, st);
-    const Vec<V> b = ptree<V, L, T0 + N / 2, N / 2>(s, dtype, pl, st);
+    const Vec<V> a = ptree<V, kFull, L, T0, N / 2>(s, dtype, la, st);
+    const Vec<V> b = ptree<V, kFull, L, T0 + N / 2, N / 2>(s, dtype, la, st);
     return a + b;
   } else {
     const int lane = threadIdx.x & 31;
     uint4 raw[N];
+    if (s.bytes == 512 << L) {            // the whole step inside the row:
+#pragma unroll                            // loads with no branch between
+      for (int u = 0; u < N; ++u)
+        raw[u] = *reinterpret_cast<const uint4*>(
+            s.p + 16 * (lane + 32 * bitrev(T0 + u, L)));
+    } else {
 #pragma unroll
-    for (int u = 0; u < N; ++u)
-      raw[u] = load_group(s, 16 * (lane + 32 * bitrev(T0 + u, L)));
+      for (int u = 0; u < N; ++u)
+        raw[u] = load_group(s, 16 * (lane + 32 * bitrev(T0 + u, L)));
+    }
     Vec<V> x[N];
 #pragma unroll
     for (int u = 0; u < N; ++u)
-      x[u] = leaf<V>(s, raw[u], bitrev(T0 + u, L), dtype, pl, st);
+      x[u] = leaf<V, kFull>(s, raw[u], bitrev(T0 + u, L), dtype, la, st);
 #pragma unroll
     for (int w = 1; w < N; w *= 2)
 #pragma unroll
@@ -382,7 +394,17 @@ __device__ __forceinline__ float step_vec(const Step& s, int dtype,
                                           Stats& st) {
   constexpr int L = R >= 32 ? 5 : R >= 16 ? 4 : R >= 8 ? 3 : R >= 4 ? 2
                     : R >= 2 ? 1 : 0;
-  Vec<V> x = ptree<V, L, 0, R>(s, dtype, s.pos + 4 * (threadIdx.x & 31), st);
+  LaneAcc la;
+  la.pl = s.pos + 4 * (threadIdx.x & 31);
+  Vec<V> x;
+  if (s.bytes == 512 * R && s.words == 128 * R && s.vals == 32 * V * R &&
+      la.pl + 128 * R <= kMPos) {
+    x = ptree<V, true, L, 0, R>(s, dtype, la, st);
+    st.s1 += la.s1;
+    st.s2 += la.pl * la.s1 + la.wc;
+  } else {
+    x = ptree<V, false, L, 0, R>(s, dtype, la, st);
+  }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1)         // lanes: pairs 16 V .. V apart
 #pragma unroll
@@ -428,6 +450,25 @@ __device__ __forceinline__ float step_scalar(const QAArgs& a, const Step& s,
   return v;
 }
 
+// Each warp of the block takes the block's steps i0 + warp, + kWarps, ...
+// on the vector path (R > 0 and a 16-byte aligned row) or the scalar one.
+template <int V, int R>
+__device__ __forceinline__ void run_steps(const QAArgs& a, const uint8_t* row,
+                                          int64_t g, int64_t i0, int64_t i1,
+                                          Stats& st) {
+  bool vec = false;
+  if constexpr (R > 0) vec = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  for (int64_t i = i0 + (threadIdx.x >> 5); i < i1; i += kWarps) {
+    const Step s = step_at(a, row, i);
+    float v;
+    if constexpr (R > 0)
+      v = vec ? step_vec<V, R>(s, a.dtype, st) : step_scalar(a, s, st);
+    else
+      v = step_scalar(a, s, st);
+    if ((threadIdx.x & 31) == 0) a.sums[g * a.nsteps + i] = v;
+  }
+}
+
 // acc + s[0] + s[1] + ... + s[n-1], one add at a time in this order; `s` is
 // 16-byte aligned shared memory. Batches of 16 go into two register sets
 // in turn, each loaded a batch ahead of its adds and without a branch (the
@@ -467,135 +508,81 @@ __device__ __forceinline__ float chain(float acc, const float* s, int n) {
   return acc;
 }
 
-// acc + sums[0] + ... + sums[n-1] in this order, by the whole block:
-// pieces staged in shared memory, thread 0 adding one while warps 1.. load
-// the next. Every thread calls it; the result is thread 0's.
-__device__ float chain_range(const float* sums, int64_t n, float acc,
-                             uint32_t* smem) {
+// src[0, len) to shared dst by nt threads (this one the lt-th), each
+// thread's kMax loads in flight together.
+template <int kMax>
+__device__ __forceinline__ void stage(float* dst, const float* src, int len,
+                                      int lt, int nt) {
+  float v[kMax];
+#pragma unroll
+  for (int u = 0; u < kMax; ++u) {
+    const int j = lt + u * nt;
+    v[u] = j < len ? __ldcg(src + j) : 0.0f;
+  }
+#pragma unroll
+  for (int u = 0; u < kMax; ++u)
+    if (lt + u * nt < len) dst[lt + u * nt] = v[u];
+}
+
+// The fold of row g by the last of its B blocks: the block partials and the
+// carry, and the step sums in step order.
+__device__ void fold_row(const QAArgs& a, int64_t g, int B, uint32_t* smem) {
   float* buf = reinterpret_cast<float*>(smem + kRedWords);
-  const int t = threadIdx.x;
+  const float* sums = a.sums + g * a.nsteps;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int64_t n = a.nsteps;
   const int64_t np = (n + kPiece - 1) / kPiece;
-  for (int64_t j = t; j < n && j < kPiece; j += kThreads)
-    buf[j] = __ldcg(sums + j);
+  // the carry first: its loads fly beside the first piece's
+  Stats carry;
+  float acc = 0.0f;
+  if (t == 0 && a.carry_qa) {
+    carry.s1 = a.carry_sums[g * 2];
+    carry.s2 = a.carry_sums[g * 2 + 1];
+    carry.cnt = a.carry_cnt[g];
+    carry.mn = a.carry_qa[g * 3];
+    carry.mx = a.carry_qa[g * 3 + 1];
+    acc = a.carry_qa[g * 3 + 2];
+  }
+  stage<kPiece / kThreads>(buf, sums, static_cast<int>(n < kPiece ? n : kPiece),
+                          t, kThreads);
   __syncthreads();
+  Stats st;
   for (int64_t p = 0; p < np; ++p) {
     if (t == 0) {
       acc = chain(acc, buf + (p & 1) * kPiece,
                   static_cast<int>(n - p * kPiece < kPiece ? n - p * kPiece
                                                            : kPiece));
-    } else if (t >= 32 && p + 1 < np) {   // the next piece, meanwhile
-      float* dst = buf + ((p + 1) & 1) * kPiece;
-      const int64_t base = (p + 1) * kPiece;
-      for (int64_t j = t - 32; j < kPiece && base + j < n; j += kThreads - 32)
-        dst[j] = __ldcg(sums + base + j);
-    }
-    __syncthreads();
-  }
-  return acc;
-}
-
-// The end of row g, by the block that chained its last slice: the block
-// partials and the carry into the outputs, and the row's ticket words back
-// to zero (the lock last).
-__device__ void finish_row(const QAArgs& a, int64_t g, int B, int64_t nslices,
-                           float acc, uint32_t* smem) {
-  const int t = threadIdx.x, warp = t >> 5;
-  uint32_t* sy = a.sync + g * a.sync_stride;
-  Stats st;
-  for (int b = t; b < B; b += kThreads)
-    st.add(Stats::load(a.part + (g * B + b) * 8, true));
-  st.warp_reduce();
-  if ((t & 31) == 0) st.store(smem + 8 * warp);
-  for (int64_t k = t; k < nslices; k += kThreads) sy[kSyncHead + k] = 0;
-  __threadfence();
-  __syncthreads();
-  if (t == 0) {
-    Stats c;                              // the carry, its min/max first
-    if (a.carry_qa) {
-      c.s1 = a.carry_sums[g * 2];
-      c.s2 = a.carry_sums[g * 2 + 1];
-      c.cnt = a.carry_cnt[g];
-      c.mn = a.carry_qa[g * 3];
-      c.mx = a.carry_qa[g * 3 + 1];
-    }
-    for (int w = 0; w < kWarps; ++w) c.add(Stats::load(smem + 8 * w));
-    a.out_sums[g * 2] = c.s1;
-    a.out_sums[g * 2 + 1] = c.s2;
-    a.out_qa[g * 3] = c.mn;
-    a.out_qa[g * 3 + 1] = c.mx;
-    a.out_qa[g * 3 + 2] = acc;
-    a.out_cnt[g] = c.cnt;
-    sy[kPos] = 0;
-    sy[kAcc] = 0;
-    __threadfence();
-    atomicExch(&sy[kLock], 0u);
-  }
-}
-
-// Row g's chain, as far as its slices are complete, by whichever block
-// holds the row's lock. A block that finds the lock taken goes on with its
-// own slices; the holder, after letting go, looks once more at the slice it
-// stopped at and takes the lock again if that one completed meanwhile, so
-// no slice is left behind (a completer's counter add precedes its try, the
-// holder's release precedes its look, fences between). No block waits on
-// another. Every thread of the block calls it.
-__device__ void try_chain(const QAArgs& a, int64_t g, int B, int64_t S,
-                          int64_t nslices, uint32_t* smem) {
-  uint32_t* sy = a.sync + g * a.sync_stride;
-  const int t = threadIdx.x;
-  for (;;) {
-    if (t == 0) smem[kGot] = atomicCAS(&sy[kLock], 0u, 1u) == 0u;
-    __syncthreads();
-    if (!smem[kGot]) return;
-    __threadfence();
-    float acc = 0.0f;
-    if (t == 0) {
-      const uint32_t at = __ldcg(&sy[kPos]);
-      acc = at ? __uint_as_float(__ldcg(&sy[kAcc]))
-               : (a.carry_qa ? a.carry_qa[g * 3 + 2] : 0.0f);
-      smem[kAt] = at;
-    }
-    __syncthreads();
-    const int64_t at0 = smem[kAt];
-    int64_t at = at0;
-    for (;;) {
-      if (t == 0)
-        smem[kMore] = at < nslices &&
-            __ldcg(&sy[kSyncHead + at]) == static_cast<uint32_t>(B);
-      __syncthreads();
-      if (!smem[kMore]) break;
-      __threadfence();
-      const int64_t lo = at * S;
-      acc = chain_range(a.sums + g * a.nsteps + lo,
-                        (lo + S < a.nsteps ? lo + S : a.nsteps) - lo, acc,
-                        smem);
-      ++at;
-    }
-    if (at == nslices) {
-      finish_row(a, g, B, nslices, acc, smem);
-      return;
-    }
-    if (t == 0) {
-      if (at != at0) {
-        sy[kPos] = static_cast<uint32_t>(at);
-        sy[kAcc] = __float_as_uint(acc);
+    } else if (warp > 0) {                // the next piece, meanwhile
+      if (p + 1 < np) {
+        const int64_t base = (p + 1) * kPiece;
+        stage<(kPiece + kThreads - 33) / (kThreads - 32)>(
+            buf + ((p + 1) & 1) * kPiece, sums + base,
+            static_cast<int>(n - base < kPiece ? n - base : kPiece), t - 32,
+            kThreads - 32);
       }
-      __threadfence();
-      atomicExch(&sy[kLock], 0u);
-      __threadfence();
-      smem[kAgain] = __ldcg(&sy[kSyncHead + at]) == static_cast<uint32_t>(B);
+      if (p == 0) {                       // and the block partials
+        for (int b = t - 32; b < B; b += kThreads - 32)
+          st.add(Stats::load(a.part + (g * B + b) * 8, true));
+        st.warp_reduce();
+        if (lane == 0) st.store(smem + 8 * warp);
+      }
     }
     __syncthreads();
-    if (!smem[kAgain]) return;
+  }
+  if (t == 0) {                          // the carry's min/max first
+    for (int w = 1; w < kWarps; ++w) carry.add(Stats::load(smem + 8 * w));
+    a.out_sums[g * 2] = carry.s1;
+    a.out_sums[g * 2 + 1] = carry.s2;
+    a.out_qa[g * 3] = carry.mn;
+    a.out_qa[g * 3 + 1] = carry.mx;
+    a.out_qa[g * 3 + 2] = acc;
+    a.out_cnt[g] = carry.cnt;
+    a.sync[g] = 0;                        // the row's ticket, for the next call
   }
 }
 
-// Grid (B, G). The steps of row g are cut into slices of S = B kWarps, one
-// step a warp: warp w of block b takes step k S + b kWarps + w of slice k.
-// After each slice a block adds one to the slice's counter (its step sums
-// visible first, and before its last one its partials); the block that
-// completes a slice tries to chain. The block that chains the last slice
-// ends the row.
+// Grid (B, G): block b of row g sums steps [b spb, (b + 1) spb), publishes
+// the step sums and its partials, and takes a ticket; the last one folds.
 // One instance per (V, R): V values a 16-byte group (16 / itemsize), R
 // groups a lane a step (blk_v / (32 V)); R = 0 is the scalar path alone
 // (steps of fewer than 32 groups). Each instance has its own registers.
@@ -605,42 +592,31 @@ qa_kernel(const QAArgs a) {
   extern __shared__ uint32_t smem[];
   const int64_t g = blockIdx.y;
   const int B = gridDim.x;
-  const int t = threadIdx.x, warp = t >> 5;
   const uint8_t* row = a.data + g * a.row_stride;
-  uint32_t* sy = a.sync + g * a.sync_stride;
-  const int64_t S = static_cast<int64_t>(B) * kWarps;
-  const int64_t nslices = (a.nsteps + S - 1) / S;
-  bool vec = false;
-  if constexpr (R > 0) vec = (reinterpret_cast<uintptr_t>(row) & 15) == 0;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * a.spb;
+  const int64_t i1 = i0 + a.spb < a.nsteps ? i0 + a.spb : a.nsteps;
   Stats st;
-  for (int64_t k = 0; k < nslices; ++k) {
-    const int64_t i = k * S + static_cast<int64_t>(blockIdx.x) * kWarps + warp;
-    if (i < a.nsteps) {
-      const Step s = step_at(a, row, i);
-      float v;
-      if constexpr (R > 0)
-        v = vec ? step_vec<V, R>(s, a.dtype, st) : step_scalar(a, s, st);
-      else
-        v = step_scalar(a, s, st);
-      if ((t & 31) == 0) a.sums[g * a.nsteps + i] = v;
-    }
-    if (k == nslices - 1) {               // the block's partials
-      st.warp_reduce();
-      if ((t & 31) == 0) st.store(smem + 8 * warp);
-      __syncthreads();
-      if (t == 0) {
-        for (int w = 1; w < kWarps; ++w) st.add(Stats::load(smem + 8 * w));
-        st.store(a.part + (g * B + blockIdx.x) * 8);
-      }
-    }
-    __threadfence();                      // all of it visible before the add
-    __syncthreads();
-    if (t == 0)
-      smem[kFlag] = atomicAdd(&sy[kSyncHead + k], 1u) ==
-                    static_cast<uint32_t>(B - 1);
-    __syncthreads();
-    if (smem[kFlag]) try_chain(a, g, B, S, nslices, smem);
+  run_steps<V, R>(a, row, g, i0, i1, st);
+
+  const int warp = threadIdx.x >> 5;
+  st.warp_reduce();
+  if ((threadIdx.x & 31) == 0) st.store(smem + 8 * warp);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kWarps; ++w) st.add(Stats::load(smem + 8 * w));
+    st.store(a.part + (g * B + blockIdx.x) * 8);
   }
+  // threadFenceReduction: the step sums (lane 0s) and the partials
+  // (thread 0) are visible before the ticket, and the last block reads them
+  // after it
+  if ((threadIdx.x & 31) == 0) __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    smem[kRedWords - 1] = atomicAdd(&a.sync[g], 1u) == static_cast<unsigned>(B - 1);
+  __syncthreads();
+  if (!smem[kRedWords - 1]) return;
+  __threadfence();
+  fold_row(a, g, B, smem);
 }
 
 // Transfer checksum: grid-stride over words, then one atomic add per block
@@ -697,22 +673,20 @@ QAKernel pick_kernel(int V, int r) {
   return qa_kernel<4, 0>;
 }
 
-// Blocks a row: enough for every SM, but few enough that the row has
-// kMinSlices slices where its steps allow.
-int64_t blocks_per_row(int64_t G, int64_t nsteps) {
+// Blocks a row: enough for every SM, at most one a warp's step.
+int64_t blocks_per_row(int64_t G, int64_t nsteps, int64_t* spb) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess || sms < 1)
     sms = 1;
   const int64_t want = (static_cast<int64_t>(sms) * kBlocksPerSM + G - 1) / G;
-  const int64_t most = (nsteps + kWarps * kMinSlices - 1) /
-                       (kWarps * kMinSlices);
-  return want < most ? want : most;
-}
-
-int64_t sync_stride(int64_t nsteps) {
-  return kSyncHead + (nsteps + kWarps - 1) / kWarps;   // B >= 1
+  int64_t b = (nsteps + kWarps - 1) / kWarps;
+  if (b > want) b = want;
+  int64_t s = (nsteps + b - 1) / b;
+  if (s > kWarps) s = (s + kWarps - 1) / kWarps * kWarps;
+  *spb = s;
+  return (nsteps + s - 1) / s;
 }
 
 int launch_qa(const void* data, int64_t row_stride, int64_t row_bytes,
@@ -739,8 +713,7 @@ int launch_qa(const void* data, int64_t row_stride, int64_t row_bytes,
   a.v0 = v0;
   a.nw = nw;
   a.nv = nv;
-  const int64_t B = blocks_per_row(G, nsteps);
-  a.sync_stride = sync_stride(nsteps);
+  const int64_t B = blocks_per_row(G, nsteps, &a.spb);
   a.carry_sums = static_cast<const uint32_t*>(carry_sums);
   a.carry_qa = static_cast<const float*>(carry_qa);
   a.carry_cnt = static_cast<const int32_t*>(carry_cnt);
@@ -753,7 +726,8 @@ int launch_qa(const void* data, int64_t row_stride, int64_t row_bytes,
   QAKernel kernel = pick_kernel(16 / itemsize, static_cast<int>(
       blk_v / (32 * (16 / itemsize))));
   kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(G)),
-           kThreads, kQASmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
+           kThreads, qa_smem_bytes(nsteps),
+           static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,11 +745,12 @@ int64_t repro_qa_scratch_bytes(int64_t G, int64_t nsteps) {
   return 4 * G * nsteps + 32 * G * ((nsteps + kWarps - 1) / kWarps);
 }
 
-// Words of the ticket buffer that K1 and K2 take for G rows of nsteps
-// steps: zero before the first call, and every call leaves it zero. Calls
-// that may run at once (other streams) need buffers of their own.
+// Words of the ticket buffer that K1 and K2 take for G rows: zero before
+// the first call, and every call leaves it zero. Calls that may run at
+// once (other streams) need buffers of their own.
 int64_t repro_qa_sync_words(int64_t G, int64_t nsteps) {
-  return G * sync_stride(nsteps);
+  (void)nsteps;
+  return G;
 }
 
 // K1: G rows of `row_bytes` bytes each, `row_stride` apart; nv values and nw

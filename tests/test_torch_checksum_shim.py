@@ -51,9 +51,9 @@ BROKEN = {
         "  const float4* s4 = reinterpret_cast<const float4*>(s);",
         "  for (int j = n - 1; j >= 0; --j) acc += s[j];\n  return acc;\n"
         "  const float4* s4 = reinterpret_cast<const float4*>(s);"),
-    # a slice taken as complete one block early
-    "ticket off by one": ("static_cast<uint32_t>(B - 1)",
-                          "static_cast<uint32_t>(B - 2)"),
+    # the last block but one folds the row
+    "ticket off by one": ("== static_cast<unsigned>(B - 1)",
+                          "== static_cast<unsigned>(B - 2)"),
 }
 
 
@@ -131,6 +131,15 @@ def test_k1_matches_plain(lib, dtype, blk, G, nv):
     x = _values((G, nv), dtype, seed=blk + nv, raw=raw)
     _same(_np(_qa(lib, x, blk)),
           _np(ck.qa_checksum_batched_plain(x, blk=blk)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint8"])
+def test_k1_fold_over_pieces(lib, dtype):
+    """5,001 steps of 8 values: the fold stages three pieces of step sums
+    (2,048, 2,048 and 905), the next one loaded while one is added."""
+    x = _values((1, 40_003), dtype, seed=11, raw=False)
+    _same(_np(_qa(lib, x, blk=8)),
+          _np(ck.qa_checksum_batched_plain(x, blk=8)))
 
 
 # the dtypes numpy holds (the oracle is numpy)
