@@ -601,7 +601,8 @@ def run(args, work: Path):
         f"{b_dwi[0]} ms ({b_dwi[1]}; bytes {b_dwi[2]} ms)")
     for name in ("qa_checksum", "qa_checksum_chunk"):
         log(f"profile {name} (us per launch by CUDA kernel; one kernel a "
-            f"call): {profile_kernels(calls[name][0])}")
+            f"call; {{}}: no device time in the trace): "
+            f"{profile_kernels(calls[name][0])}")
 
     # ingest split: kernel time = launches x median time at that shape
     n_dwi = sum(1 for r in qa_recs if r.source.endswith("_dwi.npz"))

@@ -71,7 +71,7 @@ _SIGNATURES = {
                        _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "repro_device_checksum": [_P, _I64, _P, _P],
     "repro_qa_scratch_bytes": [_I64, _I64],
-    "repro_qa_sync_words": [_I64, _I64],
+    "repro_qa_sync_words": [_I64],
 }
 
 # (device, stream) -> its zeroed ticket buffer (int32), which every K1/K2
@@ -117,7 +117,7 @@ def _scratch(lib, device, G: int, nsteps: int, sync, stream):
     call: ``sync`` as given (zeroed, left zero), or this stream's own."""
     scratch = torch.empty(_fn(lib, "repro_qa_scratch_bytes")(G, nsteps),
                           dtype=torch.uint8, device=device)
-    words = _fn(lib, "repro_qa_sync_words")(G, nsteps)
+    words = _fn(lib, "repro_qa_sync_words")(G)
     if sync is None:
         sync = _sync_buffer(device, stream, words)
     elif sync.dtype != torch.int32 or sync.numel() < words:

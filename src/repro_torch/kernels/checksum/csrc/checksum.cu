@@ -36,6 +36,14 @@
 // sums through shared memory in pieces, chained by one thread at FADD
 // latency while the other warps load the next piece.
 //
+// The tickets live in a buffer that the caller zeroes once and keeps, one
+// per stream (checksum.py keeps one per device and stream); the last block
+// resets its row's ticket, so every call leaves the buffer as it found it
+// and calls in flight on two streams never share one. Zeroing them in the
+// per-call scratch would need a second launch (a memset), or a zeroing
+// that every block could see before any block counts, which blocks that
+// run in no order cannot give.
+//
 // Bound on an H100 (3.35 TB/s HBM3, 700 W part): the larger of the bytes
 // (each input byte read once: 13.8 us for a 256x256x176 f32 volume) and the
 // chain of nsteps dependent f32 adds that the contract fixes (11,264 at ~4
@@ -61,13 +69,9 @@ constexpr int kBlocksPerSM = 4;
 // step sums a fold piece holds; two pieces in shared memory
 constexpr int kPiece = 2048;
 // qa_kernel's shared memory, in words: per-warp partials, the last-block
-// flag, then the fold's two pieces (16-byte aligned), or one piece of the
-// row's nsteps where they fit in one
+// flag, then the fold's two pieces (16-byte aligned)
 constexpr int kRedWords = 128;
-int qa_smem_bytes(int64_t nsteps) {
-  const int64_t piece = nsteps <= kPiece ? (nsteps + 3) / 4 * 4 : 2 * kPiece;
-  return static_cast<int>((kRedWords + piece) * 4);
-}
+constexpr int kQASmemBytes = (kRedWords + 2 * kPiece) * 4;
 
 // value dtype codes, mirrored by _DTYPE_CODES in checksum.py
 enum DType : int { F32 = 0, F16 = 1, BF16 = 2, I8 = 3, U8 = 4, I16 = 5,
@@ -726,8 +730,7 @@ int launch_qa(const void* data, int64_t row_stride, int64_t row_bytes,
   QAKernel kernel = pick_kernel(16 / itemsize, static_cast<int>(
       blk_v / (32 * (16 / itemsize))));
   kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(G)),
-           kThreads, qa_smem_bytes(nsteps),
-           static_cast<cudaStream_t>(stream)>>>(a);
+           kThreads, kQASmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -748,10 +751,7 @@ int64_t repro_qa_scratch_bytes(int64_t G, int64_t nsteps) {
 // Words of the ticket buffer that K1 and K2 take for G rows: zero before
 // the first call, and every call leaves it zero. Calls that may run at
 // once (other streams) need buffers of their own.
-int64_t repro_qa_sync_words(int64_t G, int64_t nsteps) {
-  (void)nsteps;
-  return G;
-}
+int64_t repro_qa_sync_words(int64_t G) { return G; }
 
 // K1: G rows of `row_bytes` bytes each, `row_stride` apart; nv values and nw
 // words per row. Outputs uint32 (G,2), f32 (G,3), int32 (G,1).

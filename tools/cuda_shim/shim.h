@@ -2,8 +2,7 @@
 // one std::thread per CUDA thread, the blocks one after another. It stands
 // in for what the kernels use: 3-D grids (blockIdx, blockDim, gridDim), __syncthreads, warp shuffles,
 // votes and __syncwarp, float2, float4, uint2, uint4, bf16 and f16
-// conversions, atomics on u32 (atomicAdd, atomicExch, atomicCAS),
-// __threadfence,
+// conversions, atomics on u32 (atomicAdd, atomicCAS), __threadfence,
 // __ldcg, the device's SM count (2 here), and the
 // inline PTX statements of flash_attention.cu, mamba2_ssd.cu and rwkv6.cu
 // (the functions between their "ptx:begin" and "ptx:end" lines, which
@@ -192,9 +191,6 @@ template <typename T> inline T __ldcg(const T* p) { return *p; }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return std::atomic_ref<unsigned>(*p).fetch_add(v);
-}
-inline unsigned atomicExch(unsigned* p, unsigned v) {
-  return std::atomic_ref<unsigned>(*p).exchange(v);
 }
 inline unsigned atomicCAS(unsigned* p, unsigned cmp, unsigned v) {
   std::atomic_ref<unsigned>(*p).compare_exchange_strong(cmp, v);

@@ -11,8 +11,10 @@ CUDA source with the C functions ``repro_qa_checksum`` and
 ``repro_qa_chunk``, for example an earlier commit's ``checksum.cu`` (``git
 show REV:src/repro_torch/kernels/checksum/csrc/checksum.cu``), built with
 the port's nvcc flags (``kernels/_build.py``) beside the committed source.
-A source without ``repro_qa_scratch_bytes`` is called with the two-kernel
-interface of PRs 11-17 (a scratch of 6 words a step, no ticket buffer).
+A source without ``repro_qa_scratch_bytes`` is called with the first
+versions' two-kernel interface (a scratch of 6 words a step, no ticket
+buffer; ``git show 6eefe20:src/repro_torch/kernels/checksum/csrc/
+checksum.cu``).
 Before it is timed, every version must agree bit for bit with the plain
 versions (``checksum.qa_checksum_batched_plain``,
 ``qa_checksum_chunk_plain``; min/max by value) on every dtype (raw bit
@@ -50,8 +52,8 @@ BLK_V = 1024
 
 
 class TwoKernelCall:
-    """Caller of the PRs 11-17 interface: K1/K2 take a scratch of 6 words
-    a step and no ticket buffer."""
+    """Caller of the first versions' interface: K1/K2 take a scratch of 6
+    words a step and no ticket buffer."""
 
     def __init__(self, lib):
         from repro_torch.kernels.checksum.checksum import _SIGNATURES
@@ -173,7 +175,8 @@ def check_version(name, call, stream):
 CHAIN_WAYS = ("the fold's: float4 batches of 16 in turn, loads unbranched",
               "one float read an add, unrolled 32",
               "float4 batches of 32 in turn, loads behind a branch",
-              "warp shuffles", "a register (the add's latency)")
+              "warp shuffles", "a register (the add's latency)",
+              "float4 batches of 32 a batch ahead behind a branch, moved")
 
 
 def measure_chain(lib, stream):

@@ -16,6 +16,8 @@
 //   3  warp 0, each lane holding a float, lane 0 adding the lanes' floats
 //      in order through __shfl_sync
 //   4  thread 0, one value held in a register (the add's own latency)
+//   5  thread 0, float4 reads of 32 a batch ahead behind a branch, then
+//      moved into the batch being added (ptxas issues them after the adds)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -101,6 +103,18 @@ __global__ void fadd_chain_kernel(const float* in, int n, int reps,
           for (int j = 0; j < 32; ++j)
             acc += __shfl_sync(0xffffffffu, v[u], j);
       }
+    } else if (kVar == 5) {
+      float4 cur[8], nxt[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) cur[u] = s4[u];
+      for (int b = 0; b < nb; ++b) {
+        if (b + 1 < nb)
+#pragma unroll
+          for (int u = 0; u < 8; ++u) nxt[u] = s4[8 * (b + 1) + u];
+        acc = add_batch(acc, cur);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) cur[u] = nxt[u];
+      }
     } else {
       const float v = s[r & 31];
       for (int b = 0; b < nb; ++b)
@@ -127,12 +141,12 @@ const char* repro_error_string(int err) {
 int repro_fadd_chain(const void* in, int n, int reps, int variant, void* out,
                      void* stream) {
   if (n < 256 || n % 256 != 0 || n > 12288 || reps < 1 || variant < 0 ||
-      variant > 4)
+      variant > 5)
     return static_cast<int>(cudaErrorInvalidValue);
   void (*k)(const float*, int, int, double*) =
       variant == 0 ? fadd_chain_kernel<0> : variant == 1 ? fadd_chain_kernel<1>
-      : variant == 2 ? fadd_chain_kernel<2> : variant == 3
-      ? fadd_chain_kernel<3> : fadd_chain_kernel<4>;
+      : variant == 2 ? fadd_chain_kernel<2> : variant == 3 ? fadd_chain_kernel<3>
+      : variant == 4 ? fadd_chain_kernel<4> : fadd_chain_kernel<5>;
   k<<<1, 256, n * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), n, reps, static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
