@@ -69,14 +69,15 @@ _SIGNATURES = {
                           _I64, _P, _P, _P, _P, _P, _P],
     "repro_qa_chunk": [_P, _I64, _INT, _INT, _I64, _I64, _I64, _I64, _I64,
                        _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "repro_device_checksum": [_P, _I64, _P, _P],
+    "repro_device_checksum": [_P, _I64, _P, _P, _P, _P],
+    "repro_device_checksum_scratch_bytes": [_I64],
     "repro_qa_scratch_bytes": [_I64, _I64],
     "repro_qa_sync_words": [_I64],
 }
 
-# (device, stream) -> its zeroed ticket buffer (int32), which every K1/K2
-# call leaves zero; calls on other streams may run at once, so each stream
-# has its own
+# (device, stream) -> its zeroed ticket buffer (int32), which every K1, K2
+# and K3 call leaves zero; calls on other streams may run at once, so each
+# stream has its own
 _SYNC: Dict[Tuple[str, Optional[int]], torch.Tensor] = {}
 
 
@@ -112,11 +113,11 @@ def _sync_buffer(device: torch.device, stream: Optional[int],
     return buf
 
 
-def _scratch(lib, device, G: int, nsteps: int, sync, stream):
-    """The scratch (from ``torch.empty``) and ticket buffer of one K1/K2
-    call: ``sync`` as given (zeroed, left zero), or this stream's own."""
-    scratch = torch.empty(_fn(lib, "repro_qa_scratch_bytes")(G, nsteps),
-                          dtype=torch.uint8, device=device)
+def _scratch(lib, device, nbytes: int, G: int, sync, stream):
+    """The scratch of ``nbytes`` (from ``torch.empty``) and the ticket
+    buffer for G rows of one call: ``sync`` as given (zeroed, left zero),
+    or this stream's own."""
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
     words = _fn(lib, "repro_qa_sync_words")(G)
     if sync is None:
         sync = _sync_buffer(device, stream, words)
@@ -140,7 +141,9 @@ def run_qa(lib: ctypes.CDLL, vals: torch.Tensor, *, blk: int = 1024,
     out = (torch.empty((G, 2), dtype=torch.int32, device=vals.device),
            torch.empty((G, 3), dtype=torch.float32, device=vals.device),
            torch.empty((G, 1), dtype=torch.int32, device=vals.device))
-    scratch, sync = _scratch(lib, vals.device, G, nsteps, sync, stream)
+    scratch, sync = _scratch(
+        lib, vals.device, _fn(lib, "repro_qa_scratch_bytes")(G, nsteps), G,
+        sync, stream)
     _call(lib, "repro_qa_checksum", vals.data_ptr(), nv * itemsize,
           nv * itemsize, _dtype_code(vals.dtype), itemsize, blk_v, nsteps, G,
           nw, nv, *(o.data_ptr() for o in out), scratch.data_ptr(),
@@ -158,7 +161,9 @@ def run_chunk(lib: ctypes.CDLL, data: torch.Tensor,
     :func:`run_qa`. Counts no launch."""
     w0, v0, nw, nv = (int(o) for o in off)
     out = tuple(torch.empty_like(c) for c in carry)
-    scratch, sync = _scratch(lib, data.device, 1, nblocks, sync, stream)
+    scratch, sync = _scratch(
+        lib, data.device, _fn(lib, "repro_qa_scratch_bytes")(1, nblocks), 1,
+        sync, stream)
     _call(lib, "repro_qa_chunk", data.data_ptr(), data.numel(),
           _dtype_code(dtype), dtype.itemsize, blk_v, nblocks, w0, v0, nw, nv,
           *(c.data_ptr() for c in carry), *(o.data_ptr() for o in out),
@@ -166,14 +171,21 @@ def run_chunk(lib: ctypes.CDLL, data: torch.Tensor,
     return out
 
 
-def run_device_checksum(lib: ctypes.CDLL, x: torch.Tensor,
+def run_device_checksum(lib: ctypes.CDLL, x: torch.Tensor, *,
+                        sync: Optional[torch.Tensor] = None,
                         stream=None) -> torch.Tensor:
-    """Call K3's ``repro_device_checksum`` of ``lib`` on ``x``'s bytes.
-    Counts no launch."""
+    """Call K3's ``repro_device_checksum`` of ``lib`` on ``x``'s bytes
+    (a contiguous tensor may start at any byte), one launch; the output
+    and scratch come from ``torch.empty``. ``sync`` and ``stream`` as for
+    :func:`run_qa`. Counts no launch."""
     b = x.contiguous().reshape(-1)
-    out = torch.zeros(2, dtype=torch.int32, device=x.device)
-    _call(lib, "repro_device_checksum", b.data_ptr(),
-          b.numel() * b.element_size(), out.data_ptr(), stream)
+    nbytes = b.numel() * b.element_size()
+    out = torch.empty(2, dtype=torch.int32, device=x.device)
+    scratch, sync = _scratch(
+        lib, x.device, _fn(lib, "repro_device_checksum_scratch_bytes")(nbytes),
+        1, sync, stream)
+    _call(lib, "repro_device_checksum", b.data_ptr(), nbytes, out.data_ptr(),
+          scratch.data_ptr(), sync.data_ptr(), stream)
     return out
 
 
@@ -321,7 +333,7 @@ def device_checksum(x: torch.Tensor) -> torch.Tensor:
     ``x``'s device (the reference's ``device_checksum``)."""
     if _placement(x) == "cpu":
         return device_checksum_plain(x)
-    out = run_device_checksum(_build.load("checksum"), x, _stream(x))
+    out = run_device_checksum(_build.load("checksum"), x, stream=_stream(x))
     LAUNCHES["device_checksum"] += 1
     return out
 

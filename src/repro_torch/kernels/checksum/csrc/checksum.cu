@@ -49,6 +49,27 @@
 // chain of nsteps dependent f32 adds that the contract fixes (11,264 at ~4
 // cycles: ~23 us at 1.98 GHz). The fold runs after the last step is read,
 // so this design takes about their sum.
+//
+// K3 (transfer_kernel) has only the two word sums, which are order-free, so
+// it is bound by the bytes alone (13.8 us for the same volume). It is one
+// launch a call on a persistent grid (SMs x kK3BlocksPerSM blocks): a warp
+// takes spans of 32 x kK3R 16-byte groups round the grid, lane l the
+// groups l + 32 r, all kK3R loads of a span issued before any is used (64
+// bytes a lane in flight), indices clamped and masked rather than branched
+// on. A lane's word positions come from one modulo at its start, advanced
+// by the grid's stride mod 65521 with a compare-and-subtract; a span that
+// does not wrap adds s2 += p S + sum_r (128 r S_r + w1 + 2 w2 + 3 w3), the
+// rest word by word. The groups are those of the data rounded down to 16
+// bytes: the words before the first whole group and after the last (at
+// most 8) go bytewise, so a start at any byte offset reads nothing before
+// its first byte and nothing past its last byte's 16-byte group; at a start
+// 1-3 bytes past a word boundary each word straddles two aligned ones and
+// is put together with a funnel shift, the next group's first word taken
+// from the next lane. Each block's partial goes to scratch, and the last
+// block to take a ticket (an acq_rel atomic, so no separate fence) adds
+// them up and resets the ticket. At a T1w's bytes it reads at ~3 TB/s and
+// spends ~1 us after its last read on the ticket and that sum (tools/
+// k12_ab.py; PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -114,30 +135,12 @@ __device__ __forceinline__ uint32_t word_pos(int64_t gw) {
                            : static_cast<uint32_t>(gw % kMPos);
 }
 
-struct AddU32 {
-  __device__ uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
-};
 struct MinF {
   __device__ float operator()(float a, float b) const { return b < a ? b : a; }
 };
 struct MaxF {
   __device__ float operator()(float a, float b) const { return b > a ? b : a; }
 };
-
-// Block-wide reduction with an associative, commutative op; the result is
-// valid in thread 0 only. `sh` holds kWarps values (shared memory).
-template <typename T, typename Op>
-__device__ __forceinline__ T block_reduce(T v, Op op, T* sh) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_down_sync(kFull, v, o));
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // `sh` may still be read by the previous reduction
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0)
-    for (int w = 1; w < kWarps; ++w) v = op(v, sh[w]);
-  return v;
-}
 
 // The order-free partials of one thread, a warp, a block or a row.
 struct Stats {
@@ -623,25 +626,199 @@ qa_kernel(const QAArgs a) {
   fold_row(a, g, B, smem);
 }
 
-// Transfer checksum: grid-stride over words, then one atomic add per block
-// (s1/s2 are sums mod 2^32, so the order of the atomics does not matter).
-__global__ void __launch_bounds__(kThreads)
-checksum_kernel(const uint8_t* __restrict__ data, int64_t nbytes, int64_t nw,
-                uint32_t* out) {
-  extern __shared__ uint32_t red_u[];
+// ---------------------------------------------------------------------------
+// K3: the transfer checksum alone
+// ---------------------------------------------------------------------------
+
+constexpr int kK3R = 4;              // 16-byte groups a lane a span
+constexpr int kK3Span = 32 * kK3R;   // groups a warp a span
+constexpr int kK3Threads = 256;
+constexpr int kK3Warps = kK3Threads / 32;
+// resident transfer_kernel blocks an SM that the grid is sized for (at
+// <= 64 registers a thread): 64 KB an SM in flight
+constexpr int kK3BlocksPerSM = 4;
+// block partials a thread of the last block loads at once
+constexpr int kK3Fold = 4;
+
+// ptx:begin -- K3's loads: read-only, not kept in L1 (each byte is read once)
+__device__ __forceinline__ uint4 load_stream16(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint32_t load_stream4(const void* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+// a ticket: the block's earlier writes released with it, and the writes
+// released with the tickets before it acquired
+__device__ __forceinline__ uint32_t ticket_acq_rel(uint32_t* p) {
+  uint32_t v;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// ptx:end
+
+struct K3Args {
+  const uint8_t* data;        // the first byte
+  const uint8_t* base;        // data rounded down to 16 bytes
+  int64_t nbytes, nw;         // bytes, and words (the last zero-padded)
+  int k;                      // data - base, 0..15
+  int64_t gh, gb;             // the body: 16-byte groups [gh, gb) of base
+  int64_t nh, wt;             // the bytewise words: [0, nh) and [wt, nw)
+  uint32_t pos_step;          // a lane's position step a span, mod 65521
+  uint32_t* part;             // (gridDim.x, 2) block partials
+  uint32_t* sync;             // the ticket: zero before and after a call
+  uint32_t* out;              // (s1, s2)
+};
+
+// kShift: the data starts 1-3 bytes past a word boundary (k % 4 != 0).
+// Group g's word c is data word 4 g + c - k / 4, at byte 16 g + 4 c + k % 4
+// of base.
+template <bool kShift>
+__global__ void __launch_bounds__(kK3Threads, kK3BlocksPerSM)
+transfer_kernel(const K3Args a) {
+  extern __shared__ uint32_t red3[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t s1 = 0, s2 = 0;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       j < nw; j += stride) {
-    const uint32_t w = load_word(data, j * 4, nbytes);
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kK3Threads +
+                    threadIdx.x;
+  const int64_t ntail = a.nw > a.wt ? a.nw - a.wt : 0;
+  if (t < a.nh + ntail) {                 // the head and tail words
+    const int64_t i = t < a.nh ? t : a.wt + (t - a.nh);
+    const uint32_t w = load_word(a.data, 4 * i, a.nbytes);
     s1 += w;
-    s2 += w * word_pos(j);
+    s2 += w * word_pos(i);
   }
-  s1 = block_reduce(s1, AddU32(), red_u);
-  s2 = block_reduce(s2, AddU32(), red_u);
+  const int q = a.k >> 2, sh = 8 * (a.k & 3);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kK3Warps * kK3Span;
+  const int64_t hi = kShift ? a.gb : a.gb - 1;   // the last group a load reads
+  int64_t b = a.gh + (static_cast<int64_t>(blockIdx.x) * kK3Warps + warp) *
+                         kK3Span;
+  uint32_t p = word_pos(4 * (b + lane) - q);
+  for (; b < a.gb; b += stride) {         // the warp's spans
+    uint4 x[kK3R];
+#pragma unroll
+    for (int r = 0; r < kK3R; ++r) {
+      const int64_t g = b + lane + 32 * r;
+      x[r] = load_stream16(a.base + 16 * (g < hi ? g : hi));
+    }
+    uint32_t nx = 0;                      // the first word after the span
+    if constexpr (kShift) {
+      const int64_t g = b + kK3Span;
+      nx = load_stream4(a.base + 16 * (g < a.gb ? g : a.gb));
+    }
+    // kShift: the first word of the group after each of the lane's: the
+    // next lane's (lane 31: lane 0's of the next r, or the one after the
+    // span)
+    uint32_t v[kK3R + 1];
+    if constexpr (kShift) {
+#pragma unroll
+      for (int r = 0; r < kK3R; ++r)
+        v[r] = __shfl_sync(kFull, x[r].x, (lane + 1) & 31);
+      v[kK3R] = nx;
+    }
+    uint32_t w[kK3R][4];
+#pragma unroll
+    for (int r = 0; r < kK3R; ++r) {
+      if constexpr (kShift) {
+        const uint32_t next = lane < 31 ? v[r] : v[r + 1];
+        w[r][0] = __funnelshift_r(x[r].x, x[r].y, sh);
+        w[r][1] = __funnelshift_r(x[r].y, x[r].z, sh);
+        w[r][2] = __funnelshift_r(x[r].z, x[r].w, sh);
+        w[r][3] = __funnelshift_r(x[r].w, next, sh);
+      } else {
+        w[r][0] = x[r].x;
+        w[r][1] = x[r].y;
+        w[r][2] = x[r].z;
+        w[r][3] = x[r].w;
+      }
+      const bool in = b + lane + 32 * r < a.gb;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[r][c] = in ? w[r][c] : 0u;
+    }
+    if (p + (128 * (kK3R - 1) + 3) < kMPos) {   // no position wraps
+      uint32_t S = 0, wc = 0;
+#pragma unroll
+      for (int r = 0; r < kK3R; ++r) {
+        const uint32_t sr = w[r][0] + w[r][1] + w[r][2] + w[r][3];
+        S += sr;
+        wc += 128u * r * sr + w[r][1] + 2u * w[r][2] + 3u * w[r][3];
+      }
+      s1 += S;
+      s2 += p * S + wc;
+    } else {
+#pragma unroll
+      for (int r = 0; r < kK3R; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          uint32_t pw = p + 128 * r + c;      // < 2 * 65521
+          pw = pw >= kMPos ? pw - kMPos : pw;
+          s1 += w[r][c];
+          s2 += w[r][c] * pw;
+        }
+    }
+    p += a.pos_step;
+    p = p >= kMPos ? p - kMPos : p;
+  }
+  // the block's partial to scratch, then a ticket; the last block adds
+  // every partial
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(kFull, s1, o);
+    s2 += __shfl_xor_sync(kFull, s2, o);
+  }
+  if (lane == 0) {
+    red3[2 * warp] = s1;
+    red3[2 * warp + 1] = s2;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
-    atomicAdd(&out[0], s1);
-    atomicAdd(&out[1], s2);
+    for (int v = 1; v < kK3Warps; ++v) {
+      s1 += red3[2 * v];
+      s2 += red3[2 * v + 1];
+    }
+    a.part[2 * blockIdx.x] = s1;
+    a.part[2 * blockIdx.x + 1] = s2;
+    red3[2 * kK3Warps] = ticket_acq_rel(a.sync) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!red3[2 * kK3Warps]) return;
+  s1 = s2 = 0;
+  const int nb = static_cast<int>(gridDim.x);
+  for (int j0 = 0; j0 < nb; j0 += kK3Fold * kK3Threads) {
+    uint2 v[kK3Fold];                     // loads in flight together
+#pragma unroll
+    for (int u = 0; u < kK3Fold; ++u) {
+      const int j = j0 + u * kK3Threads + static_cast<int>(threadIdx.x);
+      v[u] = __ldcg(reinterpret_cast<const uint2*>(a.part) + (j < nb ? j : 0));
+      if (j >= nb) v[u] = make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kK3Fold; ++u) {
+      s1 += v[u].x;
+      s2 += v[u].y;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(kFull, s1, o);
+    s2 += __shfl_xor_sync(kFull, s2, o);
+  }
+  if (lane == 0) {
+    red3[2 * warp] = s1;
+    red3[2 * warp + 1] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int v = 1; v < kK3Warps; ++v) {
+      s1 += red3[2 * v];
+      s2 += red3[2 * v + 1];
+    }
+    a.out[0] = s1;
+    a.out[1] = s2;
+    *a.sync = 0;                          // the ticket, for the next call
   }
 }
 
@@ -677,14 +854,19 @@ QAKernel pick_kernel(int V, int r) {
   return qa_kernel<4, 0>;
 }
 
-// Blocks a row: enough for every SM, at most one a warp's step.
-int64_t blocks_per_row(int64_t G, int64_t nsteps, int64_t* spb) {
+int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess || sms < 1)
     sms = 1;
-  const int64_t want = (static_cast<int64_t>(sms) * kBlocksPerSM + G - 1) / G;
+  return sms;
+}
+
+// Blocks a row: enough for every SM, at most one a warp's step.
+int64_t blocks_per_row(int64_t G, int64_t nsteps, int64_t* spb) {
+  const int64_t want =
+      (static_cast<int64_t>(sm_count()) * kBlocksPerSM + G - 1) / G;
   int64_t b = (nsteps + kWarps - 1) / kWarps;
   if (b > want) b = want;
   int64_t s = (nsteps + b - 1) / b;
@@ -732,6 +914,15 @@ int launch_qa(const void* data, int64_t row_stride, int64_t row_bytes,
   kernel<<<dim3(static_cast<unsigned>(B), static_cast<unsigned>(G)),
            kThreads, kQASmemBytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3's grid: a block for every kK3Warps spans of the bytes, at most the
+// blocks that are resident at once.
+int64_t k3_blocks(int64_t nbytes) {
+  const int64_t per = static_cast<int64_t>(kK3Warps) * kK3Span;
+  const int64_t most = static_cast<int64_t>(sm_count()) * kK3BlocksPerSM;
+  const int64_t b = (nbytes / 16 + per - 1) / per;
+  return b < 1 ? 1 : (b > most ? most : b);
 }
 
 }  // namespace
@@ -782,20 +973,44 @@ int repro_qa_chunk(const void* data, int64_t nbytes, int dtype, int itemsize,
                    out_qa, out_cnt, scratch, sync, stream);
 }
 
-// K3: s1/s2 over the words of `nbytes` bytes, added into out[2] (zeroed by
-// the caller).
+// Bytes of the scratch that K3 takes for `nbytes` bytes: a block's partial.
+int64_t repro_device_checksum_scratch_bytes(int64_t nbytes) {
+  return 8 * k3_blocks(nbytes);
+}
+
+// K3: s1/s2 over the words of the `nbytes` bytes at `data` (any alignment)
+// into out[2], in one launch. `sync`: a ticket buffer of
+// repro_qa_sync_words(1) words, zero before the call and left zero.
 int repro_device_checksum(const void* data, int64_t nbytes, void* out,
-                          void* stream) {
-  if (nbytes < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t nw = (nbytes + 3) / 4;
-  int64_t blocks = (nw + kThreads * 4 - 1) / (kThreads * 4);
-  if (blocks < 1) blocks = 1;
-  if (blocks > 4096) blocks = 4096;
-  checksum_kernel<<<static_cast<unsigned>(blocks), kThreads,
-                    kWarps * sizeof(uint32_t),
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(data), nbytes, nw,
-      static_cast<uint32_t*>(out));
+                          void* scratch, void* sync, void* stream) {
+  if (nbytes < 0 || sync == nullptr || scratch == nullptr || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K3Args a;
+  a.data = static_cast<const uint8_t*>(data);
+  a.k = static_cast<int>(reinterpret_cast<uintptr_t>(data) & 15);
+  a.base = a.data - a.k;
+  a.nbytes = nbytes;
+  a.nw = (nbytes + 3) / 4;
+  const int q = a.k >> 2, r = a.k & 3;
+  a.gh = a.k ? 1 : 0;
+  // the last group whose words lie wholly inside the bytes
+  a.gb = (a.k + nbytes - r) / 16;
+  if (a.gb < a.gh) a.gb = a.gh;
+  a.nh = 4 * a.gh - q < a.nw ? 4 * a.gh - q : a.nw;
+  a.wt = 4 * a.gb - q;
+  const int64_t blocks = k3_blocks(nbytes);
+  a.pos_step = static_cast<uint32_t>(4 * blocks * kK3Warps * kK3Span % kMPos);
+  a.part = static_cast<uint32_t*>(scratch);
+  a.sync = static_cast<uint32_t*>(sync);
+  a.out = static_cast<uint32_t*>(out);
+  if (r)
+    transfer_kernel<true><<<static_cast<unsigned>(blocks), kK3Threads,
+                            (2 * kK3Warps + 1) * sizeof(uint32_t),
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  else
+    transfer_kernel<false><<<static_cast<unsigned>(blocks), kK3Threads,
+                             (2 * kK3Warps + 1) * sizeof(uint32_t),
+                             static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -128,6 +128,20 @@ def test_device_checksum_matches_jax_and_oracle(shape, dtype):
                                                   interpret=True)))
 
 
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_device_checksum_at_byte_offsets(offset):
+    """A range that starts 1-15 bytes into a buffer (the CUDA kernel's
+    unaligned starts), at sizes around a 16-byte group and around 65,521
+    words (the first position wrap): the port == JAX == the oracle."""
+    buf = np.random.default_rng(offset).integers(0, 256, 262_160, np.uint8)
+    for n in (4099, 262_083, 262_087):
+        b = buf[offset:offset + n]
+        got = device_checksum(torch.from_numpy(buf)[offset:offset + n])
+        _same(got.numpy(), ref.device_checksum_ref(b))
+        _same(got.numpy(), np.asarray(jax_device_checksum(jnp.asarray(b),
+                                                          interpret=True)))
+
+
 def _feed(acc, data: bytes, chunk: int):
     for o in range(0, len(data), chunk):
         acc.update(data[o:o + chunk])

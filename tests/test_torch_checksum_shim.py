@@ -8,7 +8,11 @@ to 8 blocks). So the kernels' own logic runs here: the warp's halving
 tree in registers (in the lane, across lanes, inside a 16-byte group),
 the scalar path of unaligned rows and small steps, the word positions
 mod 65521, the masks of ragged steps, the per-row tickets and the last
-block's fold of the step sums in step order. What the shim cannot show
+block's fold of the step sums in step order; and K3's spans of 16-byte
+groups at every start offset (the bytewise head and tail words, the
+funnel-shifted words of a start 1-3 bytes past a word boundary), its
+positions advanced by compare-and-subtract across 65,521 words, and the
+last block's sum of the block partials. What the shim cannot show
 (that the card compiles the source, its memory model, and its speed) the
 card tests show: ``tests/test_torch_cuda.py`` with the ``cuda`` marker,
 on a GPU.
@@ -18,7 +22,8 @@ The C functions are called with CPU pointers through ``checksum.run_qa``,
 plain versions for CPU tensors). Tolerance: none. Sums, counts and the f32
 sum bit-exact, min/max equal by value, and the ticket buffer left zero.
 The broken copies of the source (one tree level's pairs, the fold's
-order, the ticket) must each fail these checks.
+order, the ticket; K3's wrap compare, its last block's sum, its tail's
+zero padding) must each fail these checks.
 """
 import ctypes
 import shutil
@@ -54,6 +59,16 @@ BROKEN = {
     # the last block but one folds the row
     "ticket off by one": ("== static_cast<unsigned>(B - 1)",
                           "== static_cast<unsigned>(B - 2)"),
+    # K3: a word at position 65,521 of a wrapping span is not taken to 0
+    "K3 wrap compare off by one": ("pw = pw >= kMPos ? pw - kMPos : pw;",
+                                   "pw = pw > kMPos ? pw - kMPos : pw;"),
+    # K3: the last block adds every partial but the last block's
+    "K3 last block skips a partial": (
+        "const int nb = static_cast<int>(gridDim.x);",
+        "const int nb = static_cast<int>(gridDim.x) - 1;"),
+    # K3: the bytes after the last one are read into the last word
+    "K3 tail not zero-padded": ("load_word(a.data, 4 * i, a.nbytes)",
+                                "load_word(a.data, 4 * i, a.nbytes + 3)"),
 }
 
 
@@ -222,12 +237,47 @@ def test_k2_chunks_fold_to_the_one_shot(lib, dtype):
     _same(one, ref.qa_checksum_batched_ref(x.numpy().reshape(1, -1)))
 
 
+def _k3(lib, x):
+    """K3 through the shim, with a fresh ticket buffer that must come back
+    zero; held against the plain version and the oracle."""
+    sync = torch.zeros(64, dtype=torch.int32)
+    got = ck.run_device_checksum(lib, x, sync=sync).numpy()
+    assert not sync.any(), sync
+    _same([got], [ck.device_checksum_plain(x).numpy()])
+    # the oracle on the bytes (numpy has no bfloat16)
+    _same([got], [ref.device_checksum_ref(
+        x.contiguous().view(torch.uint8).numpy())])
+
+
 @pytest.mark.parametrize("nbytes", [1, 3, 4, 4097, 1 << 18, 262_147])
 def test_k3_matches_plain_and_oracle(lib, nbytes):
-    b = _values((nbytes,), "uint8", seed=nbytes, raw=True)
-    got = ck.run_device_checksum(lib, b).numpy()
-    _same([got], [ck.device_checksum_plain(b).numpy()])
-    _same([got], [ref.device_checksum_ref(b.numpy())])
+    _k3(lib, _values((nbytes,), "uint8", seed=nbytes, raw=True))
+
+
+# sizes: none, sub-word, around a 16-byte group, the shim's grid stride
+# (8 blocks x 8 warps x 128 groups = 128 KiB) and 65,521 words (262,084
+# bytes: the first position wrap), and a tail after many wraps
+K3_SIZES = [0, 1, 3, 15, 16, 17, 33, 4099, 131_069, 131_072, 131_075,
+            262_080, 262_083, 262_084, 262_085, 262_088, 300_001]
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_k3_at_every_start(lib, offset):
+    """Starts 0-15 bytes into a 16-byte aligned buffer, so each of the
+    body's four alignments of words to groups shows, ragged sizes; the
+    bytes around the range are random, so a read past it shows."""
+    buf = _values((300_032,), "uint8", seed=offset, raw=True)
+    for n in K3_SIZES:
+        _k3(lib, buf[offset:offset + n])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_k3_every_dtype_view(lib, dtype):
+    """A tensor of each dtype, whole and from its second and fourth value
+    on (starts of 1-4 itemsizes: unaligned for 1- and 2-byte dtypes)."""
+    x = _values((70_001,), dtype, seed=5, raw=True)
+    for v in (x, x[1:], x[3:-2]):
+        _k3(lib, v)
 
 
 def test_a_block_past_the_tree_fails_to_launch(lib):
@@ -236,9 +286,10 @@ def test_a_block_past_the_tree_fails_to_launch(lib):
 
 
 def _fails(bad) -> bool:
-    """Whether a kernel fails any of the checks above on three inputs: one
+    """Whether a kernel fails any of the checks above on four inputs: one
     aligned f32 row (vector path, 8 groups a lane, several blocks), 3
-    unaligned f16 rows, and a chunk from a carry."""
+    unaligned f16 rows, a chunk from a carry, and K3 over 300,001 bytes at
+    three starts."""
     try:
         x = _values((1, 40_000), "float32", seed=1, raw=False)
         _same(_np(_qa(bad, x)), _np(ck.qa_checksum_batched_plain(x)))
@@ -253,6 +304,9 @@ def _fails(bad) -> bool:
         off = (1024, 1024, 9 * 1024, 9 * 1024)
         _same(_np(_chunk(bad, data, off, carry, **kw)),
               _np(ck.qa_checksum_chunk_plain(data, off, carry, **kw)))
+        buf = _values((300_032,), "uint8", seed=4, raw=True)
+        for offset in (0, 1, 6):         # K3: many blocks, wraps, a tail
+            _k3(bad, buf[offset:offset + 300_001])
     except AssertionError:
         return True
     return False

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.kernels.checksum import (ACCUMULATOR_DTYPES, LAUNCHES,
                                           QAChecksumAccumulator, QAStats,
-                                          device_checksum, qa_checksum,
+                                          device_checksum,
+                                          device_checksum_plain, qa_checksum,
                                           qa_checksum_batched,
                                           qa_checksum_chunk, qa_stats, ref,
                                           reset_launches)
@@ -182,6 +183,89 @@ def test_kernel_failure_raises(cuda):
     with pytest.raises(RuntimeError, match="failed to launch"):
         # a 32768-value block is past the kernel's shared-memory tree
         qa_checksum(torch.zeros(1 << 15, device=cuda), blk=1 << 15)
+
+
+# K3 at the bytes of a T1w (256x256x176 f32) and a DWI (96x96x60x65 f32)
+T1W_BYTES, DWI_BYTES = 256 * 256 * 176 * 4, 96 * 96 * 60 * 65 * 4
+K3_SIZES = (0, 1, 3, 15, 16, 17, 33, 4099, 262_083, 262_084, 262_088,
+            1_000_003, T1W_BYTES, T1W_BYTES + 7)
+
+
+@pytest.mark.parametrize("offset", range(16))
+def test_device_checksum_at_every_start(cuda, offset):
+    """K3 on ranges that start 0-15 bytes into a buffer (each of the
+    body's four alignments of words to 16-byte groups), at ragged sizes,
+    around 65,521 words and at a T1w's bytes."""
+    buf = _bytes(T1W_BYTES + 64, offset).to(cuda)
+    for n in K3_SIZES:
+        x = buf[offset:offset + n]
+        _equal([device_checksum(x)], [device_checksum_plain(x)])
+    assert LAUNCHES["device_checksum"] == len(K3_SIZES)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 6, 12])
+def test_device_checksum_at_a_dwi(cuda, offset):
+    buf = _bytes(DWI_BYTES + 16, offset).to(cuda)
+    for n in (DWI_BYTES, DWI_BYTES - 5):
+        x = buf[offset:offset + n]
+        _equal([device_checksum(x)], [device_checksum_plain(x)])
+
+
+def test_device_checksum_on_two_streams_at_once(cuda):
+    """K3 calls in flight on two streams take tickets of their own; one
+    stream's range starts a byte into its buffer."""
+    xs = [_bytes(20_000_003, s)[s:] for s in range(2)]
+    want = [device_checksum(x) for x in xs]
+    dev = [_bytes(20_000_003, s).to(cuda)[s:] for s in range(2)]
+    torch.cuda.synchronize()                 # the copies, before the streams
+    streams = [torch.cuda.Stream() for _ in xs]
+    got = [[], []]
+    for _ in range(8):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[k].append(device_checksum(dev[k]))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for g in got[k]:
+            _equal([g], [want[k]])
+
+
+def test_device_checksum_is_one_kernel_a_call(cuda):
+    """torch.profiler sees one CUDA kernel a call, K3's own: no fill or
+    copy of the output before it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = _bytes(10_000_001, 1).to(cuda)[3:]
+    device_checksum(x)
+    torch.cuda.synchronize()
+    for _ in range(3):    # a trace late in a long process may hold no device
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # event
+            for _ in range(4):
+                device_checksum(x)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 4 and all("transfer_kernel" in n for n in names), \
+        names
+
+
+def test_device_checksum_leaves_its_tickets_zero(cuda):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.checksum import checksum as ck
+    lib = _build.load("checksum")
+    buf = _bytes(T1W_BYTES + 16, 2).to(cuda)
+    sync = torch.zeros(64, dtype=torch.int32, device=cuda)
+    for n, o in ((0, 0), (5, 3), (1_000_003, 1), (T1W_BYTES, 4)):
+        x = buf[o:o + n]
+        got = ck.run_device_checksum(lib, x, sync=sync)
+        assert not sync.any(), sync
+        _equal([got], [device_checksum_plain(x)])
+    device_checksum(buf)                     # this stream's own buffer
+    torch.cuda.synchronize()
+    own = ck._SYNC[(str(buf.device), torch.cuda.current_stream().cuda_stream)]
+    assert not own.any(), own
 
 
 def _err(a, b):
