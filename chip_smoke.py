@@ -51,7 +51,9 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               check must fail.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
-              accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks.
+              accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
+              also at starts 1-13 bytes past a 16-byte boundary (a T1w's
+              bytes copied there must give the aligned volume's checksum).
               Bit-exact (min/max equal by value). K4 at (180,224 x 128) and
               (180,224 x 512) bf16, f32 and ragged shapes: bit-exact (the
               plain version keeps the kernel's sum order). K5 at the
@@ -80,7 +82,11 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               the port never calls. K5 also at the published width and at
               llama3.2-1b's prefill (4 x 2,000 tokens, H 32, KV 8, Dh 64),
               on contiguous (B,H,S,Dh) copies, and the card's clock and
-              power read while it runs.
+              power read while it runs. K4 also at each (rows, d) that
+              the serve phase's runs passed to it, with its launches
+              there, beside ``F.rms_norm``; K3 also at an unaligned start
+              and at a DWI. torch.profiler's device time of each CUDA
+              kernel of K1, K2 and K3 (one kernel a call).
               K1's and K2's bound is also held to the chain of one
               dependent f32 add a step that their bit-exact fold fixes
               (``qa_bound``; "bound_term" names the larger term).
@@ -537,6 +543,21 @@ def run(args, work: Path):
     t1 = torch.from_numpy(t1_np).cuda()
     payload = t1.view(torch.uint8).reshape(-1)
     n = t1.numel()
+    # K3 at starts 1-15 bytes past a 16-byte boundary (the T1w's bytes
+    # copied there: the same checksum as the aligned volume's), and on
+    # random bytes at unaligned starts and ragged ends
+    shifted = torch.empty(payload.numel() + 16, dtype=torch.uint8,
+                          device="cuda")
+    aligned = device_checksum(t1)
+    for o in (1, 2, 3, 4, 7, 13):
+        x = shifted[o:o + payload.numel()]
+        x.copy_(payload)
+        got = device_checksum(x)
+        hold("device_checksum", [got], [device_checksum_plain(x)])
+        hold("device_checksum", [got], [aligned])
+        x = bits[o:o + 4_000_003]
+        hold("device_checksum", [device_checksum(x)],
+             [device_checksum_plain(x)])
     one = QAStats.from_carry(*(t.cpu().numpy()[0] for t in
                                qa_checksum_batched_plain(t1.reshape(1, -1))))
     data = t1_np.tobytes()
@@ -594,15 +615,23 @@ def run(args, work: Path):
             f"{timing[name][1]} ms, bound {b_ms} ms ({b_by}"
             + (f"; bytes {bytes_ms} ms)" if bytes_ms else ")"))
     timing.update(time_rmsnorm_and_attention(timer, args.seed))
+    time_rmsnorm_serving(timer, args.seed, serve)
     timing.update(time_scans(timer, args.seed))
     dwi_ms = timer(lambda: qa_checksum_batched(dwi))
     b_dwi = qa_bound(dwi.numel(), 4, -(-dwi.numel() // BLK_V))
     log(f"time qa_checksum at DWI {DWI}: kernel {dwi_ms} ms, bound "
         f"{b_dwi[0]} ms ({b_dwi[1]}; bytes {b_dwi[2]} ms)")
-    for name in ("qa_checksum", "qa_checksum_chunk"):
+    k3_at = {"T1w bytes 1 past a 16-byte boundary": shifted[1:1 + n * 4],
+             "T1w bytes 4 past a 16-byte boundary": shifted[4:4 + n * 4],
+             f"DWI {DWI}": dwi}
+    for what, x in k3_at.items():
+        nbytes = x.numel() * x.element_size()
+        log(f"time device_checksum at {what}: kernel "
+            f"{timer(lambda: device_checksum(x))} ms, bound "
+            f"{_bound(nbytes + 8, nbytes)[0]} ms (bytes)")
+    for name in ("qa_checksum", "qa_checksum_chunk", "device_checksum"):
         log(f"profile {name} (us per launch by CUDA kernel; one kernel a "
-            f"call; {{}}: no device time in the trace): "
-            f"{profile_kernels(calls[name][0])}")
+            f"call): {profile_kernels(calls[name][0])}")
 
     # ingest split: kernel time = launches x median time at that shape
     n_dwi = sum(1 for r in qa_recs if r.source.endswith("_dwi.npz"))
@@ -840,6 +869,7 @@ def serve_phase(seed: int):
         toks, parts = _probed_serve_batch(arch, prompts, params)
         wall = time.perf_counter() - t0
         path = _counts()
+        k4_shapes = dict(_path_kernels()["rmsnorm"].LAUNCH_SHAPES)
         peak = torch.cuda.max_memory_allocated() / 1e9
         pre, dec = parts["prefill"], parts["decode"]
         check(toks.shape == (SERVE_BATCH, SERVE_NEW) and toks.min() >= 0
@@ -876,12 +906,14 @@ def serve_phase(seed: int):
         share["top_prefill_kernels_ms"] = [
             (k[:60], v / 1e3) for k, v in
             sorted(us.items(), key=lambda kv: -kv[1])[:6]]
-        out[arch] = {"launches": path, "prefill_s": pre["s"],
+        out[arch] = {"launches": path, "k4_shapes": k4_shapes,
+                     "prefill_s": pre["s"],
                      "decode_ms_per_token": 1e3 * dec["s"] / (SERVE_NEW - 1),
                      "wall_s": wall, "init_s": init_s, "peak_gb": peak}
         log(f"serve {arch} L{cfg.n_layers} d{cfg.d_model} bf16, "
             f"{SERVE_BATCH} x {SERVE_PROMPT} tokens + {SERVE_NEW} new: "
             f"serve_batch {wall} s (weights {init_s} s), launches {path}, "
+            f"K4 launches by (rows, d, scale dtype) {k4_shapes}, "
             f"peak {peak} GB; prefill {pre['s']} s, launches "
             f"{pre['launches']}; decode {1e3 * dec['s']} ms for "
             f"{SERVE_NEW - 1} steps ({out[arch]['decode_ms_per_token']} ms "
@@ -1343,6 +1375,42 @@ def time_rmsnorm_and_attention(timer, seed: int):
     return out
 
 
+def time_rmsnorm_serving(timer, seed: int, serve):
+    """K4 at each (rows, d) that the serve phase's ``serve_batch`` runs
+    passed to it, in bf16 with a bf16 scale as the models hold it: the
+    wrapper's call (which widens the scale to f32 first, a launch of its
+    own), the kernel alone (given an f32 scale), ``F.rms_norm`` (unused by
+    the port), the plain version, the bound, the device time by CUDA kernel
+    of the wrapper's call, and the launches at that shape in each
+    ``serve_batch`` run."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    shapes = sorted({(r, d) for v in serve.values()
+                     for r, d, _ in v["k4_shapes"]})
+    for rows, d in shapes:
+        x = torch.randn(rows, d, device="cuda", generator=g).to(torch.bfloat16)
+        sc32 = torch.rand(d, device="cuda", generator=g) + 0.5
+        sc = sc32.to(torch.bfloat16)
+        reps = 15 if rows * d > 1 << 20 else 50
+        ms = timer(lambda: rn.rmsnorm(x, sc), reps=reps)
+        alone = timer(lambda: rn.rmsnorm(x, sc32), reps=reps)
+        lib = timer(lambda: F.rms_norm(x, (d,), sc, 1e-5), reps=reps)
+        plain = timer(lambda: rn.rmsnorm_plain(x, sc), reps=3)
+        b_ms, b_by = _bound(2 * x.numel() * 2 + d * 2, 4 * x.numel())
+        launches = {arch: {dt: n for (r, dd, dt), n in v["k4_shapes"].items()
+                           if (r, dd) == (rows, d)}
+                    for arch, v in serve.items()}
+        us = profile_kernels(lambda: rn.rmsnorm(x, sc))
+        log(f"time rmsnorm at serving ({rows}, {d}) bf16, bf16 scale: "
+            f"wrapper {ms} ms, kernel alone (f32 scale) {alone} ms, "
+            f"F.rms_norm {lib} ms, plain {plain} ms, bound {b_ms} ms "
+            f"({b_by}); share of the bound {b_ms / alone}; launches per "
+            f"serve_batch by arch and scale dtype {launches}; the "
+            f"wrapper's call by CUDA kernel (us) {us}")
+
+
 def under_load(fn, n: int) -> str:
     """nvidia-smi's reading of the card while ``fn`` runs ``n`` times back
     to back (queued before the reading, waited for after it)."""
@@ -1360,31 +1428,45 @@ def under_load(fn, n: int) -> str:
 
 def profile_kernels(fn, reps=5):
     """Device time per launch of each CUDA kernel ``fn`` launches, from
-    torch.profiler (CUPTI); an empty dict if the trace holds no device
-    time."""
+    torch.profiler (CUPTI). Late in this script a session's trace at
+    times holds no device event at all, which a fresh process has not
+    shown; such a session is repeated, up to three sessions, and the
+    repeat logged with the events the empty trace did hold. An empty dict
+    if every session came back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return _device_us(prof, True)
+    tries = 3
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = _device_us(prof, True)
+        if not us:
+            held = sorted({e.name()[:40] for e in
+                           prof.profiler.kineto_results.events()})
+        if us or attempt + 1 == tries:
+            if attempt or not us:
+                log(f"profile: {attempt + (not us)} session(s) of "
+                    f"{attempt + 1} held no device event (the last empty "
+                    f"one held {held})")
+            return us
 
 
 def _device_us(prof, per_launch: bool):
-    """Device time (us) by CUDA kernel in a torch.profiler trace: per
-    launch, or in all."""
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0.0)
-        if us and e.count:
-            name = e.key.replace("(anonymous namespace)::", "")
-            key = name.split("(")[0]
-            out[key] = out.get(key, 0.0) + (us / e.count if per_launch
-                                            else us)
-    return out
+    """Device time (us) by CUDA kernel in a torch.profiler trace, per
+    launch or in all, summed over the trace's device events."""
+    from torch.autograd import DeviceType
+    total, count = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        key = e.name().replace("(anonymous namespace)::", "").split("(")[0]
+        total[key] = total.get(key, 0.0) + e.duration_ns() / 1e3
+        count[key] = count.get(key, 0) + 1
+    return {k: v / count[k] if per_launch else v for k, v in total.items()}
 
 
 if __name__ == "__main__":

@@ -1,3 +1,5 @@
-from .rmsnorm import LAUNCHES, reset_launches, rmsnorm, rmsnorm_plain
+from .rmsnorm import (LAUNCH_SHAPES, LAUNCHES, reset_launches, rmsnorm,
+                      rmsnorm_plain)
 
-__all__ = ["LAUNCHES", "reset_launches", "rmsnorm", "rmsnorm_plain"]
+__all__ = ["LAUNCH_SHAPES", "LAUNCHES", "reset_launches", "rmsnorm",
+           "rmsnorm_plain"]

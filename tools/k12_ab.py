@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's fused QA + checksum kernels (K1 ``repro_qa_checksum``
-and K2 ``repro_qa_chunk``, ``checksum.cu``) against other versions of
-their source, in one process on one GPU, in alternating rounds.
+and K2 ``repro_qa_chunk``, ``checksum.cu``) and its transfer checksum (K3
+``repro_device_checksum``) against other versions of their source, in one
+process on one GPU, in alternating rounds.
 
     python3 tools/k12_ab.py [--variant NAME=PATH ...] [--unchecked NAME=PATH ...]
                             [--rounds 6] [--reps 15]
@@ -14,17 +15,22 @@ the port's nvcc flags (``kernels/_build.py``) beside the committed source.
 A source without ``repro_qa_scratch_bytes`` is called with the first
 versions' two-kernel interface (a scratch of 6 words a step, no ticket
 buffer; ``git show 6eefe20:src/repro_torch/kernels/checksum/csrc/
-checksum.cu``).
+checksum.cu``), and one without ``repro_device_checksum_scratch_bytes``
+with the first K3's interface (an output zeroed by ``torch.zeros``, then
+the kernel: two launches a call; ``git show f6b9811:...``).
 Before it is timed, every version must agree bit for bit with the plain
 versions (``checksum.qa_checksum_batched_plain``,
 ``qa_checksum_chunk_plain``; min/max by value) on every dtype (raw bit
 patterns and normal floats), steps of 8 to 4,096 values, unaligned rows
-and ragged last steps, and chunks from a carry; an ``--unchecked`` one is
-a diagnostic (a copy with part of its work taken out) and is timed
-without the check. Three shapes of the main path are timed: K1 on one
-T1w (256x256x176 f32, 11,264 steps of 1,024), K1 on one DWI (96x96x60x65
-f32, 35,100 steps), K2 on one 4 MiB chunk (1,024 steps) from a carry 3
-MiB into a T1w. Each round times every version once at each shape (the
+and ragged last steps, and chunks from a carry, and K3 with
+``device_checksum_plain`` at starts 0-15 bytes into a buffer and ragged
+sizes up to a T1w's bytes; an ``--unchecked`` one is a diagnostic (a copy
+with part of its work taken out) and is timed without the check. Three
+shapes of the main path are timed: K1 on one T1w (256x256x176 f32, 11,264
+steps of 1,024), K1 on one DWI (96x96x60x65 f32, 35,100 steps), K2 on one
+4 MiB chunk (1,024 steps) from a carry 3 MiB into a T1w; and K3 on a T1w's
+bytes (aligned, and 1 byte past a 16-byte boundary) and a DWI's. Each
+round times every version once at each shape (the
 median of ``--reps`` runs, CUDA events, L2 flushed, ``chip_smoke.Timer``),
 in turn forward and backward. Prints the card's name and power limit,
 each version's ptxas lines, its device time per CUDA kernel
@@ -99,6 +105,25 @@ class TwoKernelCall:
             scratch.data_ptr(), stream), "repro_qa_chunk")
         return out
 
+    def k3(self, x, stream=None):
+        return first_device_checksum(self.lib, x, stream)
+
+
+def first_device_checksum(lib, x, stream=None):
+    """The first K3 as its wrapper called it: the output zeroed by
+    ``torch.zeros`` (a fill kernel), then the kernel adding into it."""
+    import torch
+    f = lib.repro_device_checksum
+    f.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                  ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    b = x.contiguous().reshape(-1)
+    out = torch.zeros(2, dtype=torch.int32, device=x.device)
+    rc = f(b.data_ptr(), b.numel() * b.element_size(), out.data_ptr(), stream)
+    if rc:
+        raise RuntimeError(f"repro_device_checksum failed: CUDA error {rc}")
+    return out
+
 
 class OneKernelCall:
     """Caller of the committed interface (``checksum.run_qa``,
@@ -120,6 +145,12 @@ class OneKernelCall:
         return run_chunk(self.lib, data, off, carry, dtype=dtype,
                          blk_v=blk_v, nblocks=nblocks, sync=self.sync,
                          stream=stream)
+
+    def k3(self, x, stream=None):
+        from repro_torch.kernels.checksum.checksum import run_device_checksum
+        if not hasattr(self.lib, "repro_device_checksum_scratch_bytes"):
+            return first_device_checksum(self.lib, x, stream)
+        return run_device_checksum(self.lib, x, sync=self.sync, stream=stream)
 
 
 def _same(got, want, what):
@@ -168,6 +199,15 @@ def check_version(name, call, stream):
                                                 n, n), carry, **kw),
               f"{name} K2 head {head} nblocks {nb}")
         n_checks += 1
+    buf = torch.from_numpy(rng.integers(0, 256, n * 4 + 64,
+                                        np.uint8)).cuda()
+    for offset in range(16):
+        for nbytes in (0, 1, 3, 17, 4099, 262_083, 262_088, 1_000_003,
+                       n * 4, n * 4 + 5):
+            x = buf[offset:offset + nbytes]
+            _same([call.k3(x, stream=stream)], [ck.device_checksum_plain(x)],
+                  f"{name} K3 offset {offset} nbytes {nbytes}")
+            n_checks += 1
     print(f"{name}: bit-exact with the plain versions in {n_checks} checks",
           flush=True)
 
@@ -268,6 +308,12 @@ def main() -> int:
     chunk = payload[head * BLK_V * 4:(head + nb4) * BLK_V * 4]
     off = (head * BLK_V, head * BLK_V, n, n)
     kw = dict(dtype=torch.float32, blk_v=BLK_V, nblocks=nb4)
+    shifted = torch.empty(n * 4 + 16, dtype=torch.uint8, device="cuda")
+    shifted[1:1 + n * 4].copy_(payload)
+    dwi_bytes = dwi.view(torch.uint8).reshape(-1)
+    k3_bound = {m: chip_smoke._bound(m + 8, m)
+                + (m / chip_smoke.HBM_BYTES_PER_S * 1e3,)
+                for m in (n * 4, dwi_bytes.numel())}
     shapes = {
         "K1 T1w": (lambda c: c.qa(t1, stream=stream),
                    chip_smoke.qa_bound(n, 4, n // BLK_V)),
@@ -277,6 +323,12 @@ def main() -> int:
         "K2 4 MiB from a carry": (
             lambda c: c.chunk(chunk, off, carry, stream=stream, **kw),
             chip_smoke.qa_bound(nb4 * BLK_V, 4, nb4)),
+        "K3 T1w": (lambda c: c.k3(payload, stream=stream), k3_bound[n * 4]),
+        "K3 T1w 1 byte past a 16-byte boundary": (
+            lambda c: c.k3(shifted[1:1 + n * 4], stream=stream),
+            k3_bound[n * 4]),
+        "K3 DWI": (lambda c: c.k3(dwi_bytes, stream=stream),
+                   k3_bound[dwi_bytes.numel()]),
     }
     for shape, (fn, _) in shapes.items():
         for name, call in calls.items():
