@@ -579,7 +579,7 @@ def run(args, work: Path):
              qa_checksum_chunk(part, (head, head, n, n), carry, **kw),
              qa_checksum_chunk_plain(part, (head, head, n, n), carry, **kw))
     check(all(e == 0.0 for e in errs.values()), f"kernels disagree: {errs}")
-    errs["rmsnorm"] = check_rmsnorm(args.seed)
+    errs["rmsnorm"] = check_rmsnorm(args.seed, _k4_serving_shapes(serve))
     errs["flash_attention"] = check_attention(args.seed)[0]
     errs.update(check_scans(args.seed)[0])
     log(f"kernels vs plain, max abs err: {errs}")
@@ -771,20 +771,54 @@ def _want_launches(cfg):
     return L, 0, 0
 
 
+@contextlib.contextmanager
+def _k4_shapes_tallied(tally):
+    """K4's wrapper, where the port's modules hold it by name, wrapped so
+    that each of its launches adds one to ``tally[(rows, d, the scale's
+    dtype)]``."""
+    from repro_torch.kernels import rmsnorm as rn
+    real = rn.rmsnorm
+
+    def rmsnorm(x, scale, *args, **kw):
+        before = rn.LAUNCHES["rmsnorm"]
+        out = real(x, scale, *args, **kw)
+        if rn.LAUNCHES["rmsnorm"] > before:
+            d = x.shape[-1]
+            key = (x.numel() // d, d, str(scale.dtype).removeprefix("torch."))
+            tally[key] = tally.get(key, 0) + 1
+        return out
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch.")
+            and getattr(m, "rmsnorm", None) is real]
+    for m in mods:
+        m.rmsnorm = rmsnorm
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.rmsnorm = real
+
+
+def _k4_serving_shapes(serve):
+    """The (rows, d) at which the serve phase's runs launched K4."""
+    return sorted({(r, d) for v in serve.values() for r, d, _ in v["k4_shapes"]})
+
+
 def _probed_serve_batch(arch, prompts, params, profile=False):
     """One ``serve_batch`` run at the published config, probed from the
     inside: ``launch.serve``'s step factories are wrapped so that the card
     is synchronised and the clock read around the prefill, and from the
     first decode step to the end of the run, and K4-K7's launches counted
     in each part; with ``profile`` each part also runs under
-    torch.profiler. The counts are zeroed just before the run. Returns the
-    tokens and, per part, its seconds, launches, last logits and device
-    time by kernel (us)."""
+    torch.profiler, and K4's launches in the run are also counted by
+    (rows, d, the scale's dtype), under "k4_shapes". The counts are zeroed
+    just before the run. Returns the tokens and, per part, its seconds,
+    launches, last logits and device time by kernel (us)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as Profile
     from repro_torch.launch import serve as serve_mod
-    parts = {}
+    parts = {"k4_shapes": {}}
 
     def begin(part):
         torch.cuda.synchronize()
@@ -834,8 +868,11 @@ def _probed_serve_batch(arch, prompts, params, profile=False):
     serve_mod.make_prefill_step = prefill_factory
     serve_mod.make_decode_step = decode_factory
     try:
-        toks = serve_mod.serve_batch(arch, prompts, SERVE_NEW, reduced=False,
-                                     params=params, device="cuda")
+        with (_k4_shapes_tallied(parts["k4_shapes"]) if profile
+              else contextlib.nullcontext()):
+            toks = serve_mod.serve_batch(arch, prompts, SERVE_NEW,
+                                         reduced=False, params=params,
+                                         device="cuda")
     finally:
         serve_mod.make_prefill_step, serve_mod.make_decode_step = real
     end("decode")
@@ -869,7 +906,11 @@ def serve_phase(seed: int):
         toks, parts = _probed_serve_batch(arch, prompts, params)
         wall = time.perf_counter() - t0
         path = _counts()
-        k4_shapes = dict(_path_kernels()["rmsnorm"].LAUNCH_SHAPES)
+        # K4's launches by shape, from the profiled run (the same work)
+        k4_shapes = prof["k4_shapes"]
+        check(sum(k4_shapes.values()) == path["rmsnorm"],
+              f"{arch}: K4 launches by shape {k4_shapes}, in all "
+              f"{path['rmsnorm']}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         pre, dec = parts["prefill"], parts["decode"]
         check(toks.shape == (SERVE_BATCH, SERVE_NEW) and toks.min() >= 0
@@ -1181,10 +1222,12 @@ def time_scans(timer, seed: int):
     return out
 
 
-def check_rmsnorm(seed: int) -> float:
+def check_rmsnorm(seed: int, serving) -> float:
     """K4 against its plain version on the card, at the main path's shapes
-    and the reference's test shapes: bit-exact (the plain version keeps the
-    kernel's order of the sum of squares). Returns the max abs error."""
+    and the reference's test shapes, and at each (rows, d) of ``serving``
+    in bf16 with a bf16 and an f32 scale: bit-exact (the plain version
+    keeps the kernel's order of the sum of squares). Returns the max abs
+    error."""
     import torch
     from repro_torch.kernels import rmsnorm as rn
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
@@ -1196,6 +1239,13 @@ def check_rmsnorm(seed: int) -> float:
             sc = torch.rand(shape[-1], device="cuda", generator=g) + 0.5
             err = max(err, max_err([rn.rmsnorm(x, sc)],
                                    [rn.rmsnorm_plain(x, sc)]))
+    for rows, d in serving:
+        x = torch.randn(rows, d, device="cuda",
+                        generator=g).to(torch.bfloat16)
+        sc = torch.rand(d, device="cuda", generator=g) + 0.5
+        for s in (sc.to(torch.bfloat16), sc):
+            err = max(err, max_err([rn.rmsnorm(x, s)],
+                                   [rn.rmsnorm_plain(x, s)]))
     check(err == 0.0, f"rmsnorm kernel differs from its plain version: {err}")
     return err
 
@@ -1387,9 +1437,7 @@ def time_rmsnorm_serving(timer, seed: int, serve):
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
     g = torch.Generator(device="cuda").manual_seed(seed + 13)
-    shapes = sorted({(r, d) for v in serve.values()
-                     for r, d, _ in v["k4_shapes"]})
-    for rows, d in shapes:
+    for rows, d in _k4_serving_shapes(serve):
         x = torch.randn(rows, d, device="cuda", generator=g).to(torch.bfloat16)
         sc32 = torch.rand(d, device="cuda", generator=g) + 0.5
         sc = sc32.to(torch.bfloat16)
@@ -1456,17 +1504,17 @@ def profile_kernels(fn, reps=5):
 
 
 def _device_us(prof, per_launch: bool):
-    """Device time (us) by CUDA kernel in a torch.profiler trace, per
-    launch or in all, summed over the trace's device events."""
-    from torch.autograd import DeviceType
-    total, count = {}, {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue
-        key = e.name().replace("(anonymous namespace)::", "").split("(")[0]
-        total[key] = total.get(key, 0.0) + e.duration_ns() / 1e3
-        count[key] = count.get(key, 0) + 1
-    return {k: v / count[k] if per_launch else v for k, v in total.items()}
+    """Device time (us) by CUDA kernel in a torch.profiler trace: per
+    launch, or in all."""
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0)
+        if us and e.count:
+            name = e.key.replace("(anonymous namespace)::", "")
+            key = name.split("(")[0]
+            out[key] = out.get(key, 0.0) + (us / e.count if per_launch
+                                            else us)
+    return out
 
 
 if __name__ == "__main__":

@@ -61,11 +61,12 @@
 // does not wrap adds s2 += p S + sum_r (128 r S_r + w1 + 2 w2 + 3 w3), the
 // rest word by word. The groups are those of the data rounded down to 16
 // bytes: the words before the first whole group and after the last (at
-// most 8) go bytewise, so a start at any byte offset reads nothing before
-// its first byte and nothing past its last byte's 16-byte group; at a start
-// 1-3 bytes past a word boundary each word straddles two aligned ones and
-// is put together with a funnel shift, the next group's first word taken
-// from the next lane. Each block's partial goes to scratch, and the last
+// most 8) go bytewise, so a start at any word boundary reads nothing before
+// its first byte and nothing past its last byte's 16-byte group. A start
+// 1-3 bytes past a word boundary (each word straddling two aligned ones)
+// has no body: all its words go bytewise, round the grid, at a fraction of
+// the aligned rate; the port's callers hash whole tensors, which torch
+// allocates aligned. Each block's partial goes to scratch, and the last
 // block to take a ticket (an acq_rel atomic, so no separate fence) adds
 // them up and resets the ticket. At a T1w's bytes it reads at ~3 TB/s and
 // spends ~1 us after its last read on the ticket and that sum (tools/
@@ -647,11 +648,6 @@ __device__ __forceinline__ uint4 load_stream16(const void* p) {
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
   return v;
 }
-__device__ __forceinline__ uint32_t load_stream4(const void* p) {
-  uint32_t v;
-  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
 // a ticket: the block's earlier writes released with it, and the writes
 // released with the tickets before it acquired
 __device__ __forceinline__ uint32_t ticket_acq_rel(uint32_t* p) {
@@ -667,7 +663,8 @@ struct K3Args {
   const uint8_t* base;        // data rounded down to 16 bytes
   int64_t nbytes, nw;         // bytes, and words (the last zero-padded)
   int k;                      // data - base, 0..15
-  int64_t gh, gb;             // the body: 16-byte groups [gh, gb) of base
+  int64_t gh, gb;             // the body: 16-byte groups [gh, gb) of base;
+                              // none if data is not word-aligned
   int64_t nh, wt;             // the bytewise words: [0, nh) and [wt, nw)
   uint32_t pos_step;          // a lane's position step a span, mod 65521
   uint32_t* part;             // (gridDim.x, 2) block partials
@@ -675,27 +672,25 @@ struct K3Args {
   uint32_t* out;              // (s1, s2)
 };
 
-// kShift: the data starts 1-3 bytes past a word boundary (k % 4 != 0).
-// Group g's word c is data word 4 g + c - k / 4, at byte 16 g + 4 c + k % 4
-// of base.
-template <bool kShift>
+// Group g's word c is data word 4 g + c - k / 4 (k % 4 == 0 in the body).
 __global__ void __launch_bounds__(kK3Threads, kK3BlocksPerSM)
 transfer_kernel(const K3Args a) {
   extern __shared__ uint32_t red3[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t s1 = 0, s2 = 0;
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * kK3Threads +
-                    threadIdx.x;
   const int64_t ntail = a.nw > a.wt ? a.nw - a.wt : 0;
-  if (t < a.nh + ntail) {                 // the head and tail words
+  const int64_t nthr = static_cast<int64_t>(gridDim.x) * kK3Threads;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kK3Threads +
+                   threadIdx.x;
+       t < a.nh + ntail; t += nthr) {     // the bytewise words
     const int64_t i = t < a.nh ? t : a.wt + (t - a.nh);
     const uint32_t w = load_word(a.data, 4 * i, a.nbytes);
     s1 += w;
     s2 += w * word_pos(i);
   }
-  const int q = a.k >> 2, sh = 8 * (a.k & 3);
+  const int q = a.k >> 2;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kK3Warps * kK3Span;
-  const int64_t hi = kShift ? a.gb : a.gb - 1;   // the last group a load reads
+  const int64_t hi = a.gb - 1;            // the last group a load reads
   int64_t b = a.gh + (static_cast<int64_t>(blockIdx.x) * kK3Warps + warp) *
                          kK3Span;
   uint32_t p = word_pos(4 * (b + lane) - q);
@@ -706,36 +701,13 @@ transfer_kernel(const K3Args a) {
       const int64_t g = b + lane + 32 * r;
       x[r] = load_stream16(a.base + 16 * (g < hi ? g : hi));
     }
-    uint32_t nx = 0;                      // the first word after the span
-    if constexpr (kShift) {
-      const int64_t g = b + kK3Span;
-      nx = load_stream4(a.base + 16 * (g < a.gb ? g : a.gb));
-    }
-    // kShift: the first word of the group after each of the lane's: the
-    // next lane's (lane 31: lane 0's of the next r, or the one after the
-    // span)
-    uint32_t v[kK3R + 1];
-    if constexpr (kShift) {
-#pragma unroll
-      for (int r = 0; r < kK3R; ++r)
-        v[r] = __shfl_sync(kFull, x[r].x, (lane + 1) & 31);
-      v[kK3R] = nx;
-    }
     uint32_t w[kK3R][4];
 #pragma unroll
     for (int r = 0; r < kK3R; ++r) {
-      if constexpr (kShift) {
-        const uint32_t next = lane < 31 ? v[r] : v[r + 1];
-        w[r][0] = __funnelshift_r(x[r].x, x[r].y, sh);
-        w[r][1] = __funnelshift_r(x[r].y, x[r].z, sh);
-        w[r][2] = __funnelshift_r(x[r].z, x[r].w, sh);
-        w[r][3] = __funnelshift_r(x[r].w, next, sh);
-      } else {
-        w[r][0] = x[r].x;
-        w[r][1] = x[r].y;
-        w[r][2] = x[r].z;
-        w[r][3] = x[r].w;
-      }
+      w[r][0] = x[r].x;
+      w[r][1] = x[r].y;
+      w[r][2] = x[r].z;
+      w[r][3] = x[r].w;
       const bool in = b + lane + 32 * r < a.gb;
 #pragma unroll
       for (int c = 0; c < 4; ++c) w[r][c] = in ? w[r][c] : 0u;
@@ -991,26 +963,26 @@ int repro_device_checksum(const void* data, int64_t nbytes, void* out,
   a.base = a.data - a.k;
   a.nbytes = nbytes;
   a.nw = (nbytes + 3) / 4;
-  const int q = a.k >> 2, r = a.k & 3;
-  a.gh = a.k ? 1 : 0;
-  // the last group whose words lie wholly inside the bytes
-  a.gb = (a.k + nbytes - r) / 16;
-  if (a.gb < a.gh) a.gb = a.gh;
-  a.nh = 4 * a.gh - q < a.nw ? 4 * a.gh - q : a.nw;
-  a.wt = 4 * a.gb - q;
+  const int q = a.k >> 2;
+  if (a.k & 3) {                          // no body: every word bytewise
+    a.gh = a.gb = 0;
+    a.nh = a.wt = a.nw;
+  } else {
+    a.gh = a.k ? 1 : 0;
+    // the last group whose words lie wholly inside the bytes
+    a.gb = (a.k + nbytes) / 16;
+    if (a.gb < a.gh) a.gb = a.gh;
+    a.nh = 4 * a.gh - q < a.nw ? 4 * a.gh - q : a.nw;
+    a.wt = 4 * a.gb - q;
+  }
   const int64_t blocks = k3_blocks(nbytes);
   a.pos_step = static_cast<uint32_t>(4 * blocks * kK3Warps * kK3Span % kMPos);
   a.part = static_cast<uint32_t*>(scratch);
   a.sync = static_cast<uint32_t*>(sync);
   a.out = static_cast<uint32_t*>(out);
-  if (r)
-    transfer_kernel<true><<<static_cast<unsigned>(blocks), kK3Threads,
-                            (2 * kK3Warps + 1) * sizeof(uint32_t),
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  else
-    transfer_kernel<false><<<static_cast<unsigned>(blocks), kK3Threads,
-                             (2 * kK3Warps + 1) * sizeof(uint32_t),
-                             static_cast<cudaStream_t>(stream)>>>(a);
+  transfer_kernel<<<static_cast<unsigned>(blocks), kK3Threads,
+                     (2 * kK3Warps + 1) * sizeof(uint32_t),
+                     static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

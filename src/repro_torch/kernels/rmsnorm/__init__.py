@@ -1,5 +1,3 @@
-from .rmsnorm import (LAUNCH_SHAPES, LAUNCHES, reset_launches, rmsnorm,
-                      rmsnorm_plain)
+from .rmsnorm import LAUNCHES, reset_launches, rmsnorm, rmsnorm_plain
 
-__all__ = ["LAUNCH_SHAPES", "LAUNCHES", "reset_launches", "rmsnorm",
-           "rmsnorm_plain"]
+__all__ = ["LAUNCHES", "reset_launches", "rmsnorm", "rmsnorm_plain"]

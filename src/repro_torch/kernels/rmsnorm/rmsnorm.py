@@ -9,13 +9,12 @@ C++ in ``csrc/rmsnorm.cu`` (built by ``nvcc`` at first use,
 runs :func:`rmsnorm_plain` only for a CPU tensor.
 
 ``LAUNCHES["rmsnorm"]`` counts kernel launches (never plain-version runs),
-so a run can show that its main path went through the kernel;
-``LAUNCH_SHAPES`` splits the same count by (rows, d, the scale's dtype).
+so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
@@ -25,8 +24,6 @@ from .. import _build
 _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
-# (rows, d, the scale's dtype) -> kernel launches at that shape
-LAUNCH_SHAPES: Dict[Tuple[int, int, str], int] = {}
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
@@ -35,7 +32,6 @@ _ARGTYPES = [_P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
 
 def reset_launches():
     LAUNCHES["rmsnorm"] = 0
-    LAUNCH_SHAPES.clear()
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -98,6 +94,4 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
                       _DTYPE_CODES[x.dtype],
                       torch.cuda.current_stream(x.device).cuda_stream)
         LAUNCHES["rmsnorm"] += 1
-        key = (rows, D, str(scale.dtype).removeprefix("torch."))
-        LAUNCH_SHAPES[key] = LAUNCH_SHAPES.get(key, 0) + 1
     return out

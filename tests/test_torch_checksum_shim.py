@@ -9,8 +9,8 @@ tree in registers (in the lane, across lanes, inside a 16-byte group),
 the scalar path of unaligned rows and small steps, the word positions
 mod 65521, the masks of ragged steps, the per-row tickets and the last
 block's fold of the step sums in step order; and K3's spans of 16-byte
-groups at every start offset (the bytewise head and tail words, the
-funnel-shifted words of a start 1-3 bytes past a word boundary), its
+groups at every start offset (the bytewise head and tail words, and a
+start 1-3 bytes past a word boundary bytewise throughout), its
 positions advanced by compare-and-subtract across 65,521 words, and the
 last block's sum of the block partials. What the shim cannot show
 (that the card compiles the source, its memory model, and its speed) the
@@ -264,8 +264,9 @@ K3_SIZES = [0, 1, 3, 15, 16, 17, 33, 4099, 131_069, 131_072, 131_075,
 @pytest.mark.parametrize("offset", range(16))
 def test_k3_at_every_start(lib, offset):
     """Starts 0-15 bytes into a 16-byte aligned buffer, so each of the
-    body's four alignments of words to groups shows, ragged sizes; the
-    bytes around the range are random, so a read past it shows."""
+    body's four alignments of words to groups shows and the starts that
+    are not word-aligned, ragged sizes; the bytes around the range are
+    random, so a read past it shows."""
     buf = _values((300_032,), "uint8", seed=offset, raw=True)
     for n in K3_SIZES:
         _k3(lib, buf[offset:offset + n])

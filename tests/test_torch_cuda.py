@@ -194,8 +194,9 @@ K3_SIZES = (0, 1, 3, 15, 16, 17, 33, 4099, 262_083, 262_084, 262_088,
 @pytest.mark.parametrize("offset", range(16))
 def test_device_checksum_at_every_start(cuda, offset):
     """K3 on ranges that start 0-15 bytes into a buffer (each of the
-    body's four alignments of words to 16-byte groups), at ragged sizes,
-    around 65,521 words and at a T1w's bytes."""
+    body's four alignments of words to 16-byte groups, and the starts that
+    are not word-aligned), at ragged sizes, around 65,521 words and at a
+    T1w's bytes."""
     buf = _bytes(T1W_BYTES + 64, offset).to(cuda)
     for n in K3_SIZES:
         x = buf[offset:offset + n]
@@ -266,6 +267,17 @@ def test_device_checksum_leaves_its_tickets_zero(cuda):
     torch.cuda.synchronize()
     own = ck._SYNC[(str(buf.device), torch.cuda.current_stream().cuda_stream)]
     assert not own.any(), own
+
+
+@pytest.mark.parametrize("rows,d", [(8000, 2048), (8000, 4096), (4, 2048),
+                                    (4, 4096)])
+def test_rmsnorm_kernel_at_the_serving_shapes(cuda, rows, d):
+    """K4 at the (rows, d) of the served models' prefill and decode, in
+    bf16 with a bf16 scale as the models hold it."""
+    g = torch.Generator().manual_seed(d + rows)
+    x = torch.randn(rows, d, generator=g).to(torch.bfloat16).to(cuda)
+    s = (torch.rand(d, generator=g) + 0.5).to(torch.bfloat16).to(cuda)
+    assert torch.equal(rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s))
 
 
 def _err(a, b):

@@ -2,8 +2,8 @@
 // one std::thread per CUDA thread, the blocks one after another. It stands
 // in for what the kernels use: 3-D grids (blockIdx, blockDim, gridDim), __syncthreads, warp shuffles,
 // votes and __syncwarp, float2, float4, uint2, uint4, bf16 and f16
-// conversions, funnel shifts, atomics on u32 (atomicAdd, atomicCAS),
-// __threadfence, __ldcg, the device's SM count (2 here), and the
+// conversions, atomics on u32 (atomicAdd, atomicCAS), __threadfence,
+// __ldcg, the device's SM count (2 here), and the
 // inline PTX statements of checksum.cu, flash_attention.cu, mamba2_ssd.cu
 // and rwkv6.cu (the functions between their "ptx:begin" and "ptx:end"
 // lines, which build.py drops): streaming loads (alignment checked), an
@@ -186,10 +186,6 @@ inline float __half2float(__half h) {   // exact, subnormals, inf and NaN
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
 inline float __uint2float_rn(unsigned x) { return static_cast<float>(x); }
 inline int __popc(unsigned x) { return std::popcount(x); }
-// the low word of (hi:lo) >> (shift % 32)
-inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
-  return static_cast<unsigned>(((uint64_t(hi) << 32) | lo) >> (shift & 31));
-}
 inline int __clz(int x) { return std::countl_zero(static_cast<uint32_t>(x)); }
 
 // -- memory: loads past L1, fences, atomics (threads of a block run at once) --
@@ -201,13 +197,6 @@ inline uint4 load_stream16(const void* p) {
     std::abort();
   }
   uint4 v; std::memcpy(&v, p, 16); return v;
-}
-inline uint32_t load_stream4(const void* p) {
-  if (reinterpret_cast<uintptr_t>(p) % 4) {
-    std::fprintf(stderr, "shim: 4-byte load from a misaligned address\n");
-    std::abort();
-  }
-  uint32_t v; std::memcpy(&v, p, 4); return v;
 }
 inline uint32_t ticket_acq_rel(uint32_t* p) {   // atom.acq_rel.gpu.add 1
   std::atomic_thread_fence(std::memory_order_seq_cst);
@@ -264,19 +253,6 @@ T __shfl_down_sync(unsigned, T v, unsigned delta) {   // lanes >= 32 - delta kee
   __syncwarp();
   float r = lane + delta < 32 && t + delta < shim_blk->shfl.size()
                 ? shim_blk->shfl[t + delta] : f;
-  __syncwarp();
-  T out; std::memcpy(&out, &r, 4);
-  return out;
-}
-
-template <typename T>
-T __shfl_sync(unsigned, T v, int src) {   // the value of lane src % 32
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
-  float f; std::memcpy(&f, &v, 4);
-  const unsigned t = threadIdx.x, w = t / 32;
-  shim_blk->shfl[t] = f;
-  __syncwarp();
-  float r = shim_blk->shfl[w * 32 + unsigned(src) % 32];
   __syncwarp();
   T out; std::memcpy(&out, &r, 4);
   return out;
