@@ -55,8 +55,11 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               also at starts 1-13 bytes past a 16-byte boundary (a T1w's
               bytes copied there must give the aligned volume's checksum).
               Bit-exact (min/max equal by value). K4 at (180,224 x 128) and
-              (180,224 x 512) bf16, f32 and ragged shapes: bit-exact (the
-              plain version keeps the kernel's sum order). K5 at the
+              (180,224 x 512) bf16, f32 and ragged shapes, at the serving
+              shapes with a bf16 and an f32 scale, on both sides of its
+              layout threshold and on views 2 bytes past a 16-byte
+              boundary: bit-exact (the plain version keeps the kernel's
+              sum order). K5 at the
               slice's shapes over the full key length, on the first, a
               middle and the last query tile, with a flat and a peaked
               softmax; at the serving shapes (B 4, S 2,000, H 32, KV 8
@@ -84,7 +87,9 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               on contiguous (B,H,S,Dh) copies, and the card's clock and
               power read while it runs. K4 also at each (rows, d) that
               the serve phase's runs passed to it, with its launches
-              there, beside ``F.rms_norm``; K3 also at an unaligned start
+              there, beside ``F.rms_norm`` and an empty kernel's time, and
+              its wrapper's host time a call at 4 x 2,048; K3 also at an
+              unaligned start
               and at a DWI. torch.profiler's device time of each CUDA
               kernel of K1, K2 and K3 (one kernel a call).
               K1's and K2's bound is also held to the chain of one
@@ -1224,29 +1229,55 @@ def time_scans(timer, seed: int):
 
 def check_rmsnorm(seed: int, serving) -> float:
     """K4 against its plain version on the card, at the main path's shapes
-    and the reference's test shapes, and at each (rows, d) of ``serving``
-    in bf16 with a bf16 and an f32 scale: bit-exact (the plain version
-    keeps the kernel's order of the sum of squares). Returns the max abs
-    error."""
+    and the reference's test shapes; at each (rows, d) of ``serving`` in
+    bf16 with a bf16 and an f32 scale; on both sides of the rows where
+    ``repro_rmsnorm_plan`` turns from a row spread over a block to 32 (or
+    16) threads a row; and on views one value past a 16-byte boundary (x
+    and the scale: the scalar path). Bit-exact (the plain version keeps the
+    kernel's order of the sum of squares). Returns the max abs error."""
+    import importlib
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as rn
+    k4 = importlib.import_module("repro_torch.kernels.rmsnorm.rmsnorm")
+    lib = _build.load("rmsnorm")
     g = torch.Generator(device="cuda").manual_seed(seed + 3)
     err = 0.0
+
+    def hold(x, s):
+        nonlocal err
+        err = max(err, max_err([rn.rmsnorm(x, s)], [rn.rmsnorm_plain(x, s)]))
+
     for shape in ((TOKENS, 128), (TOKENS, 512), (8, 64, 128), (3, 100),
                   (512, 256), (1, 7)):
         for dt in (torch.bfloat16, torch.float32):
             x = torch.randn(shape, device="cuda", generator=g).to(dt)
-            sc = torch.rand(shape[-1], device="cuda", generator=g) + 0.5
-            err = max(err, max_err([rn.rmsnorm(x, sc)],
-                                   [rn.rmsnorm_plain(x, sc)]))
+            hold(x, torch.rand(shape[-1], device="cuda", generator=g) + 0.5)
+    thresholds = {}
+    for d in sorted({d for _, d in serving} | {128, 512}):
+        for dt in (torch.bfloat16, torch.float32):
+            lo = k4.threshold(lib, d, dt)
+            thresholds[(d, str(dt).removeprefix("torch."))] = lo
+            for rows in (max(lo - 1, 1), lo):
+                x = torch.randn(rows, d, device="cuda", generator=g).to(dt)
+                sc = torch.rand(d, device="cuda", generator=g) + 0.5
+                for s in (sc.to(torch.bfloat16), sc):
+                    hold(x, s)
     for rows, d in serving:
         x = torch.randn(rows, d, device="cuda",
                         generator=g).to(torch.bfloat16)
         sc = torch.rand(d, device="cuda", generator=g) + 0.5
         for s in (sc.to(torch.bfloat16), sc):
-            err = max(err, max_err([rn.rmsnorm(x, s)],
-                                   [rn.rmsnorm_plain(x, s)]))
+            hold(x, s)
+        buf = torch.randn(rows * d + 1, device="cuda", generator=g).to(
+            torch.bfloat16)
+        sbuf = (torch.rand(d + 1, device="cuda", generator=g) + 0.5).to(
+            torch.bfloat16)
+        hold(buf[1:].view(rows, d), sbuf[1:])   # 2 bytes past 16
     check(err == 0.0, f"rmsnorm kernel differs from its plain version: {err}")
+    log(f"rmsnorm vs plain: max abs err {err}; the fewest rows of the "
+        f"many-rows layout by (d, dtype), each held with one row fewer: "
+        f"{thresholds}")
     return err
 
 
@@ -1428,22 +1459,25 @@ def time_rmsnorm_and_attention(timer, seed: int):
 def time_rmsnorm_serving(timer, seed: int, serve):
     """K4 at each (rows, d) that the serve phase's ``serve_batch`` runs
     passed to it, in bf16 with a bf16 scale as the models hold it: the
-    wrapper's call (which widens the scale to f32 first, a launch of its
-    own), the kernel alone (given an f32 scale), ``F.rms_norm`` (unused by
-    the port), the plain version, the bound, the device time by CUDA kernel
-    of the wrapper's call, and the launches at that shape in each
-    ``serve_batch`` run."""
+    wrapper's call (one launch), ``F.rms_norm`` (unused by the port), the
+    plain version, the bound, the device time by CUDA kernel of the
+    wrapper's call, and the launches at that shape in each ``serve_batch``
+    run. Beside them, the same Timer's reading of an empty kernel
+    (``torch.cuda._sleep(0)``: the floor of a launch, which decode's shapes
+    sit on), and at decode's 4 x 2,048 the wrapper's host time a call (the
+    enqueue: ``perf_counter`` over 1,000 calls, then one synchronise)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rn
     g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    log(f"time an empty kernel (torch.cuda._sleep(0)), the same Timer: "
+        f"{timer(lambda: torch.cuda._sleep(0), reps=50)} ms")
     for rows, d in _k4_serving_shapes(serve):
         x = torch.randn(rows, d, device="cuda", generator=g).to(torch.bfloat16)
-        sc32 = torch.rand(d, device="cuda", generator=g) + 0.5
-        sc = sc32.to(torch.bfloat16)
+        sc = (torch.rand(d, device="cuda", generator=g) + 0.5).to(
+            torch.bfloat16)
         reps = 15 if rows * d > 1 << 20 else 50
         ms = timer(lambda: rn.rmsnorm(x, sc), reps=reps)
-        alone = timer(lambda: rn.rmsnorm(x, sc32), reps=reps)
         lib = timer(lambda: F.rms_norm(x, (d,), sc, 1e-5), reps=reps)
         plain = timer(lambda: rn.rmsnorm_plain(x, sc), reps=3)
         b_ms, b_by = _bound(2 * x.numel() * 2 + d * 2, 4 * x.numel())
@@ -1451,12 +1485,20 @@ def time_rmsnorm_serving(timer, seed: int, serve):
                            if (r, dd) == (rows, d)}
                     for arch, v in serve.items()}
         us = profile_kernels(lambda: rn.rmsnorm(x, sc))
+        host = ""
+        if (rows, d) == (4, 2048):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                rn.rmsnorm(x, sc)
+            host_us = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            host = f"; the wrapper's host time {host_us} us a call"
         log(f"time rmsnorm at serving ({rows}, {d}) bf16, bf16 scale: "
-            f"wrapper {ms} ms, kernel alone (f32 scale) {alone} ms, "
-            f"F.rms_norm {lib} ms, plain {plain} ms, bound {b_ms} ms "
-            f"({b_by}); share of the bound {b_ms / alone}; launches per "
-            f"serve_batch by arch and scale dtype {launches}; the "
-            f"wrapper's call by CUDA kernel (us) {us}")
+            f"wrapper {ms} ms, F.rms_norm {lib} ms, plain {plain} ms, bound "
+            f"{b_ms} ms ({b_by}); share of the bound {b_ms / ms}; launches "
+            f"per serve_batch by arch and scale dtype {launches}; the "
+            f"wrapper's call by CUDA kernel (us) {us}{host}")
 
 
 def under_load(fn, n: int) -> str:

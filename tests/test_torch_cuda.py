@@ -19,6 +19,8 @@ key tiles there. The chunk scans, the Mamba-2 SSD (K6) and the RWKV-6 WKV
 oracles: y, outputs and final states within 1e-4 relative to max(1,
 max|ref|), the bound the reference holds its own kernels to.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_ssd as k6
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import rwkv6 as k7
+
+# the module behind rn, for its C-call helpers (plan, run_kernel)
+k4 = importlib.import_module("repro_torch.kernels.rmsnorm.rmsnorm")
 
 pytestmark = pytest.mark.cuda
 
@@ -278,6 +283,93 @@ def test_rmsnorm_kernel_at_the_serving_shapes(cuda, rows, d):
     x = torch.randn(rows, d, generator=g).to(torch.bfloat16).to(cuda)
     s = (torch.rand(d, generator=g) + 0.5).to(torch.bfloat16).to(cuda)
     assert torch.equal(rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s))
+
+
+@pytest.mark.parametrize("d", [128, 512, 2048, 4096])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_at_its_layout_threshold(cuda, d, dtype):
+    """K4 on both sides of the rows where ``repro_rmsnorm_plan`` turns from
+    a row spread over a block to 32 (or 16) threads a row, with a bf16 and
+    an f32 scale: bit-exact with the plain version."""
+    from repro_torch.kernels import _build
+    lib = _build.load("rmsnorm")
+    at = k4.threshold(lib, d, dtype)
+    layouts = {k4.plan(lib, r, d, dtype) for r in (max(at - 1, 1), at)}
+    assert at == 1 or len(layouts) == 2, (at, layouts)
+    g = torch.Generator().manual_seed(d)
+    for rows in (max(at - 1, 1), at):
+        x = torch.randn(rows, d, generator=g).to(dtype).to(cuda)
+        s = torch.rand(d, generator=g) + 0.5
+        for sc in (s.to(torch.bfloat16), s):
+            assert torch.equal(rn.rmsnorm(x, sc.to(cuda)),
+                               rn.rmsnorm_plain(x, sc.to(cuda))), (rows, sc)
+
+
+@pytest.mark.parametrize("rows,d", [(4, 2048), (8000, 2048), (7, 100)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_kernel_on_a_misaligned_view(cuda, rows, d, dtype):
+    """A view one value into its storage (2 bytes past a 16-byte boundary
+    in bf16, 4 in f32), and a scale one value in: the scalar path, in the
+    same order."""
+    g = torch.Generator().manual_seed(rows)
+    buf = torch.randn(rows * d + 1, generator=g).to(dtype).to(cuda)
+    x = buf[1:].view(rows, d)
+    sbuf = (torch.rand(d + 1, generator=g) + 0.5).to(torch.bfloat16).to(cuda)
+    assert x.data_ptr() % 16 and sbuf[1:].data_ptr() % 16
+    for s in (sbuf[:d], sbuf[1:]):
+        assert torch.equal(rn.rmsnorm(x, s), rn.rmsnorm_plain(x, s))
+
+
+def test_rmsnorm_every_layout_on_the_card(cuda):
+    """Each layout the source takes, forced, at a few rows: 16 to 512
+    threads a row, one row a block or several."""
+    from repro_torch.kernels import _build
+    lib = _build.load("rmsnorm")
+    g = torch.Generator().manual_seed(5)
+    for d in (7, 100, 128, 512, 2048, 4096):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(37, d, generator=g).to(dtype).to(cuda)
+            s = (torch.rand(d, generator=g) + 0.5).to(cuda)
+            _, N = k4._padded_groups(d, dtype.itemsize)
+            for team in (16, 32, 64, 128, 256, 512):
+                if team * 16 < N:
+                    continue
+                for rpb in {max(1, 32 // team), max(1, 256 // team)}:
+                    got = k4.run_kernel(lib, x, s, layout=(team, rpb))
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, rn.rmsnorm_plain(x, s)), \
+                        (d, dtype, team, rpb)
+
+
+@pytest.mark.parametrize("rows", [4, 8000])
+def test_rmsnorm_is_one_kernel_a_call(cuda, rows):
+    """torch.profiler sees K4's kernel alone, at most once a call, with a
+    bf16 scale: the scale is not widened by a copy first. Late in a long
+    process a session may hold no device event, or (at decode's ~2 us
+    kernels, on an H100: 3 of 4 in each of three sessions) not all of
+    them: an empty session is repeated, up to three, and each session is
+    held to at most one event a call, every one K4's; the wrapper counts
+    one launch a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.randn(rows, 2048, device=cuda).to(torch.bfloat16)
+    s = (torch.rand(2048, device=cuda) + 0.5).to(torch.bfloat16)
+    rn.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        before = rn.LAUNCHES["rmsnorm"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                rn.rmsnorm(x, s)
+            torch.cuda.synchronize()
+        assert rn.LAUNCHES["rmsnorm"] - before == 4
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        assert len(names) <= 4 and all("rmsnorm_kernel" in n
+                                       for n in names), names
+        if names:
+            break
+    assert names
 
 
 def _err(a, b):

@@ -2,10 +2,11 @@
 // one std::thread per CUDA thread, the blocks one after another. It stands
 // in for what the kernels use: 3-D grids (blockIdx, blockDim, gridDim), __syncthreads, warp shuffles,
 // votes and __syncwarp, float2, float4, uint2, uint4, bf16 and f16
-// conversions, atomics on u32 (atomicAdd, atomicCAS), __threadfence,
+// conversions, f32 adds and multiplies rounded apart (__fadd_rn,
+// __fmul_rn), atomics on u32 (atomicAdd, atomicCAS), __threadfence,
 // __ldcg, the device's SM count (2 here), and the
-// inline PTX statements of checksum.cu, flash_attention.cu, mamba2_ssd.cu
-// and rwkv6.cu (the functions between their "ptx:begin" and "ptx:end"
+// inline PTX statements of checksum.cu, flash_attention.cu, mamba2_ssd.cu,
+// rwkv6.cu and rmsnorm.cu (the functions between their "ptx:begin" and "ptx:end"
 // lines, which build.py drops): streaming loads (alignment checked), an
 // acq_rel ticket, mbarriers
 // (arrivals and transaction bytes per phase), TMA box loads (bounds, zero
@@ -169,6 +170,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   return {static_cast<uint16_t>(u >> 16)};
 }
 inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(uint32_t(b.x) << 16); }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
   return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
@@ -184,6 +186,10 @@ inline float __half2float(__half h) {   // exact, subnormals, inf and NaN
   return sign ? -f : f;
 }
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
+// f32 products and sums rounded apart (build.py compiles with
+// -ffp-contract=off, so nothing fuses them)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __uint2float_rn(unsigned x) { return static_cast<float>(x); }
 inline int __popc(unsigned x) { return std::popcount(x); }
 inline int __clz(int x) { return std::countl_zero(static_cast<uint32_t>(x)); }
