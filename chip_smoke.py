@@ -49,6 +49,34 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               run within 1e-4 of each one's largest |value|; with a
               broken scan in place (each chunk from a zero state) that
               check must fail.
+ 5c. train  - LM training on the card. llama3.2-1b at its published
+              config (no cut: 16 layers, d 2,048, vocab 128,256, tied
+              embeddings): ``init_train_state`` from a seeded CPU
+              generator, f32 master weights, bf16 compute, remat on;
+              batches of 4 x 2,048 tokens from a ``DataPipeline`` over a
+              ``ShardedTokenSource`` synthesized from ``--seed``; five
+              ``make_train_step`` steps, K4-K7's launch counts zeroed just
+              before and reading 0 just after (training runs the
+              differentiable ops, never the kernels). The first loss within
+              0.5 of ln(128,256), every loss and grad_norm finite, every
+              grad_norm > 0, every parameter leaf changed by step 1; the
+              median step time, tokens/s and peak memory, and a sixth step
+              under torch.profiler for the card's busy share of a step.
+              ``CheckpointManager.save_async`` after step 3, then
+              ``restore_checkpoint``: every restored leaf bit-equal to the
+              saved one, and step 4 from the restored state within 1e-3 of
+              the uninterrupted step 4's loss. Then for each served family
+              at full width with the depth cut (``CUT_LAYERS``), f32, a
+              batch of 2 x 512 tokens: the cuda ``forward_train`` loss
+              within 1e-4 relative of the port's own CPU run from the same
+              params; its grad norm within 1e-4 relative, and each gradient
+              leaf within 1e-3 of its largest |value|, of an f64 run of the
+              same params, or, where the CPU's f32 gradient is itself
+              farther than that (rwkv6: f32 rounding in the backward of the
+              group norm over near-zero per-head outputs), no farther than
+              4 times the CPU's; with one layer's output detached that check
+              must fail. Last, K4-K7's wrappers called on cuda tensors that
+              require grad, under grad mode, must each raise.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -157,6 +185,16 @@ SERVE_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "llama3.2-1b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2000, 32
 CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6, "llama3.2-1b": 2}
 CUT_PROMPT = 300
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+PARITY_BATCH, PARITY_SEQ = 2, 512
+# training on the card against the port's own CPU run, f32: loss and grad
+# norm relative, each gradient leaf relative to its largest |value|
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# where the CPU's own f32 gradient is farther than that from the f64 one,
+# the card's may be this many times as far (two f32 roundings of one
+# ill-conditioned gradient; a lost gradient is 1.0 off)
+GRAD_NOISE = 4
 # K6/K7 against their plain versions and the sequential oracles: relative
 # to max(1, max|ref|), the bound the reference holds its kernels to
 SCAN_TOL = 1e-4
@@ -356,7 +394,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
-        kernels = run(args, work)
+        kernels = run(args, work, card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     check("jax" not in sys.modules and "repro" not in sys.modules,
@@ -370,7 +408,7 @@ def main() -> int:
     return 0
 
 
-def run(args, work: Path):
+def run(args, work: Path, card: str):
     import numpy as np
     import torch
     from repro_torch.core import (LocalRunner, builtin_pipelines,
@@ -522,6 +560,13 @@ def run(args, work: Path):
     serve = serve_phase(args.seed)
     cut_model_phase(args.seed)
     serve_s = time.perf_counter() - t0
+
+    # -- 5c. training: llama at its published config, checkpoints, parity ---
+    t0 = time.perf_counter()
+    train_phase(args.seed, work, card)
+    train_parity_phase(args.seed)
+    train_refusal_phase()
+    log(f"train phase: {time.perf_counter() - t0} s in all")
 
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -1054,6 +1099,289 @@ def cut_model_phase(seed: int):
             check(err_bad > 1e-4, f"{arch}: the prefill check passes a "
                   f"broken scan ({err_bad})")
     return out
+
+
+def _loss_and_grads(cfg, params, batch, dtype=None,
+                    detach_first_layer=False):
+    """``forward_train`` (remat on) in ``dtype`` (None: f32) and the
+    gradient of every leaf of ``params``, in the reference's order. With
+    ``detach_first_layer`` the first layer's output is detached (the
+    control: gradients before it are lost)."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.models import forward_train
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import rwkv6 as rwkv_mod
+    leaves = [t.detach().requires_grad_(True)
+              for t in tree_util.leaves(params)]
+    p = tree_util.unflatten_like(params, leaves)
+    # each stack's layer, as the stacks look it up
+    names = ((model_mod, "_txf_layer"), (rwkv_mod, "rwkv_block"),
+             (model_mod, "_hybrid_layer"))
+    real = {n: getattr(m, n) for m, n in names}
+    first = [detach_first_layer]
+
+    def detached(layer):
+        def run(*a, **kw):
+            out = layer(*a, **kw)
+            if first[0]:
+                first[0] = False
+                out = (out[0].detach(),) + tuple(out[1:])
+            return out
+        return run
+    for m, n in names:
+        setattr(m, n, detached(real[n]))
+    try:
+        loss, _ = forward_train(cfg, p, batch, dtype or torch.float32,
+                                remat=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        for m, n in names:
+            setattr(m, n, real[n])
+    return loss.detach(), list(grads)
+
+
+def train_phase(seed: int, work: Path, card: str):
+    """Phase 5c: llama3.2-1b trains TRAIN_STEPS steps at its published
+    config on the card; a checkpoint after step 3 restores bit-equal and
+    its step 4 gives the uninterrupted loss."""
+    import math
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, ShardedTokenSource
+    from repro_torch.train import (OptConfig, init_train_state,
+                                   make_train_step)
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH)
+    t0 = time.perf_counter()
+    params, opt_state = init_train_state(
+        cfg, torch.Generator().manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_util.leaves(params))
+    src = ShardedTokenSource.synthesize(
+        work / "tokens", n_shards=4, tokens_per_shard=1 << 16,
+        vocab_size=cfg.vocab_size, seed=seed)
+    pipe = DataPipeline(src, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+    step_fn = make_train_step(cfg, OptConfig(lr=3e-4, warmup_steps=2,
+                                             total_steps=100),
+                              torch.bfloat16, remat=True)
+    mgr = CheckpointManager(work / "ckpt", keep=1, digest=cfg.digest())
+    losses, norms, times, restored_loss, ckpt = [], [], [], None, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for s in range(TRAIN_STEPS):
+        batch = pipe.batch_at(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_p, new_o, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if s == 0:
+            same = [tree_util.path_key(pth) for (pth, a), b in zip(
+                tree_util.flatten_with_paths(params),
+                tree_util.leaves(new_p)) if torch.equal(a, b)]
+            check(not same, f"train: leaves unchanged by step 1: {same}")
+        params, opt_state = new_p, new_o
+        if s == 2:                          # after step 3
+            t0 = time.perf_counter()
+            state = {"params": params, "opt": opt_state}
+            mgr.save_async(3, state, extra={"loss": losses[-1]})
+            ckpt["copy_s"] = time.perf_counter() - t0
+            mgr.wait()
+            ckpt["save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            restored, step, extra = restore_checkpoint(work / "ckpt", state,
+                                                       device="cuda")
+            torch.cuda.synchronize()
+            ckpt["restore_s"] = time.perf_counter() - t0
+            ckpt["gb"] = sum(f.stat().st_size for f in
+                             (work / "ckpt" / "step_00000003").iterdir()) \
+                / 1e9
+            diff = [tree_util.path_key(pth) for (pth, a), b in zip(
+                tree_util.flatten_with_paths(state), tree_util.leaves(
+                    restored)) if a.dtype != b.dtype or not torch.equal(a, b)]
+            check(step == 3 and extra == {"loss": losses[-1]} and not diff,
+                  f"train: the checkpoint restored step {step}, extra "
+                  f"{extra}, leaves that differ {diff}")
+            _, _, m_r = step_fn(restored["params"], restored["opt"],
+                                pipe.batch_at(3))
+            restored_loss = float(m_r["loss"])
+            del restored, state, m_r
+            torch.cuda.synchronize()
+    path = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # a sixth step under torch.profiler: the card's busy share of a step
+    batch = pipe.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    us = _device_us(prof, False)
+    busy = sum(us.values()) / 1e6 / prof_s
+    top = [(k[:50], v / 1e3) for k, v in
+           sorted(us.items(), key=lambda kv: -kv[1])[:8]]
+    med = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"train {TRAIN_ARCH} L{cfg.n_layers} d{cfg.d_model} V"
+        f"{cfg.vocab_size} ({n_params} params) f32 master, bf16 compute, "
+        f"remat, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step s {times}, median "
+        f"{med} s, {tokens / med} tokens/s, peak {peak} GB "
+        f"(max_memory_allocated), weights {init_s} s; losses {losses}, "
+        f"grad norms {norms}; K4-K7 launches {path}; checkpoint of step 3 "
+        f"{ckpt['gb']} GB: host copy {ckpt['copy_s']} s, saved "
+        f"{ckpt['save_s']} s, restored {ckpt['restore_s']} s, step 4 from "
+        f"it {restored_loss} (uninterrupted {losses[3]}); a profiled step "
+        f"{prof_s} s, device busy {100 * busy} %, top kernels (ms) {top}; "
+        f"on {card}")
+    check(all(v == 0 for v in path.values()),
+          f"train: the steps launched kernels {path}")
+    check(all(math.isfinite(x) for x in losses + norms)
+          and all(x > 0 for x in norms),
+          f"train: losses {losses}, grad norms {norms}")
+    check(abs(losses[0] - math.log(cfg.vocab_size)) <= 0.5,
+          f"train: first loss {losses[0]}, ln V {math.log(cfg.vocab_size)}")
+    check(abs(restored_loss - losses[3]) <= 1e-3 * abs(losses[3]),
+          f"train: step 4 from the checkpoint {restored_loss}, "
+          f"uninterrupted {losses[3]}")
+    del params, opt_state, new_p, new_o, prof
+    shutil.rmtree(work / "ckpt")
+    torch.cuda.empty_cache()
+
+
+def train_parity_phase(seed: int):
+    """Phase 5c: ``forward_train``'s loss and gradients on the card against
+    the port's own CPU run, f32, at full width with the depth cut, and
+    against the f64 run of the same params (on the card: f64 needs no
+    tolerance between devices at this bound). A gradient leaf of the card
+    must be within TRAIN_GRAD_TOL of its largest |value| of the f64 one,
+    or, where the CPU's f32 gradient is itself farther than that,
+    no farther than GRAD_NOISE times the CPU's (the f32 rounding of an
+    ill-conditioned gradient: rwkv's per-head group norm over near-zero
+    outputs); the same for the grad norm at TRAIN_LOSS_TOL. With one
+    layer's output detached the check must fail."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    def norm(gs):
+        return float(torch.sqrt(sum(torch.sum(g.double().cpu() ** 2)
+                                    for g in gs)))
+
+    def leaf_errs(gs, want):
+        return [float((g.double().cpu() - w.cpu()).abs().max())
+                / max(float(w.abs().max()), 1e-300)
+                for g, w in zip(gs, want)]
+    for arch in SERVE_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=CUT_LAYERS[arch])
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(seed + 2),
+                            torch.float32, "cpu")
+        paths = [tree_util.path_key(q) for q, _ in
+                 tree_util.flatten_with_paths(p_cpu)]
+        toks = np.random.default_rng(seed + 9).integers(
+            0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ + 1))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        t0 = time.perf_counter()
+        cpu_loss, cpu = _loss_and_grads(cfg, p_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        params = _tree_to(p_cpu, "cuda")
+        _reset_counts()
+        t0 = time.perf_counter()
+        loss, got = _loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        path = _counts()
+        true_loss, true = _loss_and_grads(
+            cfg, tree_util.tree_map(torch.Tensor.double, params), batch,
+            torch.float64)
+        _, bad = _loss_and_grads(cfg, params, batch, detach_first_layer=True)
+        e_cpu, e_card = leaf_errs(cpu, true), leaf_errs(got, true)
+        e_bad = leaf_errs(bad, true)
+        bounds = [max(TRAIN_GRAD_TOL, GRAD_NOISE * e) for e in e_cpu]
+        n_true = norm(true)
+        n_cpu = abs(norm(cpu) - n_true) / n_true
+        n_card = abs(norm(got) - n_true) / n_true
+        n_bound = max(TRAIN_LOSS_TOL, GRAD_NOISE * n_cpu)
+        loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+        direct = leaf_errs(got, [g.double() for g in cpu])
+        worst = max(range(len(paths)), key=lambda i: e_card[i] / bounds[i])
+        log(f"train parity {arch} L{cfg.n_layers} d{cfg.d_model} f32, "
+            f"{PARITY_BATCH} x {PARITY_SEQ} tokens: loss cuda {float(loss)} "
+            f"cpu {float(cpu_loss)} f64 {float(true_loss)}, cuda vs cpu "
+            f"{loss_err} (bound {TRAIN_LOSS_TOL}); grad norm against the "
+            f"f64 one: cuda {n_card}, cpu {n_cpu} (bound {n_bound}); worst "
+            f"leaf against the f64 one, of its largest |value|: cuda "
+            f"{max(e_card)}, cpu {max(e_cpu)}; the nearest its bound "
+            f"{paths[worst]} cuda {e_card[worst]} cpu {e_cpu[worst]} "
+            f"(bound {bounds[worst]}); cuda vs cpu directly: worst leaf "
+            f"{max(direct)} ({paths[int(np.argmax(direct))]}); with the "
+            f"first layer's output detached: worst leaf {max(e_bad)} "
+            f"({paths[int(np.argmax(e_bad))]}); cuda {cuda_s} s, cpu {cpu_s}"
+            f" s; K4-K7 launches {path}")
+        check(loss_err <= TRAIN_LOSS_TOL,
+              f"{arch}: the card's loss differs from the CPU's by {loss_err}")
+        check(max(e_cpu) < 0.1 and n_cpu < 0.1,
+              f"{arch}: the CPU's f32 gradient is {max(e_cpu)} from the "
+              f"f64 one: the check cannot see a lost gradient")
+        check(all(e <= b for e, b in zip(e_card, bounds))
+              and n_card <= n_bound,
+              f"{arch}: the card's gradient: leaves over their bound "
+              f"{[(q, e, b) for q, e, b in zip(paths, e_card, bounds) if e > b]}"
+              f", grad norm {n_card} (bound {n_bound})")
+        check(any(e > b for e, b in zip(e_bad, bounds)),
+              f"{arch}: the gradient check passes a detached layer")
+        check(all(v == 0 for v in path.values()),
+              f"{arch}: forward_train launched kernels {path}")
+        del params, got, bad, true
+        torch.cuda.empty_cache()
+
+
+def train_refusal_phase():
+    """Phase 5c: K4-K7's wrappers refuse, on the card, an input that
+    requires grad under grad mode."""
+    import torch
+    k = _path_kernels()
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, device="cuda", generator=g)
+    calls = {
+        "rmsnorm": lambda a: k["rmsnorm"].rmsnorm(a(r(4, 64)), r(64)),
+        "flash_attention": lambda a: k["flash_attention"].flash_attention(
+            a(r(1, 4, 64, 64)), r(1, 2, 64, 64), r(1, 2, 64, 64)),
+        "ssd_chunked": lambda a: k["ssd_chunked"].ssd_chunked(
+            a(r(1, 2, 64, 64)), -r(1, 2, 64).abs(), r(1, 64, 64),
+            r(1, 64, 64), chunk=32),
+        "wkv6_chunked": lambda a: k["wkv6_chunked"].wkv6_chunked(
+            a(r(1, 2, 64, 64)), r(1, 2, 64, 64), r(1, 2, 64, 64),
+            -r(1, 2, 64, 64).abs() - 0.01, r(2, 64), chunk=32),
+    }
+    refused = {}
+    for name, call in calls.items():
+        with torch.no_grad():
+            call(lambda t: t.requires_grad_(True))     # launches
+        try:
+            call(lambda t: t.requires_grad_(True))
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "requires grad" in str(e)
+    torch.cuda.synchronize()
+    log(f"train refusal: K4-K7 on cuda inputs that require grad, under "
+        f"grad mode, raised {refused}")
+    check(all(refused.values()), f"kernels took inputs that require grad: "
+          f"{refused}")
 
 
 def _scan_rel(got, want) -> float:

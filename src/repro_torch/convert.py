@@ -35,11 +35,12 @@ def from_jax(tree: Any, device: DeviceLike = None) -> Any:
         return type(tree)(from_jax(v, dev) for v in tree)
     if isinstance(tree, np.ndarray) or (hasattr(tree, "__array__")
                                         and not isinstance(tree, np.generic)):
-        arr = np.ascontiguousarray(np.asarray(tree))
+        # a C-ordered copy that keeps a 0-d array 0-d
+        arr = np.array(np.asarray(tree), order="C", copy=True)
         if arr.dtype.name == "bfloat16":       # numpy holds it via ml_dtypes
-            return torch.from_numpy(arr.view(np.uint16).copy()) \
+            return torch.from_numpy(arr.view(np.uint16)) \
                 .view(torch.bfloat16).to(dev)
-        return torch.from_numpy(arr.copy()).to(dev)
+        return torch.from_numpy(arr).to(dev)
     return tree
 
 

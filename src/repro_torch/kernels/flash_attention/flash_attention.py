@@ -30,6 +30,7 @@ from typing import Dict, Optional
 import torch
 
 from .. import _build
+from .._nograd import refuse_grad
 
 NEG_INF = -1e30
 ATTN_CHUNK = 2048          # the reference's query chunk (models/layers.py)
@@ -126,6 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides with a dense last dim (e.g. transposed views of (B, S, H, Dh)).
     Query row i sits at position ``q_offset + i``. Returns (B, H, Sq, Dh)
     in q's dtype, laid out in memory like q."""
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,

@@ -14,7 +14,8 @@ kernel is CUDA C++ in ``csrc/mamba2_ssd.cu`` (built by ``nvcc`` at first
 use, ``kernels/_build.py``): four launches, the chunks in parallel, with
 their intermediates in a workspace allocated here. :func:`ssd_chunked`
 launches it for CUDA tensors and runs :func:`ssd_chunked_plain` only for
-CPU tensors. Unlike the
+CPU tensors; under grad mode it refuses, on either device, an input that
+requires grad (the kernel has no backward; ``kernels/_nograd.py``). Unlike the
 Pallas kernel, both start from a given state (``None``: zero) and return
 the final state, which prefill hands to decode; from a zero state ``y`` is
 the Pallas kernel's ``y``.
@@ -32,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._nograd import refuse_grad
 
 MAX_WIDTH = 64             # the kernel's largest dh and N
 
@@ -165,6 +167,7 @@ def ssd_chunked(x: torch.Tensor, lw: torch.Tensor, Bm: torch.Tensor,
     transposed views of the model's (B, S, H, dh)); f32 inputs are read in
     place. Returns y (B, H, S, dh) f32, laid out in memory like x where x
     is dense, and the final state (B, H, dh, N) f32."""
+    refuse_grad("ssd_chunked", x, lw, Bm, Cm, state)
     _check(x, lw, Bm, Cm, chunk, state)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, lw, Bm, Cm, chunk=chunk, state=state)

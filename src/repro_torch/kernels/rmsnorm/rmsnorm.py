@@ -7,7 +7,9 @@ Pallas kernel ``repro/kernels/rmsnorm/rmsnorm.py:12``). The kernel is CUDA
 C++ in ``csrc/rmsnorm.cu`` (built by ``nvcc`` at first use,
 ``kernels/_build.py``). :func:`rmsnorm` launches it for a CUDA tensor, once
 a call, with the scale in its own dtype, and runs :func:`rmsnorm_plain`
-only for a CPU tensor.
+only for a CPU tensor. The kernel has no backward: under grad mode the
+wrapper refuses, on either device, an input that requires grad
+(``kernels/_nograd.py``).
 
 ``LAUNCHES["rmsnorm"]`` counts kernel launches (never plain-version runs),
 so a run can show that its main path went through the kernel.
@@ -21,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._nograd import refuse_grad
 
 # x's and the scale's dtypes -> codes of csrc/rmsnorm.cu's DType enum
 _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
@@ -163,6 +166,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-5) -> torch.Tensor:
     """x: (..., D) float32 or bfloat16; scale: (D,) float32 or bfloat16.
     Returns x's shape and dtype on x's device."""
+    refuse_grad("rmsnorm", x, scale)
     _check(x, scale)
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
+from .._nograd import refuse_grad
 
 MAX_WIDTH = 64             # the kernel's largest dh
 
@@ -168,6 +169,7 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, S, H, dh)); r, k, v and an f32 logw are read in place. Returns out
     (B, H, S, dh) f32, laid out in memory like r where r is dense, and the
     final state (B, H, dh, dh) f32."""
+    refuse_grad("wkv6_chunked", r, k, v, logw, u, state)
     _check(r, k, v, logw, u, chunk, state)
     if r.device.type == "cpu":
         return wkv6_chunked_plain(r, k, v, logw, u, chunk=chunk, state=state)

@@ -5,8 +5,13 @@ The dense path of ``repro/models/layers.py``. Parameters are plain dicts of
 tensors in the reference's layout, so its weights carry over unchanged
 (``repro_torch.convert.from_jax``). ``rmsnorm`` and ``attention`` go through
 the port's kernels: K4 and K5 on a CUDA tensor, their plain versions on a
-CPU tensor. The reference's sharding constraints (``constrain*``) are the
-identity without a mesh and are dropped.
+CPU tensor. The kernels have no backward, so training runs
+``rmsnorm_train`` and ``attention_train`` instead: the reference's XLA
+``rmsnorm`` and ``attention`` (with ``_attend_block`` under
+``jax.checkpoint``) as torch ops under autograd, the reference's
+``jax.checkpoint`` (nothing saveable) being :func:`checkpointed`. The reference's
+sharding constraints (``constrain*``) are the identity without a mesh and
+are dropped.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # rmsnorm(x, scale, eps) is K4 and attention(q, k, v, *, causal, window,
 # q_offset) is K5 in the model's (B, S, H, Dh) layout. Unlike the
@@ -29,8 +35,98 @@ from ..kernels.flash_attention import flash_attention_op as attention
 from ..kernels.rmsnorm import rmsnorm
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
+           "rmsnorm_train", "attention_train", "checkpointed", "upcast",
            "decode_attention", "split_fused", "qkv_fusable", "attn_qkv",
            "attn_out", "mlp", "normal_init", "init_attn", "init_mlp"]
+
+
+# Query-chunk size of the training attention, the reference's ATTN_CHUNK
+ATTN_CHUNK = 2048
+
+
+# ---------------------------------------------------------------------------
+# the training path: the reference's XLA functions under autograd
+# ---------------------------------------------------------------------------
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32 (the reference's ``astype(float32)``), or in float64
+    if it is float64: a float64 forward, the f64 reference of a gradient
+    check, stays float64 throughout; bf16 and f32 take float32, as
+    before."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, its intermediates recomputed in backward rather than
+    saved: ``jax.checkpoint`` with nothing saveable. Nothing on the model's
+    path draws random numbers, so no RNG state is kept."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def rmsnorm_train(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """The reference's model rmsnorm (``repro/models/layers.py:46``): the
+    mean of squares accumulated in f32, ``r`` cast to x's dtype before the
+    multiply, ``(x * r) * scale`` in x's dtype."""
+    xf = upcast(x)
+    var = torch.sum(xf * xf, -1) / x.shape[-1]
+    r = torch.rsqrt(var + eps)[..., None].to(x.dtype)
+    return (x * r) * scale.to(x.dtype)
+
+
+def _attend_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """The reference's ``_attend_block`` (``layers.py:94-111``). q: (B, Cq,
+    KV, G, Dh); k, v: (B, Sk, KV, Dh); mask: (Cq, Sk) or None. Scores in
+    f32 from exact products, masked to -1e30, softmax in f32, the
+    probabilities rounded to v's dtype before P.V. Returns (B, Cq, KV, G,
+    Dh)."""
+    scores = torch.einsum("biegd,bjed->begij", upcast(q), upcast(k)) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("begij,bjed->biegd", probs, v)
+
+
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                 window: Optional[int], causal: bool
+                 ) -> Optional[torch.Tensor]:
+    if not causal and window is None:
+        return None
+    m = None
+    if causal:
+        m = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        w = (q_pos[:, None] - k_pos[None, :]) < window
+        m = w if m is None else (m & w)
+    return m
+
+
+def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0, chunk: int = ATTN_CHUNK
+                    ) -> torch.Tensor:
+    """The reference's ``attention`` (``layers.py:126-170``) for training.
+    q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); GQA as a group dim (k and v
+    are never repeated). The queries go in blocks of ``chunk`` rows, each
+    block under :func:`checkpointed`, so backward recomputes its scores and
+    probabilities rather than keeping the (chunk, Sk) probabilities. Unlike
+    the reference, which asserts ``Sq % chunk == 0`` above ``chunk`` rows,
+    the last block may be short."""
+    B, Sq, H, Dh = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, Sq, KV, G, Dh)
+    k_pos = torch.arange(Sk, device=q.device)
+    out = []
+    for c0 in range(0, Sq, chunk):
+        qb = qg[:, c0:c0 + chunk]
+        q_pos = torch.arange(qb.shape[1], device=q.device) + (c0 + q_offset)
+        mask = _causal_mask(q_pos, k_pos, window, causal)
+        out.append(checkpointed(_attend_block, qb, k, v, mask, scale))
+    return torch.cat(out, dim=1).reshape(B, Sq, H, Dh)
 
 
 # ---------------------------------------------------------------------------
@@ -58,8 +154,8 @@ def rope_freqs(d_head: int, theta: float) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, ..., Dh); positions: (S,). Rotate-half RoPE in f32, the
-    result in x's dtype."""
+    """x: (B, S, ..., Dh); positions: (S,). Rotate-half RoPE in f32 (f64
+    for an f64 x, with the f32 angles), the result in x's dtype."""
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta).to(x.device)
     angles = positions[..., None].to(torch.float32) * freqs
@@ -67,7 +163,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     angles = angles.reshape(angles.shape[:-1] + (1,) * mid
                             + angles.shape[-1:])
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(upcast(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

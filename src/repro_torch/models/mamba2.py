@@ -5,7 +5,9 @@ State-space dual form: per head h with state S in R^{dh x N}:
     y_t = C_t^T S_t^T + D_h x_t
 Prefill runs the chunked SSD scan, which on a CUDA tensor is the port's
 kernel K6 (``kernels/mamba2_ssd``) and on a CPU tensor its plain version;
-decode is the exact recurrence in plain torch, as in the reference.
+decode is the exact recurrence in plain torch, as in the reference. K6 has
+no backward, so training (``train=True``) runs ``ssd_chunked_train``, the
+reference's XLA chunked scan as torch ops under autograd.
 Parameters keep the reference's names and ``(L, ...)``-stacked layout; the
 reference's sharding constraints are the identity without a mesh and are
 dropped.
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.mamba2_ssd import ssd_chunked_op
-from .layers import normal_init, rmsnorm
+from .layers import normal_init, rmsnorm, rmsnorm_train, upcast
 
 
 def init_mamba_layer(gen: torch.Generator, cfg, n_layers: int,
@@ -79,6 +81,57 @@ def ssd_chunked(xh, dt, a_log, Bm, Cm, state, chunk: int):
                           state=state)
 
 
+def _segsum(lw):
+    """lw: (..., T). Returns (..., T, T) with out[t, s] = sum over s < tau
+    <= t of lw[tau], -inf above the diagonal."""
+    T = lw.shape[-1]
+    cum = torch.cumsum(lw, dim=-1)
+    out = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=lw.device))
+    return torch.where(mask, out, -math.inf)
+
+
+def ssd_chunked_train(xh, dt, a_log, Bm, Cm, state, chunk: int):
+    """The reference's ``ssd_chunked`` (``repro/models/mamba2.py:62``) for
+    training, differentiable: the same shapes as :func:`ssd_chunked`, a
+    ragged last chunk padded with identity steps (x = 0, lw = 0), the
+    chunks in a Python loop where the reference scans. Returns y (B,S,H,dh)
+    f32, new state."""
+    B, S, H, dh = xh.shape
+    Sorig = S
+    if S % chunk:
+        pad = chunk - S % chunk
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+        S += pad
+    # f32 as the reference (f64 throughout for f64 inputs)
+    A = -torch.exp(upcast(a_log))                       # (H,) negative
+    lw = upcast(dt) * A                                 # (B,S,H)
+    xs = upcast(xh) * upcast(dt)[..., None]             # dt-weighted input
+    Bf, Cf = upcast(Bm), upcast(Cm)
+    S0 = state.to(lw.dtype)
+    ys = []
+    for c0 in range(0, S, chunk):
+        xb, lb = xs[:, c0:c0 + chunk], lw[:, c0:c0 + chunk]
+        Bb, Cb = Bf[:, c0:c0 + chunk], Cf[:, c0:c0 + chunk]
+        Lmat = torch.exp(_segsum(lb.transpose(1, 2)))   # (B,H,T,T)
+        # intra-chunk: y[t] = sum_{s<=t} C_t.B_s exp(seg) x_s
+        CB = torch.einsum("btn,bsn->bts", Cb, Bb)
+        y = torch.einsum("bts,bhts,bshd->bthd", CB, Lmat, xb)
+        # inter-chunk: y[t] += C_t S0 decayed to t
+        cum = torch.cumsum(lb, dim=1)                   # (B,T,H)
+        y = y + torch.einsum("btn,bhdn,bth->bthd", Cb, S0, torch.exp(cum))
+        # S1 = exp(cum_T) S0 + sum_s exp(cum_T - cum_s) x_s B_s^T
+        pT = torch.exp(cum[:, -1])                      # (B,H)
+        w = torch.exp(cum[:, -1:, :] - cum)             # (B,T,H)
+        S0 = pT[..., None, None] * S0 + torch.einsum(
+            "bshd,bsn,bsh->bhdn", xb, Bb, w)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :Sorig], S0
+
+
 def ssd_step(xh, dt, a_log, Bm, Cm, state):
     """Exact single-step. xh: (B,1,H,dh); dt: (B,1,H); Bm,Cm: (B,1,N)."""
     A = -torch.exp(a_log.float())
@@ -90,14 +143,16 @@ def ssd_step(xh, dt, a_log, Bm, Cm, state):
     return y[:, None], state
 
 
-def mamba_block(x, p, cfg, state):
-    """One Mamba2 layer. state: {ssm (B,H,dh,N) fp32, conv (B,K-1,di+2N)}."""
+def mamba_block(x, p, cfg, state, train: bool = False):
+    """One Mamba2 layer. state: {ssm (B,H,dh,N) fp32, conv (B,K-1,di+2N)}.
+    ``train``: the differentiable ops in place of K4 and K6."""
     s = cfg.ssm
     D = cfg.d_model
     di = s.expand * D
     H, dh, N = di // s.d_head, s.d_head, s.d_state
     B, S, _ = x.shape
-    h = rmsnorm(x, p["ln"], cfg.norm_eps)
+    norm = rmsnorm_train if train else rmsnorm
+    h = norm(x, p["ln"], cfg.norm_eps)
     proj = h @ p["in_proj"].to(x.dtype)
     z, conv_in, dt = torch.split(proj, [di, di + 2 * N, H], dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
@@ -107,16 +162,16 @@ def mamba_block(x, p, cfg, state):
     # torch's softplus returns x itself above 20 and jax.nn.softplus
     # x + log1p(exp(-x)); the difference, under 2.1e-9, is below f32's
     # resolution there (one ulp of 20 is 1.9e-6)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    dt = F.softplus(upcast(dt) + upcast(p["dt_bias"]))
     xh = xin.reshape(B, S, H, dh)
     if S == 1:
         y, ssm = ssd_step(xh, dt, p["A_log"], Bm, Cm, state["ssm"])
     else:
-        y, ssm = ssd_chunked(xh, dt, p["A_log"], Bm, Cm, state["ssm"],
-                             s.chunk)
-    y = y + p["D"].float()[None, None, :, None] * xh.float()
+        scan = ssd_chunked_train if train else ssd_chunked
+        y, ssm = scan(xh, dt, p["A_log"], Bm, Cm, state["ssm"], s.chunk)
+    y = y + upcast(p["D"])[None, None, :, None] * upcast(xh)
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = norm(y * F.silu(z), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
     return x + out, {"ssm": ssm, "conv": conv_state}
 

@@ -8,8 +8,14 @@ each weight stacked over layers, ``(L, ...)`` (``layers.rwkv``,
 ``repro_torch.convert.from_jax`` carries the reference's weights and caches
 across with no renaming. The reference scans the stack; here the scan is a
 Python loop over layer slices, and its ``jax.lax.cond`` an ``if`` on the
-layer index. The moe, audio and vlm families, training and the losses wait
-for a later slice (ROADMAP) and raise ``NotImplementedError``.
+layer index. The moe, audio and vlm families wait for a later slice
+(ROADMAP) and raise ``NotImplementedError``.
+
+Training (``forward_train``, the losses) runs the stacks with ``train=True``:
+the differentiable counterparts of the reference's XLA functions in place of
+the kernels K4-K7, which have no backward (and refuse an input that requires
+grad). ``remat=True`` puts each layer under ``torch.utils.checkpoint``, the
+reference's ``jax.checkpoint`` of its scan body.
 
 Caches:
   * dense:   ``{"k","v": (L, B, Smax, KV, Dh)}``; sliding-window configs a
@@ -30,9 +36,10 @@ import torch
 from ..device import resolve_device
 from . import mamba2 as mamba_mod
 from . import rwkv6 as rwkv_mod
-from .layers import (apply_rope, attention, attn_out, attn_qkv,
-                     decode_attention, init_attn, init_mlp, mlp, normal_init,
-                     rmsnorm)
+from .layers import (apply_rope, attention, attention_train, attn_out,
+                     attn_qkv, checkpointed, decode_attention, init_attn,
+                     init_mlp, mlp, normal_init, rmsnorm, rmsnorm_train,
+                     upcast)
 
 Params = Dict[str, Any]
 
@@ -120,28 +127,41 @@ def _stack(trees):
 # dense transformer stack
 # ---------------------------------------------------------------------------
 
-def _txf_layer(cfg, x: torch.Tensor, lp: Params, positions: torch.Tensor):
-    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+def _ops(train: bool):
+    """(rmsnorm, attention): the kernels K4 and K5, or for training their
+    differentiable counterparts."""
+    return (rmsnorm_train, attention_train) if train else (rmsnorm, attention)
+
+
+def _txf_layer(cfg, x: torch.Tensor, lp: Params, positions: torch.Tensor,
+               train: bool = False):
+    norm, attend = _ops(train)
+    h = norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = attn_qkv(h, lp["attn"], cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, causal=True, window=cfg.sliding_window)
+    o = attend(q, k, v, causal=True, window=cfg.sliding_window)
     x = x + attn_out(o, lp["attn"])
-    h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    h = norm(x, lp["ln2"], cfg.norm_eps)
     return x + mlp(h, lp["mlp"], cfg.mlp, cfg.tp_fuse), (k, v)
 
 
 def _txf_stack(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
-               *, collect_cache: bool = False):
+               *, remat: bool = False, train: bool = False,
+               collect_cache: bool = False):
     """x: (B, S, D) through every layer of ``params["layers"]``; positions
     (S,). Returns (x, cache or None), the cache ``{"k","v": (L, B, S, KV,
-    Dh)}`` when ``collect_cache``."""
+    Dh)}`` when ``collect_cache``. ``train``: the differentiable ops;
+    ``remat``: each layer under ``torch.utils.checkpoint``."""
     if _kind(cfg) != "dense":
         raise ValueError(f"{cfg.name} is not a dense config")
     ks, vs = [], []
+
+    def layer(x, lp):
+        return _txf_layer(cfg, x, lp, positions, train)
     for i in range(params["layers"]["ln1"].shape[0]):
-        x, (k, v) = _txf_layer(cfg, x, _layer(params["layers"], i),
-                               positions)
+        lp = _layer(params["layers"], i)
+        x, (k, v) = checkpointed(layer, x, lp) if remat else layer(x, lp)
         if collect_cache:
             ks.append(k)
             vs.append(v)
@@ -188,43 +208,67 @@ def backbone_logits(cfg, params: Params, x: torch.Tensor,
 # rwkv / hybrid stacks
 # ---------------------------------------------------------------------------
 
-def _rwkv_stack(cfg, params: Params, x: torch.Tensor, state):
+def _rwkv_stack(cfg, params: Params, x: torch.Tensor, state, *,
+                remat: bool = False, train: bool = False):
     """Every rwkv layer in turn; returns (x, the new stacked state)."""
     new = []
+
+    def layer(x, lp, st):
+        return rwkv_mod.rwkv_block(x, lp, cfg, st, train)
     for i in range(params["layers"]["rwkv"]["ln1"].shape[0]):
-        x, st = rwkv_mod.rwkv_block(x, _layer(params["layers"]["rwkv"], i),
-                                    cfg, _layer(state, i))
+        args = (x, _layer(params["layers"]["rwkv"], i), _layer(state, i))
+        x, st = checkpointed(layer, *args) if remat else layer(*args)
         new.append(st)
     return x, _stack(new)
 
 
-def _shared_block(cfg, sp: Params, x: torch.Tensor, positions: torch.Tensor):
-    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+def _shared_block(cfg, sp: Params, x: torch.Tensor, positions: torch.Tensor,
+                  train: bool = False):
+    norm, attend = _ops(train)
+    h = norm(x, sp["ln1"], cfg.norm_eps)
     q, k, v = attn_qkv(h, sp["attn"], cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    x = x + attn_out(attention(q, k, v, causal=True), sp["attn"])
-    h = rmsnorm(x, sp["ln2"], cfg.norm_eps)
+    x = x + attn_out(attend(q, k, v, causal=True), sp["attn"])
+    h = norm(x, sp["ln2"], cfg.norm_eps)
     return x + mlp(h, sp["mlp"], cfg.mlp, cfg.tp_fuse), (k, v)
 
 
+def _hybrid_layer(cfg, x, lp, st, sp, positions, shared: bool,
+                  train: bool):
+    """One Mamba2 layer, then the shared block if ``shared``. Returns (x,
+    new state, the shared block's (k, v) or None)."""
+    x, st = mamba_mod.mamba_block(x, lp, cfg, st, train)
+    kv = None
+    if shared:
+        x, kv = _shared_block(cfg, sp, x, positions, train)
+    return x, st, kv
+
+
 def _hybrid_stack(cfg, params: Params, x: torch.Tensor, state,
-                  positions: torch.Tensor, *, collect_cache: bool = False):
+                  positions: torch.Tensor, *, remat: bool = False,
+                  train: bool = False, collect_cache: bool = False):
     """Zamba2: the Mamba2 layers in turn; the shared attention block after
     every ``shared_attn_every``-th. Returns (x, new stacked state, cache or
     None); the cache holds the K/V of the ``n_layers // every`` slots where
     the shared block ran, (n_slots, B, S, KV, Dh), as the reference's
-    ``nonzero(flags, size=n_slots)`` selects them."""
+    ``nonzero(flags, size=n_slots)`` selects them. ``train`` and ``remat``
+    as for the dense stack (a layer with its shared block is one
+    checkpoint)."""
     every = cfg.shared_attn_every
     n_slots = cfg.n_layers // every
     sp = params["shared"]
     new, ks, vs = [], [], []
+
+    def layer(x, lp, st, shared):
+        return _hybrid_layer(cfg, x, lp, st, sp, positions, shared, train)
     for i in range(params["layers"]["mamba"]["ln"].shape[0]):
-        x, st = mamba_mod.mamba_block(x, _layer(params["layers"]["mamba"], i),
-                                      cfg, _layer(state, i))
+        args = (x, _layer(params["layers"]["mamba"], i), _layer(state, i),
+                i % every == every - 1)
+        x, st, kv = checkpointed(layer, *args) if remat else layer(*args)
         new.append(st)
-        if i % every == every - 1:
-            x, (k, v) = _shared_block(cfg, sp, x, positions)
+        if kv is not None:
+            k, v = kv
             ks.append(k)
             vs.append(v)
     cache = None
@@ -262,6 +306,90 @@ def _hybrid_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int):
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
+
+def forward_train(cfg, params: Params, batch, compute_dtype=torch.bfloat16,
+                  remat: bool = True):
+    """The reference's ``forward_train`` (``repro/models/model.py:377``):
+    the per-token mean loss and its metrics (``loss``, ``acc``, ``tokens``)
+    over ``batch["tokens"]`` and ``batch["targets"]`` (B, S) (tensors, or
+    arrays moved to the params' device), -100 targets masked. Runs the
+    differentiable ops (never the kernels), each layer under
+    ``torch.utils.checkpoint`` with ``remat``."""
+    kind = _kind(cfg)
+    dev = params["embed"]["tok"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    targets = torch.as_tensor(batch["targets"], device=dev).long()
+    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=dev)
+    kw = dict(remat=remat, train=True)
+    if kind == "rwkv":
+        state = rwkv_mod.init_rwkv_state(cfg, B, compute_dtype, dev)
+        x, _ = _rwkv_stack(cfg, params, x, state, **kw)
+    elif kind == "hybrid":
+        state = mamba_mod.init_mamba_state(cfg, cfg.n_layers, B,
+                                           compute_dtype, dev)
+        x, _, _ = _hybrid_stack(cfg, params, x, state, positions, **kw)
+    else:
+        x, _ = _txf_stack(cfg, params, x, positions, **kw)
+    x = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
+    return chunked_cross_entropy(cfg, params, x, targets)
+
+
+def _ce_sums(logits: torch.Tensor, targets: torch.Tensor):
+    """(sum of the masked nll, of the masked hits, the count of unmasked
+    targets): logsumexp in f32 (f64 for f64 logits), the target's logit as
+    it is in ``logits``' dtype (the reference's one-hot product accumulated
+    in f32 picks it exactly)."""
+    mask = (targets >= 0).float()
+    tgt = targets.clamp(min=0)
+    lg = upcast(logits)
+    logz = torch.logsumexp(lg, dim=-1)
+    ll = upcast(torch.gather(logits, -1, tgt[..., None])[..., 0])
+    nll = torch.sum((logz - ll) * mask)
+    acc = torch.sum((torch.argmax(lg, dim=-1) == tgt).float() * mask)
+    return nll, acc, mask.sum()
+
+
+def _ce_chunk(xb: torch.Tensor, tb: torch.Tensor, head: torch.Tensor):
+    return _ce_sums(xb @ head, tb)
+
+
+def chunked_cross_entropy(cfg, params: Params, x: torch.Tensor,
+                          targets: torch.Tensor, chunk: int = 512):
+    """The reference's sequence-chunked loss (``model.py:407``): the (B,
+    chunk, V) logits of one chunk at a time, reduced and dropped, and
+    recomputed in backward (each chunk under ``torch.utils.checkpoint``),
+    so the (B, S, V) logits never exist; the head is cast to x's dtype once
+    and is all that is kept, as ``save_only_these_names("ce_head")``. A
+    sequence that is not a multiple of ``chunk``, or no longer than one,
+    takes :func:`cross_entropy`."""
+    B, S, D = x.shape
+    if S % chunk or S <= chunk:
+        return cross_entropy(lm_logits(cfg, params, x), targets)
+    head = params["embed"]["tok"].T if cfg.tie_embeddings \
+        else params["lm_head"]
+    head = head.to(x.dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    nll, acc, n = zero, zero, zero
+    for c0 in range(0, S, chunk):
+        c_nll, c_acc, c_n = checkpointed(
+            _ce_chunk, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], head)
+        nll, acc, n = nll + c_nll, acc + c_acc, n + c_n
+    n = torch.clamp(n, min=1.0)
+    loss = nll / n
+    return loss, {"loss": loss, "acc": acc / n, "tokens": n}
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
+    """The reference's ``cross_entropy`` (``model.py:451``): logits (B, S,
+    V); targets (B, S) integers, -100 masked. Returns (mean loss over the
+    unmasked targets, {"loss", "acc", "tokens"})."""
+    nll, acc, n = _ce_sums(logits, targets)
+    denom = torch.clamp(n, min=1.0)
+    loss = nll / denom
+    return loss, {"loss": loss, "acc": acc / denom, "tokens": n}
+
 
 def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):
     """Process a full prompt, ``batch["tokens"]`` (B, S); returns

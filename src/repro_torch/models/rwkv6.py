@@ -7,7 +7,9 @@ Recurrence (per head, state S in R^{dh x dh}):
 with per-channel decay w_t = exp(-exp(w0 + lora(x_w))) data-dependent per
 token. Prefill runs the chunked form, which on a CUDA tensor is the port's
 kernel K7 (``kernels/rwkv6``) and on a CPU tensor its plain version; decode
-is the exact single-step recurrence in plain torch, as in the reference.
+is the exact single-step recurrence in plain torch, as in the reference. K7
+has no backward, so training (``train=True``) runs ``wkv_chunked_train``,
+the reference's XLA chunked form as torch ops under autograd.
 Parameters keep the reference's names and ``(L, ...)``-stacked layout; the
 reference's sharding constraints are dropped (the identity without a mesh).
 """
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..kernels.rwkv6 import wkv6_op
-from .layers import normal_init, rmsnorm
+from .layers import normal_init, rmsnorm, rmsnorm_train, upcast
 
 
 def init_rwkv_layer(gen: torch.Generator, cfg, n_layers: int,
@@ -70,7 +72,7 @@ def _projections(x, xprev, p, H: int, dh: int):
     g = xg @ p["wg"].to(x.dtype)
     lora = (torch.tanh(xw @ p["wa"].to(x.dtype)).reshape(B * S, -1)
             @ p["wb"].to(x.dtype)).reshape(B, S, H, dh)
-    logw = -torch.exp(p["w0"].float() + lora.float())
+    logw = -torch.exp(upcast(p["w0"]) + upcast(lora))
     logw = torch.clamp(logw, -20.0, -1e-6)               # (B,S,H,dh), < 0
     return r, k, v, g, logw
 
@@ -79,6 +81,55 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int):
     """Chunked RWKV6 core through K7. r,k,v,logw: (B,S,H,dh); u: (H,dh);
     state: (B,H,dh,dh). Returns out (B,S,H,dh) f32, new state."""
     return wkv6_op(r, k, v, logw, u, chunk=chunk, state=state)
+
+
+def wkv_chunked_train(r, k, v, logw, u, state, chunk: int):
+    """The reference's ``wkv_chunked`` (``repro/models/rwkv6.py:78``) for
+    training, differentiable: r,k,v,logw (B,S,H,dh); u (H,dh); state
+    (B,H,dh,dh). A ragged last chunk is padded with identity steps (k = v =
+    0, logw = 0); the chunks run in a Python loop where the reference
+    scans. Returns out (B,S,H,dh) f32, new state.
+
+    One difference: the pairwise decay exp(cumex_t - cum_s) is taken of
+    min(cumex_t - cum_s, 0). For s < t the exponent is a sum of log-decays,
+    never positive, so nothing there changes; for s >= t, which the
+    triangle masks out, the reference takes exp of a positive sum, which
+    overflows once the decays are strong (lw -5 over a 32-step chunk), and
+    its gradient is then NaN where its output is finite (ROADMAP R8)."""
+    B, S, H, dh = r.shape
+    Sorig = S
+    if S % chunk:
+        pad = chunk - S % chunk
+        r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                         for a in (r, k, v, logw))
+        S += pad
+    uf = upcast(u)            # f32 as the reference (f64 for f64 inputs)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), -1)
+    S0 = state.to(torch.promote_types(uf.dtype, upcast(r).dtype))
+    outs = []
+    for c0 in range(0, S, chunk):
+        rb, kb, vb, lwb = (upcast(a[:, c0:c0 + chunk].transpose(1, 2))
+                           for a in (r, k, v, logw))      # (B,H,T,dh)
+        cum = torch.cumsum(lwb, dim=2)                   # inclusive
+        cumex = cum - lwb                                # exclusive
+        # scores[t,s] = sum_d r[t,d] k[s,d] exp(cumex[t,d] - cum[s,d]), s<t
+        decay = torch.exp(torch.clamp(
+            cumex[:, :, :, None, :] - cum[:, :, None, :, :], max=0.0))
+        scores = torch.einsum("bhtd,bhsd,bhtsd->bhts", rb, kb, decay)
+        scores = torch.where(tri, scores, 0.0)
+        diag = torch.einsum("hd,bhtd,bhtd->bht", uf, rb, kb)
+        out = torch.einsum("bhts,bhsd->bhtd", scores, vb)
+        out = out + diag[..., None] * vb
+        # inter-chunk: r_t * P_{t-1} @ S0
+        out = out + torch.einsum("bhtd,bhde->bhte", rb * torch.exp(cumex), S0)
+        # S' = diag(P_T) S0 + sum_s diag(exp(cum_T - cum_s)) k_s^T v_s
+        pT = torch.exp(cum[:, :, -1])                    # (B,H,dh)
+        ksc = kb * torch.exp(cum[:, :, -1:, :] - cum)
+        S0 = pT[..., None] * S0 + torch.einsum("bhtd,bhte->bhde", ksc, vb)
+        outs.append(out)
+    out = torch.cat(outs, dim=2).transpose(1, 2)
+    return out[:, :Sorig], S0
 
 
 def wkv_step(r, k, v, logw, u, state):
@@ -92,8 +143,9 @@ def wkv_step(r, k, v, logw, u, state):
     return out[:, None], state
 
 
-def time_mix(x, p, cfg, state):
-    """state: dict(shift (B,1,D), wkv (B,H,dh,dh)). Returns (y, new_state)."""
+def time_mix(x, p, cfg, state, train: bool = False):
+    """state: dict(shift (B,1,D), wkv (B,H,dh,dh)). Returns (y, new_state).
+    ``train``: the differentiable scan in place of K7."""
     H, dh = cfg.n_heads, cfg.rwkv.head_size
     B, S, D = x.shape
     xprev = _shift(x, state["shift"]) if S > 1 else state["shift"]
@@ -101,12 +153,12 @@ def time_mix(x, p, cfg, state):
     if S == 1:
         out, wkv = wkv_step(r, k, v, logw, p["u"], state["wkv"])
     else:
-        out, wkv = wkv_chunked(r, k, v, logw, p["u"], state["wkv"],
-                               cfg.rwkv.chunk)
+        scan = wkv_chunked_train if train else wkv_chunked
+        out, wkv = scan(r, k, v, logw, p["u"], state["wkv"], cfg.rwkv.chunk)
     out = out.reshape(B, S, H, dh).to(x.dtype)
     # per-head group norm, as the reference writes it (not rmsnorm: no
     # scale, eps 1e-5 inside an f32 rsqrt, then cast to x's dtype)
-    out = out * torch.rsqrt(torch.mean(torch.square(out.float()), -1,
+    out = out * torch.rsqrt(torch.mean(torch.square(upcast(out)), -1,
                                        keepdim=True) + 1e-5).to(x.dtype)
     out = out.reshape(B, S, H * dh) * p["gn"].to(x.dtype)
     out = out * F.silu(g)
@@ -124,12 +176,15 @@ def channel_mix(x, p, state_shift):
     return rr * (kk @ p["wcv"].to(x.dtype)), x[:, -1:].clone()
 
 
-def rwkv_block(x, p, cfg, state):
-    """One RWKV layer. state: {shift, wkv, cshift}."""
-    h, tm_state = time_mix(rmsnorm(x, p["ln1"], cfg.norm_eps), p, cfg,
-                           {"shift": state["shift"], "wkv": state["wkv"]})
+def rwkv_block(x, p, cfg, state, train: bool = False):
+    """One RWKV layer. state: {shift, wkv, cshift}. ``train``: the
+    differentiable ops in place of K4 and K7."""
+    norm = rmsnorm_train if train else rmsnorm
+    h, tm_state = time_mix(norm(x, p["ln1"], cfg.norm_eps), p, cfg,
+                           {"shift": state["shift"], "wkv": state["wkv"]},
+                           train)
     x = x + h
-    h, cshift = channel_mix(rmsnorm(x, p["ln2"], cfg.norm_eps), p,
+    h, cshift = channel_mix(norm(x, p["ln2"], cfg.norm_eps), p,
                             state["cshift"])
     x = x + h
     return x, {"shift": tm_state["shift"], "wkv": tm_state["wkv"],

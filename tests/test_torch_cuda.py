@@ -17,7 +17,12 @@ small, and the absolute tolerance alone would pass a wrong carry across
 key tiles there. The chunk scans, the Mamba-2 SSD (K6) and the RWKV-6 WKV
 (K7), sum in other orders than their plain versions and the sequential
 oracles: y, outputs and final states within 1e-4 relative to max(1,
-max|ref|), the bound the reference holds its own kernels to.
+max|ref|), the bound the reference holds its own kernels to. Training
+(``chip_smoke.py`` phase 5c at full size) runs no kernel: K4-K7 refuse an
+input that requires grad under grad mode, and ``forward_train`` on the card
+holds its f32 loss within 1e-4 relative and each gradient leaf within 1e-3
+of its largest |value| of the port's own CPU run, a check that a detached
+layer fails; checkpoints of card tensors restore bit-equal.
 """
 import importlib
 
@@ -716,3 +721,115 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# training on the card (chip_smoke.py phase 5c at full size)
+# ---------------------------------------------------------------------------
+
+def _grad_inputs(name, cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, device=cuda, generator=g)
+    return {
+        "rmsnorm": (rn.rmsnorm, (r(4, 64), r(64)), {}),
+        "flash_attention": (fa.flash_attention, (r(1, 4, 64, 64),
+                                                 r(1, 2, 64, 64),
+                                                 r(1, 2, 64, 64)), {}),
+        "ssd_chunked": (k6.ssd_chunked, (r(1, 2, 64, 64), -r(1, 2, 64).abs(),
+                                         r(1, 64, 64), r(1, 64, 64)),
+                        {"chunk": 32}),
+        "wkv6_chunked": (k7.wkv6_chunked, (r(1, 2, 64, 64), r(1, 2, 64, 64),
+                                           r(1, 2, 64, 64),
+                                           -r(1, 2, 64, 64).abs() - 0.01,
+                                           r(2, 64)), {"chunk": 32}),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
+                                  "ssd_chunked", "wkv6_chunked"])
+def test_kernels_refuse_inputs_that_require_grad_on_the_card(cuda, name):
+    fn, args, kw = _grad_inputs(name, cuda)
+    want = fn(*args, **kw)
+    a = (args[0].clone().requires_grad_(True),) + args[1:]
+    with pytest.raises(RuntimeError, match=f"{name}: an input requires grad"):
+        fn(*a, **kw)
+    with torch.no_grad():
+        got = fn(*a, **kw)
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, w)
+    mod = {"rmsnorm": rn, "flash_attention": fa, "ssd_chunked": k6,
+           "wkv6_chunked": k7}[name]
+    assert mod.LAUNCHES[name] == 2            # the refused call launched none
+
+
+def _train_loss_and_grads(cfg, params, batch):
+    from repro_torch import tree as tree_util
+    from repro_torch.models import forward_train
+    leaves = [t.detach().requires_grad_(True)
+              for t in tree_util.leaves(params)]
+    loss, _ = forward_train(cfg, tree_util.unflatten_like(params, leaves),
+                            batch, torch.float32)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
+def test_forward_train_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced configs, f32, 2 x 300 tokens (ragged chunks): the loss
+    within 1e-4 relative, each gradient leaf within 1e-3 of its largest
+    |value|, no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).reduced()
+    p = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 301))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    want_loss, want = _train_loss_and_grads(cfg, p, batch)
+    loss, got = _train_loss_and_grads(cfg, _tree_to(p, cuda), batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * float(want_loss)
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        err = float((g.cpu() - w).abs().max()) / float(w.abs().max())
+        assert err <= 1e-3
+    assert rn.LAUNCHES["rmsnorm"] == fa.LAUNCHES["flash_attention"] == \
+        k6.LAUNCHES["ssd_chunked"] == k7.LAUNCHES["wkv6_chunked"] == 0
+
+
+def test_train_steps_and_checkpoint_on_the_card(cuda, tmp_path):
+    """Three bf16 steps of reduced llama on the card: finite losses, every
+    leaf moved by step 1, no kernel launched; an async checkpoint of the
+    card state restores bit-equal onto the card, and its next step gives
+    the uninterrupted loss."""
+    from repro_torch import tree as tree_util
+    from repro_torch.ckpt import CheckpointManager, restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_batches
+    from repro_torch.train import OptConfig, init_train_state, make_train_step
+    cfg = get_config("llama3.2-1b").reduced()
+    params, st = init_train_state(cfg, torch.Generator().manual_seed(0),
+                                  device=cuda)
+    step = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=1))
+    batches = make_lm_batches(cfg, 4, 128, 4, seed=1)
+    p1, s1, m = step(params, st, batches[0])
+    assert not any(torch.equal(a, b) for a, b in zip(
+        tree_util.leaves(params), tree_util.leaves(p1)))
+    p2, s2, m2 = step(p1, s1, batches[1])
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_async(2, {"params": p2, "opt": s2})
+    mgr.wait()
+    back, n, _ = restore_checkpoint(tmp_path, {"params": p2, "opt": s2},
+                                    device=cuda)
+    assert n == 2
+    for a, b in zip(tree_util.leaves(back), tree_util.leaves(
+            {"params": p2, "opt": s2})):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+    _, _, m3 = step(p2, s2, batches[2])
+    _, _, m3r = step(back["params"], back["opt"], batches[2])
+    for x in (m, m2, m3):
+        assert np.isfinite(float(x["loss"])) and float(x["grad_norm"]) > 0
+    assert abs(float(m3r["loss"]) - float(m3["loss"])) <= \
+        1e-3 * float(m3["loss"])
+    assert rn.LAUNCHES["rmsnorm"] == fa.LAUNCHES["flash_attention"] == 0
