@@ -47,8 +47,8 @@ def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
             metrics, grads = loss_and_grads(params, batch)
         else:
             dev = tree_util.leaves(params)[0].device
-            mb = len(batch["tokens"]) // accum_steps
-            mbs = [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            n = len(batch["tokens"]) // accum_steps
+            mbs = [{k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                    for i in range(accum_steps)]
             grads = tree_util.tree_map(
                 lambda p: torch.zeros(p.shape, dtype=torch.float32,

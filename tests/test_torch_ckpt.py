@@ -34,6 +34,17 @@ from repro_torch.train import OptConfig, init_train_state, make_train_step
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these many small CPU ops: alone they run
+    as fast, and beside other test processes on a few cores they do not
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ref_tree():
     return {"w": jnp.arange(12.0).reshape(3, 4),
             "nested": {"b": jnp.ones(5, jnp.bfloat16) * 1.5,
@@ -200,34 +211,36 @@ def test_restart_resumes_training_state(tmp_path, arch):
 
 
 def test_train_loop_resumes_and_replays_the_batches(tmp_path):
-    """A run of 10 steps, and the same run cut after its step-5 checkpoint
-    and resumed: the same losses from step 6 on and the same final
+    """A run of 8 steps, and the same run cut after its step-4 checkpoint
+    and resumed: the same losses from step 5 on and the same final
     params."""
-    kw = dict(steps=10, batch=2, seq=32, ckpt_every=5, log_every=5,
+    kw = dict(steps=8, batch=2, seq=32, ckpt_every=4, log_every=4,
               data_dir=str(tmp_path / "data"), device="cpu")
     full, losses = train("zamba2-1.2b", ckpt_dir=str(tmp_path / "a"), **kw)
-    assert len(losses) == 10 and np.isfinite(losses).all()
-    # the cut run: its checkpoints of steps 5 and 10, the step-10 one lost
+    assert len(losses) == 8 and np.isfinite(losses).all()
+    # the cut run: its checkpoints of steps 4 and 8, the step-8 one lost
     train("zamba2-1.2b", ckpt_dir=str(tmp_path / "b"), **kw)
-    shutil.rmtree(tmp_path / "b" / "step_00000010")
-    assert latest_step(tmp_path / "b") == 5
+    shutil.rmtree(tmp_path / "b" / "step_00000008")
+    assert latest_step(tmp_path / "b") == 4
     resumed, tail = train("zamba2-1.2b", ckpt_dir=str(tmp_path / "b"),
                           resume=True, **kw)
-    assert tail == losses[5:]
+    assert tail == losses[4:]
     for a, b in zip(tree_util.leaves(resumed), tree_util.leaves(full)):
         assert torch.equal(a, b)
-    assert latest_step(tmp_path / "b") == 10
+    assert latest_step(tmp_path / "b") == 8
 
 
 def test_train_cli_on_the_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    train_main(["--arch", "llama3.2-1b", "--device", "cpu", "--steps", "20"])
+    small = ["--batch", "2", "--seq", "32"]
+    train_main(["--arch", "llama3.2-1b", "--device", "cpu", "--steps", "20",
+                *small])
     out = capsys.readouterr().out.splitlines()
     assert [line.split()[:2] for line in out] == [["step", "10"],
                                                  ["step", "20"]]
     assert all("tok/s on cpu" in line for line in out)
     assert latest_step(tmp_path / "ckpt") == 20
     train_main(["--arch", "llama3.2-1b", "--device", "cpu", "--steps", "25",
-                "--resume"])
+                "--resume", *small])
     assert capsys.readouterr().out.splitlines()[0] == "resumed from step 20"
     assert latest_step(tmp_path / "ckpt") == 25

@@ -55,6 +55,17 @@ ARCHS = ["llama3.2-1b", "rwkv6-1.6b", "zamba2-1.2b"]
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for these many small CPU ops: alone they run
+    as fast, and beside other test processes on a few cores they do not
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch, **kw):
     kw = {"n_layers": 2, "vocab_size": 128, **kw}
     return ref_get_config(arch).reduced(**kw), get_config(arch).reduced(**kw)
