@@ -66,7 +66,8 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               ``restore_checkpoint``: every restored leaf bit-equal to the
               saved one, and step 4 from the restored state within 1e-3 of
               the uninterrupted step 4's loss. Then for each served family
-              at full width with the depth cut (``CUT_LAYERS``), f32, a
+              and moonshot-v1-16b-a3b (moe) at full width with the depth
+              cut (``CUT_LAYERS``), f32, a
               batch of 2 x 512 tokens: the cuda ``forward_train`` loss
               within 1e-4 relative of the port's own CPU run from the same
               params; its grad norm within 1e-4 relative, and each gradient
@@ -75,8 +76,29 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               farther than that (rwkv6: f32 rounding in the backward of the
               group norm over near-zero per-head outputs), no farther than
               4 times the CPU's; with one layer's output detached that check
-              must fail. Last, K4-K7's wrappers called on cuda tensors that
-              require grad, under grad mode, must each raise.
+              must fail (moe: the experts each token chose compared first;
+              a row's targets from a token that chose otherwise on masked).
+              Last, K4-K7's wrappers called on cuda tensors that require
+              grad, under grad mode, must each raise.
+ 5d. families - ``serve_batch`` for the moe, audio and vlm families at
+              their published widths, bf16, weights from a seeded CPU
+              generator, 32 new tokens: whisper-small at its full depth
+              (12 encoder + 12 decoder layers, d 768) on 4 x 1,500 zero
+              frames and 4 prompts of 64 tokens; moonshot-v1-16b-a3b cut
+              to 4 of 48 layers (d 2,048, 16 heads of 128, 64 experts,
+              top-6 of 1,408) and internvl2-76b cut to 2 of 80 (d 8,192,
+              64/8 heads of 128), on 4 prompts of 2,000 tokens (internvl2
+              behind 256 zero patch embeddings). Launch counts zeroed just
+              before and read just after: K5 36 / 4 / 2 in prefill and 0 in
+              decode, K4 as the stacks call it (``_want_k4``). Then f32 at
+              full width, depth cut (whisper 2 + 2 layers over 1,500
+              random frames, 64 tokens; moonshot 2 layers at capacity
+              factor 64; internvl2 1 layer behind 16 random patches; 300
+              tokens): decode consistency within 2e-3 and the card's
+              prefill against the port's own CPU run within 1e-4, moe's
+              expert choices compared first; a broken model (a layer's
+              cross-attention dropped, every token routed to expert 0,
+              the patches zeroed) must fail that bound.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -84,7 +106,8 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               bytes copied there must give the aligned volume's checksum).
               Bit-exact (min/max equal by value). K4 at (180,224 x 128) and
               (180,224 x 512) bf16, f32 and ragged shapes, at the serving
-              shapes with a bf16 and an f32 scale, on both sides of its
+              shapes (phases 5b and 5d: d 768 to 8,192) with a bf16 and
+              an f32 scale, on both sides of its
               layout threshold and on views 2 bytes past a 16-byte
               boundary: bit-exact (the plain version keeps the kernel's
               sum order). K5 at the
@@ -92,7 +115,11 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               middle and the last query tile, with a flat and a peaked
               softmax; at the serving shapes (B 4, S 2,000, H 32, KV 8
               and 32, Dh 64, bf16) on every query tile; plus GQA, window
-              64 and a ragged Sq = 200. Each
+              64 and a ragged Sq = 200; at the families' prefill calls
+              (moonshot: B 4, S 2,000, H 16, Dh 128; internvl2: S 2,256,
+              H 64 over KV 8, Dh 128; whisper: its encoder, non-causal over
+              1,500 frames, its decoder at S 64, and its cross-attention,
+              64 queries over 1,500 keys; Dh 64), bf16. Each
               64-row query tile within 2e-5 absolute in f32, 3e-2 in bf16,
               and within 2^-12 (f32) or 2^-6 (bf16) of its largest
               |output|; outputs of broken kernels (zeros, one key tile,
@@ -113,13 +140,14 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               the port never calls. K5 also at the published width and at
               llama3.2-1b's prefill (4 x 2,000 tokens, H 32, KV 8, Dh 64),
               on contiguous (B,H,S,Dh) copies, and the card's clock and
-              power read while it runs. K4 also at each (rows, d) that
-              the serve phase's runs passed to it, with its launches
-              there, beside ``F.rms_norm`` and an empty kernel's time, and
-              its wrapper's host time a call at 4 x 2,048; K3 also at an
-              unaligned start
-              and at a DWI. torch.profiler's device time of each CUDA
-              kernel of K1, K2 and K3 (one kernel a call).
+              power read while it runs; and at the families' five prefill
+              calls beside SDPA, with their launches in phase 5d. K4
+              also at each (rows, d) that the serve phases' runs passed
+              to it, with its launches there, beside ``F.rms_norm`` and
+              an empty kernel's time, and its wrapper's host time a call
+              at 4 x 2,048; K3 also at an unaligned start and at a DWI.
+              torch.profiler's device time of each CUDA kernel of K1, K2
+              and K3 (one kernel a call).
               K1's and K2's bound is also held to the chain of one
               dependent f32 add a step that their bit-exact fold fixes
               (``qa_bound``; "bound_term" names the larger term).
@@ -183,8 +211,32 @@ KERNELS = {  # wrapper name -> (its CUDA source, the TPU kernel it replaces)
 }
 SERVE_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "llama3.2-1b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2000, 32
-CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6, "llama3.2-1b": 2}
+CUT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 6, "llama3.2-1b": 2,
+              "moonshot-v1-16b-a3b": 2}
 CUT_PROMPT = 300
+# phase 5d: the moe, audio and vlm families at their published widths;
+# decoder layers served (whisper's full 12, over its full 12-layer encoder)
+FAMILY_LAYERS = {"whisper-small": 12, "moonshot-v1-16b-a3b": 4,
+                 "internvl2-76b": 2}
+# prompt tokens: whisper's inside its 448-token decoder context (each
+# prompt against 1,500 encoder frames, 30 s of audio); the others as 5b's
+# (internvl2's behind its 256 patch embeddings)
+FAMILY_PROMPT = {"whisper-small": 64, "moonshot-v1-16b-a3b": SERVE_PROMPT,
+                 "internvl2-76b": SERVE_PROMPT}
+FAMILY_CUT_WHY = ("the weights are drawn on the host at ~100-120 M values "
+                  "a second: the full 48-layer moonshot (~27.8 B "
+                  "parameters) or 80-layer internvl2 (~70 B, ~150 GB in "
+                  "bf16, more than the card holds) would take minutes")
+# the f32 checks of phase 5d at full width: layers kept, and the prompt
+FAMILY_CHECK = {"whisper-small": (dict(layers=2, enc_layers=2), 64),
+                "moonshot-v1-16b-a3b": (dict(layers=2), CUT_PROMPT),
+                "internvl2-76b": (dict(layers=1, n_patches=16), CUT_PROMPT)}
+# K5 at the families' prefill calls, bf16: (B, Sq, Sk, H, KV, Dh, causal)
+FAMILY_K5 = {"moonshot prefill": (4, 2000, 2000, 16, 16, 128, True),
+             "internvl2 prefill": (4, 2256, 2256, 64, 8, 128, True),
+             "whisper encoder": (4, 1500, 1500, 12, 12, 64, False),
+             "whisper decoder": (4, 64, 64, 12, 12, 64, True),
+             "whisper cross-attention": (4, 64, 1500, 12, 12, 64, False)}
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 PARITY_BATCH, PARITY_SEQ = 2, 512
@@ -323,15 +375,16 @@ def _bound(nbytes: int, ops: float, rate: float = F32_OPS_PER_S):
 
 
 def attention_bound(S: int, H: int, KV: int, Dh: int, itemsize: int,
-                    B: int = 1):
-    """Least time for causal attention over B sequences of S tokens: q, k,
-    v read once and o written once, against the work this causal mask needs
-    (S(S+1)/2 query-key pairs per sequence and head): 4 flops per pair and
-    head dim on the tensor cores (Q K^T and P V), and one exponential per
-    pair on the MUFU, the larger of the two. Returns (ms, what bounds
-    it)."""
-    pairs = B * S * (S + 1) // 2
-    nbytes = B * (2 * S * H * Dh + 2 * S * KV * Dh) * itemsize
+                    B: int = 1, Sk=None, causal: bool = True):
+    """Least time for attention of B sequences of S queries over Sk keys
+    (None: S): q, k, v read once and o written once, against the work the
+    mask needs (causal, Sk = S: S(S+1)/2 query-key pairs per sequence and
+    head; else S Sk): 4 flops per pair and head dim on the tensor cores
+    (Q K^T and P V), and one exponential per pair on the MUFU, the larger
+    of the two. Returns (ms, what bounds it)."""
+    Sk = S if Sk is None else Sk
+    pairs = B * S * (S + 1) // 2 if causal else B * S * Sk
+    nbytes = B * (2 * S * H * Dh + 2 * Sk * KV * Dh) * itemsize
     flops, exps = 4 * pairs * Dh * H, H * pairs
     if flops / BF16_OPS_PER_S >= exps / EXP_PER_S:
         return _bound(nbytes, flops, BF16_OPS_PER_S)
@@ -568,6 +621,13 @@ def run(args, work: Path, card: str):
     train_refusal_phase()
     log(f"train phase: {time.perf_counter() - t0} s in all")
 
+    # -- 5d. families: moe, audio and vlm at their published widths --------
+    t0 = time.perf_counter()
+    fam = family_phase(args.seed)
+    family_cut_phase(args.seed)
+    log(f"families phase: {time.perf_counter() - t0} s in all")
+    served = {**serve, **fam}           # every run that launched K4
+
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
 
@@ -629,7 +689,7 @@ def run(args, work: Path, card: str):
              qa_checksum_chunk(part, (head, head, n, n), carry, **kw),
              qa_checksum_chunk_plain(part, (head, head, n, n), carry, **kw))
     check(all(e == 0.0 for e in errs.values()), f"kernels disagree: {errs}")
-    errs["rmsnorm"] = check_rmsnorm(args.seed, _k4_serving_shapes(serve))
+    errs["rmsnorm"] = check_rmsnorm(args.seed, _k4_serving_shapes(served))
     errs["flash_attention"] = check_attention(args.seed)[0]
     errs.update(check_scans(args.seed)[0])
     log(f"kernels vs plain, max abs err: {errs}")
@@ -665,7 +725,8 @@ def run(args, work: Path, card: str):
             f"{timing[name][1]} ms, bound {b_ms} ms ({b_by}"
             + (f"; bytes {bytes_ms} ms)" if bytes_ms else ")"))
     timing.update(time_rmsnorm_and_attention(timer, args.seed))
-    time_rmsnorm_serving(timer, args.seed, serve)
+    time_rmsnorm_serving(timer, args.seed, served)
+    time_family_attention(timer, args.seed, fam)
     timing.update(time_scans(timer, args.seed))
     dwi_ms = timer(lambda: qa_checksum_batched(dwi))
     b_dwi = qa_bound(dwi.numel(), 4, -(-dwi.numel() // BLK_V))
@@ -812,12 +873,16 @@ def _leaves(tree):
 
 
 def _want_launches(cfg):
-    """(K5, K6, K7) launches of one prefill of ``cfg``."""
+    """(K5, K6, K7) launches of one prefill of ``cfg``: with an encoder,
+    its self-attention a layer and the decoder's self- and
+    cross-attention."""
     L = cfg.n_layers
     if cfg.family == "hybrid":
         return L // cfg.shared_attn_every, L, 0
     if cfg.rwkv is not None:
         return 0, 0, L
+    if cfg.encoder is not None:
+        return 2 * L + cfg.encoder.n_layers, 0, 0
     return L, 0, 0
 
 
@@ -854,9 +919,11 @@ def _k4_serving_shapes(serve):
     return sorted({(r, d) for v in serve.values() for r, d, _ in v["k4_shapes"]})
 
 
-def _probed_serve_batch(arch, prompts, params, profile=False):
-    """One ``serve_batch`` run at the published config, probed from the
-    inside: ``launch.serve``'s step factories are wrapped so that the card
+def _probed_serve_batch(cfg, prompts, params, profile=False):
+    """One ``serve_batch`` run of ``cfg``'s arch, probed from the inside:
+    ``launch.serve`` reads ``cfg`` for the arch's name (the published
+    config, or one cut from it), and its step factories are wrapped so that
+    the card
     is synchronised and the clock read around the prefill, and from the
     first decode step to the end of the run, and K4-K7's launches counted
     in each part; with ``profile`` each part also runs under
@@ -915,16 +982,19 @@ def _probed_serve_batch(arch, prompts, params, profile=False):
         return decode
 
     _reset_counts()
+    real_cfg = serve_mod.get_config
     serve_mod.make_prefill_step = prefill_factory
     serve_mod.make_decode_step = decode_factory
+    serve_mod.get_config = lambda name: cfg
     try:
         with (_k4_shapes_tallied(parts["k4_shapes"]) if profile
               else contextlib.nullcontext()):
-            toks = serve_mod.serve_batch(arch, prompts, SERVE_NEW,
+            toks = serve_mod.serve_batch(cfg.name, prompts, SERVE_NEW,
                                          reduced=False, params=params,
                                          device="cuda")
     finally:
         serve_mod.make_prefill_step, serve_mod.make_decode_step = real
+        serve_mod.get_config = real_cfg
     end("decode")
     return toks, parts
 
@@ -933,86 +1003,151 @@ def serve_phase(seed: int):
     """Phase 5b: ``serve_batch`` at the published configs, twice per arch:
     under torch.profiler, then timed and counted. Returns per arch the
     launches of the timed run and its measurements."""
+    from repro_torch.configs import get_config
+    return {arch: _serve_arch(get_config(arch), SERVE_PROMPT, seed)
+            for arch in SERVE_ARCHS}
+
+
+def _serve_arch(cfg, prompt_len: int, seed: int, k4_want=None):
+    """``serve_batch`` of ``cfg`` (its name's published config, or one cut
+    from it) on SERVE_BATCH prompts of ``prompt_len`` tokens in bf16, with
+    weights from a seeded CPU generator: once under torch.profiler, then
+    timed and counted. Checks the tokens, the logits, K5-K7's launches
+    (``_want_launches``) and, given ``k4_want`` (prefill, decode a token),
+    K4's. Returns the timed run's launches and measurements."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.models import init_params
+    arch = cfg.name
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator().manual_seed(seed),
+                         torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed + 7).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, prompt_len), dtype=np.int32)
+    want5, want6, want7 = _want_launches(cfg)
+    # device time by kernel, from a run under torch.profiler, which
+    # also takes the first run's start-up costs off the timed one
+    again, prof = _probed_serve_batch(cfg, prompts, params, True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks, parts = _probed_serve_batch(cfg, prompts, params)
+    wall = time.perf_counter() - t0
+    path = _counts()
+    # K4's launches by shape, from the profiled run (the same work)
+    k4_shapes = prof["k4_shapes"]
+    check(sum(k4_shapes.values()) == path["rmsnorm"],
+          f"{arch}: K4 launches by shape {k4_shapes}, in all "
+          f"{path['rmsnorm']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pre, dec = parts["prefill"], parts["decode"]
+    check(toks.shape == (SERVE_BATCH, SERVE_NEW) and toks.min() >= 0
+          and toks.max() < cfg.vocab_size, f"{arch}: tokens {toks}")
+    check(tuple(pre["logits"].shape) == (SERVE_BATCH, cfg.vocab_size)
+          and bool(torch.isfinite(pre["logits"]).all())
+          and bool(torch.isfinite(dec["logits"]).all()),
+          f"{arch}: prefill logits {tuple(pre['logits'].shape)} or "
+          f"decode logits not finite")
+    check(path["ssd_chunked"] == want6 and path["wkv6_chunked"] == want7
+          and path["flash_attention"] == want5,
+          f"{arch}: serve_batch launches {path}, want K5 {want5}, K6 "
+          f"{want6}, K7 {want7}")
+    check((pre["launches"]["flash_attention"],
+           pre["launches"]["ssd_chunked"],
+           pre["launches"]["wkv6_chunked"]) == (want5, want6, want7),
+          f"{arch}: prefill launches {pre['launches']}")
+    check(dec["launches"]["flash_attention"]
+          == dec["launches"]["ssd_chunked"]
+          == dec["launches"]["wkv6_chunked"] == 0,
+          f"{arch}: decode launches {dec['launches']}")
+    if k4_want is not None:
+        got4 = (pre["launches"]["rmsnorm"],
+                dec["launches"]["rmsnorm"] / (SERVE_NEW - 1))
+        check(got4 == k4_want, f"{arch}: K4 launches (prefill, decode a "
+              f"token) {got4}, want {k4_want}")
+    us, total = prof["prefill"]["us"], sum(prof["prefill"]["us"].values())
+    share = {}
+    for name, kernels in (("ssd_chunked", K6_KERNELS),
+                          ("wkv6_chunked", K7_KERNELS),
+                          ("flash_wgmma_kernel", ("flash_wgmma_kernel",)),
+                          ("rmsnorm_kernel", ("rmsnorm_kernel",))):
+        t = sum(v for k, v in us.items() if any(n in k for n in kernels))
+        share[name] = (t / 1e3, 100 * t / total if total else None)
+    share["device_ms"] = total / 1e3
+    share["busy_%_of_prefill_wall"] = total / 1e3 / pre["s"] / 10
+    share["decode_busy_%"] = sum(prof["decode"]["us"].values()) / 1e3 \
+        / dec["s"] / 10
+    share["top_prefill_kernels_ms"] = [
+        (k[:60], v / 1e3) for k, v in
+        sorted(us.items(), key=lambda kv: -kv[1])[:6]]
+    out = {"launches": path, "k4_shapes": k4_shapes, "prefill_s": pre["s"],
+           "prefill_launches": pre["launches"],
+           "decode_ms_per_token": 1e3 * dec["s"] / (SERVE_NEW - 1),
+           "wall_s": wall, "init_s": init_s, "peak_gb": peak}
+    ahead = f"{cfg.vlm.n_patches} patches + " if cfg.vlm is not None else ""
+    log(f"serve {arch} L{cfg.n_layers} d{cfg.d_model} bf16, "
+        f"{SERVE_BATCH} x ({ahead}{prompt_len} tokens) + {SERVE_NEW} new: "
+        f"serve_batch {wall} s (weights {init_s} s), launches {path}, "
+        f"K4 launches by (rows, d, scale dtype) {k4_shapes}, "
+        f"peak {peak} GB; prefill {pre['s']} s, launches "
+        f"{pre['launches']}; decode {1e3 * dec['s']} ms for "
+        f"{SERVE_NEW - 1} steps ({out['decode_ms_per_token']} ms "
+        f"per token), launches {dec['launches']}; the profiled run gave "
+        f"the same tokens {bool(np.array_equal(again, toks))}; prefill "
+        f"device time by kernel (ms, % of device time) {share}")
+    del params, pre, dec, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_cfg(arch: str, layers: int, enc_layers=None, n_patches=None,
+                capacity_factor=None):
+    """``arch``'s published config, its width kept, cut to ``layers``
+    decoder layers (and ``enc_layers`` encoder layers, ``n_patches``
+    patches, a capacity factor, where given)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, n_layers=enc_layers))
+    if n_patches is not None:
+        cfg = dataclasses.replace(cfg, vlm=dataclasses.replace(
+            cfg.vlm, n_patches=n_patches))
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def _want_k4(cfg):
+    """K4's launches in one prefill and in one decode step of a transformer
+    config: ln1 and ln2 a decoder layer (a second ln2 before the
+    cross-attention with an encoder), the final norm, and an encoder's two
+    a layer and its final norm."""
+    per = 3 if cfg.encoder is not None else 2
+    enc = 2 * cfg.encoder.n_layers + 1 if cfg.encoder is not None else 0
+    return enc + per * cfg.n_layers + 1, per * cfg.n_layers + 1
+
+
+def family_phase(seed: int):
+    """Phase 5d: ``serve_batch`` for the moe, audio and vlm families at
+    their published widths, whisper at its full depth, moonshot and
+    internvl2 cut (FAMILY_LAYERS), K4's and K5's launches checked against
+    the counts the code gives (``_want_k4``, ``_want_launches``). Returns
+    per arch the serve run's launches and measurements."""
+    from repro_torch.configs import get_config
     out = {}
-    for arch in SERVE_ARCHS:
-        cfg = get_config(arch)
-        t0 = time.perf_counter()
-        params = init_params(cfg, torch.Generator().manual_seed(seed),
-                             torch.bfloat16, "cuda")
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        prompts = np.random.default_rng(seed + 7).integers(
-            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
-        want5, want6, want7 = _want_launches(cfg)
-        # device time by kernel, from a run under torch.profiler, which
-        # also takes the first run's start-up costs off the timed one
-        again, prof = _probed_serve_batch(arch, prompts, params, True)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        toks, parts = _probed_serve_batch(arch, prompts, params)
-        wall = time.perf_counter() - t0
-        path = _counts()
-        # K4's launches by shape, from the profiled run (the same work)
-        k4_shapes = prof["k4_shapes"]
-        check(sum(k4_shapes.values()) == path["rmsnorm"],
-              f"{arch}: K4 launches by shape {k4_shapes}, in all "
-              f"{path['rmsnorm']}")
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        pre, dec = parts["prefill"], parts["decode"]
-        check(toks.shape == (SERVE_BATCH, SERVE_NEW) and toks.min() >= 0
-              and toks.max() < cfg.vocab_size, f"{arch}: tokens {toks}")
-        check(tuple(pre["logits"].shape) == (SERVE_BATCH, cfg.vocab_size)
-              and bool(torch.isfinite(pre["logits"]).all())
-              and bool(torch.isfinite(dec["logits"]).all()),
-              f"{arch}: prefill logits {tuple(pre['logits'].shape)} or "
-              f"decode logits not finite")
-        check(path["ssd_chunked"] == want6 and path["wkv6_chunked"] == want7
-              and path["flash_attention"] == want5,
-              f"{arch}: serve_batch launches {path}, want K5 {want5}, K6 "
-              f"{want6}, K7 {want7}")
-        check((pre["launches"]["flash_attention"],
-               pre["launches"]["ssd_chunked"],
-               pre["launches"]["wkv6_chunked"]) == (want5, want6, want7),
-              f"{arch}: prefill launches {pre['launches']}")
-        check(dec["launches"]["flash_attention"]
-              == dec["launches"]["ssd_chunked"]
-              == dec["launches"]["wkv6_chunked"] == 0,
-              f"{arch}: decode launches {dec['launches']}")
-        us, total = prof["prefill"]["us"], sum(prof["prefill"]["us"].values())
-        share = {}
-        for name, kernels in (("ssd_chunked", K6_KERNELS),
-                              ("wkv6_chunked", K7_KERNELS),
-                              ("flash_wgmma_kernel", ("flash_wgmma_kernel",)),
-                              ("rmsnorm_kernel", ("rmsnorm_kernel",))):
-            t = sum(v for k, v in us.items() if any(n in k for n in kernels))
-            share[name] = (t / 1e3, 100 * t / total if total else None)
-        share["device_ms"] = total / 1e3
-        share["busy_%_of_prefill_wall"] = total / 1e3 / pre["s"] / 10
-        share["decode_busy_%"] = sum(prof["decode"]["us"].values()) / 1e3 \
-            / dec["s"] / 10
-        share["top_prefill_kernels_ms"] = [
-            (k[:60], v / 1e3) for k, v in
-            sorted(us.items(), key=lambda kv: -kv[1])[:6]]
-        out[arch] = {"launches": path, "k4_shapes": k4_shapes,
-                     "prefill_s": pre["s"],
-                     "decode_ms_per_token": 1e3 * dec["s"] / (SERVE_NEW - 1),
-                     "wall_s": wall, "init_s": init_s, "peak_gb": peak}
-        log(f"serve {arch} L{cfg.n_layers} d{cfg.d_model} bf16, "
-            f"{SERVE_BATCH} x {SERVE_PROMPT} tokens + {SERVE_NEW} new: "
-            f"serve_batch {wall} s (weights {init_s} s), launches {path}, "
-            f"K4 launches by (rows, d, scale dtype) {k4_shapes}, "
-            f"peak {peak} GB; prefill {pre['s']} s, launches "
-            f"{pre['launches']}; decode {1e3 * dec['s']} ms for "
-            f"{SERVE_NEW - 1} steps ({out[arch]['decode_ms_per_token']} ms "
-            f"per token), launches {dec['launches']}; the profiled run gave "
-            f"the same tokens {bool(np.array_equal(again, toks))}; prefill "
-            f"device time by kernel (ms, % of device time) {share}")
-        del params, pre, dec, prof
-        torch.cuda.empty_cache()
+    for arch, layers in FAMILY_LAYERS.items():
+        cfg = _family_cfg(arch, layers)
+        full = get_config(arch).n_layers
+        log(f"families {arch}: width kept (d {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads of {cfg.d_head}, vocab "
+            f"{cfg.vocab_size}), {layers} of {full} decoder layers"
+            + ("" if layers == full else f" ({FAMILY_CUT_WHY})"))
+        out[arch] = _serve_arch(cfg, FAMILY_PROMPT[arch], seed,
+                                _want_k4(cfg))
     return out
 
 
@@ -1099,6 +1234,159 @@ def cut_model_phase(seed: int):
             check(err_bad > 1e-4, f"{arch}: the prefill check passes a "
                   f"broken scan ({err_bad})")
     return out
+
+
+@contextlib.contextmanager
+def _routes_recorded(out):
+    """Each ``moe._route`` call appends the experts it chose, as each
+    token's sorted set (B, S, k), to ``out``. The order of a token's k
+    choices changes nothing downstream but its top-1's count in the aux
+    loss; the set decides the dispatch."""
+    from repro_torch.models import moe
+    real = moe._route
+
+    def route(*a, **kw):
+        sel, w, aux = real(*a, **kw)
+        out.append(sel.sort(dim=-1).values.cpu())
+        return sel, w, aux
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+@contextlib.contextmanager
+def _routed_to_expert_0():
+    """A broken router: every slot of every token sent to expert 0."""
+    from repro_torch.models import moe
+    real = moe._route
+
+    def route(*a, **kw):
+        sel, w, aux = real(*a, **kw)
+        return sel * 0, w, aux
+    moe._route = route
+    try:
+        yield
+    finally:
+        moe._route = real
+
+
+def _rows_agreeing(a, b, B: int):
+    """Batch rows in which every layer's recorded choices agree between the
+    runs ``a`` and ``b``, and the count of (layer, token)s that differ."""
+    import torch
+    rows = [r for r in range(B)
+            if all(torch.equal(x[r], y[r]) for x, y in zip(a, b))]
+    n = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+    return rows, n
+
+
+def family_cut_phase(seed: int):
+    """Phase 5d, f32 at full width with the depth cut (FAMILY_CHECK):
+    whisper 2 + 2 layers, 64 tokens against 1,500 seeded random frames;
+    moonshot 2 layers at capacity factor ``n_experts`` (no token dropped,
+    as the reference's decode test sets it); internvl2 1 layer behind 16
+    seeded random patch embeddings; 2 rows of 300 tokens. Decode
+    consistency on the card (prefill(S-1) plus one step against prefill(S),
+    2e-3), and the card's prefill (the logits and every cache tensor)
+    against the port's own CPU run within 1e-4 of its largest |value|.
+    For moe the experts chosen are compared first: where a near-tie makes
+    cuBLAS and the CPU choose other experts, only the rows whose choices
+    agree are held, and the count of tokens that differ is printed. A
+    broken model must fail the same bound: whisper with its first layer's
+    cross-attention dropped, moonshot with every token routed to expert 0,
+    internvl2 with its patch embeddings zeroed."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import graft
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_cache, init_params)
+    f32 = torch.float32
+
+    def rel(got, want, rows):
+        """Worst over the logits (rows on axis 0) and every cache tensor
+        (rows on axis 1) of max |a - b| over the largest |b|."""
+        logits = float((got[0][rows].cpu() - want[0][rows]).abs().max()) \
+            / max(float(want[0][rows].abs().max()), 1e-30)
+        return max([logits] + [
+            float((a[:, rows].cpu() - b[:, rows]).abs().max())
+            / max(float(b[:, rows].abs().max()), 1e-30)
+            for a, b in zip(_leaves(got[1]), _leaves(want[1]))])
+    for arch, (kw, S) in FAMILY_CHECK.items():
+        t0 = time.perf_counter()
+        cfg = _family_cfg(arch, **kw)
+        if cfg.moe is not None:
+            cfg = _family_cfg(arch, **kw,
+                              capacity_factor=float(cfg.moe.n_experts))
+        p_cpu = init_params(cfg, torch.Generator().manual_seed(seed + 1),
+                            f32, "cpu")
+        params = _tree_to(p_cpu, "cuda")
+        rng = np.random.default_rng(seed + 8)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, S)))}
+        n_pre = 0
+        if cfg.encoder is not None:
+            batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder.enc_seq, cfg.d_model)).astype(np.float32))
+        if cfg.vlm is not None:
+            n_pre = cfg.vlm.n_patches
+            batch["embeds"] = torch.from_numpy(rng.standard_normal(
+                (2, n_pre, cfg.d_model)).astype(np.float32))
+        bd = {k: v.cuda() for k, v in batch.items()}
+        sel_card, sel_cpu = [], []
+        with torch.inference_mode():
+            with _routes_recorded(sel_card):
+                full = forward_prefill(cfg, params, bd, f32)
+            short = dict(bd, tokens=bd["tokens"][:, :-1])
+            _, cache = forward_prefill(cfg, params, short, f32)
+            cache = graft(init_cache(cfg, 2, S + n_pre, f32, "cuda"), cache)
+            step, _ = forward_decode(cfg, params, cache,
+                                     bd["tokens"][:, -1:], S - 1 + n_pre,
+                                     f32)
+            with _routes_recorded(sel_cpu):
+                on_cpu = forward_prefill(cfg, p_cpu, batch, f32)
+            if cfg.encoder is not None:
+                bad_p = dict(params, layers=dict(params["layers"]))
+                bad_p["layers"]["xattn"] = dict(
+                    params["layers"]["xattn"],
+                    wo=params["layers"]["xattn"]["wo"].clone())
+                bad_p["layers"]["xattn"]["wo"][0] = 0
+                broken, what = forward_prefill(cfg, bad_p, bd, f32), \
+                    "the first layer's cross-attention dropped"
+            elif cfg.moe is not None:
+                with _routed_to_expert_0():
+                    broken = forward_prefill(cfg, params, bd, f32)
+                what = "every token routed to expert 0"
+            else:
+                bad = dict(bd, embeds=torch.zeros_like(bd["embeds"]))
+                broken = forward_prefill(cfg, params, bad, f32)
+                what = "the patch embeddings zeroed"
+        rows, n_diff = _rows_agreeing(sel_card, sel_cpu, 2)
+        consist = float((full[0] - step[:, 0]).abs().max())
+        check(rows, f"{arch}: no row whose experts agree between the card "
+              f"and the CPU ({n_diff} tokens differ)")
+        err, err_bad = rel(full, on_cpu, rows), rel(broken, on_cpu, rows)
+        log(f"families cut {arch} L{cfg.n_layers}"
+            + (f"+{cfg.encoder.n_layers} encoder over "
+               f"{cfg.encoder.enc_seq} frames" if cfg.encoder else "")
+            + (f" behind {n_pre} patches" if n_pre else "")
+            + (f", capacity factor {cfg.moe.capacity_factor}" if cfg.moe
+               else "")
+            + f" d{cfg.d_model} f32, 2 x {S} tokens: decode vs prefill "
+            f"{consist} (bound 2e-3), cuda vs cpu prefill {err} of the "
+            f"largest |value| (bound 1e-4) on rows {rows}; (layer, token)s "
+            f"whose experts differ between the card and the CPU: {n_diff}; "
+            f"max |logit| {float(on_cpu[0].abs().max())}; with {what}: "
+            f"{err_bad}; {time.perf_counter() - t0} s")
+        check(consist < 2e-3, f"{arch}: decode differs from prefill by "
+              f"{consist}")
+        check(err < 1e-4, f"{arch}: the card's prefill differs from the "
+              f"CPU's by {err} of the largest")
+        check(err_bad > 1e-4, f"{arch}: the prefill check passes a broken "
+              f"model ({what}: {err_bad})")
+        del p_cpu, params, full, cache, on_cpu, broken
+        torch.cuda.empty_cache()
 
 
 def _loss_and_grads(cfg, params, batch, dtype=None,
@@ -1267,8 +1555,14 @@ def train_parity_phase(seed: int):
     no farther than GRAD_NOISE times the CPU's (the f32 rounding of an
     ill-conditioned gradient: rwkv's per-head group norm over near-zero
     outputs); the same for the grad norm at TRAIN_LOSS_TOL. With one
-    layer's output detached the check must fail."""
+    layer's output detached the check must fail. For moe the experts each
+    token chose are compared first, the card's and the CPU's f32 runs
+    against the f64 one: where a near-tie makes a run choose other experts,
+    the targets of that row from that token on are masked (-100) in every
+    run (earlier tokens never see it), the count printed, and the runs
+    repeated."""
     import dataclasses
+    import math
     import numpy as np
     import torch
     from repro_torch import tree as tree_util
@@ -1276,36 +1570,65 @@ def train_parity_phase(seed: int):
     from repro_torch.models import init_params
 
     def norm(gs):
-        return float(torch.sqrt(sum(torch.sum(g.double().cpu() ** 2)
-                                    for g in gs)))
+        return math.sqrt(sum(float(torch.sum(g.double() ** 2)) for g in gs))
 
     def leaf_errs(gs, want):
-        return [float((g.double().cpu() - w.cpu()).abs().max())
+        """Each leaf's error, taken leaf by leaf on ``want``'s device (a
+        moe layer's f64 gradients are 14 GB)."""
+        return [float((g.to(w.device, torch.float64) - w).abs().max())
                 / max(float(w.abs().max()), 1e-300)
                 for g, w in zip(gs, want)]
-    for arch in SERVE_ARCHS:
-        cfg = dataclasses.replace(get_config(arch),
-                                  n_layers=CUT_LAYERS[arch])
+    def runs(cfg, p_cpu, params, batch):
+        """The CPU's and the card's f32 runs and the f64 one, each with
+        the experts its forward chose (one entry a moe layer)."""
+        sels = {k: [] for k in ("cpu", "cuda", "f64")}
+        t0 = time.perf_counter()
+        with _routes_recorded(sels["cpu"]):
+            cpu_loss, cpu = _loss_and_grads(cfg, p_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _routes_recorded(sels["cuda"]):
+            loss, got = _loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        path = _counts()
+        with _routes_recorded(sels["f64"]):
+            true_loss, true = _loss_and_grads(
+                cfg, tree_util.tree_map(torch.Tensor.double, params), batch,
+                torch.float64)
+        # the forward's choices; remat's recomputes in backward follow
+        sels = {k: v[:cfg.n_layers] if cfg.moe is not None else []
+                for k, v in sels.items()}
+        return (cpu_loss, cpu, cpu_s, loss, got, cuda_s, path, true_loss,
+                true, sels)
+
+    for arch, n_layers in CUT_LAYERS.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
         p_cpu = init_params(cfg, torch.Generator().manual_seed(seed + 2),
                             torch.float32, "cpu")
         paths = [tree_util.path_key(q) for q, _ in
                  tree_util.flatten_with_paths(p_cpu)]
         toks = np.random.default_rng(seed + 9).integers(
             0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ + 1))
-        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-        t0 = time.perf_counter()
-        cpu_loss, cpu = _loss_and_grads(cfg, p_cpu, batch)
-        cpu_s = time.perf_counter() - t0
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:].copy()}
         params = _tree_to(p_cpu, "cuda")
-        _reset_counts()
-        t0 = time.perf_counter()
-        loss, got = _loss_and_grads(cfg, params, batch)
-        torch.cuda.synchronize()
-        cuda_s = time.perf_counter() - t0
-        path = _counts()
-        true_loss, true = _loss_and_grads(
-            cfg, tree_util.tree_map(torch.Tensor.double, params), batch,
-            torch.float64)
+        (cpu_loss, cpu, cpu_s, loss, got, cuda_s, path, true_loss, true,
+         sels) = runs(cfg, p_cpu, params, batch)
+        n_diff = 0
+        for side in ("cpu", "cuda"):
+            for a, b in zip(sels[side], sels["f64"]):
+                diff = (a != b).any(-1)
+                n_diff += int(diff.sum())
+                for r, t in zip(*np.nonzero(diff.numpy())):
+                    batch["targets"][r, t:] = -100
+        if n_diff:
+            log(f"train parity {arch}: {n_diff} (layer, token)s chose other "
+                f"experts than the f64 run; their rows' targets from there "
+                f"on masked, {int((batch['targets'] < 0).sum())} of "
+                f"{batch['targets'].size}; the runs repeated")
+            (cpu_loss, cpu, cpu_s, loss, got, cuda_s, path, true_loss, true,
+             sels) = runs(cfg, p_cpu, params, batch)
         _, bad = _loss_and_grads(cfg, params, batch, detach_first_layer=True)
         e_cpu, e_card = leaf_errs(cpu, true), leaf_errs(got, true)
         e_bad = leaf_errs(bad, true)
@@ -1315,7 +1638,7 @@ def train_parity_phase(seed: int):
         n_card = abs(norm(got) - n_true) / n_true
         n_bound = max(TRAIN_LOSS_TOL, GRAD_NOISE * n_cpu)
         loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
-        direct = leaf_errs(got, [g.double() for g in cpu])
+        direct = leaf_errs(got, cpu)
         worst = max(range(len(paths)), key=lambda i: e_card[i] / bounds[i])
         log(f"train parity {arch} L{cfg.n_layers} d{cfg.d_model} f32, "
             f"{PARITY_BATCH} x {PARITY_SEQ} tokens: loss cuda {float(loss)} "
@@ -1677,18 +2000,26 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
               f"bound {k5_bound(want)}")
         controls.append(e / k5_bound(want))
 
-    def reject_broken(qt, kt, vt, r0, want):
-        """The controls for query rows r0 .. r0 + 63 (r0 > 0), whose plain
-        output is ``want``."""
-        qs, S, c = qt[:, :, r0:r0 + 64], kt.shape[2], r0 // 64 * 64
+    def reject_broken(qt, kt, vt, r0, want, causal=True):
+        """The controls for query rows r0 .. r0 + 63, whose plain output
+        is ``want``: zeros, and the keys these rows see cut to the first
+        key tile, to their first half, or to the last key tiles alone
+        (each cut that leaves some of those keys out)."""
+        qs, S = qt[:, :, r0:r0 + 64], kt.shape[2]
+        seen = min(r0 + 64, S) if causal else S
+        c = r0 // 64 * 64 if causal else (S - 1) // 128 * 128
 
         def part(lo, hi):
             return fa.flash_attention_plain(
-                qs, kt[:, :, lo:hi], vt[:, :, lo:hi], q_offset=r0 - lo)
+                qs, kt[:, :, lo:hi], vt[:, :, lo:hi], causal=causal,
+                q_offset=r0 - lo)
         reject(torch.zeros_like(want), want, "zeros")
-        reject(part(0, 64), want, "the first key tile alone")
-        reject(part(0, r0 // 2), want, "the first half of the keys")
-        reject(part(c, S), want, "the last key tiles alone")
+        half = r0 // 2 if causal and r0 else seen // 2
+        for (lo, hi), what in (((0, 64), "the first key tile alone"),
+                               ((0, half), "the first half of the keys"),
+                               ((c, S), "the last key tiles alone")):
+            if hi > lo and (lo > 0 or hi < seen):
+                reject(part(lo, hi), want, what)
 
     S = tokens
     for H, KV, Dh, dt in ((4, 2, 32, bf16), (4, 2, 32, f32),
@@ -1718,6 +2049,19 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
             hold(o, want, f"{arch} prefill")
             for r0 in (S // 2 + 37, S - 64):        # a middle, the last
                 reject_broken(qt, kt, vt, r0, want[:, :, r0:r0 + 64])
+    for what, (B, Sq, Sk, H, KV, Dh, causal) in FAMILY_K5.items():
+        for q_scale in (1.0, 4.0):  # the families' prefill calls, bf16
+            q = randn(B, Sq, H, Dh, dtype=bf16, scale=q_scale)
+            k = randn(B, Sk, KV, Dh, dtype=bf16)
+            v = randn(B, Sk, KV, Dh, dtype=bf16, scale=1 / q_scale)
+            o = fa.flash_attention_op(q, k, v,
+                                      causal=causal).transpose(1, 2)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            want = fa.flash_attention_plain(qt, kt, vt, causal=causal)
+            hold(o, want, what)
+            for r0 in sorted({Sq // 2 + 37 if Sq > 128 else 0, Sq - 64}):
+                reject_broken(qt, kt, vt, r0, want[:, :, r0:r0 + 64],
+                              causal)
     for dt in (f32, bf16):      # GQA, a ragged Sq = 200, masks on and off
         q = randn(2, 4, 200, 64, dtype=dt)
         k, v = (randn(2, 2, 200, 64, dtype=dt) for _ in range(2))
@@ -1781,6 +2125,49 @@ def time_rmsnorm_and_attention(timer, seed: int):
     for key, (ms, plain, b_ms, b_by, lib) in out.items():
         log(f"time {key}: kernel {ms} ms, plain {plain} ms, bound {b_ms} ms "
             f"({b_by}), library {lib} ms")
+    return out
+
+
+def time_family_attention(timer, seed: int, fam):
+    """K5 at the families' prefill calls (FAMILY_K5, bf16, the model's (B,
+    S, H, Dh) layout): the median time, the plain version's, the bound,
+    ``F.scaled_dot_product_attention`` on the same inputs, and the
+    launches at that shape in phase 5d's ``serve_batch`` run (whisper's
+    prefill split by role: its encoder's layers, and per decoder layer one
+    self- and one cross-attention)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(seed + 14)
+    w = fam["whisper-small"]["prefill_launches"]["flash_attention"]
+    enc = get_config("whisper-small").encoder.n_layers
+    launches = {"moonshot prefill": fam["moonshot-v1-16b-a3b"][
+                    "prefill_launches"]["flash_attention"],
+                "internvl2 prefill": fam["internvl2-76b"][
+                    "prefill_launches"]["flash_attention"],
+                "whisper encoder": enc, "whisper decoder": (w - enc) // 2,
+                "whisper cross-attention": (w - enc) // 2}
+    out = {}
+    for what, (B, Sq, Sk, H, KV, Dh, causal) in FAMILY_K5.items():
+        q = torch.randn(B, Sq, H, Dh, device="cuda", generator=g).to(bf16)
+        k, v = (torch.randn(B, Sk, KV, Dh, device="cuda",
+                            generator=g).to(bf16) for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = timer(lambda: fa.flash_attention_op(q, k, v, causal=causal))
+        plain = timer(lambda: fa.flash_attention_plain(qt, kt, vt,
+                                                       causal=causal),
+                      reps=2)
+        b_ms, b_by = attention_bound(Sq, H, KV, Dh, 2, B, Sk, causal)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        out[what] = (ms, plain, b_ms, b_by, lib, launches[what])
+        log(f"time flash_attention at {what} (B {B}, Sq {Sq}, Sk {Sk}, H "
+            f"{H}, KV {KV}, Dh {Dh}, causal {causal}, bf16): kernel {ms} "
+            f"ms, plain {plain} ms, bound {b_ms} ms ({b_by}), library "
+            f"(SDPA) {lib} ms; launches in phase 5d's serve_batch "
+            f"{launches[what]}")
     return out
 
 

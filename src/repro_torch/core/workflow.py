@@ -28,7 +28,7 @@ prefetch still overlapping I/O and compute.
 
 Campaign mode (``campaign=``/``summaries=``) and the host input cache
 (``cache=``) arrive with the port's ``dist/`` slice (ROADMAP.md, Queue 1
-item 8); until then they raise ``NotImplementedError``.
+item 3a); until then they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ python -m repro_torch.core.workflow --run-one {units_json} --index $SLURM_ARRAY_
 
 
 _DIST_SLICE = ("{} arrives with the port's dist/ slice (ROADMAP.md, Queue 1 "
-               "item 8)")
+               "item 3a)")
 
 
 @dataclasses.dataclass

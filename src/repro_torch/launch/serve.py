@@ -3,6 +3,7 @@ caches (``repro/launch/serve.py``), on ``cuda`` unless the caller asks for
 the CPU.
 
     python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
+    python -m repro_torch.launch.serve --arch whisper-small --device cpu
 """
 from __future__ import annotations
 
@@ -41,7 +42,10 @@ def serve_batch(arch: str, prompts: np.ndarray, max_new: int = 16,
     tokens. Weights are drawn from a CPU ``torch.Generator`` seeded
     ``seed`` in bf16, unless ``params`` (e.g. the reference's, through
     ``repro_torch.convert.from_jax``) are given; ``device`` ``None`` means
-    ``cuda``."""
+    ``cuda``. As in the reference, an encoder config gets zero frame
+    embeddings (B, enc_seq, D) and a vlm config zero patch embeddings (B,
+    n_patches, D), ahead of the prompt: its decode starts at S +
+    n_patches."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -53,15 +57,25 @@ def serve_batch(arch: str, prompts: np.ndarray, max_new: int = 16,
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     with torch.inference_mode():
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                                 device=dev)
-        logits, cache = prefill(params, {"tokens": tokens})
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts),
+                                           dtype=torch.int64, device=dev)}
+        if cfg.encoder is not None:
+            batch["enc_embeds"] = torch.zeros(
+                (B, cfg.encoder.enc_seq, cfg.d_model), dtype=torch.bfloat16,
+                device=dev)
+        n_patches = 0
+        if cfg.vlm is not None:
+            n_patches = cfg.vlm.n_patches
+            batch["embeds"] = torch.zeros((B, n_patches, cfg.d_model),
+                                          dtype=torch.bfloat16, device=dev)
+        logits, cache = prefill(params, batch)
         # move the prefill cache into a max-length decode cache
-        cache = graft(init_cache(cfg, B, S + max_new, device=dev), cache)
+        cache = graft(init_cache(cfg, B, S + max_new + n_patches,
+                                 device=dev), cache)
         tok = greedy_sample(logits)[:, None]
         out = [tok]
         for i in range(max_new - 1):
-            logits, cache = decode(params, cache, tok, S + i)
+            logits, cache = decode(params, cache, tok, S + n_patches + i)
             tok = greedy_sample(logits[:, 0])[:, None]
             out.append(tok)
         return torch.cat(out, dim=1).cpu().numpy()

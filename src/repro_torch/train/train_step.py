@@ -17,7 +17,8 @@ from .optimizer import OptConfig, adamw_init, adamw_update
 def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
                     remat: bool = True, accum_steps: int = 1):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics) with ``loss``, ``acc``, ``tokens``, ``grad_norm`` and ``lr``.
+    metrics) with ``loss``, ``acc``, ``tokens``, ``grad_norm`` and ``lr``
+    (and ``aux_loss`` for moe).
 
     Params stay f32 (master); each step casts those with ndim > 1 to
     ``compute_dtype`` once, and compute runs in it. The batch (numpy arrays
@@ -53,8 +54,10 @@ def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
             grads = tree_util.tree_map(
                 lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device), params)
+            keys = ("loss", "acc", "tokens") + \
+                (("aux_loss",) if cfg.moe is not None else ())
             msum = {k: torch.zeros((), dtype=torch.float32, device=dev)
-                    for k in ("loss", "acc", "tokens")}
+                    for k in keys}
             for mb in mbs:
                 m, g = loss_and_grads(params, mb)
                 grads = tree_util.tree_map(lambda a, b: a + b.float(),

@@ -22,7 +22,12 @@ max|ref|), the bound the reference holds its own kernels to. Training
 input that requires grad under grad mode, and ``forward_train`` on the card
 holds its f32 loss within 1e-4 relative and each gradient leaf within 1e-3
 of its largest |value| of the port's own CPU run, a check that a detached
-layer fails; checkpoints of card tensors restore bit-equal.
+layer fails; checkpoints of card tensors restore bit-equal. The moe, audio
+and vlm families run K4 and K5 at new shapes (d 768 and 8,192; Dh 128 with
+8 query heads a kv head; 64 queries over 1,500 non-causal keys), held as
+above; their MoE layer (no kernel: matmuls, a scatter and a gather) and
+their f32 prefill are held to the CPU's within 1e-4 of the largest
+|value|, with the experts each token chose equal.
 """
 import importlib
 
@@ -833,3 +838,113 @@ def test_train_steps_and_checkpoint_on_the_card(cuda, tmp_path):
     assert abs(float(m3r["loss"]) - float(m3["loss"])) <= \
         1e-3 * float(m3["loss"])
     assert rn.LAUNCHES["rmsnorm"] == fa.LAUNCHES["flash_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the moe, audio and vlm families' shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rows,d", [(6000, 768), (256, 768), (4, 768),
+                                    (9024, 8192), (4, 8192)])
+def test_rmsnorm_kernel_at_the_family_shapes(cuda, rows, d):
+    """K4 at whisper's d 768 (encoder, decoder prefill and decode rows) and
+    internvl2's d 8,192, bf16 with a bf16 and an f32 scale: bit-exact."""
+    g = torch.Generator().manual_seed(d + rows)
+    x = torch.randn(rows, d, generator=g).to(torch.bfloat16).to(cuda)
+    s = (torch.rand(d, generator=g) + 0.5).to(cuda)
+    for sc in (s.to(torch.bfloat16), s):
+        assert torch.equal(rn.rmsnorm(x, sc), rn.rmsnorm_plain(x, sc))
+    assert rn.LAUNCHES["rmsnorm"] == 2
+
+
+@pytest.mark.parametrize("H,KV", [(16, 16), (64, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dh128_at_the_family_head_layouts(cuda, H, KV, dtype):
+    """Dh 128, causal, in the model's (B, S, H, Dh) layout: moonshot's 16
+    heads over 16 kv heads and internvl2's 64 over 8 (G 8), at a short
+    S 300 (two whole 128-key tiles and a ragged 44)."""
+    g = torch.Generator().manual_seed(H)
+    q = torch.randn(2, 300, H, 128, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(2, 300, KV, 128, generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    got = fa.flash_attention_op(q, k, v, causal=True)
+    _close(got.transpose(1, 2), fa.flash_attention_plain(
+        *(t.transpose(1, 2) for t in (q, k, v))))
+    assert fa.LAUNCHES["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("Sq", [64, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_cross_attention_fewer_queries_than_keys(cuda, Sq, dtype):
+    """Whisper's cross-attention: Sq 64 decoder queries (and one) against
+    the encoder's 1,500 keys (11 whole 128-key tiles and a ragged 92),
+    non-causal, H 12, Dh 64."""
+    g = torch.Generator().manual_seed(Sq)
+    q = torch.randn(2, 12, Sq, 64, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(2, 12, 1500, 64, generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    _close(fa.flash_attention(q, k, v, causal=False),
+           fa.flash_attention_plain(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("arch,S,reduced", [
+    ("moonshot-v1-16b-a3b", 300, False), ("moonshot-v1-16b-a3b", 1, False),
+    ("llama4-scout-17b-a16e", 300, True)])
+def test_moe_mlp_on_the_card_matches_the_cpu(cuda, arch, S, reduced):
+    """One MoE layer, f32: moonshot at its published width (d 2,048, 64
+    experts, top-6 of 1,408), llama4-scout reduced (top-1): the experts
+    chosen equal to the CPU's, the output within 1e-4 of its largest
+    |value| (S 1: the dense mixture)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=1)
+    p = {k: v[0] for k, v in moe.init_moe(
+        torch.Generator().manual_seed(0), cfg, 1, device="cpu").items()}
+    x = torch.randn(2, S, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    sel, _, _ = moe._route(x, p["router"], cfg.moe)
+    sel_c, _, _ = moe._route(x.to(cuda), p["router"].to(cuda), cfg.moe)
+    assert torch.equal(sel_c.cpu(), sel)
+    want, aux = moe.moe_mlp(x, p, cfg)
+    got, aux_c = moe.moe_mlp(x.to(cuda), _tree_to(p, cuda), cfg)
+    assert float((got.cpu() - want).abs().max()) <= \
+        1e-4 * float(want.abs().max())
+    assert abs(float(aux_c) - float(aux)) <= 1e-6 * abs(float(aux))
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-small",
+                                  "internvl2-76b"])
+def test_family_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced configs, f32, 2 x 100 tokens (whisper: 64 random frames;
+    internvl2: 16 random patches): the logits and every cache tensor within
+    1e-4 of their largest |value|, through K4 and K5 on the card."""
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_prefill, init_params
+    cfg = get_config(arch).reduced()
+    p = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                     (2, 100)))}
+    if cfg.encoder is not None:
+        batch["enc_embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.vlm is not None:
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.vlm.n_patches, cfg.d_model)).astype(np.float32))
+    with torch.inference_mode():
+        want = forward_prefill(cfg, p, batch, torch.float32)
+        got = forward_prefill(cfg, _tree_to(p, cuda),
+                              {k: v.to(cuda) for k, v in batch.items()},
+                              torch.float32)
+    for g, w in zip(tree_util.leaves(got), tree_util.leaves(want)):
+        assert g.is_cuda and g.shape == w.shape
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers * (
+        2 if cfg.encoder else 1) + (cfg.encoder.n_layers if cfg.encoder
+                                     else 0)
+    assert rn.LAUNCHES["rmsnorm"] > 0
+

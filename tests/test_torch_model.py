@@ -199,15 +199,6 @@ def test_lm_families_init_params_have_the_reference_layout(arch, dtype):
                for t in jax.tree.leaves(port))
 
 
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "whisper-small",
-                                  "internvl2-76b"])
-def test_other_families_wait_for_their_slice(arch):
-    """The moe, audio and vlm families join in a later slice."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_params(get_config(arch).reduced(), torch.Generator(),
-                    device=CPU)
-
-
 def test_stack_norm_and_head_match_reference_in_bf16():
     cfg = jax_get_config("paper-unest").reduced(vocab_size=8)
     params = _np_tree(jax_init_params(cfg, jax.random.PRNGKey(0)))

@@ -1,8 +1,11 @@
 """The port's LM training (``repro_torch.train``, ``models.forward_train``
 and its losses) against the JAX package's, on the CPU, at reduced configs
-(2 layers, vocab 128) of the three families it trains: dense
-(llama3.2-1b), rwkv (rwkv6-1.6b) and hybrid (zamba2-1.2b), with the
-reference's weights carried across by ``repro_torch.convert.from_jax``.
+(2 layers, vocab 128): dense (llama3.2-1b), rwkv (rwkv6-1.6b) and hybrid
+(zamba2-1.2b) throughout; moe (moonshot-v1-16b-a3b, with its aux loss),
+audio (whisper-small: frames through the encoder) and vlm (internvl2-76b:
+patch embeddings ahead of the tokens) in the loss, gradient and train-step
+cases of ``FAMILIES``; with the reference's weights carried across by
+``repro_torch.convert.from_jax``.
 
 Tolerances and why:
   * ``lr_schedule``: 1e-7 relative, float32's last bit or so (both compute
@@ -22,6 +25,9 @@ Tolerances and why:
   * ``remat=True`` against ``remat=False``, and ``accum_steps=2`` against
     1: the port against itself, 1e-5 (the params after a step with eps 1,
     where the step is about lr x g).
+  * moe's ``aux_loss`` metric: 1e-6 absolute (a mean of f32 products near
+    1), with the experts each token chose equal to the reference's (the
+    aux loss counts each token's top-1 choice).
 The kernels K4-K7 have no backward: their wrappers refuse an input that
 requires grad under grad mode, on the CPU as on the card.
 """
@@ -52,6 +58,8 @@ from repro_torch.train import (OptConfig, adamw_init, adamw_update,
 
 CPU = torch.device("cpu")
 ARCHS = ["llama3.2-1b", "rwkv6-1.6b", "zamba2-1.2b"]
+FAMILIES = ["moonshot-v1-16b-a3b", "whisper-small", "internvl2-76b"]
+MOE = "moonshot-v1-16b-a3b"
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -77,7 +85,22 @@ def _ref_params(cfg, seed=0):
 
 
 def _batch(cfg, B=2, S=64, seed=1):
-    return make_lm_batches(cfg, B, S, 1, seed=seed)[0]
+    """Tokens and next-token targets; with the frames (audio) or patch
+    embeddings (vlm, whose targets then cover the patches too) the config
+    takes, from the same seed."""
+    b = make_lm_batches(cfg, B, S, 1, seed=seed)[0]
+    rng = np.random.default_rng(seed + 1000)
+    if cfg.encoder is not None:
+        b["enc_embeds"] = rng.standard_normal(
+            (B, cfg.encoder.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.vlm is not None:
+        P = cfg.vlm.n_patches
+        b["embeds"] = rng.standard_normal((B, P, cfg.d_model)).astype(
+            np.float32)
+        b["targets"] = np.concatenate(
+            [rng.integers(0, cfg.vocab_size, (B, P)).astype(np.int32),
+             b["targets"]], axis=1)
+    return b
 
 
 def _cast(tree, dtype, jax_side):
@@ -418,10 +441,10 @@ def test_ssd_chunked_train_gradients_equal_the_sequential_oracle(decay, S,
 # the train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [MOE])
 def test_first_train_step_matches_reference(arch):
     """The first ``make_train_step`` step in f32 from the same params and
-    batch: loss, grad_norm, lr and the updated params."""
+    batch: loss, grad_norm, lr (moe: aux_loss) and the updated params."""
     rcfg, cfg = _cfgs(arch)
     params = _ref_params(rcfg)
     batch = _batch(cfg, 2, 64, seed=8)
@@ -433,7 +456,11 @@ def test_first_train_step_matches_reference(arch):
     p = from_jax(params, CPU)
     step = make_train_step(cfg, OptConfig(**kw), torch.float32)
     got_p, got_s, got_m = step(p, adamw_init(p), batch)
-    assert set(got_m) == {"loss", "acc", "tokens", "grad_norm", "lr"}
+    assert set(got_m) == {"loss", "acc", "tokens", "grad_norm", "lr"} | \
+        ({"aux_loss"} if cfg.moe is not None else set())
+    if cfg.moe is not None:
+        assert abs(float(got_m["aux_loss"]) - float(want_m["aux_loss"])) \
+            <= 1e-6
     for k in ("loss", "grad_norm"):
         assert abs(float(got_m[k]) - float(want_m[k])) <= \
             1e-4 * abs(float(want_m[k])), k
@@ -598,8 +625,77 @@ def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
     assert st["step"].device == CPU
 
 
-def test_other_families_do_not_train_yet():
-    for arch in ("moonshot-v1-16b-a3b", "whisper-small", "internvl2-76b"):
-        cfg = get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            init_train_state(cfg, torch.Generator(), device="cpu")
+# ---------------------------------------------------------------------------
+# the moe, audio and vlm families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_loss_and_gradients_match_jax_grad(arch):
+    """``forward_train`` in f32 (moe: its aux loss added, and the
+    ``aux_loss`` metric) and every gradient leaf against ``jax.grad``:
+    the loss within 1e-4, each leaf within 1e-4 of its largest |value|."""
+    rcfg, cfg = _cfgs(arch)
+    params = _ref_params(rcfg)
+    batch = _batch(cfg, 2, 64, seed=11)
+    want, want_m, want_g = _ref_loss_and_grads(rcfg, params, batch,
+                                               "float32")
+    loss, m, got = _port_loss_and_grads(cfg, from_jax(params, CPU), batch,
+                                        "float32")
+    assert abs(float(loss) - want) <= 1e-4 * abs(want)
+    assert set(m) == set(want_m)
+    assert float(m["tokens"]) == want_m["tokens"] == batch["targets"].size
+    if cfg.moe is not None:
+        assert abs(float(m["aux_loss"]) - want_m["aux_loss"]) <= 1e-6
+        assert float(m["aux_loss"]) > 0.5
+    paths = [p for p, _ in tree_util.flatten_with_paths(got)]
+    for path, g, w in zip(paths, tree_util.leaves(got),
+                          jax.tree.leaves(want_g)):
+        assert tuple(g.shape) == w.shape, path
+        assert float(np.max(np.abs(np.asarray(w)))) > 0, path
+        assert _rel(g, w) <= 1e-4, (path, _rel(g, w))
+
+
+def test_moe_training_step_and_aux_loss():
+    """The reference's ``test_moe_training_step_and_aux_loss``
+    (``tests/test_data_train.py:84``) on the port: one bf16 step of
+    moonshot at 2 layers, vocab 128, gives a finite loss and an aux loss
+    near E * 1/E * 1 = 1, and the same loss and aux loss as the
+    reference's step within the bf16 tolerance."""
+    rcfg, cfg = _cfgs(MOE)
+    params = _ref_params(rcfg)
+    batch = make_lm_batches(cfg, 2, 64, 1)[0]
+    _, _, want = jax.jit(ref_make_train_step(rcfg, RefOptConfig(lr=1e-3)))(
+        params, ref_adamw_init(params), batch)
+    p = from_jax(params, CPU)
+    _, _, m = make_train_step(cfg, OptConfig(lr=1e-3))(p, adamw_init(p),
+                                                       batch)
+    assert np.isfinite(float(m["loss"]))
+    assert float(m["aux_loss"]) > 0.5
+    for k in ("loss", "aux_loss"):
+        assert abs(float(m[k]) - float(want[k])) <= \
+            TOL["bfloat16"] * abs(float(want[k])), k
+
+
+def test_moe_accumulation_reports_aux_loss():
+    """Under ``accum_steps=2`` the metrics keep ``aux_loss`` (the mean of
+    the microbatches', as the reference's zero metrics gain it), and the
+    step's metrics and params match the reference's accumulated step."""
+    rcfg, cfg = _cfgs(MOE)
+    params = _ref_params(rcfg)
+    batch = _batch(cfg, 4, 64, seed=12)
+    kw = dict(lr=1e-3, warmup_steps=1, eps=1.0)
+    want_p, _, want_m = jax.jit(ref_make_train_step(
+        rcfg, RefOptConfig(**kw), jnp.float32, accum_steps=2))(
+            params, ref_adamw_init(params), batch)
+    p = from_jax(params, CPU)
+    got_p, _, got_m = make_train_step(cfg, OptConfig(**kw), torch.float32,
+                                      accum_steps=2)(p, adamw_init(p), batch)
+    assert set(got_m) == set(want_m) == {"loss", "acc", "tokens",
+                                         "aux_loss", "grad_norm", "lr"}
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got_m[k]) - float(want_m[k])) <= \
+            1e-4 * abs(float(want_m[k])), k
+    assert abs(float(got_m["aux_loss"]) - float(want_m["aux_loss"])) <= 1e-6
+    assert float(got_m["tokens"]) == float(want_m["tokens"]) == 256
+    for g, w in zip(tree_util.leaves(got_p), jax.tree.leaves(want_p)):
+        assert float(np.max(np.abs(g.numpy() - np.asarray(w)))) <= 1e-5
