@@ -28,6 +28,20 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               the others neither. Then at 64^3 the cuda outputs are held
               against the port's own cpu outputs with the parity tests'
               tolerances.
+ 4b. cluster - a campaign over phase 3's one-shot ingest, drained on
+              the card: two sessions' T1w fetched into node-0's host cache
+              and one into node-1's (K2 folding the streamed misses), the
+              summaries harvested, ``generate_jobs(summaries=)`` writing
+              ``campaign.json``, then ``ClusterRunner`` with 4 nodes, the
+              plan, per-node caches, a journal and node-1 dying after one
+              unit (default leases), ``segment_unest`` on cuda. One ok
+              provenance a unit, inputs' sha256 the manifest's, outputs
+              byte-equal to phase 4's for the same session, K4 / K5
+              launched 5 / 2 times a pipeline run, warm units that ran on
+              their planned node served from the cache, the journal recovering every unit retired, and
+              ``campaign.json`` re-planning byte-equal. One of node-0's
+              blobs is corrupted on disk first: the verified hit must drop
+              it and read storage.
  5. model   - the dense stack at the published paper-unest width (12
               layers, d 512, 8 heads, Dh 64, d_ff 2048), bf16, forward over
               the 180,224 patch tokens of one ingested T1w, weights from a
@@ -604,6 +618,9 @@ def run(args, work: Path, card: str):
           and diffs["segment_logits_abs"] <= 1.6e-2
           and diffs["segment_argmax_agree"] >= 0.99, f"cuda vs cpu: {diffs}")
 
+    # -- 4b. the campaign-planned cluster on cuda -------------------------------
+    cluster_phase(m0, m1, pipes["segment_unest"], work, card)
+
     # -- 5. the dense stack at the published paper-unest width ---------------
     t1_rec = next(i for i in m1.images if i.suffix == "T1w")
     model_wall = model_phase(np.load(Path(m1.root) / t1_rec.path), args.seed)
@@ -794,6 +811,166 @@ def run(args, work: Path, card: str):
              "bound_by": timing[name][3], "library_ms": timing[name][4],
              "bound_term": bound_terms.get(name, timing[name][3])}
             for name, (source, replaces) in KERNELS.items()]
+
+
+def cluster_phase(m0, m1, pipe, work: Path, card: str):
+    """Phase 4b: a campaign over ``m0`` (phase 3's one-shot ingest, on which
+    no pipeline ran yet) drained by four in-process nodes running
+    ``segment_unest`` on the card, each with its own host cache, the queue
+    journaled, one node dying. Every unit must end in one ok provenance
+    whose outputs are byte-equal to phase 4's for the same session (same
+    bytes in, same weights, same card), K4/K5 launched 5/2 times a pipeline
+    execution, warm units served from the cache, the journal replaying
+    every unit retired and ``campaign.json`` re-planning byte-equal. A blob
+    corrupted on disk before the run must be caught by the verified hit and
+    fall back to storage."""
+    import torch
+    from repro_torch.core import (Provenance, generate_jobs,
+                                  query_available_work)
+    from repro_torch.core.campaign import (CampaignPlan, Cohort,
+                                           plan_campaign)
+    from repro_torch.dist import ClusterRunner, InputCache, WorkQueue
+    from repro_torch.dist.cache import summaries_from_cache_dirs
+    from repro_torch.dist.journal import Journal
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.checksum import LAUNCHES, reset_launches
+    t_phase = time.perf_counter()
+    root = work / "cluster"
+    units, excluded = query_available_work(m0, pipe)
+    check(len(units) == SESSIONS, f"cluster: {len(units)} units")
+    by_session = sorted(units, key=lambda u: (u.subject, u.session))
+    # warm host caches, through K2 (device QA on the streamed miss):
+    # node-0 holds two sessions' T1w, node-1 one, the fourth is cold. The
+    # nodes start in order and each leases its own shard first, then the
+    # backlog (node-1 takes the cold unit as its prefetch): node-1 dies
+    # after its warm unit, holding that lease, which the reaper requeues
+    warm = {"node-0": by_session[:2], "node-1": by_session[2:3]}
+    reset_launches()
+    for node, take in warm.items():
+        cache = InputCache(root / "caches" / node, device="cuda")
+        for u in take:
+            _, digest, origin, _, rep = cache.fetch_array(
+                Path(m0.root) / u.inputs["T1w"], device_qa=True)
+            check(origin == "storage" and rep["device_qa"]
+                  and digest == u.input_digests["T1w"],
+                  f"cluster: warming {u.job_id}: {origin}, {rep}")
+    check(LAUNCHES["qa_checksum_chunk"] > 0,
+          f"cluster: the warm-up launched no K2: {dict(LAUNCHES)}")
+    log(f"cluster warm-up: K2 launches {LAUNCHES['qa_checksum_chunk']} | "
+        f"{card}")
+    summaries = summaries_from_cache_dirs(root / "caches")
+    jobs = generate_jobs(m0, pipe, root / "jobs", summaries=summaries)
+    plan = CampaignPlan.load(jobs.campaign_file)
+    warm_ids = {s.node_id: set(s.unit_ids) for s in plan.shards if s.node_id}
+    check(warm_ids == {n: {u.job_id for u in us} for n, us in warm.items()},
+          f"cluster: the plan placed {warm_ids}")
+    replan = plan_campaign(
+        [Cohort(m0.name, pipe.name, pipe.digest(), units, excluded)],
+        summaries, status=plan.resource)
+    check(replan.to_json() == Path(jobs.campaign_file).read_text(),
+          "cluster: campaign.json does not re-plan byte-equal")
+    # the broken control: node-0's first warm blob corrupted on disk
+    bad = by_session[0]
+    blob = root / "caches" / "node-0" / "blobs" / bad.input_digests["T1w"]
+    data = bytearray(blob.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    blob.write_bytes(bytes(data))
+    executions = {"n": 0}
+    run_fn = pipe.fn
+
+    def counted(inputs):
+        out = run_fn(inputs)
+        executions["n"] += 1
+        return out
+
+    pipe.fn = counted
+    runner = ClusterRunner(pipe, m0.root, nodes=4, plan=plan,
+                           cache_dir=root / "caches", cache_per_node=True,
+                           locality=True, journal_dir=root / "journal",
+                           die_after={"node-1": 1})
+    torch.cuda.synchronize()
+    rn.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        results = runner.run(jobs.units)
+    finally:
+        pipe.fn = run_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k45 = (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"])
+    ok = [r for r in results if r.status == "ok"]
+    check(sorted(r.unit.job_id for r in ok)
+          == sorted(u.job_id for u in units),
+          f"cluster: ok results {[(r.unit.job_id, r.status) for r in results]}")
+    reported = sum(1 for r in results if r.seconds > 0
+                   and r.status in ("ok", "speculative", "skipped"))
+    check(executions["n"] == reported,
+          f"cluster: {executions['n']} pipeline runs, {reported} reported")
+    check(k45 == (5 * executions["n"], 2 * executions["n"]),
+          f"cluster: K4/K5 launches {k45} for {executions['n']} runs")
+    check("node-1" in runner.stats.dead_nodes,
+          f"cluster: node-1 did not die: {runner.stats}")
+    again, _ = query_available_work(m0, pipe)
+    check(not again, f"cluster: the re-query found {len(again)} units")
+    by_id = {r.unit.job_id: r for r in ok}
+    warm_hits = []
+    for u in units:
+        prov = Provenance.load(Path(u.out_dir))
+        check(prov is not None and prov.status == "ok",
+              f"cluster: {u.job_id} provenance {prov}")
+        check(prov.inputs == {u.inputs["T1w"]: u.input_digests["T1w"]},
+              f"cluster: {u.job_id} committed inputs {prov.inputs}")
+        for name in ("segmentation", "class_logits"):
+            f = f"sub-{u.subject}_ses-{u.session}_{name}.npy"
+            got = (Path(u.out_dir) / f).read_bytes()
+            want = (Path(m1.root) / "derivatives" / pipe.name
+                    / f"sub-{u.subject}" / f"ses-{u.session}" / f
+                    ).read_bytes()
+            check(got == want,
+                  f"cluster: {u.job_id} {name} differs from phase 4's")
+            # the control: one flipped byte must fail the same comparison
+            flipped = bytearray(got)
+            flipped[-1] ^= 1
+            check(bytes(flipped) != want,
+                  "cluster: the byte check passed a flipped byte")
+        res = by_id[u.job_id]
+        home = next((n for n, ids in warm_ids.items() if u.job_id in ids),
+                    None)
+        if u.job_id == bad.job_id:
+            check(res.bytes_from_cache == 0 and not prov.cache_hit,
+                  f"cluster: the corrupted blob was served: {res}")
+        elif home is not None and prov.node_id == home:
+            # a warm unit that ran where the plan put it read its cache (a
+            # steal or a requeue may move it, and then it reads storage)
+            warm_hits.append(u.job_id)
+            check(res.bytes_from_cache > 0 and prov.cache_hit,
+                  f"cluster: warm unit {u.job_id} read storage: {res}")
+    check(warm_hits, "cluster: no warm unit ran on its planned node")
+    check(runner.stats.cache["hits"] >= 1,
+          f"cluster: no cache hit: {runner.stats.cache}")
+    rows, _, tail, torn = Journal(root / "journal").replay(truncate=False)
+    q = WorkQueue.recover(Journal(root / "journal"))
+    check(q.finished() and sorted(q.done_status().values())
+          == ["ok"] * len(units),
+          f"cluster: the journal recovers {q.done_status()}")
+    q._journal.close()
+    st = runner.stats.cache
+    log(f"cluster: {len(units)} units on 4 nodes in {wall:.3f} s "
+        f"({wall / len(units):.3f} s a unit; per unit "
+        f"{[round(r.seconds, 3) for r in ok]} s), {executions['n']} "
+        f"pipeline runs, K4/K5 launches {k45}, cache hits {st['hits']} / "
+        f"misses {st['misses']}, bytes from cache {st['bytes_from_cache']}, "
+        f"from storage {st['bytes_from_storage']}, stream hash "
+        f"{st['stream_hash_seconds']:.4f} s / device "
+        f"{st['stream_device_seconds']:.4f} s, dead {runner.stats.dead_nodes}"
+        f", requeued {runner.stats.requeued}, speculated "
+        f"{runner.stats.speculated}, warm hits {warm_hits}, journal "
+        f"{len(rows)} units + "
+        f"{len(tail)} tail records | {card}")
+    log(f"cluster phase: {time.perf_counter() - t_phase:.3f} s in all "
+        f"| {card}")
 
 
 def model_phase(vol, seed: int) -> float:

@@ -1,8 +1,7 @@
 """The paper's contribution as a composable substrate, on PyTorch: manifests,
 automated work queries, content-addressed pipelines, checksummed tiered
 storage, provenance, ingest with the fused QA+checksum kernels, the workflow
-engine, and the cost model. Campaign planning arrives with the ``dist/``
-slice."""
+engine, the campaign planner, and the cost model."""
 from .integrity import (IntegrityError, fletcher64, fletcher64_file,
                         sha256_file, sha256_load_array, sha256_save_array,
                         array_checksum, verified_copy)
@@ -32,4 +31,21 @@ __all__ = [
     "PAPER_ENVS", "job_cost", "paper_table1", "cost_ratio_cloud_vs_hpc",
     "IngestRule", "ingest_directory", "write_raw_dump",
     "dump_units", "load_units",
+    "CampaignPlan", "Cohort", "Shard", "admission_throttle",
+    "cohort_from_query", "plan_campaign", "summaries_from_queue",
 ]
+
+_CAMPAIGN_NAMES = ("CampaignPlan", "Cohort", "Shard", "admission_throttle",
+                   "cohort_from_query", "plan_campaign",
+                   "summaries_from_queue")
+
+
+def __getattr__(name):
+    # campaign is loaded lazily: it imports repro_torch.dist (for the shared
+    # placement scorer + digest summaries), and repro_torch.dist.cache imports
+    # repro_torch.core.integrity — an eager import here would cycle whenever
+    # repro_torch.dist is imported first
+    if name in _CAMPAIGN_NAMES:
+        from . import campaign
+        return getattr(campaign, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

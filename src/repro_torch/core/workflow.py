@@ -26,9 +26,9 @@ Execution data plane (``LocalRunner``) is built for throughput:
 ``workers=1`` (the default) degrades to the serial paper behaviour with
 prefetch still overlapping I/O and compute.
 
-Campaign mode (``campaign=``/``summaries=``) and the host input cache
-(``cache=``) arrive with the port's ``dist/`` slice (ROADMAP.md, Queue 1
-item 3a); until then they raise ``NotImplementedError``.
+The host input cache (``cache=``, :class:`repro_torch.dist.cache.InputCache`)
+has no peer fabric in the port yet: that needs ``dist/blobserve.py``
+(ROADMAP.md, Queue 1 item 3b), so ``bytes_from_peer`` stays 0 here.
 """
 from __future__ import annotations
 
@@ -74,10 +74,6 @@ python -m repro_torch.core.workflow --run-one {units_json} --index $SLURM_ARRAY_
 """
 
 
-_DIST_SLICE = ("{} arrives with the port's dist/ slice (ROADMAP.md, Queue 1 "
-               "item 3a)")
-
-
 @dataclasses.dataclass
 class JobPlan:
     units: List[WorkUnit]
@@ -85,6 +81,11 @@ class JobPlan:
     units_file: Optional[str] = None
     exclusion_csv: Optional[str] = None
     manifest_file: Optional[str] = None
+    # campaign mode (admission-time locality, repro_torch.core.campaign): the
+    # deterministic plan artifact plus one script + units file per shard
+    campaign_file: Optional[str] = None
+    shard_scripts: List[str] = dataclasses.field(default_factory=list)
+    shard_units_files: List[str] = dataclasses.field(default_factory=list)
 
 
 def generate_jobs(manifest: DatasetManifest, pipeline: Pipeline, out_dir: Path,
@@ -92,12 +93,16 @@ def generate_jobs(manifest: DatasetManifest, pipeline: Pipeline, out_dir: Path,
                   throttle: int = 100, campaign=None, summaries=None) -> JobPlan:
     """The paper's single-line script generation: query + job array + CSV.
 
-    Emits one untargeted array script over the whole unit list, with the
-    manifest and units JSON next to it, so every path the generated script
-    references exists at submit time. Campaign mode (``campaign=`` or
-    ``summaries=``) is not ported yet and raises ``NotImplementedError``."""
-    if campaign is not None or summaries is not None:
-        raise NotImplementedError(_DIST_SLICE.format("campaign mode"))
+    Blind mode (default) emits one untargeted array script over the whole
+    unit list. Campaign mode — ``summaries=`` (per-node digest-summary
+    wires, a summaries-file path, or live :class:`DigestSummary` objects) or
+    a pre-built ``campaign=`` :class:`~repro_torch.core.campaign.CampaignPlan` —
+    shards the array by data placement instead: one SLURM script per shard,
+    warm shards pinned to the host holding their bytes, plus a
+    deterministic ``campaign.json`` stamped with the planner-inputs hash so
+    the submitted campaign is replayable and auditable. Either way the
+    manifest and units JSON land next to the scripts, so every path the
+    generated scripts reference exists at submit time."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "logs").mkdir(exist_ok=True)      # SBATCH --output target
@@ -112,6 +117,58 @@ def generate_jobs(manifest: DatasetManifest, pipeline: Pipeline, out_dir: Path,
                    exclusion_csv=str(excl_csv),
                    manifest_file=str(manifest_file))
     if not units:
+        return plan
+
+    if campaign is None and summaries is not None:
+        from .campaign import Cohort, plan_campaign
+        cohort = Cohort(manifest.name, pipeline.name, pipeline.digest(),
+                        units, excluded)
+        campaign = plan_campaign([cohort], summaries, throttle=throttle,
+                                 status=resource_status(out_dir))
+    if campaign is not None:
+        from .campaign import as_plan
+        from ..launch.slurm import write_shard_script
+        campaign = as_plan(campaign)
+        plan.campaign_file = str(campaign.save(out_dir / "campaign.json"))
+        by_job = {u.job_id: u for u in units}
+        # resolve every shard to THIS cohort's units first (a multi-cohort
+        # plan names other cohorts' units too), then catch the admitted
+        # units the plan never covered — sessions that appeared after
+        # planning, replayed stale plans — in one untargeted shard, so a
+        # submitted campaign always schedules the whole work list (the same
+        # fail-soft contract as WorkQueue plan seeding: degrade to blind,
+        # never lose work)
+        arrays: List[Tuple[str, Optional[str], List[WorkUnit]]] = []
+        covered: set = set()
+        for shard in campaign.shards:
+            shard_units = [by_job[j] for j in shard.unit_ids if j in by_job]
+            if not shard_units:
+                continue
+            covered.update(u.job_id for u in shard_units)
+            arrays.append((shard.shard_id, shard.node_id, shard_units))
+        uncovered = [u for u in units if u.job_id not in covered]
+        if uncovered:
+            arrays.append(("shard-uncovered", None, uncovered))
+        # the resource-derived throttle budgets the *campaign's* concurrent
+        # scratch footprint; split it across the emitted arrays so N
+        # simultaneously-submitted shards cannot multiply it back up
+        # (conservative when warm shards are pinned to distinct hosts).
+        # Residual: SLURM cannot express a cross-array throttle, so with
+        # more arrays than budget the floor of one task per array can still
+        # exceed it — the runbook tells resource-tight operators to submit
+        # shards in waves in that regime (docs/operating.md)
+        per_shard = max(1, campaign.throttle // max(1, len(arrays)))
+        for shard_id, node_id, shard_units in arrays:
+            name = f"{manifest.name}_{pipeline.name}_{shard_id}"
+            sf = dump_units(shard_units, out_dir / f"{name}_units.json")
+            sp = write_shard_script(
+                out_dir, name=name, n_units=len(shard_units),
+                units_json=str(sf), manifest_json=str(manifest_file),
+                data_root=manifest.root, node_id=node_id,
+                throttle=per_shard, cpus=cpus, mem_gb=mem_gb,
+                walltime=walltime)
+            plan.shard_units_files.append(str(sf))
+            plan.shard_scripts.append(str(sp))
         return plan
 
     script = SLURM_TEMPLATE.format(
@@ -193,33 +250,52 @@ def load_unit_inputs(unit: WorkUnit, data_root: Path,
                      cache=None) -> LoadedInputs:
     """Verify-and-load a unit's inputs with one read per file: each array is
     hashed from the same bytes it is deserialized from (no sha256_file +
-    np.load double-read). This is the prefetch stage of the executor. With
-    streaming on (``core/stream.py``) the digest is computed chunk by chunk
-    while the bytes move, and the sixth element of the result is the unit's
-    aggregated ``StreamReport`` dict (stamped into provenance as
-    ``stream``); ``None`` when streaming is disabled. The cache and peer
-    elements are False/0 until the ``dist/`` slice brings the host input
-    cache; ``cache=`` raises ``NotImplementedError``."""
-    if cache is not None:
-        raise NotImplementedError(_DIST_SLICE.format("the host input cache"))
+    np.load double-read). This is the prefetch stage of the executor.
+
+    ``cache`` (a :class:`repro_torch.dist.cache.InputCache`) serves inputs
+    whose bytes are already on the host's local disk instead of re-reading
+    shared storage; the returned digests are identical either way. The
+    reference's peer fabric is not ported yet (``InputCache.attach_fabric``
+    raises), so no byte arrives over a peer link. The third element of the
+    result is True iff *every* input came from the local cache — stamped
+    into provenance as ``cache_hit`` — the fourth counts the input bytes the
+    cache kept off the storage link (``bytes_from_cache``), and the fifth
+    the bytes that arrived over peer links (``bytes_from_peer``). The sixth
+    is the unit's aggregated streaming-ingest report (digests computed
+    chunk-by-chunk while the bytes moved, ``repro_torch.core.stream``;
+    ``None`` when every input was served resident or streaming is disabled)
+    — stamped into provenance as ``stream``."""
     data_root = Path(data_root)
     inputs: Dict[str, np.ndarray] = {}
     in_sums: Dict[str, str] = {}
+    hits = 0
+    hit_bytes = 0
     stream_rep: Optional[stream_mod.StreamReport] = None
-    streaming = stream_mod.stream_enabled()
+    streaming = cache is None and stream_mod.stream_enabled()
     for suffix, rel in unit.inputs.items():
-        if streaming:
+        rep = None
+        if cache is not None:
+            arr, digest, origin, nbytes, info = cache.fetch_array(
+                data_root / rel)
+            if info is not None:
+                rep = stream_mod.StreamReport.from_dict(info)
+            if origin == "cache":
+                hits += 1
+                hit_bytes += nbytes
+        elif streaming:
             arr, digest, _qa, rep = stream_mod.stream_load_npy(
                 data_root / rel)
+        else:
+            arr, digest = sha256_load_array(data_root / rel)
+        if rep is not None:
             if stream_rep is None:
                 stream_rep = rep
             else:
                 stream_rep.merge(rep)
-        else:
-            arr, digest = sha256_load_array(data_root / rel)
         in_sums[rel] = digest
         inputs[suffix] = arr
-    return (inputs, in_sums, False, 0, 0,
+    return (inputs, in_sums,
+            bool(unit.inputs) and hits == len(unit.inputs), hit_bytes, 0,
             stream_rep.to_dict() if stream_rep is not None else None)
 
 
@@ -231,6 +307,26 @@ def safe_load_unit_inputs(unit: WorkUnit, data_root: Path,
         return load_unit_inputs(unit, data_root, cache=cache)
     except Exception:  # noqa: BLE001 — the compute stage re-raises properly
         return None
+
+
+# Output write-through (multi-stage DAGs): the committing run inserts its
+# just-written outputs into the host's input cache, so a dependent unit
+# scheduled on the same host (producer placement) serves stage-N outputs as
+# stage-N+1 inputs off local disk. Env-disable for benchmarks that need a
+# warm-up whose caches hold inputs only.
+WRITE_THROUGH_ENV = "REPRO_CACHE_WRITE_THROUGH"
+
+
+def _write_outputs_through(cache, out_dir: Path, out_sums: Dict[str, str]):
+    """Best-effort: a cache insert must never fail a committed unit."""
+    if cache is None or os.environ.get(WRITE_THROUGH_ENV, "1") == "0":
+        return
+    for name, digest in out_sums.items():
+        try:
+            path = Path(out_dir) / name
+            cache.put_bytes(path.read_bytes(), digest=digest, source=path)
+        except Exception:  # noqa: BLE001 — provenance already committed
+            continue
 
 
 def run_unit(unit: WorkUnit, pipeline: Pipeline, data_root: Path,
@@ -247,13 +343,12 @@ def run_unit(unit: WorkUnit, pipeline: Pipeline, data_root: Path,
     ``is_complete`` re-check, so a racing duplicate commits exactly once; the
     loser returns ``skipped``. ``node_id``/``lease_epoch`` stamp the committed
     provenance when the unit runs under a cluster lease
-    (the ``dist/`` slice). ``cache=`` (the host input cache) is not ported
-    yet and raises ``NotImplementedError``. ``locality_score`` is the
-    scheduler's grant-time estimate of the locally-available input fraction,
-    stamped into provenance.
+    (:mod:`repro_torch.dist.cluster`); ``cache`` serves the input stage from the
+    host's content-addressed cache and stamps ``cache_hit`` when every input
+    avoided shared storage. ``locality_score`` is the scheduler's grant-time
+    estimate of the locally-available input fraction — stamped next to the
+    measured ``bytes_from_cache`` so placement quality is auditable per image.
     """
-    if cache is not None:
-        raise NotImplementedError(_DIST_SLICE.format("the host input cache"))
     t0 = time.time()
     data_root = Path(data_root)
     out_dir = Path(unit.out_dir)
@@ -267,7 +362,7 @@ def run_unit(unit: WorkUnit, pipeline: Pipeline, data_root: Path,
                 preloaded
         else:
             inputs, in_sums, cache_hit, hit_bytes, peer_bytes, stream = \
-                load_unit_inputs(unit, data_root)
+                load_unit_inputs(unit, data_root, cache=cache)
         outputs = pipeline.run(inputs)
         out_sums = {}
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -286,6 +381,7 @@ def run_unit(unit: WorkUnit, pipeline: Pipeline, data_root: Path,
                             peer_fetch=peer_bytes > 0,
                             bytes_from_peer=peer_bytes,
                             stream=stream).save(out_dir)
+        _write_outputs_through(cache, out_dir, out_sums)
         return UnitResult(unit, "ok", time.time() - t0, attempt,
                           bytes_from_cache=hit_bytes,
                           bytes_from_peer=peer_bytes,
@@ -312,16 +408,16 @@ def run_unit_with_retries(
         locality_score: float = 0.0) -> UnitResult:
     """The executor retry stage, shared by :class:`LocalRunner` workers and
     cluster nodes: run a unit up to ``max_retries + 1`` times with exponential
-    backoff. Prefetched inputs are only trusted on the first attempt: a retry
-    re-verifies from storage (the failure may have been a torn read)."""
-    if cache is not None:
-        raise NotImplementedError(_DIST_SLICE.format("the host input cache"))
+    backoff. Prefetched inputs — and the host input cache — are only trusted
+    on the first attempt: a retry re-verifies from storage (the failure may
+    have been a torn read that the cache would otherwise replay)."""
     res = None
     for attempt in range(1, max_retries + 2):
         res = run_unit(unit, pipeline, data_root, attempt=attempt,
                        fault_hook=fault_hook,
                        preloaded=preloaded if attempt == 1 else None,
                        node_id=node_id, lease_epoch=lease_epoch,
+                       cache=cache if attempt == 1 else None,
                        locality_score=locality_score)
         if res.status in ("ok", "skipped"):
             break

@@ -1,2 +1,3 @@
-"""Launchers of the port: ``serve`` (batched prefill + greedy decode) and
-``train`` (the data pipeline, the train loop and async checkpoints)."""
+"""Launchers of the port: ``serve`` (batched prefill + greedy decode),
+``train`` (the data pipeline, the train loop and async checkpoints) and
+``slurm`` (the campaign's per-shard job arrays)."""

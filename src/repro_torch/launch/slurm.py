@@ -1,0 +1,64 @@
+"""SLURM launch scripts of the port: the per-shard campaign arrays the
+admission-time planner emits (``core/workflow.generate_jobs`` in campaign
+mode). Each task runs ``python -m repro_torch.core.workflow --run-one``.
+
+The reference's other half, ``write_pod_launch`` (multi-host training
+arrays), belongs with the port's distributed training (ROADMAP.md, Queue 1
+item 4). The shard script's first step asks ``repro_torch.launch.env`` for
+the worker's allocator settings and goes on without them where that module
+is missing; it arrives with the socket half of ``dist/`` (item 3b).
+"""
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional
+
+# One campaign shard = one job array pinned (when the plan could place it)
+# to the host already holding the shard's input bytes — brainlife.io-style
+# job-to-data routing at the batch-system layer. The cold shard (no warm
+# host anywhere) stays untargeted so SLURM places it wherever there is room.
+SHARD_TEMPLATE = """#!/bin/bash
+#SBATCH --job-name={name}
+#SBATCH --array=0-{last_idx}%{throttle}
+#SBATCH --cpus-per-task={cpus}
+#SBATCH --mem={mem_gb}G
+#SBATCH --time={walltime}
+#SBATCH --output={log_dir}/%x_%a.out
+{placement_line}
+
+set -euo pipefail
+# allocator and XLA hygiene, resolved on the *compute* node (tcmalloc
+# paths differ per host; LD_PRELOAD must be set before python starts) —
+# fail-soft when the package is not importable there
+eval "$(python -m repro_torch.launch.env --role worker 2>/dev/null || true)"
+MANIFEST={manifest_json}
+python -m repro_torch.core.workflow --run-one {units_json} --index $SLURM_ARRAY_TASK_ID \\
+    --data-root {data_root} --scratch $SLURM_TMPDIR
+"""
+
+
+def write_shard_script(out_dir: Path, *, name: str, n_units: int,
+                       units_json: str, manifest_json: str, data_root: str,
+                       node_id: Optional[str] = None, throttle: int = 100,
+                       cpus: int = 4, mem_gb: int = 16,
+                       walltime: str = "24:00:00") -> Path:
+    """Write one campaign shard's SLURM array script. ``node_id`` pins the
+    array to the host whose cache already holds the shard's bytes; ``None``
+    (the cold shard) leaves placement to the scheduler."""
+    if n_units < 1:
+        raise ValueError("a shard script needs at least one unit")
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    log_dir = out_dir / "logs"
+    log_dir.mkdir(exist_ok=True)
+    placement = (f"#SBATCH --nodelist={node_id}" if node_id
+                 else "# cold shard: no warm host for these units; "
+                      "scheduler places freely")
+    script = SHARD_TEMPLATE.format(
+        name=name, last_idx=n_units - 1, throttle=throttle, cpus=cpus,
+        mem_gb=mem_gb, walltime=walltime, log_dir=str(log_dir),
+        placement_line=placement, manifest_json=manifest_json,
+        units_json=units_json, data_root=data_root)
+    p = out_dir / f"{name}.slurm"
+    p.write_text(script)
+    return p

@@ -30,6 +30,7 @@ their f32 prefill are held to the CPU's within 1e-4 of the largest
 |value|, with the experts each token chose equal.
 """
 import importlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -948,3 +949,84 @@ def test_family_prefill_on_the_card_matches_the_cpu(cuda, arch):
                                      else 0)
     assert rn.LAUNCHES["rmsnorm"] > 0
 
+
+
+def test_cache_device_qa_fetch_reaches_k2(cuda, tmp_path):
+    """``InputCache.fetch_array(device_qa=True)`` folds a storage miss
+    through K2 on the cache's device; a hit re-hashes without the card."""
+    from repro_torch.dist import InputCache
+    vol = np.random.default_rng(5).standard_normal((48, 48, 40)).astype(
+        np.float32)
+    np.save(tmp_path / "v.npy", vol)
+    cache = InputCache(tmp_path / "cache", device="cuda")
+    arr, digest, origin, nbytes, info = cache.fetch_array(
+        tmp_path / "v.npy", device_qa=True)
+    assert origin == "storage" and info["device_qa"]
+    assert LAUNCHES["qa_checksum_chunk"] >= 1
+    np.testing.assert_array_equal(arr, vol)
+    launched = LAUNCHES["qa_checksum_chunk"]
+    again = cache.fetch_array(tmp_path / "v.npy", device_qa=True)
+    assert again[1:3] == (digest, "cache") and again[4] is None
+    assert LAUNCHES["qa_checksum_chunk"] == launched
+
+
+def test_cluster_runs_segment_unest_through_k4_and_k5(cuda, tmp_path):
+    """Four in-process nodes drain a campaign-planned ``segment_unest``
+    run on the card, per-node caches and a journal on, one node dying: one
+    ok provenance a unit, and K4 / K5 launched 5 / 2 times a pipeline
+    execution, counted around the pipeline's function."""
+    from repro_torch.core import (Provenance, builtin_pipelines,
+                                  generate_jobs, synthesize_dataset)
+    from repro_torch.core.campaign import CampaignPlan
+    from repro_torch.dist import ClusterRunner, InputCache, WorkQueue
+    from repro_torch.dist.cache import summaries_from_cache_dirs
+    from repro_torch.dist.journal import Journal
+    ds = synthesize_dataset(tmp_path / "ds", "cu", n_subjects=3,
+                            sessions_per_subject=2, shape=(32, 32, 32))
+    pipe = builtin_pipelines("cuda")["segment_unest"]
+    runs = {"n": 0}
+    real_fn = pipe.fn
+
+    def counted(inputs):
+        out = real_fn(inputs)
+        runs["n"] += 1
+        return out
+
+    pipe.fn = counted
+    # node-0 holds two sessions' T1w, node-1 one: the plan pins them there,
+    # and node-1 (second to start) leases its unit before it dies
+    units = generate_jobs(ds, pipe, tmp_path / "jobs0").units
+    for node, take in (("node-0", units[:2]), ("node-1", units[2:3])):
+        warm = InputCache(tmp_path / "caches" / node)
+        for u in take:
+            for rel in u.inputs.values():
+                warm.fetch_array(Path(ds.root) / rel)
+    jobs = generate_jobs(ds, pipe, tmp_path / "jobs",
+                         summaries=summaries_from_cache_dirs(
+                             tmp_path / "caches"))
+    rn.reset_launches(), fa.reset_launches()
+    runner = ClusterRunner(pipe, ds.root, nodes=4,
+                           plan=CampaignPlan.load(jobs.campaign_file),
+                           cache_dir=tmp_path / "caches",
+                           cache_per_node=True,
+                           journal_dir=tmp_path / "wal",
+                           die_after={"node-1": 1})
+    results = runner.run(jobs.units)
+    ok = [r for r in results if r.status == "ok"]
+    assert sorted(r.unit.job_id for r in ok) == \
+        sorted(u.job_id for u in jobs.units)
+    for u in jobs.units:
+        prov = Provenance.load(Path(u.out_dir))
+        assert prov.status == "ok"
+        assert prov.inputs == {u.inputs["T1w"]: u.input_digests["T1w"]}
+    assert (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"]) == \
+        (5 * runs["n"], 2 * runs["n"])
+    assert runs["n"] >= len(jobs.units)
+    warm_ids = {j for s in CampaignPlan.load(jobs.campaign_file).shards
+                if s.node_id for j in s.unit_ids}
+    assert sum(r.bytes_from_cache > 0 for r in ok
+               if r.unit.job_id in warm_ids) >= 1
+    assert "node-1" in runner.stats.dead_nodes
+    q = WorkQueue.recover(Journal(tmp_path / "wal"))
+    assert q.finished()
+    q._journal.close()
