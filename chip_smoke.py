@@ -42,6 +42,17 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               ``campaign.json`` re-planning byte-equal. One of node-0's
               blobs is corrupted on disk first: the verified hit must drop
               it and read storage.
+ 4c. sockets - the same campaign over the socket transport:
+              ``ClusterRunner(transport="rpc", peer_fabric=True)`` with two
+              in-process nodes and a worker process (``python -m
+              repro_torch.dist.rpc work``, no ``--device``: on the card)
+              that must register and commit work; only node-0's cache warm
+              (all four T1ws, through K2), so the others read node-0's blob
+              server; one of its blobs corrupted, which the fabric's sha256
+              must reject for storage; one coordinator crash and recovery
+              mid-drain. One ok provenance a unit, outputs byte-equal to
+              phase 4's, at least one peer hit of a whole T1w, K4 / K5 5 / 2
+              a pipeline run in this process, the journal recovering all.
  5. model   - the dense stack at the published paper-unest width (12
               layers, d 512, 8 heads, Dh 64, d_ff 2048), bf16, forward over
               the 180,224 patch tokens of one ingested T1w, weights from a
@@ -621,6 +632,9 @@ def run(args, work: Path, card: str):
     # -- 4b. the campaign-planned cluster on cuda -------------------------------
     cluster_phase(m0, m1, pipes["segment_unest"], work, card)
 
+    # -- 4c. the cluster over sockets: a worker process, the peer fabric ------
+    socket_cluster_phase(m0, m1, pipes["segment_unest"], work, card)
+
     # -- 5. the dense stack at the published paper-unest width ---------------
     t1_rec = next(i for i in m1.images if i.suffix == "T1w")
     model_wall = model_phase(np.load(Path(m1.root) / t1_rec.path), args.seed)
@@ -970,6 +984,224 @@ def cluster_phase(m0, m1, pipe, work: Path, card: str):
         f"{len(rows)} units + "
         f"{len(tail)} tail records | {card}")
     log(f"cluster phase: {time.perf_counter() - t_phase:.3f} s in all "
+        f"| {card}")
+
+
+def socket_cluster_phase(m0, m1, pipe, work: Path, card: str):
+    """Phase 4c: the campaign of phase 4b again (``m0``'s outputs of 4b
+    removed first), drained over the socket: ``ClusterRunner(transport=
+    "rpc", peer_fabric=True)`` with two in-process nodes and one worker
+    process, ``ext-0``, started as a fresh interpreter (``python -m
+    repro_torch.dist.rpc work``, no ``--device``: on the card, with its own
+    empty cache and a blob server). Only node-0's cache is warm (all four
+    T1ws, fetched through K2), so node-1 and ext-0 read their inputs from
+    node-0's blob server. One of node-0's blobs is corrupted on disk first:
+    node-1's first unit fetches it, and the fabric's sha256 must reject it
+    and read storage. The coordinator is crashed and recovered once, from
+    another thread, after the first unit retires. Checks as in 4b (one ok
+    provenance a unit, outputs byte-equal to phase 4's, the journal), and
+    ext-0 registered and committed work: the phase fails if the worker
+    process dies before it registers, so a missing card cannot leave the
+    drain to the in-process nodes."""
+    import threading
+    import torch
+    from repro_torch.core import Provenance, query_available_work
+    from repro_torch.dist import ClusterRunner, InputCache, WorkQueue
+    from repro_torch.dist.journal import Journal
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.checksum import LAUNCHES, reset_launches
+    t_phase = time.perf_counter()
+    root = work / "sockets"
+    shutil.rmtree(Path(m0.root) / "derivatives" / pipe.name)
+    units, _ = query_available_work(m0, pipe)
+    check(len(units) == SESSIONS, f"sockets: {len(units)} units")
+    # node-0 warm with every T1w, through K2 (device QA on the streamed
+    # miss); node-1 and ext-0 start cold
+    reset_launches()
+    warm = InputCache(root / "caches" / "node-0", device="cuda")
+    for u in units:
+        _, digest, origin, _, rep = warm.fetch_array(
+            Path(m0.root) / u.inputs["T1w"], device_qa=True)
+        check(origin == "storage" and rep["device_qa"]
+              and digest == u.input_digests["T1w"],
+              f"sockets: warming {u.job_id}: {origin}, {rep}")
+    k2 = LAUNCHES["qa_checksum_chunk"]
+    check(k2 > 0, f"sockets: the warm-up launched no K2: {dict(LAUNCHES)}")
+    # the queue deals units round robin: node-1's first grant is units[1],
+    # whose blob on node-0 is the broken control
+    bad = units[1]
+    blob = root / "caches" / "node-0" / "blobs" / bad.input_digests["T1w"]
+    data = bytearray(blob.read_bytes())
+    data[len(data) // 2] ^= 0xFF
+    blob.write_bytes(bytes(data))
+    runs = {"n": 0}
+    run_fn = pipe.fn
+
+    def counted(inputs):
+        out = run_fn(inputs)
+        runs["n"] += 1
+        return out
+
+    worker = {"proc": None, "joined": threading.Event(), "t": None}
+    runner = None
+
+    class GatedCache(InputCache):
+        """node-1's cache: its first fetch waits (bounded) until node-0's
+        summary reached the queue, so the fabric is asked, not raced."""
+
+        def fetch_array(self, src, **kw):
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                q = runner.queue
+                if q is not None and "node-0" in q.summaries_snapshot():
+                    break
+                time.sleep(0.005)
+            return super().fetch_array(src, **kw)
+
+    class Runner(ClusterRunner):
+        def _make_cache(self, node_id=None):
+            if node_id != "node-1":
+                return super()._make_cache(node_id)
+            return GatedCache(Path(self.cache_dir) / node_id)
+
+    def hold(unit, attempt):
+        # the in-process nodes wait (bounded) for ext-0 to join; a worker
+        # process that exited ends the wait, and the checks below fail
+        proc = worker["proc"]
+        deadline = time.monotonic() + 180
+        while not worker["joined"].is_set() and time.monotonic() < deadline:
+            if proc is not None and proc.poll() is not None:
+                return
+            worker["joined"].wait(0.05)
+
+    pipe.fn = counted
+    runner = Runner(pipe, m0.root, transport="rpc", nodes=2,
+                    cache_dir=root / "caches", cache_per_node=True,
+                    peer_fabric=True, journal_dir=root / "journal",
+                    locality=True, prefetch=0, fault_hook=hold)
+    got, restarts = {}, []
+    torch.cuda.synchronize()
+    rn.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    drain = threading.Thread(target=lambda: got.update(r=runner.run(units)))
+    drain.start()
+    log_path = root / "ext-0.log"
+    try:
+        while runner.server is None and drain.is_alive():
+            time.sleep(0.005)
+        check(runner.server is not None, "sockets: the coordinator never "
+              f"served: {got}")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t_spawn = time.perf_counter()
+        with open(log_path, "w") as wlog:
+            worker["proc"] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.dist.rpc", "work",
+                 "--addr", runner.server.addr_str, "--pipeline", pipe.name,
+                 "--data-root", str(m0.root), "--node-id", "ext-0",
+                 "--cache-dir", str(root / "ext-0-cache"),
+                 "--blob-addr", "127.0.0.1:0"],
+                env=env, cwd=ROOT, stdout=wlog, stderr=subprocess.STDOUT)
+        while drain.is_alive() and worker["proc"].poll() is None:
+            srv = runner.server
+            if srv is not None and "ext-0" in srv.queue.alive_nodes():
+                worker["t"] = time.perf_counter() - t_spawn
+                break
+            time.sleep(0.01)
+        worker["joined"].set()
+        # one coordinator restart, once a unit has retired
+        while drain.is_alive():
+            q = runner.queue
+            if q is not None and len(q.done_status()) >= 1:
+                info = runner.restart_coordinator()
+                if info is not None:
+                    restarts.append(info)
+                break
+            time.sleep(0.005)
+        drain.join(timeout=600)
+        check(not drain.is_alive(), "sockets: the drain did not finish")
+        wall = time.perf_counter() - t0
+        rc = worker["proc"].wait(timeout=120)
+    finally:
+        pipe.fn = run_fn
+        worker["joined"].set()
+        proc = worker["proc"]
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    torch.cuda.synchronize()
+    wlog_text = log_path.read_text()
+    check(worker["t"] is not None, "sockets: the worker process never "
+          f"registered (rc {worker['proc'].returncode}): {wlog_text[-3000:]}")
+    check(rc in (0, 3), f"sockets: worker exit {rc}: {wlog_text[-3000:]}")
+    check("r" in got, "sockets: the drain raised")
+    results = got["r"]
+    k45 = (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"])
+    ok = [r for r in results if r.status == "ok"]
+    check(sorted(r.unit.job_id for r in ok) == sorted(u.job_id for u in units),
+          f"sockets: ok results {[(r.unit.job_id, r.status) for r in results]}")
+    check(k45 == (5 * runs["n"], 2 * runs["n"]),
+          f"sockets: K4/K5 launches {k45} for {runs['n']} runs here")
+    st = runner.stats
+    check("ext-0" in st.remote_nodes, f"sockets: remote nodes {st}")
+    by_node, unit_s = {}, []
+    for u in units:
+        prov = Provenance.load(Path(u.out_dir))
+        check(prov is not None and prov.status == "ok",
+              f"sockets: {u.job_id} provenance {prov}")
+        check(prov.inputs == {u.inputs["T1w"]: u.input_digests["T1w"]},
+              f"sockets: {u.job_id} committed inputs {prov.inputs}")
+        by_node[prov.node_id] = by_node.get(prov.node_id, 0) + 1
+        unit_s.append((prov.node_id, round(prov.finished_at
+                                           - prov.started_at, 3)))
+        for name in ("segmentation", "class_logits"):
+            f = f"sub-{u.subject}_ses-{u.session}_{name}.npy"
+            want = (Path(m1.root) / "derivatives" / pipe.name
+                    / f"sub-{u.subject}" / f"ses-{u.session}" / f
+                    ).read_bytes()
+            check((Path(u.out_dir) / f).read_bytes() == want,
+                  f"sockets: {u.job_id} {name} (on {prov.node_id}) differs "
+                  "from phase 4's")
+    check(by_node.get("ext-0", 0) >= 1,
+          f"sockets: ext-0 committed no unit: {by_node}")
+    # peer bytes: each unit fetched over the fabric moved its whole T1w
+    peer = [r for r in ok if r.bytes_from_peer > 0]
+    check(peer and all(r.bytes_from_peer == r.unit.input_bytes["T1w"]
+                       for r in peer),
+          f"sockets: peer fetches {[(r.unit.job_id, r.bytes_from_peer) for r in ok]}")
+    peer_bytes = sum(r.bytes_from_peer for r in ok)
+    # the broken control: node-1 fetched the corrupted blob, the fabric's
+    # in-flight sha256 rejected it, and the unit read storage
+    n1 = st.cache_by_node["node-1"]
+    bad_res = next(r for r in ok if r.unit.job_id == bad.job_id)
+    check(n1["peer_digest_mismatches"] >= 1 and bad_res.bytes_from_peer == 0
+          and n1["bytes_from_storage"] >= bad.input_bytes["T1w"],
+          f"sockets: the corrupted blob was not caught: {n1}, {bad_res}")
+    check(len(restarts) == 1 and restarts[0]["total_s"]
+          >= restarts[0]["recover_s"] >= 0,
+          f"sockets: coordinator restart {restarts}")
+    q = WorkQueue.recover(Journal(root / "journal"))
+    check(q.finished() and sorted(q.done_status().values())
+          == ["ok"] * len(units),
+          f"sockets: the journal recovers {q.done_status()}")
+    q._journal.close()
+    remote = runner.queue.stats_snapshot()["cache"].get("ext-0", {})
+    storage = st.cache["bytes_from_storage"] + remote.get(
+        "bytes_from_storage", 0)
+    log(f"sockets: {len(units)} units on node-0, node-1 and a worker "
+        f"process in {wall:.3f} s ({wall / len(units):.3f} s a unit of "
+        f"wall), units by node {dict(sorted(by_node.items()))}, unit s "
+        f"{unit_s}, "
+        f"{runs['n']} pipeline runs here, K4/K5 launches here {k45}, warm-up "
+        f"K2 launches {k2}, peer hits {len(peer)} ({peer_bytes} bytes), "
+        f"bytes from storage {storage} (node-1 {n1['bytes_from_storage']}, "
+        f"ext-0 {remote.get('bytes_from_storage')}), fabric mismatches "
+        f"{n1['peer_digest_mismatches']}, restart recover_s "
+        f"{restarts[0]['recover_s']:.4f} total_s "
+        f"{restarts[0]['total_s']:.4f}, worker start-up "
+        f"{worker['t']:.3f} s, worker exit {rc} | {card}")
+    log(f"sockets phase: {time.perf_counter() - t_phase:.3f} s in all "
         f"| {card}")
 
 

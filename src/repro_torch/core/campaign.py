@@ -14,8 +14,8 @@ replayable artifact (Clinica's campaign-level reproducibility argument):
   exclusions (:func:`cohort_from_query`), or handed in pre-queried.
 * **Summaries in** — per-host cache
   :class:`~repro_torch.dist.cache.DigestSummary` snapshots, pulled from a
-  live in-process coordinator (:func:`summaries_from_queue`; a remote one
-  needs ``dist/rpc.py``, which the port does not have yet) or loaded from a
+  live coordinator (:func:`summaries_from_queue`, in process or over
+  ``repro_torch.dist.rpc``) or loaded from a
   serialized summaries file for offline HPC planning
   (:func:`repro_torch.dist.cache.load_summary_file` /
   :func:`~repro_torch.dist.cache.summaries_from_cache_dirs`).
@@ -171,14 +171,16 @@ def as_plan(obj) -> CampaignPlan:
 
 def summaries_from_queue(queue_or_addr) -> Dict[str, dict]:
     """Per-node summary wires from a live coordinator: an in-process
-    :class:`~repro_torch.dist.queue.WorkQueue` (or anything with its
-    ``summaries_snapshot``). The reference also dials a ``"host:port"``
-    string over ``dist/rpc.py``; the port has no rpc yet, so an address
-    raises ``NotImplementedError``."""
+    :class:`~repro_torch.dist.queue.WorkQueue`, an open
+    :class:`~repro_torch.dist.rpc.QueueClient`, or a ``"host:port"`` string
+    (a one-shot client is dialed and closed)."""
     if isinstance(queue_or_addr, str):
-        from ..dist._pending import not_ported
-        raise not_ported("summaries_from_queue of an address",
-                         "dist/rpc.py")
+        from ..dist.rpc import QueueClient, parse_addr
+        client = QueueClient(parse_addr(queue_or_addr))
+        try:
+            return client.summaries_snapshot()
+        finally:
+            client.close()
     return queue_or_addr.summaries_snapshot()
 
 

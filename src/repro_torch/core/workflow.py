@@ -25,10 +25,6 @@ Execution data plane (``LocalRunner``) is built for throughput:
 
 ``workers=1`` (the default) degrades to the serial paper behaviour with
 prefetch still overlapping I/O and compute.
-
-The host input cache (``cache=``, :class:`repro_torch.dist.cache.InputCache`)
-has no peer fabric in the port yet: that needs ``dist/blobserve.py``
-(ROADMAP.md, Queue 1 item 3b), so ``bytes_from_peer`` stays 0 here.
 """
 from __future__ import annotations
 
@@ -254,11 +250,13 @@ def load_unit_inputs(unit: WorkUnit, data_root: Path,
 
     ``cache`` (a :class:`repro_torch.dist.cache.InputCache`) serves inputs
     whose bytes are already on the host's local disk instead of re-reading
-    shared storage; the returned digests are identical either way. The
-    reference's peer fabric is not ported yet (``InputCache.attach_fabric``
-    raises), so no byte arrives over a peer link. The third element of the
-    result is True iff *every* input came from the local cache — stamped
-    into provenance as ``cache_hit`` — the fourth counts the input bytes the
+    shared storage; the returned digests are identical either way. With a
+    peer fabric attached to the cache (``InputCache.attach_fabric``), a
+    local miss whose manifest digest is known first streams from a warm
+    peer — the unit's ``input_digests``/``input_bytes`` manifest hints are
+    what make the fetch content-addressed. The third element of the result
+    is True iff *every* input came from the local cache — stamped into
+    provenance as ``cache_hit`` — the fourth counts the input bytes the
     cache kept off the storage link (``bytes_from_cache``), and the fifth
     the bytes that arrived over peer links (``bytes_from_peer``). The sixth
     is the unit's aggregated streaming-ingest report (digests computed
@@ -268,20 +266,26 @@ def load_unit_inputs(unit: WorkUnit, data_root: Path,
     data_root = Path(data_root)
     inputs: Dict[str, np.ndarray] = {}
     in_sums: Dict[str, str] = {}
+    digests = unit.input_digests or {}
+    sizes = unit.input_bytes or {}
     hits = 0
     hit_bytes = 0
+    peer_bytes = 0
     stream_rep: Optional[stream_mod.StreamReport] = None
     streaming = cache is None and stream_mod.stream_enabled()
     for suffix, rel in unit.inputs.items():
         rep = None
         if cache is not None:
             arr, digest, origin, nbytes, info = cache.fetch_array(
-                data_root / rel)
+                data_root / rel, digest_hint=digests.get(suffix),
+                size_hint=sizes.get(suffix))
             if info is not None:
                 rep = stream_mod.StreamReport.from_dict(info)
             if origin == "cache":
                 hits += 1
                 hit_bytes += nbytes
+            elif origin == "peer":
+                peer_bytes += nbytes
         elif streaming:
             arr, digest, _qa, rep = stream_mod.stream_load_npy(
                 data_root / rel)
@@ -295,7 +299,8 @@ def load_unit_inputs(unit: WorkUnit, data_root: Path,
         in_sums[rel] = digest
         inputs[suffix] = arr
     return (inputs, in_sums,
-            bool(unit.inputs) and hits == len(unit.inputs), hit_bytes, 0,
+            bool(unit.inputs) and hits == len(unit.inputs), hit_bytes,
+            peer_bytes,
             stream_rep.to_dict() if stream_rep is not None else None)
 
 

@@ -2,11 +2,11 @@
 
 The paper's cost argument rests on keeping storage->compute transfer fast
 (0.60 Gb/s over the lab network vs 0.33 Gb/s from cloud storage); once nodes
-are real machines, every input fetch crosses that link. This cache makes
-repeated fetches free: a work unit whose inputs were already pulled by *any*
-prior lease on the host — a retried unit, a stolen unit whose neighbour
-shares a subject, a speculative twin — hits node-local disk instead of
-shared storage.
+are real machines behind ``repro_torch.dist.rpc``, every input fetch
+crosses that link. This cache makes repeated fetches free: a work unit whose
+inputs were already pulled by *any* prior lease on the host — a retried
+unit, a stolen unit whose neighbour shares a subject, a speculative twin —
+hits node-local disk instead of shared storage.
 
 Design:
 
@@ -36,12 +36,14 @@ Design:
   through the fused QA+checksum kernel (K2) on the cache's ``device``
   (``None`` means ``cuda``) while the bytes stream; without it no device is
   touched.
-* **Peer fabric: not yet.** The reference's cache streams a local miss from
-  a warm peer through ``dist/blobserve.py``'s ``PeerFabric``; the port has
-  no blobserve yet, so :meth:`InputCache.attach_fabric` raises
-  ``NotImplementedError`` and every miss reads shared storage. The peer
-  counters stay in :meth:`InputCache.stats` at zero, so the stats and
-  summary wires keep the reference's shape.
+* **Peer fabric.** With a :class:`~repro_torch.dist.blobserve.PeerFabric`
+  attached, a local miss whose content digest is known from the manifest
+  first asks the coordinator which warm peer already holds that blob and
+  streams it over the node-to-node link instead of the shared-storage choke
+  point — the paper's 0.60 Gb/s storage link becomes a last resort, not the
+  only path. Peer bytes are sha256-re-verified on arrival and every failure
+  (dead peer, timeout, Bloom false positive, digest mismatch) falls back to
+  the storage read, so correctness is never routed through the fabric.
 * **Pinned reads.** Blob reads — local hits and peer serves alike — hold a
   refcount pin for the duration of the read, and ``_evict_to_budget`` skips
   pinned blobs (temporarily overshooting the byte budget rather than
@@ -80,10 +82,10 @@ import numpy as np
 from ..core import stream as stream_mod
 from ..core.integrity import atomic_write_bytes
 from ..device import DeviceLike
-from ._pending import not_ported
 
 # Runbook knobs (docs/operating.md): where the host cache lives and how big
-# it may grow. Read by ClusterRunner (and the worker CLI of dist/rpc.py).
+# it may grow. Read by the worker CLI (repro_torch.dist.rpc) and
+# ClusterRunner.
 CACHE_DIR_ENV = "REPRO_CACHE_DIR"
 CACHE_MAX_MB_ENV = "REPRO_CACHE_MAX_MB"
 DEFAULT_MAX_BYTES = 1 << 30          # 1 GiB per host
@@ -242,6 +244,9 @@ class InputCache:
         self.stream_device_seconds = 0.0
         self.stream_overlap_seconds = 0.0
         self._peer_bytes_by_addr: Dict[str, int] = {}   # per-link byte meter
+        # optional PeerFabric (repro_torch.dist.blobserve): when attached,
+        # misses with a manifest digest hint try warm peers before storage
+        self.fabric = None
         self._pins: Dict[str, int] = {}     # digest -> open-reader refcount
         # digest summary + op log for locality-aware placement: every blob
         # insert/evict lands in the summary and in a bounded op window that
@@ -379,9 +384,9 @@ class InputCache:
                 self.unpin(digest)
 
     def read_blob(self, digest: str) -> Optional[bytes]:
-        """Raw blob bytes for the peer-serving path (the reference's
-        ``dist/blobserve.py`` ``BlobServer``), pinned for the duration
-        of the read so :meth:`_evict_to_budget` cannot unlink the file
+        """Raw blob bytes for the peer-serving path
+        (:class:`repro_torch.dist.blobserve.BlobServer`), pinned for the
+        duration of the read so :meth:`_evict_to_budget` cannot unlink the file
         mid-serve. ``None`` when the blob is not resident — the requester's
         Bloom summary gave a false positive (or the summary is stale) and it
         falls back to shared storage. The *receiving* side re-verifies the
@@ -402,12 +407,13 @@ class InputCache:
         return data
 
     def attach_fabric(self, fabric):
-        """The reference attaches a ``PeerFabric`` here, so that misses with
-        a manifest digest hint try warm peers before storage. The port has
-        no ``dist/blobserve.py`` yet: this raises rather than serve every
-        miss from storage behind the caller's back."""
-        raise not_ported("the peer fabric (InputCache.attach_fabric)",
-                         "dist/blobserve.py")
+        """Attach a :class:`repro_torch.dist.blobserve.PeerFabric`;
+        subsequent misses with a manifest digest hint try warm peers before
+        storage. The fabric rides the cache handle, so every call site that
+        already passes ``cache=`` (workflow, cluster, retries that distrust
+        the cache after attempt 1) inherits the peer path with no new
+        plumbing."""
+        self.fabric = fabric
 
     @staticmethod
     def _read_storage(src: Path) -> bytes:
@@ -457,23 +463,29 @@ class InputCache:
         for d in evict:                          # unlinks, after the lock
             self._blob_path(d).unlink(missing_ok=True)
 
-    def fetch_array(self, src: Path, *, device_qa: bool = False,
+    def fetch_array(self, src: Path, *, digest_hint: Optional[str] = None,
+                    size_hint: Optional[int] = None,
+                    device_qa: bool = False,
                     ) -> Tuple[np.ndarray, str, str, int, Optional[dict]]:
         """Load the .npy at ``src``, serving from the host cache when its
         bytes are already local. Returns
         ``(array, sha256, origin, nbytes, stream)`` where ``origin`` is
-        ``"cache"`` (local blob hit) or ``"storage"`` (shared storage read)
-        — the digest is of the file content in either case, so provenance
-        input checksums are identical across origins, and ``nbytes`` is the
-        file size that moved over (or stayed off) the storage link.
-        ``stream`` is the :class:`repro_torch.core.stream.StreamReport` dict
-        for a chunk-streamed storage miss (digest — and with ``device_qa``
-        the fused QA fold on the cache's ``device`` — computed while the
-        bytes moved; see ``REPRO_STREAM_INGEST``), else ``None``. After a
-        miss the bytes are inserted locally (then evicted down to
-        ``max_bytes``). The reference's ``digest_hint``/``size_hint`` steer
-        its peer path, which the port does not have yet
-        (``attach_fabric``)."""
+        ``"cache"`` (local blob hit), ``"peer"`` (blob streamed from a warm
+        peer over the fabric) or ``"storage"`` (shared storage read) — the
+        digest is of the file content in every case, so provenance input
+        checksums are identical across origins, and ``nbytes`` is the file
+        size that moved over (or stayed off) each link. ``stream`` is the
+        :class:`repro_torch.core.stream.StreamReport` dict for a
+        chunk-streamed storage miss (digest — and with ``device_qa`` the
+        fused QA fold on the cache's ``device`` — computed while the bytes
+        moved; see ``REPRO_STREAM_INGEST``), else ``None``. On a local miss,
+        a manifest ``digest_hint`` plus an attached fabric tries the warmest
+        peer first; any peer failure falls back to one storage read, after
+        which the bytes are inserted locally (then evicted down to
+        ``max_bytes``). ``size_hint`` (the manifest's byte count) guards the
+        peer path against a source file rewritten since the manifest scan:
+        on size disagreement the fetch goes straight to storage so it
+        observes the current bytes."""
         src = Path(src)
         key = self._source_key(src)
         with self._lock:
@@ -508,6 +520,45 @@ class InputCache:
                 self._blob_path(digest).unlink(missing_ok=True)
                 self._index = {k: d for k, d in self._index.items()
                                if d != digest}
+        # local miss: try the peer fabric before touching the storage link.
+        # The fabric re-verifies sha256(data) == digest_hint before handing
+        # bytes back, so a lying or corrupted peer degrades to the storage
+        # read below, never to wrong data.
+        st_size: Optional[int] = None
+        try:
+            st_size = os.stat(src).st_size
+        except OSError:
+            pass                 # storage blip: the peer path may still save us
+        fabric = self.fabric
+        if (fabric is not None and digest_hint
+                and (size_hint is None or st_size is None
+                     or st_size == size_hint)):
+            t0 = time.perf_counter()
+            got = fabric.fetch(digest_hint)
+            dt = time.perf_counter() - t0
+            arr = None
+            if got is not None:
+                data, addr = got
+                try:
+                    arr = np.load(io.BytesIO(data), allow_pickle=False)
+                except Exception:        # manifest digest of a non-npy: fall back
+                    arr = None
+            with self._lock:
+                self.peer_seconds += dt
+                if arr is not None:
+                    self.misses += 1     # still a *local* miss
+                    self.peer_hits += 1
+                    self.bytes_from_peer += len(data)
+                    self._peer_bytes_by_addr[addr] = (
+                        self._peer_bytes_by_addr.get(addr, 0) + len(data))
+            if arr is not None:
+                if len(data) <= self.max_bytes:
+                    # map the source key only when the file on storage still
+                    # matches the fetched size — a stale manifest must not
+                    # alias a rewritten source onto old content
+                    self._insert_blob(digest_hint, data,
+                                      key if st_size == len(data) else None)
+                return arr, digest_hint, "peer", len(data), None
         # storage: one pass over the shared link. With streaming on (the
         # default) the bytes cross chunk-by-chunk and the sha256 — plus,
         # when asked, the fused device QA fold — runs *while* they move; a
@@ -594,6 +645,8 @@ class InputCache:
             # travels with the stats so WorkQueue.stats_snapshot can expose
             # cluster-wide link utilisation (numeric roll-ups skip it)
             "peer_bytes_by_addr": dict(self._peer_bytes_by_addr)}
+        if self.fabric is not None:
+            st.update(self.fabric.counters())
         return st
 
     # full-push wires list exact digests up to this many blobs (64-hex chars

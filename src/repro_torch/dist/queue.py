@@ -76,12 +76,11 @@ Protocol (see ``docs/cluster.md`` for the failure model):
   excludes complete work).
 
 Everything is guarded by one lock — the queue is the single shared-state
-object, and the whole method surface is JSON-serializable by design: the
-reference's ``dist/rpc.py`` wraps it in a socket server (each call becomes
-one JSON-lines RPC to the coordinator) without touching nodes; the port's
-comes with the socket half of ``dist/`` (ROADMAP.md, Queue 1 item 3b).
-``complete`` optionally carries a result ``meta`` payload so a coordinator
-can fold in results from worker processes it never shared memory with
+object, and the whole method surface is JSON-serializable by design:
+``repro_torch.dist.rpc`` wraps it in a socket server (each call becomes one
+JSON-lines RPC to the coordinator) without touching nodes. ``complete``
+optionally carries a result ``meta`` payload so a coordinator can fold in
+results from worker processes it never shared memory with
 (:meth:`WorkQueue.results_snapshot`).
 """
 from __future__ import annotations

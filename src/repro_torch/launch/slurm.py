@@ -4,9 +4,10 @@ mode). Each task runs ``python -m repro_torch.core.workflow --run-one``.
 
 The reference's other half, ``write_pod_launch`` (multi-host training
 arrays), belongs with the port's distributed training (ROADMAP.md, Queue 1
-item 4). The shard script's first step asks ``repro_torch.launch.env`` for
-the worker's allocator settings and goes on without them where that module
-is missing; it arrives with the socket half of ``dist/`` (item 3b).
+item 4). The shard script's first step evals ``repro_torch.launch.env``'s
+worker profile (the allocator settings) on the compute node. The template
+stays byte-equal to the reference's apart from the package name, its XLA
+comment included, so one runbook reads both.
 """
 from __future__ import annotations
 

@@ -4,7 +4,6 @@ same digests, origins and byte counts over a miss / hit / evict script, a
 corrupted blob is dropped by the verified hit on both, and the offline
 summary harvest writes the same file."""
 import json
-import os
 
 import numpy as np
 import pytest
@@ -191,10 +190,3 @@ def test_device_qa_fetch_folds_on_the_given_device(tmp_path, monkeypatch):
     # serves a miss on a machine with no card
     plain = TC.InputCache(tmp_path / "d").fetch_array(src[0])
     assert plain[1] == r[1] and plain[4]["device_qa"] is False
-
-
-def test_peer_fabric_waits_for_blobserve(tmp_path):
-    c = TC.InputCache(tmp_path)
-    with pytest.raises(NotImplementedError, match="dist/blobserve.py"):
-        c.attach_fabric(object())
-    assert os.path.isdir(tmp_path / "blobs")

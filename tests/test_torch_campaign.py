@@ -234,8 +234,14 @@ def test_summaries_from_queue(dataset):
             C, {"x": ["a-01", "a-02"]})["x"].to_wire()})
         out[side] = K.summaries_from_queue(q)
     assert out["port"] == out["ref"] and list(out["port"]) == ["n0"]
-    with pytest.raises(NotImplementedError, match="dist/rpc.py"):
-        TK.summaries_from_queue("127.0.0.1:7070")
+    # an address dials a live coordinator: the same wires over the socket
+    from repro_torch.dist.rpc import QueueServer
+    units = _units(TQ, _dag_rows("a", 6))
+    q = TQU.WorkQueue(units, ["n0", "n1"])
+    q.put_summary("n0", {"v": 1, "full": _summaries(
+        TC, {"x": ["a-01", "a-02"]})["x"].to_wire()})
+    with QueueServer(q) as srv:
+        assert TK.summaries_from_queue(srv.addr_str) == out["ref"]
 
 
 def test_lazy_exports_of_the_core_package():

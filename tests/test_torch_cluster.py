@@ -1,9 +1,11 @@
-"""The port's in-process cluster (``repro_torch.dist.cluster``): the safety
-invariant over the reference's fixed grid with the host cache and the
-journal on, input digests committed equal to the reference's
+"""The port's cluster (``repro_torch.dist.cluster``): the safety invariant
+over the reference's fixed grid with the host cache and the journal on, over
+the socket transport, the peer fabric, coordinator restarts and network
+chaos (the parameter sets of the reference's ``test_rpc.py`` and
+``test_faults.py``), input digests committed equal to the reference's
 ``ClusterRunner`` on the same dataset, a whole-process stall that the
-reference reads as every node dead (ROADMAP.md, F3), and the settings that
-wait for ``dist/rpc.py`` / ``dist/blobserve.py``."""
+reference reads as every node dead (ROADMAP.md, F3), and the runner's
+refusals of settings it cannot honour."""
 import importlib
 import shutil
 import threading
@@ -36,6 +38,42 @@ def test_cluster_invariant_fixed_grid(n_subjects, sessions, nodes, flaky, die,
 ], ids=["plan", "renew", "locality", "dag"])
 def test_cluster_invariant_variants(flaky, kw):
     check_cluster_invariant(2, 2, 3, flaky, 1, **kw)
+
+
+# the reference's test_rpc.py::test_cluster_invariant_over_transport cases
+TRANSPORT = [
+    ("rpc", False, False, False, False),
+    ("rpc", True, False, False, False),
+    ("local", True, True, False, False),
+    ("local", False, False, True, False),   # locality harassment
+    ("rpc", False, True, True, False),      # both harassers over the socket
+    ("local", False, False, False, True),   # peer-fabric harassment
+    ("rpc", False, True, False, True),      # hostile peers over the socket
+]
+
+
+@pytest.mark.parametrize("transport,cache,harass,locality,peers", TRANSPORT)
+def test_cluster_invariant_over_transport(transport, cache, harass, locality,
+                                          peers):
+    check_cluster_invariant(2, 2, 3, True, 1, transport=transport,
+                            cache=cache, harass_renew=harass,
+                            harass_locality=locality, harass_peers=peers)
+
+
+# the reference's test_faults.py chaos runs
+@pytest.mark.parametrize("framing", ["binary", "json"])
+def test_cluster_invariant_survives_coordinator_restart(framing):
+    check_cluster_invariant(5, 2, 3, True, 1, transport="rpc",
+                            harass_coordinator=True, framing=framing)
+
+
+def test_cluster_invariant_survives_network_chaos():
+    check_cluster_invariant(4, 2, 3, True, 1, transport="rpc", netchaos=True)
+
+
+def test_cluster_invariant_survives_restart_under_network_chaos():
+    check_cluster_invariant(4, 2, 3, False, 0, transport="rpc",
+                            harass_coordinator=True, netchaos=True)
 
 
 def _cluster_inputs(pkg, root, pipe):
@@ -146,23 +184,10 @@ def test_a_whole_process_stall_is_not_read_as_every_node_dead(pkg, tmp_path,
 
 def test_settings_of_the_socket_slice_raise(tmp_path):
     from repro_torch.core import builtin_pipelines
-    from repro_torch.core.campaign import summaries_from_queue
-    from repro_torch.dist import ClusterRunner, run_worker
+    from repro_torch.dist import ClusterRunner
     pipe = builtin_pipelines("cpu")["bias_correct"]
-    for kw, module in ((dict(transport="rpc"), "dist/rpc.py"),
-                       (dict(serve_addr="127.0.0.1:0"), "dist/rpc.py"),
-                       (dict(cache_dir=tmp_path, cache_per_node=True,
-                             peer_fabric=True), "dist/blobserve.py")):
-        with pytest.raises(NotImplementedError, match=module):
-            ClusterRunner(pipe, tmp_path, **kw)
     with pytest.raises(ValueError, match="unknown transport"):
         ClusterRunner(pipe, tmp_path, transport="carrier-pigeon")
-    with pytest.raises(NotImplementedError, match="dist/rpc.py"):
-        ClusterRunner(pipe, tmp_path).restart_coordinator()
-    with pytest.raises(NotImplementedError, match="dist/rpc.py"):
-        run_worker("127.0.0.1:1", pipe, tmp_path, "w0")
-    with pytest.raises(NotImplementedError, match="dist/rpc.py"):
-        summaries_from_queue("127.0.0.1:7070")
 
 
 def test_runner_refuses_to_overwrite_a_journal(tmp_path):

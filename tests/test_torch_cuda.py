@@ -30,6 +30,12 @@ their f32 prefill are held to the CPU's within 1e-4 of the largest
 |value|, with the experts each token chose equal.
 """
 import importlib
+import os
+import shutil
+import subprocess
+import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -1030,3 +1036,107 @@ def test_cluster_runs_segment_unest_through_k4_and_k5(cuda, tmp_path):
     q = WorkQueue.recover(Journal(tmp_path / "wal"))
     assert q.finished()
     q._journal.close()
+
+
+def test_rpc_cluster_with_a_worker_process_on_the_card(cuda, tmp_path):
+    """A coordinator serving over the socket with one in-process node, and
+    a worker process that joins with no ``--device`` (so on cuda): both
+    commit ``segment_unest`` units, every unit ends in one ok provenance,
+    and the coordinator's own runs launch K4 / K5 5 / 2 times each."""
+    from repro_torch.core import (Provenance, builtin_pipelines,
+                                  query_available_work, synthesize_dataset)
+    from repro_torch.dist import ClusterRunner
+    root = Path(__file__).resolve().parents[1]
+    ds = synthesize_dataset(tmp_path / "ds", "cu", n_subjects=3,
+                            sessions_per_subject=2, shape=(32, 32, 32))
+    pipe = builtin_pipelines("cuda")["segment_unest"]
+    units, _ = query_available_work(ds, pipe)
+    runs = {"n": 0}
+    real_fn = pipe.fn
+
+    def counted(inputs):
+        out = real_fn(inputs)
+        runs["n"] += 1
+        return out
+
+    pipe.fn = counted
+
+    def hold(unit, attempt):
+        # the local node waits (bounded) for the worker process to join
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            srv = runner.server
+            if srv is not None and "ext-0" in srv.queue.alive_nodes():
+                return
+            time.sleep(0.05)
+
+    runner = ClusterRunner(pipe, ds.root, nodes=1, transport="rpc",
+                           fault_hook=hold)
+    got = {}
+    t = threading.Thread(target=lambda: got.update(r=runner.run(units)))
+    t.start()
+    while runner.server is None and t.is_alive():
+        time.sleep(0.01)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    worker = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.dist.rpc", "work",
+         "--addr", runner.server.addr_str, "--pipeline", "segment_unest",
+         "--data-root", str(ds.root), "--node-id", "ext-0",
+         "--cache-dir", str(tmp_path / "ext-cache")],
+        env=env, cwd=root, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    t.join(timeout=600)
+    wout, _ = worker.communicate(timeout=120)
+    assert not t.is_alive() and worker.returncode in (0, 3), wout
+    assert sorted(r.unit.job_id for r in got["r"] if r.status == "ok") == \
+        sorted(u.job_id for u in units)
+    provs = [Provenance.load(Path(u.out_dir)) for u in units]
+    assert all(p.status == "ok" for p in provs)
+    assert "ext-0" in runner.stats.remote_nodes, wout
+    assert any(p.node_id == "ext-0" for p in provs), wout
+    assert (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"]) == \
+        (5 * runs["n"], 2 * runs["n"])
+
+
+def test_peer_fabric_cluster_on_the_card(cuda, tmp_path):
+    """``segment_unest`` on cuda through a ``peer_fabric`` cluster: a warm
+    pass on one node, then three nodes of which two fetch from its blob
+    server; outputs byte-equal to the warm pass's, at least one peer hit,
+    K4 / K5 5 / 2 times a pipeline run."""
+    from repro_torch.core import (builtin_pipelines, query_available_work,
+                                  synthesize_dataset)
+    from repro_torch.dist import ClusterRunner
+    ds = synthesize_dataset(tmp_path / "ds", "cu", n_subjects=3,
+                            sessions_per_subject=2, shape=(32, 32, 32))
+    pipe = builtin_pipelines("cuda")["segment_unest"]
+    units, _ = query_available_work(ds, pipe)
+    kw = dict(cache_dir=tmp_path / "caches", cache_per_node=True,
+              peer_fabric=True, lease_ttl_s=10.0)
+    ClusterRunner(pipe, ds.root, nodes=1, **kw).run(units)
+    want = {u.job_id: {f.name: f.read_bytes()
+                       for f in Path(u.out_dir).glob("*.npy")}
+            for u in units}
+    shutil.rmtree(Path(ds.root) / "derivatives")
+    runs = {"n": 0}
+    real_fn = pipe.fn
+
+    def counted(inputs):
+        out = real_fn(inputs)
+        runs["n"] += 1
+        return out
+
+    pipe.fn = counted
+    rn.reset_launches(), fa.reset_launches()
+    runner = ClusterRunner(pipe, ds.root, nodes=3, **kw)
+    results = runner.run(units)
+    ok = [r for r in results if r.status == "ok"]
+    assert len(ok) == len(units)
+    assert runner.stats.cache["peer_hits"] >= 1
+    assert runner.stats.cache["bytes_from_peer"] == \
+        sum(r.bytes_from_peer for r in results)
+    assert (rn.LAUNCHES["rmsnorm"], fa.LAUNCHES["flash_attention"]) == \
+        (5 * runs["n"], 2 * runs["n"])
+    got = {u.job_id: {f.name: f.read_bytes()
+                      for f in Path(u.out_dir).glob("*.npy")}
+           for u in units}
+    assert got == want

@@ -119,3 +119,42 @@ def test_package_exports():
     for name in core.__all__:
         assert hasattr(core, name), name
     assert "TPU_ENVS" not in core.__all__
+
+
+_NO_JAX = (
+    "import sys, runpy, importlib\n"
+    "sys.modules['jax'] = None\n"
+    "{body}\n"
+    "bad = [m for m, v in sys.modules.items() if v is not None and"
+    " (m == 'repro' or m.startswith('repro.') or m.startswith('jax'))]\n"
+    "assert not bad, bad\n")
+
+
+@pytest.mark.parametrize("module", ["repro_torch.dist.rpc",
+                                    "repro_torch.dist.blobserve",
+                                    "repro_torch.dist.faults",
+                                    "repro_torch.launch.env"])
+def test_socket_slice_modules_import_no_jax_and_no_reference(module):
+    """The socket half of ``dist/`` and the env profile, each imported
+    alone in a fresh interpreter: no ``jax``, nothing of ``repro``."""
+    code = _NO_JAX.format(body=f"importlib.import_module({module!r})")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+
+
+def test_worker_cli_help_imports_no_jax_and_no_reference():
+    """``python -m repro_torch.dist.rpc --help``, as a worker host would
+    first run it, with the import guard checked at exit."""
+    code = _NO_JAX.format(body=(
+        "sys.argv = ['rpc', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.dist.rpc', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+    assert "serve" in out.stdout and "work" in out.stdout

@@ -1,15 +1,16 @@
 """The distributed-executor safety invariant of ``cluster_invariant.py``, run
-on the port's in-process cluster (``repro_torch.dist``, ``transport="local"``)
-with ``bias_correct`` on the CPU: every unit ends with exactly one committed
-ok provenance, a concurrent reader never sees a partial output file or a
-torn provenance, and — with the host cache on — the committed input digests
-equal the manifest's. The socket transport, the peer fabric and the
-coordinator restart of the reference's body wait for ``dist/rpc.py`` and
-``dist/blobserve.py``."""
+on the port's cluster (``repro_torch.dist``, in process or over the socket
+transport) with ``bias_correct`` on the CPU: every unit ends with exactly
+one committed ok provenance, a concurrent reader never sees a partial output
+file or a torn provenance, and — with the host cache on — the committed
+input digests equal the manifest's, whichever link (cache, peer, storage)
+served them. The reference body's hostile peers, coordinator restarts and
+network chaos run here too."""
 import itertools
 import json
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -26,11 +27,16 @@ def dag_closure(edges, start):
 
 
 def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
-                            flaky: bool, die: int, *, cache: bool = False,
+                            flaky: bool, die: int, *,
+                            transport: str = "local", cache: bool = False,
                             cache_per_node: bool = False,
                             journal: bool = False, plan: bool = False,
                             harass_renew: bool = False,
                             harass_locality: bool = False,
+                            harass_peers: bool = False,
+                            harass_coordinator: bool = False,
+                            netchaos: bool = False,
+                            framing: str = "binary",
                             dag_edges=None, fail_idx=None):
     """For the given unit list / node count / injected failures: every unit
     must end with exactly one committed ok provenance, and a concurrent
@@ -45,7 +51,17 @@ def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
     the queue with stale renewals; ``harass_locality`` with hostile digest
     summaries. ``dag_edges`` / ``fail_idx`` extend the invariant to DAGs as
     in the reference's body: children start after their parents commit, a
-    poisoned unit ends ``failed`` and its descendants ``blocked``."""
+    poisoned unit ends ``failed`` and its descendants ``blocked``.
+
+    As in the reference's body: ``transport="rpc"`` runs the schedule over
+    the socket transport; ``harass_peers`` runs the peer blob fabric (per
+    node caches and blob servers) against ghost peers at dead addresses,
+    bogus summary digests and blob bodies corrupted on disk mid-run, every
+    failure falling back to storage; ``harass_coordinator`` (rpc) journals
+    the queue and crashes and recovers the coordinator twice mid-run;
+    ``netchaos`` (rpc) puts a ``ChaosProxy`` between every client and the
+    coordinator and asserts its faults fired; ``framing`` pins the wire
+    (``"binary"`` negotiates frames, ``"json"`` forbids the upgrade)."""
     from repro_torch.core import (Provenance, builtin_pipelines,
                                   query_available_work, synthesize_dataset)
     from repro_torch.core.campaign import Cohort, plan_campaign
@@ -75,8 +91,9 @@ def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
         runnable = [i for i in range(len(units))
                     if i not in blocked and i != fail_idx]
 
-        use_cache = cache or cache_per_node or harass_locality or plan
-        per_node = cache_per_node or harass_locality or plan
+        use_cache = (cache or cache_per_node or harass_locality or plan
+                     or harass_peers)
+        per_node = cache_per_node or harass_locality or plan or harass_peers
         cache_root = Path(td) / "host-cache"
         campaign = None
         if plan:
@@ -112,17 +129,56 @@ def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
             if flaky and attempt == 1:
                 raise RuntimeError("transient")
 
+        if harass_coordinator or netchaos:
+            assert transport == "rpc", \
+                "coordinator/network chaos needs the socket transport"
+        client_kwargs = {}
+        if framing == "json":
+            client_kwargs["binary"] = False
+        elif framing != "binary":
+            raise ValueError(f"unknown framing {framing!r}")
+        if netchaos:
+            # dropped chunks stall a call until the socket timeout: keep it
+            # short so the reconnect loop (not the test timeout) pays for it
+            client_kwargs.update(timeout_s=1.0, reconnect_window_s=60.0)
+        if harass_coordinator:
+            client_kwargs.setdefault("reconnect_window_s", 60.0)
+        proxy_box = {}
+        proxy_lock = threading.Lock()
+
+        def client_dial(upstream):
+            # one proxy for the whole run, built on first dial (the server
+            # address is only known once run() serves); the coordinator
+            # restarts on the *same* port, so the upstream stays valid
+            with proxy_lock:
+                if "proxy" not in proxy_box:
+                    from repro_torch.dist.faults import ChaosProxy
+                    proxy_box["proxy"] = ChaosProxy(
+                        upstream, seed=die * 31 + nodes,
+                        drop_rate=0.02, delay_rate=0.05, delay_s=0.01,
+                        dup_rate=0.02, truncate_rate=0.02).start()
+                return proxy_box["proxy"].address
+
         die_after = {f"node-{die % nodes}": 1} if nodes > 1 else {}
         w = threading.Thread(target=watcher, daemon=True)
         w.start()
         journal_dir = Path(td) / "journal"
         runner = ClusterRunner(
             pipe, ds.root, nodes=nodes, fault_hook=fault, die_after=die_after,
-            lease_ttl_s=0.4, hb_interval_s=0.1, straggler_factor=100.0,
-            poll_s=0.02, cache_dir=cache_root if use_cache else None,
-            cache_per_node=per_node, plan=campaign,
+            # restart + reconnect take real wall time: chaos modes widen the
+            # lease ttl as the reference's body does (netchaos: a dropped
+            # chunk silences a healthy node for a socket timeout + redial)
+            lease_ttl_s=(5.0 if netchaos
+                         else 1.5 if harass_coordinator else 0.4),
+            hb_interval_s=0.1, straggler_factor=100.0,
+            poll_s=0.02, transport=transport,
+            cache_dir=cache_root if use_cache else None,
+            cache_per_node=per_node, peer_fabric=harass_peers, plan=campaign,
             partition="backlog" if harass_locality else "round_robin",
-            journal_dir=journal_dir if journal else None)
+            journal_dir=(journal_dir if journal or harass_coordinator
+                         else None),
+            client_kwargs=client_kwargs or None,
+            client_dial=client_dial if netchaos else None)
 
         wrongly_renewed = []
 
@@ -161,7 +217,73 @@ def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
                             summary_delta={"v": 1, "add": [f"x{i % 5}"],
                                            "drop": []})
 
+        def peer_harasser():
+            # hostile peer-fabric traffic, every flavour of lying peer:
+            # ghosts advertising unreachable blob addrs with a summary whose
+            # every Bloom cell is hot (claims ALL digests -> locate routes
+            # fetches at a dead address -> connection error -> storage
+            # fallback); real summaries flooded with bogus digests (404s /
+            # false positives); and blob bodies corrupted on disk mid-run
+            # (digest mismatch when served to a peer, verified-miss when hit
+            # locally). None of it may disturb retirement or output bytes.
+            claims_everything = {"v": 1, "full": {
+                "m": 8, "k": 2, "n": 4, "nz": [[i, 9] for i in range(8)]}}
+            for i in itertools.count():
+                if stop.is_set():
+                    return
+                q = runner.queue
+                if q is None:
+                    continue
+                if i % 3 == 0:
+                    # ghost peer at a port nothing listens on; it never
+                    # heartbeats again, so the reaper collects it in one ttl
+                    q.register(f"liar-{i % 4}", summary=claims_everything,
+                               blob_addr=f"127.0.0.1:{1 + i % 3}")
+                elif i % 3 == 1:
+                    q.put_summary(f"node-{i % nodes}", {
+                        "v": 1, "add": [f"bogus-{i % 11}"], "drop": [],
+                        "stats": {}})
+                else:
+                    for blob in (list(cache_root.rglob("blobs/*"))
+                                 if cache_root.exists() else [])[:2]:
+                        if blob.name.startswith("."):
+                            continue           # in-flight atomic-write tmps
+                        try:
+                            blob.write_bytes(b"corrupted mid-run")
+                        except OSError:
+                            pass               # evicted under us: fine
+
+        coordinator_restarts = []
+
+        def coordinator_harasser():
+            # kill + recover the coordinator twice, at different progress
+            # points, so recovery is exercised both nearly-cold and
+            # mostly-done; a None from restart_coordinator means the run
+            # beat us to shutdown — fine, the restart count is asserted
+            # only to be >= 1 below
+            targets = [max(1, len(units) // 4), max(2, len(units) // 2)]
+            for want_done in targets:
+                deadline = time.monotonic() + 30
+                while not stop.is_set() and time.monotonic() < deadline:
+                    q = runner.queue
+                    if (q is not None and runner.server is not None
+                            and len(q.done_status()) >= want_done):
+                        break
+                    time.sleep(0.02)
+                if stop.is_set():
+                    return
+                info = runner.restart_coordinator()
+                if info is not None:
+                    coordinator_restarts.append(info)
+                time.sleep(0.3)      # let reconnects land before round two
+
         threads = []
+        if harass_coordinator:
+            threads.append(threading.Thread(target=coordinator_harasser,
+                                            daemon=True))
+        if harass_peers:
+            threads.append(threading.Thread(target=peer_harasser,
+                                            daemon=True))
         if harass_renew:
             threads.append(threading.Thread(target=harasser, daemon=True))
         if harass_locality:
@@ -176,6 +298,22 @@ def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
             w.join(timeout=5)
             for t in threads:
                 t.join(timeout=5)
+            if "proxy" in proxy_box:
+                proxy_box["proxy"].stop()
+        if harass_coordinator:
+            # a chaos run that never injected its chaos fails loudly
+            assert coordinator_restarts, "coordinator was never restarted"
+            assert all(r["total_s"] >= r["recover_s"] >= 0
+                       for r in coordinator_restarts)
+        if netchaos:
+            st = proxy_box["proxy"].stats()
+            assert st["chunks"] > 0, "no traffic crossed the chaos proxy"
+            assert (st["dropped"] + st["delayed"] + st["duplicated"]
+                    + st["truncated"]) > 0, f"no faults fired: {st}"
+        if transport == "rpc":
+            assert runner.server is not None
+        if harass_peers:
+            assert runner.stats.fabric is not None
         assert wrongly_renewed == []
         assert violations == []
         assert sum(r.status == "ok" for r in results) == len(runnable)
@@ -220,8 +358,9 @@ def check_cluster_invariant(n_subjects: int, sessions: int, nodes: int,
             assert dag_stats["cancelled"] == len(blocked)
             assert dag_stats["blocked"] == 0
             assert dag_stats["ready"] == 0
-        if journal:
+        if journal or harass_coordinator:
             # the journal alone rebuilds a queue with every unit retired
+            # (after restarts: the last incarnation's journal)
             q = WorkQueue.recover(Journal(journal_dir))
             assert q.finished() and len(q.done_status()) == len(units)
             assert {units[i].job_id for i, s in q.done_status().items()
