@@ -124,6 +124,26 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               expert choices compared first; a broken model (a layer's
               cross-attention dropped, every token routed to expert 0,
               the patches zeroed) must fail that bound.
+ 5e. mesh   - phase 5c's training on a DeviceMesh: one NCCL rank (a
+              file store in the work directory), ``make_local_mesh()``
+              (1 x 1), llama3.2-1b at its published config, the same seed,
+              token source, batches (4 x 2,048) and five steps through
+              ``make_train_step(mesh=)``: f32 DTensor masters and moments
+              placed as ``shardings_for(param_specs)`` says, bf16 compute
+              on the gathered copy. Each loss within 1e-5 relative of
+              phase 5c's at the same step; K4-K7 launched 0 times. Then
+              5c's step-3 checkpoint restored with ``shardings=`` onto the
+              mesh, every leaf bit-equal to 5c's restored leaves, and step
+              4 from it giving 5c's uninterrupted step-4 loss exactly;
+              ``compressed_tree_psum`` over the mesh's 'data' axis of that
+              step's 1.24 B-parameter gradient tree, sum plus error within
+              scale/127 of each leaf, and a second round with the error
+              fed back within the reference test's bound. The broken
+              control, step 4 with its gradient from the first half of
+              the batch rows only (what a lost reduction over a data axis
+              gives), must fail step 5's loss check. One log line with s
+              a step, tokens/s, peak GB, the restore's s and the
+              compressed sum's s, beside the card's name and power limit.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -264,6 +284,8 @@ FAMILY_K5 = {"moonshot prefill": (4, 2000, 2000, 16, 16, 128, True),
              "whisper cross-attention": (4, 64, 1500, 12, 12, 64, False)}
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
+# phase 5e against phase 5c, relative: the same steps on a one-rank mesh
+MESH_LOSS_TOL = 1e-5
 PARITY_BATCH, PARITY_SEQ = 2, 512
 # training on the card against the port's own CPU run, f32: loss and grad
 # norm relative, each gradient leaf relative to its largest |value|
@@ -647,7 +669,7 @@ def run(args, work: Path, card: str):
 
     # -- 5c. training: llama at its published config, checkpoints, parity ---
     t0 = time.perf_counter()
-    train_phase(args.seed, work, card)
+    trained = train_phase(args.seed, work, card)
     train_parity_phase(args.seed)
     train_refusal_phase()
     log(f"train phase: {time.perf_counter() - t0} s in all")
@@ -658,6 +680,12 @@ def run(args, work: Path, card: str):
     family_cut_phase(args.seed)
     log(f"families phase: {time.perf_counter() - t0} s in all")
     served = {**serve, **fam}           # every run that launched K4
+
+    # -- 5e. training on a mesh: one NCCL rank, 5c's run and checkpoint -----
+    t0 = time.perf_counter()
+    mesh_train_phase(args.seed, work, card, trained)
+    del trained
+    log(f"mesh train phase: {time.perf_counter() - t0} s in all")
 
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -1907,6 +1935,9 @@ def train_phase(seed: int, work: Path, card: str):
             check(step == 3 and extra == {"loss": losses[-1]} and not diff,
                   f"train: the checkpoint restored step {step}, extra "
                   f"{extra}, leaves that differ {diff}")
+            # phase 5e restores this checkpoint onto a mesh: its leaves
+            # are held to these, bit for bit
+            restored_host = [t.cpu() for t in tree_util.leaves(restored)]
             _, _, m_r = step_fn(restored["params"], restored["opt"],
                                 pipe.batch_at(3))
             restored_loss = float(m_r["loss"])
@@ -1950,8 +1981,9 @@ def train_phase(seed: int, work: Path, card: str):
           f"train: step 4 from the checkpoint {restored_loss}, "
           f"uninterrupted {losses[3]}")
     del params, opt_state, new_p, new_o, prof
-    shutil.rmtree(work / "ckpt")
     torch.cuda.empty_cache()
+    return {"losses": losses, "restored": restored_host,
+            "restored_loss": restored_loss}
 
 
 def train_parity_phase(seed: int):
@@ -2114,6 +2146,177 @@ def train_refusal_phase():
         f"grad mode, raised {refused}")
     check(all(refused.values()), f"kernels took inputs that require grad: "
           f"{refused}")
+
+
+def mesh_train_phase(seed: int, work: Path, card: str, trained):
+    """Phase 5e: phase 5c's run again, on a DeviceMesh of one NCCL rank:
+    the same arch, published config, seed, batches and steps through
+    ``make_train_step(mesh=)``, each loss within MESH_LOSS_TOL of 5c's;
+    masters and moments DTensors on cuda placed as ``shardings_for`` says;
+    5c's step-3 checkpoint restored with ``shardings=`` bit-equal to 5c's
+    restored leaves, its step 4 giving 5c's uninterrupted step-4 loss; the
+    int8 compressed sum of that step's gradient tree within each leaf's
+    bound; K4-K7 launched 0 times. The broken control, a step whose
+    gradient comes from the first half of the batch rows only (what a lost
+    reduction over a data axis gives), must fail the next step's loss
+    check."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as tree_util
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, ShardedTokenSource
+    from repro_torch.dist.collectives import (compressed_tree_psum,
+                                              zeros_like_errors)
+    from repro_torch.dist.sharding import P, param_specs, shardings_for
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import (OptConfig, init_train_state,
+                                   make_train_step, shard_train_state)
+    from repro_torch.train import train_step as train_step_mod
+    ref = trained["losses"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl_store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh()
+        cfg = get_config(TRAIN_ARCH)
+        params, opt_state = init_train_state(
+            cfg, torch.Generator().manual_seed(seed), device="cuda")
+        params, opt_state = shard_train_state(params, opt_state, mesh)
+        specs = param_specs(params, mesh)
+        shard = shardings_for(mesh, {"params": specs, "opt": {
+            "m": specs, "v": specs, "step": P()}})
+        state = {"params": params, "opt": opt_state}
+        misplaced = [tree_util.path_key(pth) for pth, x in
+                     tree_util.flatten_with_paths(state)
+                     if not isinstance(x, DTensor) or x.device.type != "cuda"
+                     or tuple(x.placements) !=
+                     tree_util.at(shard, pth).placements]
+        del state
+        check(not misplaced, f"mesh train: leaves not placed as "
+              f"shardings_for says: {misplaced}")
+        pipe = DataPipeline(ShardedTokenSource(work / "tokens"),
+                            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+        opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+        step_fn = make_train_step(cfg, opt, torch.bfloat16, remat=True,
+                                  mesh=mesh)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        for s in range(TRAIN_STEPS):
+            batch = pipe.batch_at(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        path = _counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del params, opt_state, m
+        torch.cuda.empty_cache()
+
+        # the elastic restore of 5c's step-3 checkpoint, onto the mesh
+        t0 = time.perf_counter()
+        restored, step, _ = restore_checkpoint(
+            work / "ckpt", _train_template(cfg), shardings=shard)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        differ = [tree_util.path_key(pth) for (pth, x), want in zip(
+            tree_util.flatten_with_paths(restored), trained["restored"])
+            if not isinstance(x, DTensor) or x.device.type != "cuda"
+            or x.dtype != want.dtype
+            or not torch.equal(x.to_local().cpu(), want)]
+        _reset_counts()
+        m4, grads = step_fn.grads(restored["params"], pipe.batch_at(3))
+        loss4 = float(m4["loss"])
+        path4 = _counts()
+
+        # the compressed sum of that gradient tree over the mesh, and a
+        # second round with the error fed back
+        local = tree_util.tree_map(lambda g: g.to_local(), grads)
+        del grads
+        n_params = sum(t.numel() for t in tree_util.leaves(local))
+        group = (mesh, "data")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, err1 = compressed_tree_psum(local, zeros_like_errors(local),
+                                           group)
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+        second, _ = compressed_tree_psum(local, err1, group)
+        far, far2 = [], []
+        for (pth, x), y, e, y2 in zip(
+                tree_util.flatten_with_paths(local), tree_util.leaves(total),
+                tree_util.leaves(err1), tree_util.leaves(second)):
+            bound = float(x.abs().max()) / 127
+            if float((y + e - x).abs().max()) > bound:
+                far.append(tree_util.path_key(pth))
+            if float(((y + y2) / 2 - x).abs().max()) > bound:
+                far2.append(tree_util.path_key(pth))
+        del local, total, err1, second
+        torch.cuda.empty_cache()
+
+        # the broken control: step 4 from the first half of the rows only
+        real = train_step_mod._local_rows
+
+        def first_half(batch, rules):
+            rows = real(batch, rules)
+            return {k: v[: len(v) // 2] for k, v in rows.items()}
+        train_step_mod._local_rows = first_half
+        try:
+            broken_p, broken_o, _ = step_fn(restored["params"],
+                                            restored["opt"],
+                                            pipe.batch_at(3))
+        finally:
+            train_step_mod._local_rows = real
+        del restored
+        m5, _ = step_fn.grads(broken_p, pipe.batch_at(4))
+        broken5 = float(m5["loss"])
+        del broken_p, broken_o, m5
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(work / "ckpt", ignore_errors=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    med = statistics.median(times)
+    log(f"mesh train {TRAIN_ARCH} on a (1, 1) DeviceMesh, one NCCL rank "
+        f"({n_params} params), f32 DTensor masters and moments, bf16 "
+        f"compute, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step s {times}, "
+        f"median {med} s, {TRAIN_BATCH * TRAIN_SEQ / med} tokens/s, peak "
+        f"{peak} GB; losses {losses} (phase 5c {ref}, relative "
+        f"{rel}); K4-K7 {path}, {path4}; elastic restore of step 3 "
+        f"{restore_s} s, leaves that differ from 5c's {differ}, step 4 "
+        f"from it {loss4} (5c uninterrupted {ref[3]}); compressed sum of "
+        f"its gradient tree {psum_s} s, leaves past scale/127 {far}, past "
+        f"the error-feedback bound {far2}; broken control (step 4 from half "
+        f"the rows) step 5 {broken5} against {ref[4]}; on {card}")
+    check(all(r <= MESH_LOSS_TOL for r in rel),
+          f"mesh train: losses {losses} against phase 5c's {ref}")
+    check(all(v == 0 for v in list(path.values()) + list(path4.values())),
+          f"mesh train: the steps launched kernels {path} {path4}")
+    check(step == 3 and not differ,
+          f"mesh train: the elastic restore gave step {step}, leaves that "
+          f"differ {differ}")
+    check(loss4 == ref[3], f"mesh train: step 4 from the elastic restore "
+          f"{loss4}, phase 5c uninterrupted {ref[3]}")
+    check(not far and not far2, f"mesh train: compressed sum past its "
+          f"bound at {far} / {far2}")
+    check(abs(broken5 - ref[4]) > MESH_LOSS_TOL * abs(ref[4]),
+          f"mesh train: the broken control passed the loss check: "
+          f"{broken5} against {ref[4]}")
+
+
+def _train_template(cfg):
+    """A shape-only template of the train state (meta tensors)."""
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.train import adamw_init
+    params = init_params(cfg, None, torch.float32, device="meta")
+    return {"params": params, "opt": adamw_init(params)}
 
 
 def _scan_rel(got, want) -> float:

@@ -7,6 +7,8 @@ training state):
   * provenance JSON (who, when, config digest) beside every step;
   * async save (a training step never waits on disk), its host copy taken
     before the saving thread starts;
+  * elastic restore: leaves are saved with their global shapes, so a
+    checkpoint written on one mesh restores onto any other;
   * cold-tier archival mirrors steps into a ``TieredStore``.
 
 Leaves are keyed by their path in the reference's order (``a/b/0``,
@@ -14,8 +16,17 @@ Leaves are keyed by their path in the reference's order (``a/b/0``,
 ``.npy`` files (bf16 under the descr ``<V2`` that numpy gives the
 reference's bfloat16), sums and ``manifest.json``, so a checkpoint of
 either package restores in the other. Restored leaves are tensors on the
-device asked for (``None``: ``cuda``). The reference's elastic restore onto
-another sharding waits for the port's placement work.
+device asked for (``None``: ``cuda``).
+
+Sharded state: a tree of DTensors saves as its global tensors. Every rank
+gathers them (``full_tensor``) in the calling thread, since a collective
+must not run in the saving thread; rank 0 alone writes, the same files a
+one-device save of those values writes, and the others wait at a barrier
+(for an async save, in ``wait``). The elastic restore (``shardings=``, the
+tree ``dist.sharding.shardings_for`` gives) rebuilds each leaf as a
+DTensor from the slice its rank owns: every rank reads and checks each
+leaf and keeps its own slice, with no broadcast, so a checkpoint written
+on one layout restores onto any other (any world size, any mesh).
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import tree as tree_util
 from ..core.integrity import IntegrityError, fletcher64
@@ -67,9 +79,41 @@ def _save_npy(path: Path, arr: np.ndarray, dtype: str):
         f.write(np.ascontiguousarray(arr).tobytes())
 
 
+def _is_dtensor(x) -> bool:
+    # DTensor is only imported once a sharded tree exists to be saved
+    import sys
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _gathered(tree):
+    """(``tree`` with every DTensor leaf gathered to its global tensor,
+    whether any leaf was one). A collective on every rank of the mesh."""
+    sharded = any(_is_dtensor(x) for x in tree_util.leaves(tree))
+    if not sharded:
+        return tree, False
+    return tree_util.tree_map(
+        lambda x: x.full_tensor() if _is_dtensor(x) else x, tree), True
+
+
 def save_checkpoint(ckpt_dir: Path, step: int, tree, *, digest: str = "",
                     extra: Optional[Dict[str, Any]] = None) -> Path:
-    """Write one step synchronously. Returns the step directory."""
+    """Write one step synchronously. Returns the step directory. A tree
+    with DTensor leaves is gathered on every rank and written by rank 0
+    alone; every rank returns once it is on disk."""
+    tree, sharded = _gathered(tree)
+    if sharded:
+        try:
+            if dist.get_rank() == 0:
+                return _save(ckpt_dir, step, tree, digest, extra)
+            return Path(ckpt_dir) / f"step_{step:08d}"
+        finally:
+            dist.barrier()
+    return _save(ckpt_dir, step, tree, digest, extra)
+
+
+def _save(ckpt_dir: Path, step: int, tree, digest: str,
+          extra: Optional[Dict[str, Any]]) -> Path:
     t0 = time.time()
     step_dir = Path(ckpt_dir) / f"step_{step:08d}"
     tmp = step_dir.with_suffix(".tmp")
@@ -102,13 +146,12 @@ def restore_checkpoint(ckpt_dir: Path, template, step: Optional[int] = None,
                        shardings=None, device: DeviceLike = None):
     """Restore a step (the latest by default) into ``template``'s structure
     (leaves with a ``shape``): (tree of tensors on ``device``, step, the
-    manifest's extra). Every leaf's fletcher64 is checked."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore onto another sharding (the reference's elastic "
-            "restore) waits for the port's placement work (ROADMAP Queue 1 "
-            "item 4)")
-    dev = resolve_device(device)
+    manifest's extra). Every leaf's fletcher64 is checked. With
+    ``shardings`` (a tree of ``NamedSharding`` matching ``template``) each
+    leaf is a DTensor on its sharding's mesh, built from this rank's slice
+    on the mesh's device (``device`` is then unused); any layout, whatever
+    wrote the checkpoint."""
+    dev = None if shardings is not None else resolve_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -134,9 +177,23 @@ def restore_checkpoint(ckpt_dir: Path, template, step: Optional[int] = None,
         if tuple(arr.shape) != tuple(tmpl.shape):
             raise ValueError(f"{key}: shape {arr.shape} != expected "
                              f"{tuple(tmpl.shape)}")
+        if shardings is not None:
+            return _placed(arr, dtype, tree_util.at(shardings, path))
         return _to_tensor(arr, dtype, dev)
     tree = tree_util.map_with_paths(leaf, template)
     return tree, step, manifest.get("extra", {})
+
+
+def _placed(arr: np.ndarray, dtype: str, sharding):
+    """A DTensor of ``sharding`` from this rank's slice of the global
+    ``arr`` (the elastic restore: the reference's ``jax.device_put``)."""
+    from ..dist.sharding import from_local
+    mesh = sharding.mesh
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    local = _to_tensor(np.asarray(arr[sharding.local_slices(arr.shape)]),
+                       dtype, dev)
+    return from_local(local, mesh, sharding.placements, arr.shape)
 
 
 def latest_step(ckpt_dir: Path) -> Optional[int]:
@@ -159,9 +216,16 @@ class CheckpointManager:
         self.cold_store = cold_store
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._sharded = False           # a barrier is owed in wait()
 
     def save_async(self, step: int, tree, extra=None):
+        """Save in a thread. A tree with DTensor leaves is gathered here,
+        on every rank; rank 0's thread writes it, and every rank meets
+        the others at a barrier in :meth:`wait`."""
         self.wait()                     # one in-flight save at a time
+        tree, self._sharded = _gathered(tree)
+        if self._sharded and dist.get_rank() != 0:
+            return
         # the host copy now, before the thread starts: a later step or an
         # in-place write cannot reach what is being saved
         host_tree = tree_util.tree_map(
@@ -187,6 +251,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            self._sharded = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err

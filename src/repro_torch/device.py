@@ -1,5 +1,7 @@
 """The port's one device rule: ``None`` means ``cuda``, and ``cuda`` without
-a card is an error, never a quiet move to the CPU."""
+a card is an error, never a quiet move to the CPU. Constructors of weights
+and caches also take ``meta``: shape-only trees with no storage and no
+draw, which ``launch/specs.py`` builds for configs larger than any host."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -21,3 +23,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_init_device(device: DeviceLike = None) -> torch.device:
+    """:func:`resolve_device` for the constructors of weights and caches,
+    which also take ``meta`` (a shape-only tree)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)

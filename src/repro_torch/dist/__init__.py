@@ -3,12 +3,10 @@
 ``journal``, the per-host content-addressed input cache (``cache``), the
 peer-to-peer blob fabric that serves those caches between hosts
 (``blobserve``), the fault-injection proxy of the chaos tests (``faults``),
-and the shared placement scorer (``placement``) both the queue and the
-campaign planner rank candidates with.
-
-Not yet ported, so not exported (ROADMAP.md, Queue 1 item 4): the JAX-only
-``sharding`` (``Rules``, ``param_specs``, ``constrain``, ...) and
-``collectives``."""
+the shared placement scorer (``placement``) both the queue and the
+campaign planner rank candidates with, the sharding rules and parameter
+placement on a ``DeviceMesh`` (``sharding``), and the int8 compressed
+gradient sum with error feedback (``collectives``)."""
 from .blobserve import BlobServer, PeerFabric, fetch_blob
 from .cache import (DigestSummary, InputCache, cache_from_env,
                     harvest_summary, load_summary_file, save_summary_file,
@@ -25,7 +23,22 @@ __all__ = [
     "WarmSetIndex", "best_node", "best_peers", "unit_local_bytes",
     "harvest_summary", "load_summary_file", "save_summary_file",
     "summaries_from_cache_dirs",
+    "MODEL_AXES", "MeshShape", "NamedSharding", "P", "Rules",
+    "attn_shard_choice", "batch_mean", "constrain",
+    "constrain_params_gathered", "constrain_residual", "current_rules",
+    "distribute", "param_spec_for", "param_specs", "placements_for",
+    "shardings_for", "tp_size", "use_rules",
+    "compressed_psum", "compressed_tree_psum", "dequantize_int8",
+    "quantize_int8", "zeros_like_errors",
 ]
+
+_SHARDING = ("MODEL_AXES", "MeshShape", "NamedSharding", "P", "Rules",
+             "attn_shard_choice", "batch_mean", "constrain",
+             "constrain_params_gathered", "constrain_residual",
+             "current_rules", "distribute", "param_spec_for", "param_specs",
+             "placements_for", "shardings_for", "tp_size", "use_rules")
+_COLLECTIVES = ("compressed_psum", "compressed_tree_psum", "dequantize_int8",
+                "quantize_int8", "zeros_like_errors")
 
 
 def __getattr__(name):
@@ -41,4 +54,11 @@ def __getattr__(name):
     if name == "ChaosProxy":
         from .faults import ChaosProxy
         return ChaosProxy
+    # sharding/collectives load torch.distributed only when asked for
+    if name in _SHARDING:
+        from . import sharding
+        return getattr(sharding, name)
+    if name in _COLLECTIVES:
+        from . import collectives
+        return getattr(collectives, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

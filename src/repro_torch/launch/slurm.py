@@ -1,18 +1,47 @@
-"""SLURM launch scripts of the port: the per-shard campaign arrays the
+"""SLURM launch scripts of the port: multi-host training arrays
+(``write_pod_launch``) and the per-shard campaign arrays the
 admission-time planner emits (``core/workflow.generate_jobs`` in campaign
-mode). Each task runs ``python -m repro_torch.core.workflow --run-one``.
+mode).
 
-The reference's other half, ``write_pod_launch`` (multi-host training
-arrays), belongs with the port's distributed training (ROADMAP.md, Queue 1
-item 4). The shard script's first step evals ``repro_torch.launch.env``'s
-worker profile (the allocator settings) on the compute node. The template
-stays byte-equal to the reference's apart from the package name, its XLA
-comment included, so one runbook reads both.
+A pod script runs one array task a host, each with one GPU: it exports the
+variables ``repro_torch.launch.train`` reads (``MASTER_ADDR`` and
+``MASTER_PORT`` from the coordinator, ``WORLD_SIZE``, ``RANK`` from the
+array index, ``LOCAL_RANK``), so the hosts join one NCCL process group and
+train on one mesh. The reference's pod script exports ``JAX_*`` variables
+that its training launcher never reads (ROADMAP Queue 3, R11). A shard
+script's task runs ``python -m repro_torch.core.workflow --run-one``. Both
+first eval ``repro_torch.launch.env``'s worker profile (the allocator
+settings) on the compute node. The shard template stays byte-equal to the
+reference's apart from the package name, its XLA comment included, so one
+runbook reads both.
 """
 from __future__ import annotations
 
 from pathlib import Path
 from typing import Optional
+
+POD_TEMPLATE = """#!/bin/bash
+#SBATCH --job-name={name}
+#SBATCH --array=0-{last_host}
+#SBATCH --nodes=1
+#SBATCH --gpus-per-task=1
+#SBATCH --cpus-per-task={cpus}
+#SBATCH --time={walltime}
+#SBATCH --output={log_dir}/%x_%a.out
+set -euo pipefail
+
+export MASTER_ADDR={coordinator_host}
+export MASTER_PORT={coordinator_port}
+export WORLD_SIZE={n_hosts}
+export RANK=$SLURM_ARRAY_TASK_ID
+export LOCAL_RANK=0
+eval "$(python -m repro_torch.launch.env --role worker 2>/dev/null || true)"
+
+srun python -m repro_torch.launch.train \\
+    --arch {arch} --full --steps {steps} \\
+    --data-dir {data_dir} --ckpt-dir {ckpt_dir} --resume
+"""
+
 
 # One campaign shard = one job array pinned (when the plan could place it)
 # to the host already holding the shard's input bytes — brainlife.io-style
@@ -61,5 +90,24 @@ def write_shard_script(out_dir: Path, *, name: str, n_units: int,
         placement_line=placement, manifest_json=manifest_json,
         units_json=units_json, data_root=data_root)
     p = out_dir / f"{name}.slurm"
+    p.write_text(script)
+    return p
+
+
+def write_pod_launch(out_dir: Path, *, arch: str, n_hosts: int = 64,
+                     coordinator: str = "pod0-host0:8476", steps: int = 10000,
+                     data_dir: str = "/data/shards", ckpt_dir: str = "/ckpt",
+                     cpus: int = 16, walltime: str = "48:00:00") -> Path:
+    """Write the training array of ``n_hosts`` tasks, one GPU each, that
+    rendezvous at ``coordinator`` (``host:port``)."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    host, port = coordinator.rsplit(":", 1)
+    script = POD_TEMPLATE.format(
+        name=f"train_{arch}", last_host=n_hosts - 1, n_hosts=n_hosts,
+        coordinator_host=host, coordinator_port=port, arch=arch, steps=steps,
+        data_dir=data_dir, ckpt_dir=ckpt_dir, cpus=cpus, walltime=walltime,
+        log_dir=str(out_dir / "logs"))
+    p = out_dir / f"train_{arch}.slurm"
     p.write_text(script)
     return p

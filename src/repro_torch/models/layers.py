@@ -10,8 +10,9 @@ CPU tensor. The kernels have no backward, so training runs
 ``rmsnorm`` and ``attention`` (with ``_attend_block`` under
 ``jax.checkpoint``) as torch ops under autograd, the reference's
 ``jax.checkpoint`` (nothing saveable) being :func:`checkpointed`. The reference's
-sharding constraints (``constrain*``) are the identity without a mesh and
-are dropped.
+sharding constraints (``constrain*``) are dropped: on a mesh the port
+computes on the gathered copy of the weights (``train/train_step.py``),
+so no activation is sharded.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 # q_offset) is K5 in the model's (B, S, H, Dh) layout. Unlike the
 # reference's, this attention runs any Sq: the reference asserts
 # Sq % 2048 == 0 above 2048 query rows.
-from ..device import resolve_device
+from ..device import resolve_init_device
 from ..kernels.flash_attention import flash_attention_op as attention
 from ..kernels.rmsnorm import rmsnorm
 
@@ -270,8 +271,11 @@ def mlp(x: torch.Tensor, p, kind: str = "swiglu",
 
 def normal_init(gen: torch.Generator, shape, scale: float = 0.02,
                 dtype=torch.float32, device=None) -> torch.Tensor:
+    dev = resolve_init_device(device)
+    if dev.type == "meta":                  # a shape-only tree: no draw
+        return torch.empty(tuple(shape), dtype=dtype, device=dev)
     w = scale * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
-    return w.to(device=resolve_device(device), dtype=dtype)
+    return w.to(device=dev, dtype=dtype)
 
 
 def init_attn(gen: torch.Generator, cfg, n_layers: Optional[int] = None,

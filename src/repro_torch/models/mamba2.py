@@ -9,8 +9,9 @@ decode is the exact recurrence in plain torch, as in the reference. K6 has
 no backward, so training (``train=True``) runs ``ssd_chunked_train``, the
 reference's XLA chunked scan as torch ops under autograd.
 Parameters keep the reference's names and ``(L, ...)``-stacked layout; the
-reference's sharding constraints are the identity without a mesh and are
-dropped.
+reference's sharding constraints are dropped: on a mesh the port computes
+on the gathered copy of the weights (``train/train_step.py``), so no
+activation is sharded.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import resolve_init_device
 from ..kernels.mamba2_ssd import ssd_chunked_op
 from .layers import normal_init, rmsnorm, rmsnorm_train, upcast
 
@@ -32,7 +33,7 @@ def init_mamba_layer(gen: torch.Generator, cfg, n_layers: int,
     H = di // s.d_head
     N = s.d_state
     L = (n_layers,)
-    kw = dict(dtype=dtype, device=resolve_device(device))
+    kw = dict(dtype=dtype, device=resolve_init_device(device))
     a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32))
     return {
         "ln": torch.ones(L + (D,), **kw),
@@ -181,7 +182,7 @@ def init_mamba_state(cfg, n_layers: int, batch: int, dtype=torch.float32,
     s = cfg.ssm
     di = s.expand * cfg.d_model
     H, dh, N = di // s.d_head, s.d_head, s.d_state
-    dev = resolve_device(device)
+    dev = resolve_init_device(device)
     return {
         "ssm": torch.zeros((n_layers, batch, H, dh, N), dtype=torch.float32,
                            device=dev),

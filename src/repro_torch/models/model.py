@@ -44,7 +44,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_init_device
 from . import mamba2 as mamba_mod
 from . import rwkv6 as rwkv_mod
 from .layers import (apply_rope, attention, attention_train, attn_out,
@@ -73,7 +73,7 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
     an error without a card)."""
     kind = _kind(cfg)
     D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
-    kw = dict(dtype=dtype, device=resolve_device(device))
+    kw = dict(dtype=dtype, device=resolve_init_device(device))
     params: Params = {"embed": {"tok": normal_init(gen, (V, D), **kw)},
                       "final_norm": torch.ones((D,), **kw)}
     if not cfg.tie_embeddings:
@@ -569,7 +569,7 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     """Zero cache sized for decoding up to seq_len, on ``device``
     (``None``: ``cuda``)."""
     kind = _kind(cfg)
-    dev = resolve_device(device)
+    dev = resolve_init_device(device)
     if kind == "rwkv":
         return rwkv_mod.init_rwkv_state(cfg, batch, dtype, dev)
     Smax = cache_max_len(cfg, seq_len)

@@ -17,8 +17,12 @@ the reference's dense mixture over every expert.
 
 The expert products are plain batched matmuls, which the reference leaves
 to XLA outside any Pallas kernel; no kernel of the port runs here. The
-reference's sharding hints (``constrain``) are the identity on one card and
-are dropped.
+reference's sharding hints (``constrain``) are dropped: on a mesh the port
+computes on the gathered copy of the weights (``train/train_step.py``), so
+no activation is sharded. The load-balance statistics are means over the
+batch, which the reference's SPMD step takes over the global batch; the
+port's mesh step makes them so with ``batch_mean`` (the identity without a
+mesh).
 """
 from __future__ import annotations
 
@@ -63,8 +67,11 @@ def _route(x: torch.Tensor, router: torch.Tensor, m):
     w, sel = top_k(probs, m.top_k)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     E = probs.shape[-1]
+    # over the global batch when a mesh splits it (identity otherwise);
+    # imported here: ``dist`` imports ``core``, which imports the models
+    from ..dist.sharding import batch_mean
     f = F.one_hot(sel[..., 0], E).to(probs.dtype).mean(dim=(0, 1))
-    p = probs.mean(dim=(0, 1))
+    f, p = batch_mean(f), batch_mean(probs.mean(dim=(0, 1)))
     return sel, w, E * torch.sum(f * p)
 
 

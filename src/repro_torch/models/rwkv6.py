@@ -20,7 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..device import resolve_device
+from ..device import resolve_init_device
 from ..kernels.rwkv6 import wkv6_op
 from .layers import normal_init, rmsnorm, rmsnorm_train, upcast
 
@@ -31,7 +31,7 @@ def init_rwkv_layer(gen: torch.Generator, cfg, n_layers: int,
     H, dh = cfg.n_heads, cfg.rwkv.head_size
     r = cfg.rwkv.decay_lora
     L = (n_layers,)
-    kw = dict(dtype=dtype, device=resolve_device(device))
+    kw = dict(dtype=dtype, device=resolve_init_device(device))
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
         "ln1": torch.ones(L + (D,), **kw),
@@ -194,7 +194,7 @@ def rwkv_block(x, p, cfg, state, train: bool = False):
 def init_rwkv_state(cfg, batch: int, dtype=torch.float32, device=None):
     H, dh, D = cfg.n_heads, cfg.rwkv.head_size, cfg.d_model
     L = cfg.n_layers
-    dev = resolve_device(device)
+    dev = resolve_init_device(device)
     return {
         "shift": torch.zeros((L, batch, 1, D), dtype=dtype, device=dev),
         "wkv": torch.zeros((L, batch, H, dh, dh), dtype=torch.float32,

@@ -2,8 +2,25 @@
 mixed-precision forward and backward through ``forward_train``, then AdamW.
 
 The reference traces this under ``jax.jit``; here it runs eagerly on the
-params' device. Its sharding hint for accumulation
-(``constrain_params_gathered``) has no counterpart on one card.
+params' device. With ``mesh=`` (a ``DeviceMesh``) the state is sharded as
+the reference's specs place it: the f32 masters and the AdamW moments are
+DTensors placed by ``param_specs`` (FSDP storage over every mesh axis),
+``step`` is replicated, and each step
+
+  * casts the masters to ``compute_dtype`` on each shard and gathers the
+    cast copy once (``constrain_params_gathered``, then ``full_tensor``),
+    however many microbatches follow (the reference's G3b);
+  * runs ``forward_train`` on plain tensors over the rows of the global
+    batch that ``Rules(mesh, "train").spec("batch")`` gives this rank
+    (ranks of one 'model' group compute the same rows: the compute is
+    not tensor-parallel);
+  * weights each rank's loss by its share of the global batch's unmasked
+    targets, so the summed gradient is that of the global token mean, as
+    the reference's one loss over the whole batch (moe's load-balance
+    statistics are global means through ``batch_mean``);
+  * sums the gradients over the axes that split the batch, never over
+    'model', keeps this rank's slice of each, and runs AdamW on the
+    local shards after one global norm across them.
 """
 from __future__ import annotations
 
@@ -11,11 +28,12 @@ import torch
 
 from .. import tree as tree_util
 from ..models import forward_train, init_params
-from .optimizer import OptConfig, adamw_init, adamw_update
+from .optimizer import (OptConfig, adamw_init, adamw_update,
+                        adamw_update_sharded)
 
 
 def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
-                    remat: bool = True, accum_steps: int = 1):
+                    remat: bool = True, accum_steps: int = 1, mesh=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics) with ``loss``, ``acc``, ``tokens``, ``grad_norm`` and ``lr``
     (and ``aux_loss`` for moe).
@@ -25,8 +43,15 @@ def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
     or tensors) moves to the params' device in ``forward_train``.
     ``accum_steps`` > 1 splits the batch into microbatches along its first
     dim and accumulates f32 gradients, then divides by ``accum_steps`` as
-    the reference does.
+    the reference does. With ``mesh`` the state is the one
+    :func:`shard_train_state` places, and every rank passes the global
+    batch (see the module docstring); the step also has ``step.grads(
+    params, batch)`` -> (metrics, the reduced gradient tree, placed as the
+    params), the gradient the optimizer would be given.
     """
+    if mesh is not None:
+        return _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps,
+                               mesh)
 
     def loss_and_grads(params, batch):
         flat = [p.detach().requires_grad_(True)
@@ -82,3 +107,138 @@ def init_train_state(cfg, gen: torch.Generator, dtype=torch.float32,
     error without a card."""
     params = init_params(cfg, gen, dtype, device)
     return params, adamw_init(params)
+
+
+# ---------------------------------------------------------------------------
+# on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+def shard_train_state(params, opt_state, mesh):
+    """The full ``params`` and their AdamW state, which every rank holds
+    alike, as DTensors on ``mesh``: the params and both moments placed by
+    ``param_specs``, ``step`` replicated. Each rank keeps its own slice
+    (no collective)."""
+    from ..dist import sharding
+    shard = sharding.shardings_for(mesh, sharding.param_specs(params, mesh))
+
+    def place(tree):
+        return tree_util.map_with_paths(
+            lambda path, x: sharding.distribute(
+                x, tree_util.at(shard, path)), tree)
+    step = sharding.distribute(opt_state["step"],
+                               sharding.NamedSharding(mesh, sharding.P()))
+    return place(params), {"m": place(opt_state["m"]),
+                           "v": place(opt_state["v"]), "step": step}
+
+
+def _local_rows(batch, rules):
+    """This rank's rows of a global batch: the slice of dim 0 that the
+    rules' batch spec gives it (every row when the batch is
+    replicated)."""
+    from ..dist.sharding import NamedSharding
+    rows = NamedSharding(rules.mesh, rules.spec("batch")).local_slices(
+        (len(batch["tokens"]),))[0]
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _grad_reduce_dims(rules):
+    """The mesh axes whose ranks hold different rows: gradients are summed
+    over these and no others."""
+    from ..dist.sharding import batch_axes
+    return batch_axes(rules)
+
+
+def _unmasked(targets) -> int:
+    t = targets if torch.is_tensor(targets) else torch.as_tensor(targets)
+    return int((t >= 0).sum())
+
+
+def _dim_size(mesh, name: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
+    import torch.distributed as dist
+    from ..dist import sharding
+
+    def reduce(t, axes):
+        for a in axes:
+            if _dim_size(mesh, a) > 1:
+                dist.all_reduce(t, group=mesh.get_group(a))
+        return t
+
+    def gathered(params):
+        """The compute copy: cast on each shard, gathered once."""
+        pc = tree_util.tree_map(
+            lambda w: w.to(compute_dtype)
+            if w.dtype == torch.float32 and w.dim() > 1 else w, params)
+        with sharding.use_rules(sharding.Rules(mesh, "train")):
+            pc = sharding.constrain_params_gathered(pc)
+        return tree_util.tree_map(lambda w: sharding.full(w).detach(), pc)
+
+    def micro(flat, pc, batch, rules):
+        """(global metrics, this rank's f32 gradient of its weighted loss)
+        for one global (micro)batch."""
+        local = _local_rows(batch, rules)
+        n_all = _unmasked(batch["targets"])
+        w = _unmasked(local["targets"]) / max(n_all, 1)
+        with torch.enable_grad(), sharding.use_rules(rules):
+            loss, m = forward_train(cfg, pc, local, compute_dtype,
+                                    remat=remat)
+            ce = m["loss"]
+            # the share of the global token mean; moe's aux term, already
+            # a global mean, is every rank's whole
+            obj = loss if w == 1.0 else ce * w + (loss - ce)
+            grads = torch.autograd.grad(obj, flat, allow_unused=True,
+                                        materialize_grads=True)
+        sums = reduce(torch.stack([ce.detach() * w, m["acc"] * w]),
+                      _grad_reduce_dims(rules))
+        metrics = {"loss": sums[0], "acc": sums[1],
+                   "tokens": torch.tensor(float(n_all), device=ce.device)}
+        if "aux_loss" in m:
+            metrics["aux_loss"] = m["aux_loss"].detach()
+        return metrics, [g.float() for g in grads]
+
+    def grads(params, batch):
+        pc = gathered(params)
+        flat = [t.requires_grad_(True) for t in tree_util.leaves(pc)]
+        pc = tree_util.unflatten_like(params, flat)
+        B = len(batch["tokens"])
+        n = B // max(accum_steps, 1)
+        rules = sharding.Rules(mesh, "train", global_batch=n)
+        if accum_steps <= 1:
+            metrics, gsum = micro(flat, pc, batch, rules)
+        else:
+            gsum = [torch.zeros(t.shape, dtype=torch.float32,
+                                device=t.device) for t in flat]
+            msum = None
+            for i in range(accum_steps):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                m, g = micro(flat, pc, mb, rules)
+                gsum = [a + b for a, b in zip(gsum, g)]
+                msum = m if msum is None else \
+                    {k: msum[k] + m[k] for k in msum}
+            metrics = {k: v / accum_steps for k, v in msum.items()}
+            metrics["tokens"] = msum["tokens"]
+        axes = _grad_reduce_dims(rules)
+        out = []
+        for g, p in zip(gsum, tree_util.leaves(params)):
+            g = reduce(g, axes)
+            mine = g[sharding.local_index(p.shape, mesh, p.placements)]
+            if accum_steps > 1:
+                mine = mine / accum_steps
+            out.append(sharding.from_local(mine, mesh, p.placements,
+                                           p.shape))
+        return metrics, tree_util.unflatten_like(params, out)
+
+    def step(params, opt_state, batch):
+        metrics, g = grads(params, batch)
+        params, opt_state, opt_metrics = adamw_update_sharded(
+            g, opt_state, params, opt)
+        metrics = dict(metrics)
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    step.grads = grads
+    return step
+

@@ -70,3 +70,11 @@ def unflatten_like(template: Any, flat: List[Any]) -> Any:
     in the reference's order."""
     by_path = dict(zip((p for p, _ in flatten_with_paths(template)), flat))
     return map_with_paths(lambda p, _: by_path[p], template)
+
+
+def at(tree: Any, path: Path) -> Any:
+    """The subtree of ``tree`` at ``path`` (a path of
+    :func:`flatten_with_paths`)."""
+    for k in path:
+        tree = tree[k]
+    return tree

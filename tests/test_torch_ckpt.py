@@ -178,13 +178,6 @@ def test_async_save_copies_before_its_thread_starts(tmp_path):
     assert torch.equal(got["w"], torch.arange(12.0).reshape(3, 4))
 
 
-def test_elastic_restore_waits_for_placement(tmp_path):
-    save_checkpoint(tmp_path, 5, _tree())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        restore_checkpoint(tmp_path, _tree(), shardings={"w": None},
-                           device="cpu")
-
-
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b",
                                   "zamba2-1.2b"])
 def test_restart_resumes_training_state(tmp_path, arch):

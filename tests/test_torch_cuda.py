@@ -27,7 +27,11 @@ and vlm families run K4 and K5 at new shapes (d 768 and 8,192; Dh 128 with
 8 query heads a kv head; 64 queries over 1,500 non-causal keys), held as
 above; their MoE layer (no kernel: matmuls, a scatter and a gather) and
 their f32 prefill are held to the CPU's within 1e-4 of the largest
-|value|, with the experts each token chose equal.
+|value|, with the experts each token chose equal. Training on a
+DeviceMesh of one NCCL rank gives the one-device losses within 1e-5
+relative (two NCCL ranks cannot share one card: multi-rank runs are the
+CPU tests' gloo ranks), the elastic restore onto the card is bit-equal,
+and the compressed sum's error is the CPU formula's bit for bit.
 """
 import importlib
 import os
@@ -1140,3 +1144,103 @@ def test_peer_fabric_cluster_on_the_card(cuda, tmp_path):
                       for f in Path(u.out_dir).glob("*.npy")}
            for u in units}
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# training on a DeviceMesh: one NCCL rank on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def nccl_mesh(cuda, tmp_path):
+    """A (1, 1) ('data', 'model') mesh over one NCCL rank on cuda:0."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_local_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_train_on_one_nccl_rank_matches_one_device(nccl_mesh):
+    """Three f32 steps of reduced llama on the one-rank mesh give the
+    one-device losses within 1e-5 relative; masters and moments are
+    DTensors on the card, placed as ``shardings_for`` says; no kernel
+    launched."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_batches
+    from repro_torch.dist.sharding import param_specs, shardings_for
+    from repro_torch.train import (OptConfig, init_train_state,
+                                   make_train_step, shard_train_state)
+    cfg = get_config("llama3.2-1b").reduced()
+    opt = OptConfig(lr=1e-3, warmup_steps=1)
+    batches = make_lm_batches(cfg, 4, 128, 3, seed=1)
+
+    def fresh():
+        return init_train_state(cfg, torch.Generator().manual_seed(0),
+                                device="cuda")
+    p, s = fresh()
+    one = make_train_step(cfg, opt, torch.float32)
+    want = []
+    for b in batches:
+        p, s, m = one(p, s, b)
+        want.append(float(m["loss"]))
+    p, s = shard_train_state(*fresh(), nccl_mesh)
+    step = make_train_step(cfg, opt, torch.float32, mesh=nccl_mesh)
+    got = []
+    for b in batches:
+        p, s, m = step(p, s, b)
+        got.append(float(m["loss"]))
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, want))
+    shard = shardings_for(nccl_mesh, param_specs(p, nccl_mesh))
+    for tree in (p, s["m"], s["v"]):
+        for (path, x) in tree_util.flatten_with_paths(tree):
+            sh = shard
+            for k in path:
+                sh = sh[k]
+            assert isinstance(x, DTensor) and x.device.type == "cuda"
+            assert tuple(x.placements) == sh.placements
+    assert rn.LAUNCHES["rmsnorm"] == fa.LAUNCHES["flash_attention"] == 0
+
+
+def test_elastic_restore_onto_the_card(nccl_mesh, tmp_path):
+    """A one-device checkpoint restored with ``shardings=`` onto the
+    one-rank cuda mesh: DTensors on the card, bit-equal, bf16 included."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.dist.sharding import P, shardings_for
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(8, 6, generator=g),
+            "b": torch.randn(6, generator=g).to(torch.bfloat16),
+            "step": torch.tensor(7, dtype=torch.int32)}
+    save_checkpoint(tmp_path / "ck", 1, tree)
+    shard = shardings_for(nccl_mesh, {"w": P("data", "model"), "b": P(None),
+                                      "step": P()})
+    got, step, _ = restore_checkpoint(tmp_path / "ck", tree, shardings=shard)
+    assert step == 1
+    for k, want in tree.items():
+        assert isinstance(got[k], DTensor) and got[k].device.type == "cuda"
+        assert got[k].dtype == want.dtype
+        assert torch.equal(got[k].full_tensor().cpu(), want)
+
+
+def test_compressed_psum_on_the_card(nccl_mesh):
+    """The int8 compressed sum over the mesh's 'data' axis on the card:
+    its new error is the CPU formula's, bit for bit, and sum + error
+    reconstructs the input within the scale's step."""
+    from repro_torch.dist.collectives import (compressed_psum,
+                                              dequantize_int8, quantize_int8)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(100_003, generator=g) * 3
+    e = torch.randn(100_003, generator=g) * 0.01
+    y, err = compressed_psum(x.cuda(), e.cuda(), (nccl_mesh, "data"))
+    xe = x + e
+    s = xe.abs().max()
+    want = xe - dequantize_int8(quantize_int8(xe, s), s)
+    assert torch.equal(err.cpu(), want)
+    assert float((y.cpu() + err.cpu() - xe).abs().max()) <= float(s) / 127

@@ -158,3 +158,56 @@ def test_worker_cli_help_imports_no_jax_and_no_reference():
                          env={**os.environ, "PYTHONPATH": str(SRC)})
     assert out.returncode == 0, out.stderr
     assert "serve" in out.stdout and "work" in out.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.dist.sharding",
+                                    "repro_torch.dist.collectives",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.specs",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.launch.slurm"])
+def test_distribution_slice_modules_import_no_jax_and_no_fake_group(module):
+    """The sharding, collectives, mesh, specs and launcher modules, each
+    imported alone: no ``jax``, nothing of ``repro``, and no
+    ``torch.testing`` fake process group (``placeholder_mesh`` imports it
+    when called)."""
+    code = _NO_JAX.format(body=(
+        f"importlib.import_module({module!r})\n"
+        "assert not [m for m in sys.modules if m.startswith("
+        "'torch.testing._internal.distributed')]"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.dist.rpc",
+                                    "repro_torch.launch.env"])
+def test_cli_modules_do_not_load_dtensor(module):
+    """``python -m repro_torch.dist.rpc`` and ``python -m
+    repro_torch.launch.env`` stay light: the packages load ``sharding``,
+    ``collectives`` and ``mesh`` only when one of their names is asked
+    for."""
+    code = _NO_JAX.format(body=(
+        f"importlib.import_module({module!r})\n"
+        "assert 'torch.distributed.tensor' not in sys.modules\n"
+        "import repro_torch.dist as d, repro_torch.launch as l\n"
+        "assert d.Rules and d.compressed_psum and l.make_local_mesh\n"
+        "assert 'repro_torch.dist.sharding' in sys.modules\n"
+        "assert 'repro_torch.launch.mesh' in sys.modules"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr
+
+
+def test_dist_and_launch_exports():
+    from repro_torch import dist, launch
+    for pkg in (dist, launch):
+        for name in pkg.__all__:
+            assert getattr(pkg, name) is not None, name
+    for name in ("Rules", "param_specs", "shardings_for", "constrain",
+                 "compressed_psum", "compressed_tree_psum"):
+        assert name in dist.__all__
+    for name in ("make_production_mesh", "make_local_mesh"):
+        assert name in launch.__all__
