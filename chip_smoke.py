@@ -129,8 +129,10 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               (1 x 1), llama3.2-1b at its published config, the same seed,
               token source, batches (4 x 2,048) and five steps through
               ``make_train_step(mesh=)``: f32 DTensor masters and moments
-              placed as ``shardings_for(param_specs)`` says, bf16 compute
-              on the gathered copy. Each loss within 1e-5 relative of
+              placed as ``shardings_for(param_specs)`` says (the weights
+              drawn on the host, only the rank's slices copied to the
+              card, AdamW started on them), bf16 compute on the gathered
+              copy. Each loss within 1e-5 relative of
               phase 5c's at the same step; K4-K7 launched 0 times. Then
               5c's step-3 checkpoint restored with ``shardings=`` onto the
               mesh, every leaf bit-equal to 5c's restored leaves, and step
@@ -2171,8 +2173,9 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
                                               zeros_like_errors)
     from repro_torch.dist.sharding import P, param_specs, shardings_for
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.train import (OptConfig, init_train_state,
-                                   make_train_step, shard_train_state)
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptConfig, make_train_step,
+                                   shard_train_state)
     from repro_torch.train import train_step as train_step_mod
     ref = trained["losses"]
     torch.cuda.set_device(0)
@@ -2182,9 +2185,11 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
     try:
         mesh = make_local_mesh()
         cfg = get_config(TRAIN_ARCH)
-        params, opt_state = init_train_state(
-            cfg, torch.Generator().manual_seed(seed), device="cuda")
-        params, opt_state = shard_train_state(params, opt_state, mesh)
+        # drawn on the host as the launcher does: only the rank's slices
+        # reach the card, AdamW starts on them
+        params, opt_state = shard_train_state(init_params(
+            cfg, torch.Generator().manual_seed(seed), device="cpu"), None,
+            mesh)
         specs = param_specs(params, mesh)
         shard = shardings_for(mesh, {"params": specs, "opt": {
             "m": specs, "v": specs, "step": P()}})

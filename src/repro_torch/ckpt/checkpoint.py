@@ -19,14 +19,17 @@ either package restores in the other. Restored leaves are tensors on the
 device asked for (``None``: ``cuda``).
 
 Sharded state: a tree of DTensors saves as its global tensors. Every rank
-gathers them (``full_tensor``) in the calling thread, since a collective
-must not run in the saving thread; rank 0 alone writes, the same files a
-one-device save of those values writes, and the others wait at a barrier
-(for an async save, in ``wait``). The elastic restore (``shardings=``, the
-tree ``dist.sharding.shardings_for`` gives) rebuilds each leaf as a
-DTensor from the slice its rank owns: every rank reads and checks each
-leaf and keeps its own slice, with no broadcast, so a checkpoint written
-on one layout restores onto any other (any world size, any mesh).
+gathers them (``full_tensor``) leaf by leaf in the calling thread, since a
+collective must not run in the saving thread, and rank 0 keeps each on the
+host (the card holds one whole leaf at a time; rank 0's host the whole
+state); rank 0 alone writes, the same files a one-device save of those
+values writes. Then every rank learns whether the write succeeded (for an
+async save, in ``wait``) and raises if it did not. The elastic restore
+(``shardings=``, the tree ``dist.sharding.shardings_for`` gives) rebuilds
+each leaf as a DTensor from the slice its rank owns: every rank reads and
+checks each leaf and keeps its own slice, with no broadcast, so a
+checkpoint written on one layout restores onto any other (any world size,
+any mesh).
 """
 from __future__ import annotations
 
@@ -87,29 +90,59 @@ def _is_dtensor(x) -> bool:
 
 
 def _gathered(tree):
-    """(``tree`` with every DTensor leaf gathered to its global tensor,
-    whether any leaf was one). A collective on every rank of the mesh."""
+    """(``tree`` with every DTensor leaf gathered to a host copy of its
+    global tensor on rank 0, whether any leaf was one). Leaf by leaf, a
+    collective on every rank of the mesh; the other ranks keep nothing and
+    get None."""
     sharded = any(_is_dtensor(x) for x in tree_util.leaves(tree))
     if not sharded:
         return tree, False
-    return tree_util.tree_map(
-        lambda x: x.full_tensor() if _is_dtensor(x) else x, tree), True
+    lead = dist.get_rank() == 0
+
+    def host(x):
+        if _is_dtensor(x):
+            x = x.full_tensor()         # a collective: every rank
+        if not lead:
+            return None
+        return x.detach().to("cpu", copy=True) if torch.is_tensor(x) \
+            else np.array(x)
+    out = tree_util.tree_map(host, tree)
+    return (out if lead else None), True
+
+
+def _all_ok(ok: bool) -> bool:
+    """Whether ``ok`` holds on every rank of the default group (one
+    all_reduce)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    flag = torch.tensor([int(ok)], dtype=torch.int32, device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def _not_written(step: int, ckpt_dir) -> RuntimeError:
+    return RuntimeError(f"rank 0 failed to write checkpoint step {step} "
+                        f"under {ckpt_dir}")
 
 
 def save_checkpoint(ckpt_dir: Path, step: int, tree, *, digest: str = "",
                     extra: Optional[Dict[str, Any]] = None) -> Path:
     """Write one step synchronously. Returns the step directory. A tree
     with DTensor leaves is gathered on every rank and written by rank 0
-    alone; every rank returns once it is on disk."""
-    tree, sharded = _gathered(tree)
-    if sharded:
+    alone; every rank returns once it is on disk, and every rank raises
+    if rank 0's write failed."""
+    host, sharded = _gathered(tree)
+    if not sharded:
+        return _save(ckpt_dir, step, tree, digest, extra)
+    err = None
+    if dist.get_rank() == 0:
         try:
-            if dist.get_rank() == 0:
-                return _save(ckpt_dir, step, tree, digest, extra)
-            return Path(ckpt_dir) / f"step_{step:08d}"
-        finally:
-            dist.barrier()
-    return _save(ckpt_dir, step, tree, digest, extra)
+            _save(ckpt_dir, step, host, digest, extra)
+        except Exception as e:      # noqa: BLE001 — raised on every rank
+            err = e
+    if not _all_ok(err is None):
+        raise err if err is not None else _not_written(step, ckpt_dir)
+    return Path(ckpt_dir) / f"step_{step:08d}"
 
 
 def _save(ckpt_dir: Path, step: int, tree, digest: str,
@@ -187,12 +220,10 @@ def restore_checkpoint(ckpt_dir: Path, template, step: Optional[int] = None,
 def _placed(arr: np.ndarray, dtype: str, sharding):
     """A DTensor of ``sharding`` from this rank's slice of the global
     ``arr`` (the elastic restore: the reference's ``jax.device_put``)."""
-    from ..dist.sharding import from_local
+    from ..dist.sharding import from_local, mesh_device
     mesh = sharding.mesh
-    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
-        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
     local = _to_tensor(np.asarray(arr[sharding.local_slices(arr.shape)]),
-                       dtype, dev)
+                       dtype, mesh_device(mesh))
     return from_local(local, mesh, sharding.placements, arr.shape)
 
 
@@ -216,21 +247,24 @@ class CheckpointManager:
         self.cold_store = cold_store
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        self._sharded = False           # a barrier is owed in wait()
+        self._sharded = None            # the step whose outcome is owed
 
     def save_async(self, step: int, tree, extra=None):
         """Save in a thread. A tree with DTensor leaves is gathered here,
-        on every rank; rank 0's thread writes it, and every rank meets
-        the others at a barrier in :meth:`wait`."""
+        on every rank; rank 0's thread writes it, and in :meth:`wait`
+        every rank learns whether it did, and raises if not."""
         self.wait()                     # one in-flight save at a time
-        tree, self._sharded = _gathered(tree)
-        if self._sharded and dist.get_rank() != 0:
-            return
-        # the host copy now, before the thread starts: a later step or an
-        # in-place write cannot reach what is being saved
-        host_tree = tree_util.tree_map(
-            lambda t: t.detach().to("cpu", copy=True) if torch.is_tensor(t)
-            else np.array(t), tree)
+        host_tree, sharded = _gathered(tree)
+        if sharded:
+            self._sharded = step
+            if dist.get_rank() != 0:
+                return
+        else:
+            # the host copy now, before the thread starts: a later step
+            # or an in-place write cannot reach what is being saved
+            host_tree = tree_util.tree_map(
+                lambda t: t.detach().to("cpu", copy=True)
+                if torch.is_tensor(t) else np.array(t), tree)
 
         def work():
             try:
@@ -251,9 +285,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._sharded:
-            self._sharded = False
-            dist.barrier()
+        if self._sharded is not None:
+            step, self._sharded = self._sharded, None
+            if not _all_ok(self._error is None) and self._error is None:
+                self._error = _not_written(step, self.ckpt_dir)
         if self._error is not None:
             err, self._error = self._error, None
             raise err

@@ -25,8 +25,10 @@ in mesh order (the only order ``Rules`` and ``param_specs`` write).
 ``constrain`` and its relatives are the identity outside ``use_rules``, as
 in the reference. Under rules ``constrain`` redistributes a ``DTensor`` to
 the guarded spec and returns a plain tensor unchanged: the port's models
-compute on the gathered copy (``constrain_params_gathered`` then
-``full_tensor``), so they carry no ``constrain`` calls.
+compute on the whole gathered copy (``full_tensor`` of each cast leaf,
+``train/train_step.py``), so they carry no ``constrain`` calls, and
+``constrain_params_gathered``'s layout ('data' gathered, 'model' kept)
+waits for tensor-parallel compute.
 """
 from __future__ import annotations
 
@@ -252,11 +254,23 @@ def from_local(local: torch.Tensor, mesh, placements, shape):
                               stride=_contiguous_stride(shape))
 
 
+def mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh``: the current card for a ``cuda``
+    mesh."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
 def distribute(x: torch.Tensor, sharding: NamedSharding):
     """A ``DTensor`` of ``sharding`` built from the full tensor ``x`` that
-    every rank holds: each rank keeps its own slice, with no collective."""
-    return from_local(x[sharding.local_slices(x.shape)], sharding.mesh,
-                      sharding.placements, x.shape)
+    every rank holds, on any device: each rank copies its own slice to the
+    mesh's device, with no collective, and keeps nothing of ``x`` (a host
+    ``x`` puts only the slice on the card)."""
+    local = x[sharding.local_slices(x.shape)].to(
+        mesh_device(sharding.mesh), copy=True,
+        memory_format=torch.contiguous_format)
+    return from_local(local, sharding.mesh, sharding.placements, x.shape)
 
 
 def _contiguous_stride(shape) -> Tuple[int, ...]:

@@ -59,6 +59,14 @@ def make_local_mesh():
     return _mesh((1, dist.get_world_size()), ("data", "model"))
 
 
+def make_data_mesh():
+    """Every rank of the process group on 'data', as an (N, 1) ('data',
+    'model') mesh: data parallelism. Compute is not tensor-parallel yet,
+    so ranks of one 'model' group would compute the same rows; the
+    training launcher takes this mesh below the production sizes."""
+    return _mesh((dist.get_world_size(), 1), ("data", "model"))
+
+
 def placeholder_mesh(shape: Sequence[int], axes: Sequence[str],
                      rank: int = 0):
     """A ``cpu`` mesh of ``prod(shape)`` ranks in this process, seen from

@@ -11,13 +11,18 @@ process trains on one device. Several (``WORLD_SIZE`` > 1, as
 ``torch.distributed.run`` and the SLURM pod script set it) join a process
 group, NCCL on ``cuda:LOCAL_RANK`` or gloo for ``--device cpu``, and train
 on a ``DeviceMesh``: the production mesh at 256 ranks (two pods at 512),
-else ``make_local_mesh()``. The weights and AdamW moments are stored
-sharded by the reference's specs; every rank draws the same full weights
-from the seeded CPU generator and keeps its slice, and every rank reads
-the global batch and keeps its rows, so a restart replays the same rows on
-any layout. Fault tolerance: resume from the latest checkpoint
-(``--resume``, onto whatever layout this run has), async saves,
-deterministic data.
+else every rank on 'data' (``make_data_mesh()``: the compute is not
+tensor-parallel yet, so ranks on 'model' would repeat each other's
+work). The weights and AdamW moments are stored sharded by the
+reference's specs; every rank draws the same full weights on the host
+from the seeded CPU generator and moves only its slice to its device, and
+every rank reads the global batch and keeps its rows, so a restart
+replays the same rows on any layout. Each rank's card still holds the
+whole bf16 compute copy and gradient during a step
+(``train/train_step.py``), so a config whose weights do not fit one card
+twice over in bf16 cannot start. Fault tolerance: resume from the latest
+checkpoint (``--resume``, onto whatever layout this run has), async
+saves, deterministic data.
 """
 from __future__ import annotations
 
@@ -69,13 +74,15 @@ def init_process_group(env: Dict, device) -> torch.device:
 
 
 def default_mesh():
-    """The reference's meshes by world size: production at 256 ranks, two
-    pods at 512, else every rank on 'model' of a (1, N) mesh."""
-    from .mesh import make_local_mesh, make_production_mesh
+    """The mesh by world size: the reference's production mesh at 256
+    ranks, two pods at 512, else every rank on 'data' of an (N, 1) mesh
+    (data parallelism; a (1, N) mesh would repeat one rank's compute N
+    times)."""
+    from .mesh import make_data_mesh, make_production_mesh
     world = dist.get_world_size()
     if world in (256, 512):
         return make_production_mesh(multi_pod=world == 512)
-    return make_local_mesh()
+    return make_data_mesh()
 
 
 def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
@@ -98,8 +105,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
         if own_group:
             mesh = default_mesh()
         elif mesh is not None:
-            dev = torch.device("cpu") if mesh.device_type == "cpu" else \
-                torch.device("cuda", torch.cuda.current_device())
+            from ..dist.sharding import mesh_device
+            dev = mesh_device(mesh)
         else:
             dev = resolve_device(device)
         return _train(arch, steps=steps, batch=batch, seq=seq,
@@ -128,16 +135,20 @@ def _train(arch, *, steps, batch, seq, data_dir, ckpt_dir, reduced,
     src = ShardedTokenSource(data_path)
     pipe = DataPipeline(src, batch=batch, seq_len=seq, seed=seed)
 
-    params, opt_state = init_train_state(
-        cfg, torch.Generator().manual_seed(seed), device=dev)
+    gen = torch.Generator().manual_seed(seed)
     shardings = None
-    if mesh is not None:
+    if mesh is None:
+        params, opt_state = init_train_state(cfg, gen, device=dev)
+    else:
         from ..dist.sharding import P, param_specs, shardings_for
+        from ..models import init_params
         from ..train import shard_train_state
+        # drawn on the host: only this rank's slices reach its device
+        params, opt_state = shard_train_state(
+            init_params(cfg, gen, device="cpu"), None, mesh)
         specs = param_specs(params, mesh)
         shardings = shardings_for(mesh, {"params": specs, "opt": {
             "m": specs, "v": specs, "step": P()}})
-        params, opt_state = shard_train_state(params, opt_state, mesh)
         if lead:
             print(f"mesh {tuple(mesh.shape)} over "
                   f"{', '.join(mesh.mesh_dim_names)}: "
@@ -192,14 +203,13 @@ def main(argv=None):
                     help="the full published config")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     train(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
           data_dir=args.data_dir, ckpt_dir=args.ckpt_dir,
           reduced=not args.full, resume=args.resume, lr=args.lr,
-          log_every=args.log_every, device=args.device)
+          device=args.device)
 
 
 if __name__ == "__main__":

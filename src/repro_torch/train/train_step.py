@@ -8,8 +8,9 @@ DTensors placed by ``param_specs`` (FSDP storage over every mesh axis),
 ``step`` is replicated, and each step
 
   * casts the masters to ``compute_dtype`` on each shard and gathers the
-    cast copy once (``constrain_params_gathered``, then ``full_tensor``),
-    however many microbatches follow (the reference's G3b);
+    cast copy whole, one collective a leaf (``full_tensor``), however many
+    microbatches follow (the reference's G3b; its partial gather,
+    ``constrain_params_gathered``, waits for tensor-parallel compute);
   * runs ``forward_train`` on plain tensors over the rows of the global
     batch that ``Rules(mesh, "train").spec("batch")`` gives this rank
     (ranks of one 'model' group compute the same rows: the compute is
@@ -19,8 +20,17 @@ DTensors placed by ``param_specs`` (FSDP storage over every mesh axis),
     the reference's one loss over the whole batch (moe's load-balance
     statistics are global means through ``batch_mean``);
   * sums the gradients over the axes that split the batch, never over
-    'model', keeps this rank's slice of each, and runs AdamW on the
-    local shards after one global norm across them.
+    'model', leaf by leaf: a reduce-scatter where the leaf is sharded on
+    such an axis, an all-reduce where it is replicated, after cutting
+    this rank's chunk on the other axes; then AdamW on the local shards
+    after one global norm across them.
+
+Per rank the card holds the f32 masters and moments of its shards (12
+bytes a parameter over the ranks that shard it), plus, during a step,
+the whole compute copy and the whole gradient in ``compute_dtype`` (2 + 2
+bytes a parameter in bf16), one leaf's f32 gradient, and the activations
+(``accum_steps`` > 1 adds a whole f32 gradient sum). Only tensor-parallel
+compute would cut the whole copy and gradient.
 """
 from __future__ import annotations
 
@@ -115,9 +125,11 @@ def init_train_state(cfg, gen: torch.Generator, dtype=torch.float32,
 
 def shard_train_state(params, opt_state, mesh):
     """The full ``params`` and their AdamW state, which every rank holds
-    alike, as DTensors on ``mesh``: the params and both moments placed by
-    ``param_specs``, ``step`` replicated. Each rank keeps its own slice
-    (no collective)."""
+    alike on any device, as DTensors on ``mesh``: the params and both
+    moments placed by ``param_specs``, ``step`` replicated. Each rank
+    copies its own slice to the mesh's device (no collective), so full
+    state drawn on the host never reaches the card whole. ``opt_state``
+    None starts AdamW: zero moments made on the slices, step 0."""
     from ..dist import sharding
     shard = sharding.shardings_for(mesh, sharding.param_specs(params, mesh))
 
@@ -125,10 +137,23 @@ def shard_train_state(params, opt_state, mesh):
         return tree_util.map_with_paths(
             lambda path, x: sharding.distribute(
                 x, tree_util.at(shard, path)), tree)
-    step = sharding.distribute(opt_state["step"],
-                               sharding.NamedSharding(mesh, sharding.P()))
-    return place(params), {"m": place(opt_state["m"]),
-                           "v": place(opt_state["v"]), "step": step}
+
+    def zeros(p):
+        return sharding.from_local(
+            torch.zeros(p.to_local().shape, dtype=torch.float32,
+                        device=p.to_local().device),
+            mesh, p.placements, p.shape)
+    placed = place(params)
+    replicated = sharding.NamedSharding(mesh, sharding.P())
+    if opt_state is None:
+        return placed, {
+            "m": tree_util.tree_map(zeros, placed),
+            "v": tree_util.tree_map(zeros, placed),
+            "step": sharding.distribute(torch.zeros((), dtype=torch.int32),
+                                        replicated)}
+    return placed, {"m": place(opt_state["m"]), "v": place(opt_state["v"]),
+                    "step": sharding.distribute(opt_state["step"],
+                                                replicated)}
 
 
 def _local_rows(batch, rules):
@@ -157,6 +182,42 @@ def _dim_size(mesh, name: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(name))
 
 
+def _to_shard(g, p, axes):
+    """This rank's shard, placed as the DTensor ``p``, of the whole
+    per-rank gradient ``g`` summed over the mesh axes ``axes`` (f32).
+    Mesh dims not in ``axes`` first cut this rank's chunk, where no
+    summed dim splits the same tensor dim, so less is sent; the rest go
+    in mesh order (a tensor dim split by several mesh dims is split major
+    first): a summed dim reduce-scatters where ``p`` is sharded on it and
+    all-reduces where it is replicated, any other keeps its chunk. The
+    specs are divisibility-guarded, so every split is even."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    mesh = p.device_mesh
+    coord = mesh.get_coordinate()
+    dims = [(i, name, pl) for i, (name, pl) in enumerate(
+        zip(mesh.mesh_dim_names, p.placements)) if mesh.size(i) > 1]
+    summed = {pl.dim for _, name, pl in dims
+              if name in axes and isinstance(pl, Shard)}
+    first = [x for x in dims if x[1] not in axes
+             and isinstance(x[2], Shard) and x[2].dim not in summed]
+    g = g.float().contiguous()
+    for i, name, pl in first + [x for x in dims if x not in first]:
+        n = mesh.size(i)
+        if not isinstance(pl, Shard):
+            if name in axes:
+                dist.all_reduce(g, group=mesh.get_group(i))
+        elif name not in axes:      # a copy: the whole g is not kept
+            g = g.chunk(n, dim=pl.dim)[coord[i]].clone(
+                memory_format=torch.contiguous_format)
+        else:
+            src = g.movedim(pl.dim, 0).contiguous()
+            out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=mesh.get_group(i))
+            g = out.movedim(0, pl.dim).contiguous()
+    return g
+
+
 def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
     import torch.distributed as dist
     from ..dist import sharding
@@ -168,17 +229,17 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
         return t
 
     def gathered(params):
-        """The compute copy: cast on each shard, gathered once."""
-        pc = tree_util.tree_map(
-            lambda w: w.to(compute_dtype)
-            if w.dtype == torch.float32 and w.dim() > 1 else w, params)
-        with sharding.use_rules(sharding.Rules(mesh, "train")):
-            pc = sharding.constrain_params_gathered(pc)
-        return tree_util.tree_map(lambda w: sharding.full(w).detach(), pc)
+        """The compute copy: each leaf cast on its shard, then gathered
+        whole (one collective a leaf)."""
+        return tree_util.tree_map(
+            lambda w: sharding.full(
+                w.to(compute_dtype)
+                if w.dtype == torch.float32 and w.dim() > 1 else w).detach(),
+            params)
 
     def micro(flat, pc, batch, rules):
-        """(global metrics, this rank's f32 gradient of its weighted loss)
-        for one global (micro)batch."""
+        """(global metrics, this rank's gradient of its weighted loss, in
+        ``compute_dtype``) for one global (micro)batch."""
         local = _local_rows(batch, rules)
         n_all = _unmasked(batch["targets"])
         w = _unmasked(local["targets"]) / max(n_all, 1)
@@ -197,7 +258,7 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
                    "tokens": torch.tensor(float(n_all), device=ce.device)}
         if "aux_loss" in m:
             metrics["aux_loss"] = m["aux_loss"].detach()
-        return metrics, [g.float() for g in grads]
+        return metrics, list(grads)
 
     def grads(params, batch):
         pc = gathered(params)
@@ -215,16 +276,17 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
             for i in range(accum_steps):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 m, g = micro(flat, pc, mb, rules)
-                gsum = [a + b for a, b in zip(gsum, g)]
+                gsum = [a + b.float() for a, b in zip(gsum, g)]
                 msum = m if msum is None else \
                     {k: msum[k] + m[k] for k in msum}
             metrics = {k: v / accum_steps for k, v in msum.items()}
             metrics["tokens"] = msum["tokens"]
+        del flat, pc                    # the compute copy goes first
         axes = _grad_reduce_dims(rules)
         out = []
-        for g, p in zip(gsum, tree_util.leaves(params)):
-            g = reduce(g, axes)
-            mine = g[sharding.local_index(p.shape, mesh, p.placements)]
+        for i, p in enumerate(tree_util.leaves(params)):
+            # each whole gradient is dropped once its shard is taken
+            mine, gsum[i] = _to_shard(gsum[i], p, axes), None
             if accum_steps > 1:
                 mine = mine / accum_steps
             out.append(sharding.from_local(mine, mesh, p.placements,

@@ -1229,6 +1229,46 @@ def test_elastic_restore_onto_the_card(nccl_mesh, tmp_path):
         assert torch.equal(got[k].full_tensor().cpu(), want)
 
 
+def test_sharded_save_on_the_card(nccl_mesh, tmp_path):
+    """A tree of DTensors on the one-rank cuda mesh saved synchronously
+    and async: the files are the plain save's, bytes apart from
+    provenance; a save whose write fails raises (the outcome agreed over
+    NCCL)."""
+    import json
+    from repro_torch.ckpt import CheckpointManager, save_checkpoint
+    from repro_torch.dist.sharding import NamedSharding, P, distribute
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(8, 6, generator=g),
+            "b": torch.randn(6, generator=g).to(torch.bfloat16)}
+    placed = {"w": distribute(tree["w"], NamedSharding(
+        nccl_mesh, P("data", "model"))),
+        "b": distribute(tree["b"], NamedSharding(nccl_mesh, P(None)))}
+    save_checkpoint(tmp_path / "plain", 1, tree)
+    save_checkpoint(tmp_path / "sync", 1, placed)
+    mgr = CheckpointManager(tmp_path / "async")
+    mgr.save_async(1, placed)
+    mgr.wait()
+    want = tmp_path / "plain" / "step_00000001"
+    for got in (tmp_path / "sync", tmp_path / "async"):
+        got = got / "step_00000001"
+        names = sorted(q.name for q in want.iterdir())
+        assert sorted(q.name for q in got.iterdir()) == names
+        for name in names:
+            a, b = (got / name).read_bytes(), (want / name).read_bytes()
+            if name == "provenance.json":
+                a, b = json.loads(a), json.loads(b)
+                for k in ("started_at", "finished_at", "host"):
+                    a.pop(k), b.pop(k)
+            assert a == b, name
+    (tmp_path / "a_file").write_text("")
+    with pytest.raises(OSError):
+        save_checkpoint(tmp_path / "a_file" / "ck", 1, placed)
+    mgr = CheckpointManager(tmp_path / "a_file" / "ck")
+    mgr.save_async(1, placed)
+    with pytest.raises(OSError):
+        mgr.wait()
+
+
 def test_compressed_psum_on_the_card(nccl_mesh):
     """The int8 compressed sum over the mesh's 'data' axis on the card:
     its new error is the CPU formula's, bit for bit, and sum + error

@@ -105,6 +105,18 @@ def test_gradients_summed_over_model_fail_the_check(two):
         assert max(run["grad_err"]) > 0.5
 
 
+def test_failed_sharded_save_raises_on_every_rank(two):
+    """Rank 0's write fails (its directory would lie under a file): a
+    synchronous and an async save raise on both ranks, rank 1 with rank
+    0's failure named, and the ranks still meet afterwards (none is left
+    waiting in a collective)."""
+    for rank, r in enumerate(x["save_fails"] for x in two):
+        assert r["sync"] and r["async"] and r["after"], (rank, r)
+        if rank:
+            assert "rank 0 failed to write checkpoint step 1" in r["sync"]
+            assert "rank 0 failed to write checkpoint step 1" in r["async"]
+
+
 def test_sharded_checkpoint_is_byte_equal_to_one_device_save(two, ckpt):
     sharded = ckpt / "sharded" / "step_00000002"
     plain = ckpt / "plain" / "step_00000002"
@@ -160,7 +172,9 @@ def test_restore_onto_one_device_with_shardings(two, ckpt, tmp_path):
 
 def test_shard_train_state_keeps_the_values(tmp_path):
     """Placing the full state on a (1, 1) mesh and gathering it back gives
-    the same tensors."""
+    the same tensors; each shard is a copy that keeps nothing of the full
+    tensor alive; without an AdamW state the moments start at zero on the
+    shards, step 0."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch import tree as tree_util
@@ -175,28 +189,35 @@ def test_shard_train_state_keeps_the_values(tmp_path):
         for a, b in zip(tree_util.leaves({"p": params, "o": opt}),
                         tree_util.leaves({"p": sp, "o": so})):
             assert torch.equal(a, b.full_tensor())
+            assert b.to_local().untyped_storage().data_ptr() != \
+                a.untyped_storage().data_ptr()
+        _, fresh = shard_train_state(params, None, mesh)
+        for a, b, c in zip(tree_util.leaves(opt), tree_util.leaves(fresh),
+                           tree_util.leaves(so)):
+            assert b.placements == c.placements and b.dtype == a.dtype
+            assert torch.equal(a, b.full_tensor())
     finally:
         dist.destroy_process_group()
 
 
 def test_cli_under_torchrun_prints_on_rank_zero(tmp_path):
     """``python -m torch.distributed.run --nproc-per-node 2 -m
-    repro_torch.launch.train --device cpu``: two gloo ranks on a (1, 2)
-    mesh, exit 0, and every line printed once (rank 0)."""
+    repro_torch.launch.train --device cpu``: two gloo ranks on the (2, 1)
+    data mesh, exit 0, and every line printed once (rank 0)."""
     env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
          "2", "--master-addr", "127.0.0.1", "--master-port",
          str(free_port()), "-m", "repro_torch.launch.train", "--device",
-         "cpu", "--arch", "llama3.2-1b", "--steps", "3", "--batch", "4",
-         "--seq", "32", "--log-every", "1"],
+         "cpu", "--arch", "llama3.2-1b", "--steps", "10", "--batch", "4",
+         "--seq", "32"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-4000:]
     lines = [ln for ln in out.stdout.splitlines() if ln.strip()
              and not ln.startswith("*")
              and "OMP_NUM_THREADS" not in ln]
-    assert lines[0] == "mesh (1, 2) over data, model: 2 ranks, gloo", lines
+    assert lines[0] == "mesh (2, 1) over data, model: 2 ranks, gloo", lines
     steps = [ln for ln in lines if ln.startswith("step")]
-    assert [ln.split()[1] for ln in steps] == ["1", "2", "3"], lines
-    assert all("on mesh (1, 2) of cpu" in ln for ln in steps)
-    assert (tmp_path / "ckpt" / "step_00000003" / "manifest.json").exists()
+    assert [ln.split()[1] for ln in steps] == ["10"], lines
+    assert all("on mesh (2, 1) of cpu" in ln for ln in steps)
+    assert (tmp_path / "ckpt" / "step_00000010" / "manifest.json").exists()

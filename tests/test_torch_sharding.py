@@ -319,3 +319,18 @@ def test_placeholder_mesh_builds_the_production_shapes(fake_group):
     assert tuple(make_local_mesh().shape) == (1, 256)
     rules = Rules(make_production_mesh(), "train", global_batch=256)
     assert rules.spec("batch", None) == P("data", None)
+
+
+@pytest.mark.parametrize("world,want", [
+    (8, ((8, 1), ("data", "model"))),
+    (256, ((16, 16), ("data", "model"))),
+    (512, ((2, 16, 16), ("pod", "data", "model")))], ids=str)
+def test_launcher_mesh_by_world_size(fake_group, world, want):
+    """The training launcher's mesh: the production meshes at 256 and 512
+    ranks, else every rank on 'data' (data parallelism), never a (1, N)
+    mesh whose ranks would repeat one another's compute."""
+    from repro_torch.launch.mesh import placeholder_mesh
+    from repro_torch.launch.train import default_mesh
+    placeholder_mesh((world,), ("all",))
+    mesh = default_mesh()
+    assert (tuple(mesh.shape), mesh.mesh_dim_names) == want

@@ -9,7 +9,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
 from repro_torch import tree as tree_util
-from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+from repro_torch.ckpt import (CheckpointManager, restore_checkpoint,
+                              save_checkpoint)
 from repro_torch.configs import get_config
 from repro_torch.data import make_lm_batches
 from repro_torch.dist.sharding import (NamedSharding, P, param_specs,
@@ -132,7 +133,8 @@ def accum_run(cfg, mesh):
     for b in batches(cfg):
         params, opt_state, m = one(params, opt_state, b)
         want.append(float(m["loss"]))
-    params, opt_state = shard_train_state(*init_state(cfg), mesh)
+    # AdamW started on the slices (opt_state None), as the launcher does
+    params, opt_state = shard_train_state(init_state(cfg)[0], None, mesh)
     step = make_train_step(cfg, OPT, torch.float32, remat=True,
                            accum_steps=2, mesh=mesh)
     real, calls = sharding.full, []
@@ -152,6 +154,35 @@ def accum_run(cfg, mesh):
         sharding.full = real
     return {"loss_err": [abs(a - b) / abs(b) for a, b in zip(got, want)],
             "gathers": gathers, "leaves": len(tree_util.leaves(params))}
+
+
+def failed_saves(cfg, mesh, where):
+    """A sharded save whose write on rank 0 fails (its directory would lie
+    under a file), synchronous and async: what each rank raised, and
+    whether the group still meets at a barrier afterwards."""
+    params, opt_state = shard_train_state(init_state(cfg)[0], None, mesh)
+    state = {"params": params, "opt": opt_state}
+    blocker = where / "a_file"
+    if dist.get_rank() == 0:
+        where.mkdir(parents=True, exist_ok=True)
+        blocker.write_text("")
+    dist.barrier()
+    out = {}
+    try:
+        save_checkpoint(blocker / "ckpt", 1, state)
+        out["sync"] = None
+    except Exception as e:      # noqa: BLE001 — the outcome is the result
+        out["sync"] = f"{type(e).__name__}: {e}"
+    mgr = CheckpointManager(blocker / "ckpt")
+    mgr.save_async(1, state)
+    try:
+        mgr.wait()
+        out["async"] = None
+    except Exception as e:      # noqa: BLE001
+        out["async"] = f"{type(e).__name__}: {e}"
+    dist.barrier()
+    out["after"] = True
+    return out
 
 
 def mesh_of(shape):
@@ -192,6 +223,8 @@ def group_two(rank, world, ckpt):
             out[arch, shape] = mesh_run(cfg, mesh_of(shape), ref,
                                         save_to=save)
     out["accum"] = accum_run(cfg_of("moonshot-v1-16b-a3b"), mesh_of((2, 1)))
+    out["save_fails"] = failed_saves(cfg_of("llama3.2-1b"), mesh_of((2, 1)),
+                                     ckpt / "failing")
     # broken control: gradients summed over 'model' too
     cfg = cfg_of("llama3.2-1b")
     real = train_step_mod._grad_reduce_dims
