@@ -130,7 +130,8 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               token source, batches (4 x 2,048) and five steps through
               ``make_train_step(mesh=)``: f32 DTensor masters and moments
               placed as ``shardings_for(param_specs)`` says (the weights
-              drawn on the host, only the rank's slices copied to the
+              drawn on the host leaf by leaf by ``draw_sharded_state``,
+              as the launcher does, only the rank's slices kept on the
               card, AdamW started on them), bf16 compute on the gathered
               copy. Each loss within 1e-5 relative of
               phase 5c's at the same step; K4-K7 launched 0 times. Then
@@ -146,6 +147,22 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               gives), must fail step 5's loss check. One log line with s
               a step, tokens/s, peak GB, the restore's s and the
               compressed sum's s, beside the card's name and power limit.
+ 5f. dryrun - phase 5e's configuration dry-run on the host's CPU
+              (``launch.dryrun.lower_cell``: fake tensors on a (1, 1)
+              placeholder mesh, one step, MemTracker's peak with the
+              state in it): the predicted peak within 5 % of 5e's
+              measured peak over its steps. The peak of that step lies in
+              AdamW (the state twice and an f32 gradient), not in the
+              activations: at twice the rows (8 x 2,048) the dry-run
+              predicts the same peak (logged); at four times (16 x
+              2,048, the broken control) the activations pass it, and
+              that prediction must fail the check. One log line, beside
+              the card's name and power limit, with the peaks, the
+              counted flops a step, the
+              TFLOP/s and MFU at 5e's measured s a step against the
+              roofline's 989e12, and the H100-hours ``training_run_cost``
+              gives at that MFU for one epoch of ``EPOCH_TOKENS`` (no
+              price).
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -288,6 +305,11 @@ TRAIN_ARCH = "llama3.2-1b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 5
 # phase 5e against phase 5c, relative: the same steps on a one-rank mesh
 MESH_LOSS_TOL = 1e-5
+# phase 5f: the dry-run's predicted peak against 5e's measured one,
+# relative; and the epoch its cost line prices: 9e12 tokens, Meta's
+# pretraining count for Llama 3.2 1B (its model card: "up to 9 trillion")
+DRYRUN_PEAK_TOL = 0.05
+EPOCH_TOKENS = 9e12
 PARITY_BATCH, PARITY_SEQ = 2, 512
 # training on the card against the port's own CPU run, f32: loss and grad
 # norm relative, each gradient leaf relative to its largest |value|
@@ -685,9 +707,14 @@ def run(args, work: Path, card: str):
 
     # -- 5e. training on a mesh: one NCCL rank, 5c's run and checkpoint -----
     t0 = time.perf_counter()
-    mesh_train_phase(args.seed, work, card, trained)
+    mesh_measured = mesh_train_phase(args.seed, work, card, trained)
     del trained
     log(f"mesh train phase: {time.perf_counter() - t0} s in all")
+
+    # -- 5f. the dry-run of 5e's configuration against 5e's measurements ---
+    t0 = time.perf_counter()
+    dryrun_phase(card, **mesh_measured)
+    log(f"dryrun phase: {time.perf_counter() - t0} s in all")
 
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -2173,9 +2200,8 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
                                               zeros_like_errors)
     from repro_torch.dist.sharding import P, param_specs, shardings_for
     from repro_torch.launch.mesh import make_local_mesh
-    from repro_torch.models import init_params
-    from repro_torch.train import (OptConfig, make_train_step,
-                                   shard_train_state)
+    from repro_torch.train import (OptConfig, draw_sharded_state,
+                                   make_train_step)
     from repro_torch.train import train_step as train_step_mod
     ref = trained["losses"]
     torch.cuda.set_device(0)
@@ -2185,11 +2211,10 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
     try:
         mesh = make_local_mesh()
         cfg = get_config(TRAIN_ARCH)
-        # drawn on the host as the launcher does: only the rank's slices
-        # reach the card, AdamW starts on them
-        params, opt_state = shard_train_state(init_params(
-            cfg, torch.Generator().manual_seed(seed), device="cpu"), None,
-            mesh)
+        # drawn on the host leaf by leaf as the launcher does: only the
+        # rank's slices reach the card, AdamW starts on them
+        params, opt_state = draw_sharded_state(
+            cfg, torch.Generator().manual_seed(seed), mesh)
         specs = param_specs(params, mesh)
         shard = shardings_for(mesh, {"params": specs, "opt": {
             "m": specs, "v": specs, "step": P()}})
@@ -2313,6 +2338,53 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
     check(abs(broken5 - ref[4]) > MESH_LOSS_TOL * abs(ref[4]),
           f"mesh train: the broken control passed the loss check: "
           f"{broken5} against {ref[4]}")
+    return {"peak_gb": peak, "step_s": med}
+
+
+def dryrun_phase(card: str, peak_gb: float, step_s: float):
+    """Phase 5f: phase 5e's configuration dry-run on the CPU (fake
+    tensors, a (1, 1) placeholder mesh): its predicted peak within
+    DRYRUN_PEAK_TOL of 5e's measured ``peak_gb``; the same at four times
+    the rows must fail that check (twice the rows is logged: its peak is
+    AdamW's too). Logs the counted flops, TFLOP/s and MFU at 5e's
+    ``step_s``, and the H100-hours of one epoch of EPOCH_TOKENS."""
+    from repro_torch.analysis.roofline import H100, model_flops
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.cost import GpuEnv, training_run_cost
+    from repro_torch.launch.dryrun import lower_cell
+    cfg = get_config(TRAIN_ARCH)
+
+    def predict(batch):
+        shape = ShapeConfig(f"phase 5e x{batch}", TRAIN_SEQ, batch, "train")
+        return shape, lower_cell(cfg, shape, (1, 1), ("data", "model"))
+
+    shape, rec = predict(TRAIN_BATCH)
+    _, twice = predict(2 * TRAIN_BATCH)
+    _, broken = predict(4 * TRAIN_BATCH)
+    pred, pred2, pred4 = (r["peak_est_bytes"] / 1e9
+                          for r in (rec, twice, broken))
+    rel, rel2, rel4 = (abs(p - peak_gb) / peak_gb
+                       for p in (pred, pred2, pred4))
+    counted = rec["counted_flops_per_rank"]
+    mfu = model_flops(cfg, shape, "train") / step_s / H100.peak_flops
+    epoch = training_run_cost(GpuEnv("one H100", 1, None),
+                              6 * cfg.n_active_params() * EPOCH_TOKENS, mfu)
+    log(f"dryrun {TRAIN_ARCH}, phase 5e's configuration ({TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, (1, 1) placeholder mesh, traced on the CPU in "
+        f"{rec['trace_s']} + {twice['trace_s']} + {broken['trace_s']} s): "
+        f"predicted peak {pred} GB ({rec['peak_bytes_by_kind']}), measured "
+        f"in 5e {peak_gb} GB, relative {rel}; at {2 * TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} {pred2} GB, relative {rel2}; broken control at "
+        f"{4 * TRAIN_BATCH} x {TRAIN_SEQ} {pred4} GB, relative {rel4}; "
+        f"counted flops a step {counted} ({rec['counted_to_analytic']} of "
+        f"the analytic count), {counted / step_s / 1e12} TFLOP/s at 5e's "
+        f"{step_s} s a step, MFU (6·N·T) {mfu} of {H100.peak_flops}; one "
+        f"epoch of {EPOCH_TOKENS} tokens at that MFU "
+        f"{epoch['gpu_hours']} H100-hours, no price; on {card}")
+    check(rel <= DRYRUN_PEAK_TOL, f"dryrun: predicted peak {pred} GB, "
+          f"measured {peak_gb} GB")
+    check(rel4 > DRYRUN_PEAK_TOL, f"dryrun: the broken control "
+          f"({4 * TRAIN_BATCH} rows) passed the peak check: {pred4} GB")
 
 
 def _train_template(cfg):

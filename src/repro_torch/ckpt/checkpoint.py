@@ -26,10 +26,12 @@ state); rank 0 alone writes, the same files a one-device save of those
 values writes. Then every rank learns whether the write succeeded (for an
 async save, in ``wait``) and raises if it did not. The elastic restore
 (``shardings=``, the tree ``dist.sharding.shardings_for`` gives) rebuilds
-each leaf as a DTensor from the slice its rank owns: every rank reads and
-checks each leaf and keeps its own slice, with no broadcast, so a
-checkpoint written on one layout restores onto any other (any world size,
-any mesh).
+each leaf as a DTensor from the slice its rank owns: every rank
+memory-maps each leaf and copies only its own slice, with no broadcast;
+each leaf's fletcher64 is computed by one rank (the leaves split over the
+ranks) and the outcome all-reduced, so every rank raises on a corrupted
+leaf. A checkpoint written on one layout restores onto any other (any
+world size, any mesh).
 """
 from __future__ import annotations
 
@@ -183,24 +185,35 @@ def restore_checkpoint(ckpt_dir: Path, template, step: Optional[int] = None,
     ``shardings`` (a tree of ``NamedSharding`` matching ``template``) each
     leaf is a DTensor on its sharding's mesh, built from this rank's slice
     on the mesh's device (``device`` is then unused); any layout, whatever
-    wrote the checkpoint."""
+    wrote the checkpoint. There each leaf is memory-mapped and only this
+    rank's slice is copied, and each leaf is checked by one rank of the
+    default group (the leaves split over the ranks by size); every rank
+    raises ``IntegrityError`` if any leaf fails."""
     dev = None if shardings is not None else resolve_device(device)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     step_dir = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((step_dir / "manifest.json").read_text())
-    flat = {}
-    for key, info in manifest["leaves"].items():
-        arr = np.load(step_dir / info["file"])
+    leaves = manifest["leaves"]
+    mine = _checked_here(leaves) if shardings is not None else set(leaves)
+    flat, bad = {}, []
+    for key, info in leaves.items():
+        arr = np.load(step_dir / info["file"],
+                      mmap_mode="r" if shardings is not None else None)
         want = np.dtype(np.uint16 if info["dtype"] == _BF16
                         else info["dtype"])
         if arr.dtype != want:
             arr = arr.view(want)            # np.load gives bf16 as void16
-        if fletcher64(arr) != info["fletcher64"]:
-            raise IntegrityError(f"checkpoint leaf {key} corrupted "
-                                 f"(step {step})")
+        if key in mine and fletcher64(arr) != info["fletcher64"]:
+            bad.append(key)
         flat[key] = (arr, info["dtype"])
+    if shardings is not None and not _all_ok(not bad) and not bad:
+        raise IntegrityError(f"checkpoint step {step}: a leaf failed its "
+                             f"fletcher64 on another rank")
+    if bad:
+        raise IntegrityError(f"checkpoint leaf {bad[0]} corrupted "
+                             f"(step {step})")
 
     def leaf(path, tmpl):
         key = tree_util.path_key(path)
@@ -217,11 +230,34 @@ def restore_checkpoint(ckpt_dir: Path, template, step: Optional[int] = None,
     return tree, step, manifest.get("extra", {})
 
 
+def _checked_here(leaves: Dict[str, dict]) -> set:
+    """The keys of the leaves this rank checks: largest first, each to the
+    rank with the fewest bytes so far (ties to the lower rank), the same
+    split on every rank."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    load = [0] * world
+    mine = set()
+    for key in sorted(leaves, key=lambda k: -_nbytes(leaves[k])):
+        r = min(range(world), key=lambda i: load[i])
+        load[r] += _nbytes(leaves[key])
+        if r == rank:
+            mine.add(key)
+    return mine
+
+
+def _nbytes(info: dict) -> int:
+    n = 2 if info["dtype"] == _BF16 else np.dtype(info["dtype"]).itemsize
+    for d in info["shape"]:
+        n *= d
+    return n
+
+
 def _placed(arr: np.ndarray, dtype: str, sharding):
     """A DTensor of ``sharding`` from this rank's slice of the global
     ``arr`` (the elastic restore: the reference's ``jax.device_put``)."""
     from ..dist.sharding import from_local, mesh_device
     mesh = sharding.mesh
+    # a memory-mapped leaf: only the slice is read and copied
     local = _to_tensor(np.asarray(arr[sharding.local_slices(arr.shape)]),
                        dtype, mesh_device(mesh))
     return from_local(local, mesh, sharding.placements, arr.shape)

@@ -14,8 +14,8 @@ from .storage import TieredStore, TIERS
 from .workflow import (JobPlan, LocalRunner, StragglerDetector, UnitResult,
                        dedupe_results, generate_jobs, load_unit_inputs,
                        resource_status, run_unit, run_unit_with_retries)
-from .cost import (PAPER_ENVS, job_cost, paper_table1,
-                   cost_ratio_cloud_vs_hpc)
+from .cost import (PAPER_ENVS, GpuEnv, job_cost, paper_table1,
+                   cost_ratio_cloud_vs_hpc, training_run_cost)
 from .ingest import IngestRule, ingest_directory, write_raw_dump
 
 __all__ = [
@@ -29,6 +29,7 @@ __all__ = [
     "dedupe_results", "generate_jobs", "load_unit_inputs", "resource_status",
     "run_unit", "run_unit_with_retries",
     "PAPER_ENVS", "job_cost", "paper_table1", "cost_ratio_cloud_vs_hpc",
+    "GpuEnv", "training_run_cost",
     "IngestRule", "ingest_directory", "write_raw_dump",
     "dump_units", "load_units",
     "CampaignPlan", "Cohort", "Shard", "admission_throttle",

@@ -1,4 +1,6 @@
-"""Cost model (paper §2.4, Table 1) — HPC vs cloud vs local economics.
+"""Cost model (paper §2.4, Table 1) — HPC vs cloud vs local economics,
+extended to GPU training economics (the reference's TPU-pod tail,
+``repro/core/cost.py:67-93``, on H100 cards).
 
 Paper constants are encoded verbatim so ``benchmarks/table1_cost.py``
 reproduces the published table; ``job_cost`` generalizes to any workload.
@@ -6,7 +8,9 @@ reproduces the published table; ``job_cost`` generalizes to any workload.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
+
+from ..analysis.roofline import H100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,3 +67,31 @@ def paper_table1(n_jobs: int = 6) -> Dict[str, Dict[str, float]]:
 def cost_ratio_cloud_vs_hpc(n_jobs: int = 6) -> float:
     t = paper_table1(n_jobs)
     return t["cloud"]["total_cost"] / t["hpc"]["total_cost"]
+
+
+# ---------------------------------------------------------------------------
+# GPU extension: the paper's analysis for training on H100 cards
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GpuEnv:
+    """A pool of ``gpus`` cards. The price of a card-hour is the caller's
+    (no price is assumed; None gives no dollars); the peak is the
+    roofline's H100 row, dense bf16."""
+    name: str
+    gpus: int
+    cost_per_gpu_hour: Optional[float]
+    peak_flops: float = H100.peak_flops
+
+
+def training_run_cost(env: GpuEnv, total_model_flops: float, mfu: float
+                      ) -> Dict[str, Optional[float]]:
+    """Wall hours, card-hours and dollars to land a training run of
+    ``total_model_flops`` at model-FLOPs utilisation ``mfu``: the
+    reference's formula, with cards for chips."""
+    seconds = total_model_flops / (env.gpus * env.peak_flops * mfu)
+    hours = seconds / 3600
+    gpu_hours = hours * env.gpus
+    return {"hours": hours, "gpu_hours": gpu_hours,
+            "dollars": None if env.cost_per_gpu_hour is None
+            else gpu_hours * env.cost_per_gpu_hour}

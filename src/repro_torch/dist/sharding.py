@@ -222,11 +222,15 @@ class NamedSharding:
 
 def local_index(shape, mesh, placements) -> Tuple[slice, ...]:
     """This rank's index of a tensor of global ``shape`` placed by
-    ``placements`` on ``mesh``."""
+    ``placements`` on ``mesh``. The mesh's coordinate is read as data, so
+    under ``FakeTensorMode`` (a dry-run's fake weights on a real mesh) it
+    is read outside the fake mode."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    size, off = compute_local_shape_and_global_offset(tuple(shape), mesh,
-                                                      placements)
+    with unset_fake_temporarily():
+        size, off = compute_local_shape_and_global_offset(
+            tuple(shape), mesh, placements)
     return tuple(slice(o, o + n) for o, n in zip(off, size))
 
 

@@ -14,13 +14,14 @@ on a ``DeviceMesh``: the production mesh at 256 ranks (two pods at 512),
 else every rank on 'data' (``make_data_mesh()``: the compute is not
 tensor-parallel yet, so ranks on 'model' would repeat each other's
 work). The weights and AdamW moments are stored sharded by the
-reference's specs; every rank draws the same full weights on the host
-from the seeded CPU generator and moves only its slice to its device, and
-every rank reads the global batch and keeps its rows, so a restart
-replays the same rows on any layout. Each rank's card still holds the
-whole bf16 compute copy and gradient during a step
-(``train/train_step.py``), so a config whose weights do not fit one card
-twice over in bf16 cannot start. Fault tolerance: resume from the latest
+reference's specs; every rank draws the weights on the host from the
+seeded CPU generator one leaf at a time, keeping only its slice on its
+device (``draw_sharded_state``), and every rank reads the global batch
+and keeps its rows, so a restart replays the same rows on any layout.
+Each rank's card still holds the whole bf16 compute copy and gradient
+during a step (``train/train_step.py``), so a config whose weights do not
+fit one card twice over in bf16 cannot start (the dry-run's records give
+each cell's peak a rank: ``launch/dryrun.py``). Fault tolerance: resume from the latest
 checkpoint (``--resume``, onto whatever layout this run has), async
 saves, deterministic data.
 """
@@ -141,11 +142,9 @@ def _train(arch, *, steps, batch, seq, data_dir, ckpt_dir, reduced,
         params, opt_state = init_train_state(cfg, gen, device=dev)
     else:
         from ..dist.sharding import P, param_specs, shardings_for
-        from ..models import init_params
-        from ..train import shard_train_state
-        # drawn on the host: only this rank's slices reach its device
-        params, opt_state = shard_train_state(
-            init_params(cfg, gen, device="cpu"), None, mesh)
+        from ..train import draw_sharded_state
+        # drawn on the host leaf by leaf: only this rank's slices are kept
+        params, opt_state = draw_sharded_state(cfg, gen, mesh)
         specs = param_specs(params, mesh)
         shardings = shardings_for(mesh, {"params": specs, "opt": {
             "m": specs, "v": specs, "step": P()}})

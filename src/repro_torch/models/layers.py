@@ -16,10 +16,12 @@ so no activation is sharded.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import ctypes.util
 import functools
 import math
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -38,7 +40,8 @@ from ..kernels.rmsnorm import rmsnorm
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
            "rmsnorm_train", "attention_train", "checkpointed", "upcast",
            "decode_attention", "split_fused", "qkv_fusable", "attn_qkv",
-           "attn_out", "mlp", "normal_init", "init_attn", "init_mlp"]
+           "attn_out", "mlp", "normal_init", "draws_through", "init_attn",
+           "init_mlp"]
 
 
 # Query-chunk size of the training attention, the reference's ATTN_CHUNK
@@ -269,13 +272,35 @@ def mlp(x: torch.Tensor, p, kind: str = "swiglu",
 # seed gives the same weights on every device (``None`` means ``cuda``)
 # ---------------------------------------------------------------------------
 
+_DRAWS = threading.local()
+
+
+@contextlib.contextmanager
+def draws_through(fn):
+    """Within the block, every leaf :func:`normal_init` makes (a meta
+    stand-in on ``meta``) is passed to ``fn`` as soon as it is drawn, and
+    ``fn``'s return takes its place in the tree. A sharded init keeps only
+    its rank's slice, and the whole leaf is freed before the next is
+    drawn; the generator's stream does not change."""
+    prev = getattr(_DRAWS, "fn", None)
+    _DRAWS.fn = fn
+    try:
+        yield
+    finally:
+        _DRAWS.fn = prev
+
+
 def normal_init(gen: torch.Generator, shape, scale: float = 0.02,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     dev = resolve_init_device(device)
     if dev.type == "meta":                  # a shape-only tree: no draw
-        return torch.empty(tuple(shape), dtype=dtype, device=dev)
-    w = scale * torch.randn(tuple(shape), generator=gen, dtype=torch.float32)
-    return w.to(device=dev, dtype=dtype)
+        w = torch.empty(tuple(shape), dtype=dtype, device=dev)
+    else:                                   # scaled in place: one leaf
+        w = torch.randn(tuple(shape), generator=gen,
+                        dtype=torch.float32).mul_(scale)
+        w = w.to(device=dev, dtype=dtype)
+    fn = getattr(_DRAWS, "fn", None)
+    return w if fn is None else fn(w)
 
 
 def init_attn(gen: torch.Generator, cfg, n_layers: Optional[int] = None,

@@ -43,7 +43,8 @@ from .optimizer import (OptConfig, adamw_init, adamw_update,
 
 
 def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
-                    remat: bool = True, accum_steps: int = 1, mesh=None):
+                    remat: bool = True, accum_steps: int = 1, mesh=None,
+                    count_targets=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics) with ``loss``, ``acc``, ``tokens``, ``grad_norm`` and ``lr``
     (and ``aux_loss`` for moe).
@@ -57,11 +58,15 @@ def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
     :func:`shard_train_state` places, and every rank passes the global
     batch (see the module docstring); the step also has ``step.grads(
     params, batch)`` -> (metrics, the reduced gradient tree, placed as the
-    params), the gradient the optimizer would be given.
+    params), the gradient the optimizer would be given. A mesh step counts
+    the unmasked targets of the global batch and of its rows to weight its
+    loss; ``count_targets`` (targets -> that count) replaces the count, for
+    a dry-run's fake tensors, which hold no values to count (every target
+    of a dry-run is unmasked: ``Tensor.numel``).
     """
     if mesh is not None:
         return _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps,
-                               mesh)
+                               mesh, count_targets)
 
     def loss_and_grads(params, batch):
         flat = [p.detach().requires_grad_(True)
@@ -129,7 +134,9 @@ def shard_train_state(params, opt_state, mesh):
     moments placed by ``param_specs``, ``step`` replicated. Each rank
     copies its own slice to the mesh's device (no collective), so full
     state drawn on the host never reaches the card whole. ``opt_state``
-    None starts AdamW: zero moments made on the slices, step 0."""
+    None starts AdamW: zero moments made on the slices, step 0.
+    :func:`draw_sharded_state` draws and places weights without the whole
+    tree on the host."""
     from ..dist import sharding
     shard = sharding.shardings_for(mesh, sharding.param_specs(params, mesh))
 
@@ -138,22 +145,63 @@ def shard_train_state(params, opt_state, mesh):
             lambda path, x: sharding.distribute(
                 x, tree_util.at(shard, path)), tree)
 
+    placed = place(params)
+    if opt_state is None:
+        return placed, _adamw_on(placed, mesh)
+    replicated = sharding.NamedSharding(mesh, sharding.P())
+    return placed, {"m": place(opt_state["m"]), "v": place(opt_state["v"]),
+                    "step": sharding.distribute(opt_state["step"],
+                                                replicated)}
+
+
+def _adamw_on(placed, mesh):
+    """AdamW's start on the DTensor params ``placed``: zero moments made
+    on the slices, step 0 replicated."""
+    from ..dist import sharding
+
     def zeros(p):
         return sharding.from_local(
             torch.zeros(p.to_local().shape, dtype=torch.float32,
                         device=p.to_local().device),
             mesh, p.placements, p.shape)
-    placed = place(params)
-    replicated = sharding.NamedSharding(mesh, sharding.P())
-    if opt_state is None:
-        return placed, {
-            "m": tree_util.tree_map(zeros, placed),
+    return {"m": tree_util.tree_map(zeros, placed),
             "v": tree_util.tree_map(zeros, placed),
-            "step": sharding.distribute(torch.zeros((), dtype=torch.int32),
-                                        replicated)}
-    return placed, {"m": place(opt_state["m"]), "v": place(opt_state["v"]),
-                    "step": sharding.distribute(opt_state["step"],
-                                                replicated)}
+            "step": sharding.distribute(
+                torch.zeros((), dtype=torch.int32),
+                sharding.NamedSharding(mesh, sharding.P()))}
+
+
+def draw_sharded_state(cfg, gen: torch.Generator, mesh,
+                       dtype=torch.float32):
+    """``shard_train_state(init_params(cfg, gen, dtype, device="cpu"),
+    None, mesh)``, bit for bit, without the whole tree on the host: each
+    leaf is drawn on the host in ``init_params``'s order from ``gen``,
+    this rank keeps its slice on the mesh's device, and the leaf is freed
+    before the next is drawn. A rank's host holds one leaf at a time (and
+    the small leaves that are not drawn: norms, constants), not 4 bytes a
+    parameter."""
+    from torch.distributed.tensor import DTensor
+    from ..dist import sharding
+    from ..models.layers import draws_through
+    stand_ins = []
+    with draws_through(lambda w: stand_ins.append(w) or w):
+        meta = init_params(cfg, None, dtype, device="meta")
+    where = {id(x): path for path, x in tree_util.flatten_with_paths(meta)}
+    missing = [tuple(w.shape) for w in stand_ins if id(w) not in where]
+    if missing:
+        raise RuntimeError(f"init_params drew leaves it did not keep as "
+                           f"drawn: {missing}")
+    shard = sharding.shardings_for(mesh, sharding.param_specs(meta, mesh))
+    order = iter([where[id(w)] for w in stand_ins])
+
+    def keep(w):
+        return sharding.distribute(w, tree_util.at(shard, next(order)))
+    with draws_through(keep):
+        params = init_params(cfg, gen, dtype, device="cpu")
+    placed = tree_util.map_with_paths(
+        lambda path, x: x if isinstance(x, DTensor) else
+        sharding.distribute(x, tree_util.at(shard, path)), params)
+    return placed, _adamw_on(placed, mesh)
 
 
 def _local_rows(batch, rules):
@@ -218,7 +266,8 @@ def _to_shard(g, p, axes):
     return g
 
 
-def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
+def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
+                    count_targets=None):
     import torch.distributed as dist
     from ..dist import sharding
 
@@ -241,8 +290,9 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh):
         """(global metrics, this rank's gradient of its weighted loss, in
         ``compute_dtype``) for one global (micro)batch."""
         local = _local_rows(batch, rules)
-        n_all = _unmasked(batch["targets"])
-        w = _unmasked(local["targets"]) / max(n_all, 1)
+        count = count_targets or _unmasked
+        n_all = count(batch["targets"])
+        w = count(local["targets"]) / max(n_all, 1)
         with torch.enable_grad(), sharding.use_rules(rules):
             loss, m = forward_train(cfg, pc, local, compute_dtype,
                                     remat=remat)

@@ -138,6 +138,8 @@ def test_cost_model_matches_paper_table():
     env = T.PAPER_ENVS["hpc"]
     assert T.job_cost(env, 10, 5.0, 2.0) == \
         R.job_cost(R.PAPER_ENVS["hpc"], 10, 5.0, 2.0)
-    assert not hasattr(cost, "TPU_ENVS") and \
-        not hasattr(cost, "training_run_cost")
+    # the TPU-pod tail has a GPU counterpart (tests/test_torch_cost.py),
+    # and no TPU price list
+    assert not hasattr(cost, "TPU_ENVS") and not hasattr(cost, "PodEnv")
+    assert T.training_run_cost is cost.training_run_cost
     assert integrity.IntegrityError is T.IntegrityError

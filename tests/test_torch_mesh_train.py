@@ -144,6 +144,49 @@ def test_resume_on_another_layout_continues_the_losses(two):
             LOSS_TOL * abs(r["uninterrupted"])
 
 
+@pytest.mark.parametrize("shape", MESHES, ids=str)
+def test_sharded_draw_is_bit_equal_to_the_one_process_draw(two, four, shape):
+    """P5: each rank draws leaf by leaf and keeps its slice; every shard
+    (params and fresh moments, every arch) equals its slice of the
+    one-process ``init_params`` draw, bit for bit."""
+    for rank, r in enumerate(x["draws"][shape]
+                             for x in (four if shape == (2, 2) else two)):
+        assert r == [], (rank, r)
+
+
+def test_sharded_draw_holds_one_leaf_on_the_host(two):
+    """P5: MemTracker around one rank's build on the CPU: the sharded draw
+    peaks at most at one f32 leaf plus the rank's slices and the small
+    leaves that are not drawn; the whole-tree build it replaces holds
+    4 bytes a parameter besides the slices."""
+    for rank, r in enumerate(x["draw_peak"] for x in two):
+        assert r["draw"] <= r["largest"] + r["slices"] + r["undrawn"], \
+            (rank, r)
+        assert r["whole"] >= r["whole_tree"] + r["slices"] // 3, (rank, r)
+        assert r["draw"] < r["whole"] - r["whole_tree"] // 2, (rank, r)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_elastic_restore_checks_each_leaf_once(two, four, world):
+    """P6: restoring onto (1, 2) and (2, 2), the ranks' fletcher64 checks
+    add up to one a leaf, split over the ranks by bytes, and the shards
+    stay bit-equal to the plain restore."""
+    runs = [x["checked"] for x in (two if world == 2 else four)]
+    assert all(r["bad"] == [] for r in runs), runs
+    assert sum(r["checks"] for r in runs) == runs[0]["leaves"], runs
+    assert all(r["checks"] > 0 for r in runs), runs
+    total = sum(r["bytes"] for r in runs)
+    assert max(r["bytes"] for r in runs) <= total / world * 1.5, runs
+
+
+def test_corrupted_leaf_raises_on_every_rank(two):
+    """P6: one leaf's bytes flipped; one rank checks it, and every rank
+    raises ``IntegrityError`` (the outcome is all-reduced)."""
+    got = [x["corrupt"] for x in two]
+    assert all(g and g.startswith("IntegrityError") for g in got), got
+    assert any("params/final_norm corrupted" in g for g in got), got
+
+
 def test_restore_onto_one_device_with_shardings(two, ckpt, tmp_path):
     """One gloo rank in this process: the (2, 1) checkpoint restored with
     ``shardings=`` onto a (1, 1) mesh, bit-equal to the plain restore."""

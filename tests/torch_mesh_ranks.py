@@ -16,7 +16,8 @@ from repro_torch.data import make_lm_batches
 from repro_torch.dist.sharding import (NamedSharding, P, param_specs,
                                        shardings_for)
 from repro_torch.models import forward_train
-from repro_torch.train import (OptConfig, init_train_state, make_train_step,
+from repro_torch.train import (OptConfig, draw_sharded_state,
+                               init_train_state, make_train_step,
                                shard_train_state)
 from repro_torch.train import train_step as train_step_mod
 
@@ -209,6 +210,96 @@ def restored_equal(ckpt, cfg, mesh):
     return step, bad, got
 
 
+def sharded_draws(mesh):
+    """P5: ``draw_sharded_state`` on ``mesh`` for every arch: leaves (of
+    params and moments) whose shard or placements differ from the
+    one-process draw's placed by ``shard_train_state``."""
+    bad = []
+    for arch in ARCHS:
+        cfg = cfg_of(arch)
+        got = draw_sharded_state(cfg, torch.Generator().manual_seed(0), mesh)
+        want = shard_train_state(init_state(cfg)[0], None, mesh)
+        for (p, g), w in zip(tree_util.flatten_with_paths(got),
+                             tree_util.leaves(want)):
+            if g.placements != w.placements or g.dtype != w.dtype or \
+                    not torch.equal(g.to_local(), w.to_local()):
+                bad.append(f"{arch}: {tree_util.path_key(p)}")
+    return bad
+
+
+def draw_peak(mesh):
+    """P5: CPU bytes at the peak of one rank's state build (MemTracker),
+    the sharded draw's and the whole tree's, beside the largest f32
+    leaf, the rank's slices of the state, the leaves that are not drawn
+    (norms, constants) and 4 bytes a parameter."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from repro_torch.models import init_params
+    cfg = get_config("llama3.2-1b").reduced(n_layers=4, vocab_size=4096)
+    meta = init_params(cfg, None, device="meta")
+    out = {"largest": max(x.numel() for x in tree_util.leaves(meta)) * 4,
+           "whole_tree": sum(x.numel() for x in tree_util.leaves(meta)) * 4,
+           "undrawn": sum(x.numel() * 4 for p, x in
+                          tree_util.flatten_with_paths(meta)
+                          if "norm" in tree_util.path_key(p)
+                          or "ln" in tree_util.path_key(p))}
+    builds = {"draw": lambda: draw_sharded_state(
+        cfg, torch.Generator().manual_seed(0), mesh),
+        "whole": lambda: shard_train_state(init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"), None,
+            mesh)}
+    for name, build in builds.items():
+        tracker = MemTracker()
+        with tracker:
+            state = build()
+        out[name] = tracker.get_tracker_snapshot("peak")[
+            torch.device("cpu")]["Total"]
+        out["slices"] = sum(x.to_local().numel() * x.element_size()
+                            for x in tree_util.leaves(state))
+        del state
+    return out
+
+
+def checked_restore(ckpt, cfg, mesh):
+    """P6: the elastic restore of the (2, 1) checkpoint onto ``mesh``,
+    counting the fletcher64 checks this rank makes: (checks, leaves in
+    the checkpoint, leaves not bit-equal to the plain restore)."""
+    from repro_torch.ckpt import checkpoint as ckpt_mod
+    tmpl, shard = template(cfg, mesh)
+    real, calls = ckpt_mod.fletcher64, []
+    ckpt_mod.fletcher64 = lambda a: calls.append(a.nbytes) or real(a)
+    try:
+        got, _, _ = restore_checkpoint(ckpt / "sharded", tmpl,
+                                       shardings=shard)
+    finally:
+        ckpt_mod.fletcher64 = real
+    want, _, _ = restore_checkpoint(ckpt / "plain", tmpl, device="cpu")
+    bad = [tree_util.path_key(p) for (p, g), w in zip(
+        tree_util.flatten_with_paths(got), tree_util.leaves(want))
+        if not torch.equal(g.to_local(), w[_index(g)])]
+    return {"checks": len(calls), "bytes": sum(calls),
+            "leaves": len(tree_util.leaves(want)), "bad": bad}
+
+
+def corrupted_restore(ckpt, cfg, mesh):
+    """P6: the (2, 1) checkpoint copied with one leaf's bytes flipped
+    (rank 0 writes it): what this rank's elastic restore raised."""
+    import shutil
+    src, dst = ckpt / "sharded", ckpt / "corrupt"
+    if dist.get_rank() == 0:
+        shutil.copytree(src, dst)
+        leaf = dst / "step_00000002" / "params__final_norm.npy"
+        data = bytearray(leaf.read_bytes())
+        data[-4:] = bytes(b ^ 0xFF for b in data[-4:])
+        leaf.write_bytes(bytes(data))
+    dist.barrier()
+    tmpl, shard = template(cfg, mesh)
+    try:
+        restore_checkpoint(dst, tmpl, shardings=shard)
+        return None
+    except Exception as e:      # noqa: BLE001 — the outcome is the result
+        return f"{type(e).__name__}: {e}"
+
+
 def group_two(rank, world, ckpt):
     """Meshes (2, 1) and (1, 2); the broken control; the checkpoint
     written on (2, 1) and resumed on (1, 2)."""
@@ -240,6 +331,11 @@ def group_two(rank, world, ckpt):
     _, _, m = fn(state["params"], state["opt"], batches(cfg)[2])
     out["resume"] = {"step": step, "bad": bad, "loss": float(m["loss"]),
                      "uninterrupted": out["llama3.2-1b", (2, 1)]["losses"][2]}
+    out["draws"] = {shape: sharded_draws(mesh_of(shape))
+                    for shape in ((2, 1), (1, 2))}
+    out["draw_peak"] = draw_peak(mesh_of((2, 1)))
+    out["checked"] = checked_restore(ckpt, cfg, mesh)
+    out["corrupt"] = corrupted_restore(ckpt, cfg, mesh)
     return out
 
 
@@ -254,4 +350,6 @@ def group_four(rank, world, ckpt):
         out[arch, (2, 2)] = mesh_run(cfg, mesh, one_device(cfg))
     step, bad, _ = restored_equal(Path(ckpt), cfg_of("llama3.2-1b"), mesh)
     out["restore"] = {"step": step, "bad": bad}
+    out["draws"] = {(2, 2): sharded_draws(mesh)}
+    out["checked"] = checked_restore(Path(ckpt), cfg_of("llama3.2-1b"), mesh)
     return out
