@@ -132,8 +132,12 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               placed as ``shardings_for(param_specs)`` says (the weights
               drawn on the host leaf by leaf by ``draw_sharded_state``,
               as the launcher does, only the rank's slices kept on the
-              card, AdamW started on them), bf16 compute on the gathered
-              copy. Each loss within 1e-5 relative of
+              card, AdamW started on them), bf16 compute through the
+              tensor-parallel path over 'model' (a group of one: the
+              compute copy laid out by ``compute_model_dims``, the
+              sequence gathers and scatters, the vocab-parallel loss,
+              the per-leaf gradient moves, counted so that a step that
+              skips them fails). Each loss within 1e-5 relative of
               phase 5c's at the same step; K4-K7 launched 0 times. Then
               5c's step-3 checkpoint restored with ``shardings=`` onto the
               mesh, every leaf bit-equal to 5c's restored leaves, and step
@@ -145,8 +149,9 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               control, step 4 with its gradient from the first half of
               the batch rows only (what a lost reduction over a data axis
               gives), must fail step 5's loss check. One log line with s
-              a step, tokens/s, peak GB, the restore's s and the
-              compressed sum's s, beside the card's name and power limit.
+              a step beside 5c's, tokens/s, peak GB, the restore's s and
+              the compressed sum's s, beside the card's name and power
+              limit.
  5f. dryrun - phase 5e's configuration dry-run on the host's CPU
               (``launch.dryrun.lower_cell``: fake tensors on a (1, 1)
               placeholder mesh, one step, MemTracker's peak with the
@@ -163,6 +168,16 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               roofline's 989e12, and the H100-hours ``training_run_cost``
               gives at that MFU for one epoch of ``EPOCH_TOKENS`` (no
               price).
+ 5g. tp     - llama3.2-1b x train_4k dry-run on the host's CPU on the
+              16 x 16 placeholder mesh (rank 0), the tensor-parallel step:
+              its counted flops a rank at most TP_FLOPS_RATIO times the
+              analytic count a chip, and its peak under 80 GB. The broken
+              control traces the same cell with ``act_model``, ``vocab``
+              and ``res_seq`` mapped to None (``Rules`` replaced here):
+              every 'model' group repeats its rows, and that must fail
+              the check. One log line with the counted flops, the peak
+              and the collectives by kind, beside the card's name and
+              power limit.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -310,6 +325,8 @@ MESH_LOSS_TOL = 1e-5
 # pretraining count for Llama 3.2 1B (its model card: "up to 9 trillion")
 DRYRUN_PEAK_TOL = 0.05
 EPOCH_TOKENS = 9e12
+# phase 5g: a rank's counted flops against the analytic count a chip
+TP_FLOPS_RATIO = 2.0
 PARITY_BATCH, PARITY_SEQ = 2, 512
 # training on the card against the port's own CPU run, f32: loss and grad
 # norm relative, each gradient leaf relative to its largest |value|
@@ -715,6 +732,11 @@ def run(args, work: Path, card: str):
     t0 = time.perf_counter()
     dryrun_phase(card, **mesh_measured)
     log(f"dryrun phase: {time.perf_counter() - t0} s in all")
+
+    # -- 5g. the tensor-parallel step at 16 x 16, dry-run on the host ------
+    t0 = time.perf_counter()
+    tp_dryrun_phase(card)
+    log(f"tp dryrun phase: {time.perf_counter() - t0} s in all")
 
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -2012,7 +2034,7 @@ def train_phase(seed: int, work: Path, card: str):
     del params, opt_state, new_p, new_o, prof
     torch.cuda.empty_cache()
     return {"losses": losses, "restored": restored_host,
-            "restored_loss": restored_loss}
+            "restored_loss": restored_loss, "step_s": med}
 
 
 def train_parity_phase(seed: int):
@@ -2203,6 +2225,7 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
     from repro_torch.train import (OptConfig, draw_sharded_state,
                                    make_train_step)
     from repro_torch.train import train_step as train_step_mod
+    from repro_torch.dist import sharding
     ref = trained["losses"]
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", init_method=f"file://{work}/nccl_store",
@@ -2233,17 +2256,33 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
         step_fn = make_train_step(cfg, opt, torch.bfloat16, remat=True,
                                   mesh=mesh)
         losses, times = [], []
+        # the tensor-parallel path's collectives, counted over the steps
+        tp_calls = {"gather_seq": 0, "scatter_seq": 0,
+                    "gather_for_compute": 0}
+        real_tp = {k: getattr(sharding, k) for k in tp_calls}
+
+        def counting(name):
+            def call(*a, **k):
+                tp_calls[name] += 1
+                return real_tp[name](*a, **k)
+            return call
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        for s in range(TRAIN_STEPS):
-            batch = pipe.batch_at(s)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, m = step_fn(params, opt_state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            losses.append(float(m["loss"]))
+        for k in tp_calls:
+            setattr(sharding, k, counting(k))
+        try:
+            for s in range(TRAIN_STEPS):
+                batch = pipe.batch_at(s)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+        finally:
+            for k, fn in real_tp.items():
+                setattr(sharding, k, fn)
         path = _counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
         del params, opt_state, m
@@ -2313,10 +2352,14 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
         shutil.rmtree(work / "ckpt", ignore_errors=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
     med = statistics.median(times)
+    n_leaves = len(tree_util.leaves(_train_template(cfg)["params"]))
     log(f"mesh train {TRAIN_ARCH} on a (1, 1) DeviceMesh, one NCCL rank "
         f"({n_params} params), f32 DTensor masters and moments, bf16 "
-        f"compute, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: step s {times}, "
-        f"median {med} s, {TRAIN_BATCH * TRAIN_SEQ / med} tokens/s, peak "
+        f"compute tensor-parallel over a 'model' of 1 (calls over "
+        f"{TRAIN_STEPS} steps {tp_calls}), {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens: step s {times}, median {med} s (5c, no mesh: "
+        f"{trained['step_s']} s), {TRAIN_BATCH * TRAIN_SEQ / med} "
+        f"tokens/s, peak "
         f"{peak} GB; losses {losses} (phase 5c {ref}, relative "
         f"{rel}); K4-K7 {path}, {path4}; elastic restore of step 3 "
         f"{restore_s} s, leaves that differ from 5c's {differ}, step 4 "
@@ -2328,6 +2371,11 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
           f"mesh train: losses {losses} against phase 5c's {ref}")
     check(all(v == 0 for v in list(path.values()) + list(path4.values())),
           f"mesh train: the steps launched kernels {path} {path4}")
+    check(tp_calls["gather_for_compute"] == TRAIN_STEPS * n_leaves
+          and tp_calls["gather_seq"] >= TRAIN_STEPS * 2 * cfg.n_layers
+          and tp_calls["scatter_seq"] >= TRAIN_STEPS * 2 * cfg.n_layers,
+          f"mesh train: the steps skipped the tensor-parallel path: "
+          f"{tp_calls} over {TRAIN_STEPS} steps of {n_leaves} leaves")
     check(step == 3 and not differ,
           f"mesh train: the elastic restore gave step {step}, leaves that "
           f"differ {differ}")
@@ -2385,6 +2433,56 @@ def dryrun_phase(card: str, peak_gb: float, step_s: float):
           f"measured {peak_gb} GB")
     check(rel4 > DRYRUN_PEAK_TOL, f"dryrun: the broken control "
           f"({4 * TRAIN_BATCH} rows) passed the peak check: {pred4} GB")
+
+
+def tp_dryrun_phase(card: str):
+    """Phase 5g: llama3.2-1b x train_4k dry-run on the 16 x 16 placeholder
+    mesh with the tensor-parallel step: counted flops a rank at most
+    TP_FLOPS_RATIO x the analytic count a chip, and a peak under 80 GB.
+    The broken control maps ``act_model``, ``vocab`` and ``res_seq`` to
+    None in every ``Rules`` the step builds (each 'model' group then
+    repeats its rows) and must fail that check."""
+    from repro_torch.analysis.roofline import H100
+    from repro_torch.configs import SHAPE_BY_NAME, get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch.dryrun import lower_cell
+    cfg, shape = get_config(TRAIN_ARCH), SHAPE_BY_NAME["train_4k"]
+
+    def verdict(rec):
+        return (rec["counted_to_analytic"] <= TP_FLOPS_RATIO
+                and rec["peak_est_bytes"] < H100.hbm_bytes)
+
+    rec = lower_cell(cfg, shape, (16, 16), ("data", "model"))
+    real = sharding.Rules
+
+    class NoTensorParallel(real):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            for name in ("act_model", "vocab", "res_seq"):
+                self.map[name] = None
+    sharding.Rules = NoTensorParallel
+    try:
+        broken = lower_cell(cfg, shape, (16, 16), ("data", "model"))
+    finally:
+        sharding.Rules = real
+
+    def line(r):
+        return (f"{r['counted_flops_per_rank']} flops a rank "
+                f"({r['counted_to_analytic']} of the analytic "
+                f"{r['flops_per_chip']} a chip), peak "
+                f"{r['peak_est_bytes'] / 1e9} GB "
+                f"({r['peak_bytes_by_kind']}), collectives "
+                f"{r['collectives']['counts']} moving "
+                f"{r['collectives']['per_op']} bytes, traced in "
+                f"{r['trace_s']} s")
+    log(f"tp dryrun {TRAIN_ARCH} x train_4k, 16 x 16 placeholder mesh, "
+        f"rank 0, 'model' {rec['tp_compute']}: {line(rec)}; broken control "
+        f"(act_model, vocab and res_seq to None): {line(broken)}; on {card}")
+    check(verdict(rec), f"tp dryrun: {rec['counted_to_analytic']} of the "
+          f"analytic flops, peak {rec['peak_est_bytes'] / 1e9} GB")
+    check(not verdict(broken), f"tp dryrun: the broken control passed: "
+          f"{broken['counted_to_analytic']} of the analytic flops, peak "
+          f"{broken['peak_est_bytes'] / 1e9} GB")
 
 
 def _train_template(cfg):

@@ -8,8 +8,11 @@ in a dry-run), so :class:`CollectiveLog`, a dispatch mode, sees each
 collective op as often as it runs, and no loop multiplier is needed. It
 sees the functional collectives DTensor issues (``full_tensor``:
 ``_c10d_functional.all_gather_into_tensor``) and the ``c10d`` ops the mesh
-step calls directly (``dist.all_reduce``: ``c10d.allreduce_``;
-``dist.reduce_scatter_tensor``: ``c10d._reduce_scatter_base_``).
+step and its tensor-parallel compute call directly
+(``dist.all_gather_into_tensor``: ``c10d._allgather_base_``;
+``dist.reduce_scatter_tensor``: ``c10d._reduce_scatter_base_``;
+``dist.all_reduce``, of a sum, a max or a min: ``c10d.allreduce_``;
+``dist.all_to_all_single``: ``c10d.alltoall_base_``).
 ``torch.distributed.tensor.debug.CommDebugMode`` counts the same ops but
 gives no bytes; the dry-run runs both and holds their counts equal.
 

@@ -24,11 +24,33 @@ in mesh order (the only order ``Rules`` and ``param_specs`` write).
 
 ``constrain`` and its relatives are the identity outside ``use_rules``, as
 in the reference. Under rules ``constrain`` redistributes a ``DTensor`` to
-the guarded spec and returns a plain tensor unchanged: the port's models
-compute on the whole gathered copy (``full_tensor`` of each cast leaf,
-``train/train_step.py``), so they carry no ``constrain`` calls, and
-``constrain_params_gathered``'s layout ('data' gathered, 'model' kept)
-waits for tensor-parallel compute.
+the guarded spec and returns a plain tensor unchanged.
+
+Tensor-parallel compute (the second half of this module). The reference
+constrains activations and lets GSPMD insert the collectives; the port's
+models compute on plain tensors and issue them where the reference
+constrains, each an ``autograd.Function`` with its backward, over the
+'model' group of the active rules (:func:`tp_group`):
+
+  * the ``res_seq`` residual: every stack keeps a sequence slice of (B, S,
+    D) on each 'model' rank; :func:`gather_seq` (all-gather, backward
+    reduce-scatter) enters a column-parallel block and :func:`scatter_seq`
+    (reduce-scatter of partial sums, backward all-gather) leaves a
+    row-parallel one;
+  * :func:`gather_model` rebuilds a dim split over 'model' (a KV head
+    split over more ranks than there are KV heads);
+  * :func:`reduce_model` sums what every rank then uses alike (the
+    vocab-parallel loss: backward the identity) and
+    :func:`reduce_model_shared` what each rank uses on its own share (a
+    norm over a split dim: backward an all-reduce).
+
+``constrain_params_gathered(params, cfg)`` is the compute copy's layout
+(:func:`compute_model_dims`): gathered over the data axes, and over 'model'
+split column-parallel (the in-projections' output dim), row-parallel (the
+out-projections' input dim), vocab-parallel (the embedding and the head)
+or expert-parallel (the experts' dim), or else whole. A leaf used whole is
+computed on a sequence slice, so its gradient is summed over 'model'; a
+split leaf's gradient is whole for its split and is not.
 """
 from __future__ import annotations
 
@@ -314,32 +336,28 @@ def constrain_residual(x):
     return constrain(x, "batch", "res_seq", None)
 
 
-def _drop_data(spec) -> P:
-    out = []
-    for ax in spec:
-        out.append(_scalar(tuple(a for a in _axes(ax) if a in MODEL_AXES)))
-    return P(*out)
-
-
-def constrain_params_gathered(params):
-    """The param tree (a cast copy) with its FSDP ('data') axes gathered
-    and its TP axes kept, so the gather runs once a step and not once a
-    microbatch (the reference's §Perf G3b). Leaves that are not DTensors
-    pass through; the identity outside rules."""
+def constrain_params_gathered(params, cfg=None, dtype=None):
+    """The compute copy of a param tree of DTensors: each leaf gathered
+    over the data axes, so the gather runs once a step and not once a
+    microbatch (the reference's §Perf G3b), and over 'model' laid out as
+    :func:`repro_torch.models.compute_model_dims` gives for ``cfg`` (split
+    column-, row-, vocab- or expert-parallel, else whole). With ``dtype``
+    each f32 leaf of more than one dim is cast to it on its shard first
+    (the reference's cast of the compute copy). Returns plain tensors, one
+    :func:`gather_for_compute` a leaf; leaves that are not DTensors pass
+    through. The identity outside rules."""
     r = current_rules()
     if r is None:
         return params
     from torch.distributed.tensor import DTensor
+    dims = compute_layout(params, cfg)
 
-    def apply(path, w):
-        if not isinstance(w, DTensor) or w.dim() < 1:
+    def copy(path, w):
+        if not isinstance(w, DTensor):
             return w
-        parts = [str(p) for p in path]
-        spec = param_spec_for("/".join(parts), w.dim(), "layers" in parts)
-        s = _guard(_drop_data(spec), w.shape, r.mesh)
-        return w.redistribute(r.mesh, placements_for(s, r.mesh))
-
-    return tree_util.map_with_paths(apply, params)
+        cast = dtype if w.dtype == torch.float32 and w.dim() > 1 else None
+        return gather_for_compute(w, tree_util.at(dims, path), cast)
+    return tree_util.map_with_paths(copy, params)
 
 
 def batch_axes(rules: Rules) -> Tuple[str, ...]:
@@ -376,14 +394,20 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
 # attention
 # ---------------------------------------------------------------------------
 
-def attn_shard_choice(KV: int, G: int, q_len: int) -> Optional[str]:
+def attn_shard_choice(KV: int, G: int, q_len: int,
+                      tp: Optional[int] = None) -> Optional[str]:
     """Which attention dim should carry the TP axis for a (KV, G) head split.
 
     Returns None when tp = a*b factors with a | KV and b | G (a sharded
     layout needs no choice then). Otherwise pick the first dim the TP size
     divides: query positions ("q"), kv heads ("kv"), or the GQA group dim
-    ("g"); None if nothing fits (replicate)."""
-    tp = tp_size()
+    ("g"); None if nothing fits (replicate). ``tp`` defaults to the active
+    rules' :func:`tp_size`.
+
+    "kv" and "g" are never returned: KV % tp == 0 factors as (tp, 1) and
+    G % tp == 0 as (1, tp), so both are caught by the first test (the
+    reference's function is the same)."""
+    tp = tp_size() if tp is None else tp
     if tp <= 1:
         return None
     if any(tp % a == 0 and KV % a == 0 and G % (tp // a) == 0
@@ -443,3 +467,362 @@ def param_specs(params, mesh):
 def shardings_for(mesh, specs):
     """:class:`NamedSharding` tree from a spec tree."""
     return map_specs(lambda s: NamedSharding(mesh, s), specs)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel compute: the constraint sites as explicit collectives
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPGroup:
+    """One mesh axis's group as this rank sees it: the process group, this
+    rank's index in it and its size. :func:`tp_group` gives the 'model'
+    axis's."""
+    group: Any
+    rank: int
+    size: int
+
+    def bounds(self, n: int) -> Tuple[int, int]:
+        """This rank's [start, stop) of a dim of ``n`` split over the
+        group: ceil(n / size) a rank in rank order, so where the size does
+        not divide ``n`` the last slice is shorter. A dim so short that a
+        rank would get nothing raises."""
+        c = -(-n // self.size)
+        if (self.size - 1) * c >= n:
+            raise ValueError(f"a dim of {n} split over {self.size} ranks "
+                             f"would leave a rank empty")
+        return min(self.rank * c, n), min((self.rank + 1) * c, n)
+
+
+def _axis_group(mesh, i: int) -> TPGroup:
+    return TPGroup(mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i))
+
+
+def tp_group() -> Optional[TPGroup]:
+    """The 'model' group of the active rules' mesh, when the rules map
+    ``act_model``, ``vocab`` and ``res_seq`` onto 'model' (the compute is
+    tensor-parallel); None outside rules, on a shape-only mesh and when
+    they map elsewhere. A mesh whose 'model2' axis is larger than 1
+    (``tp2d``) is not supported: its compute would split over both axes,
+    its storage over 'model' alone."""
+    r = current_rules()
+    if r is None or not hasattr(r.mesh, "get_group") or any(
+            r.map.get(k) != "model" for k in ("act_model", "vocab",
+                                              "res_seq")):
+        return None
+    names = axis_names(r.mesh)
+    if "model2" in names and r.mesh.size(names.index("model2")) > 1:
+        raise NotImplementedError("tensor-parallel compute over 'model' "
+                                  "and 'model2' (tp2d)")
+    return _axis_group(r.mesh, names.index("model"))
+
+
+def seq_axes(rules: Rules) -> Tuple[str, ...]:
+    """The mesh axes the rules split the residual's sequence over when the
+    compute is tensor-parallel (:func:`tp_group`), else none."""
+    with use_rules(rules):
+        return ("model",) if tp_group() is not None else ()
+
+
+def compute_layout(params, cfg):
+    """The compute copy's layout under the active rules: per leaf the
+    tensor dim split over 'model' (``compute_model_dims`` at the group's
+    size), or None everywhere when the compute is not tensor-parallel."""
+    from ..models import compute_model_dims
+    tp = tp_group()
+    if tp is None:
+        return tree_util.tree_map(lambda _: None, params)
+    return compute_model_dims(cfg, params, tp.size)
+
+
+def _all_gather(x: torch.Tensor, dim: int, grp: TPGroup,
+                n: int) -> torch.Tensor:
+    """Every rank's slice of a dim of ``n`` split as :meth:`TPGroup.bounds`
+    gives, along ``dim``: the whole dim, in rank order."""
+    import torch.distributed as dist
+    c = -(-n // grp.size)
+    xs = x.movedim(dim, 0)
+    if xs.shape[0] != c:                     # a short (last) slice
+        xs = torch.cat([xs, xs.new_zeros((c - xs.shape[0],)
+                                         + xs.shape[1:])])
+    xs = xs.contiguous()
+    out = xs.new_empty((c * grp.size,) + xs.shape[1:])
+    dist.all_gather_into_tensor(out, xs, group=grp.group)
+    return out[:n].movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int,
+                    grp: TPGroup) -> torch.Tensor:
+    """The sum over the group of ``x``, this rank's slice of ``dim`` of
+    it (:meth:`TPGroup.bounds`)."""
+    import torch.distributed as dist
+    n = x.shape[dim]
+    c = -(-n // grp.size)
+    xs = x.movedim(dim, 0)
+    if n != c * grp.size:
+        xs = torch.cat([xs, xs.new_zeros((c * grp.size - n,)
+                                         + xs.shape[1:])])
+    xs = xs.contiguous()
+    out = xs.new_empty((c,) + xs.shape[1:])
+    dist.reduce_scatter_tensor(out, xs, group=grp.group)
+    s0, s1 = grp.bounds(n)
+    return out[:s1 - s0].movedim(0, dim).contiguous()
+
+
+def _all_reduce(x: torch.Tensor, grp: TPGroup, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=grp.group)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, src: int, dst: int,
+                grp: TPGroup) -> torch.Tensor:
+    """``x``, this rank's even slice of tensor dim ``src``, re-split over
+    the group on dim ``dst`` (``src`` whole): one all-to-all."""
+    import torch.distributed as dist
+    n = grp.size
+    xs = x.movedim(dst, 0)
+    at = src + 1 if src < dst else src       # src's index in xs
+    inp = xs.reshape((n, xs.shape[0] // n) + xs.shape[1:]).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=grp.group)
+    # out[j] is rank j's slice of src: put j before it, major, and merge
+    out = out.movedim(0, at)
+    shape = out.shape[:at] + (n * out.shape[at + 1],) + out.shape[at + 2:]
+    return out.reshape(shape).movedim(0, dst).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather along a dim; backward reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, dim, grp, n):
+        ctx.dim, ctx.grp = dim, grp
+        return _all_gather(x, dim, grp, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.grp), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter of partial sums along a dim; backward all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, grp):
+        ctx.dim, ctx.grp, ctx.n = dim, grp, x.shape[dim]
+        return _reduce_scatter(x, dim, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.grp, ctx.n), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce (sum); backward the identity, or an all-reduce when
+    ``shared``."""
+
+    @staticmethod
+    def forward(ctx, x, grp, shared):
+        ctx.grp, ctx.shared = grp, shared
+        return _all_reduce(x, grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_reduce(g, ctx.grp) if ctx.shared else g), None, None
+
+
+def gather_seq(x: torch.Tensor, n: int, grp: TPGroup,
+               dim: int = 1) -> torch.Tensor:
+    """The whole sequence (``n`` long) of a ``res_seq`` residual, from
+    this rank's slice: the entry of a column-parallel block. Its backward
+    sums every rank's gradient and keeps this rank's slice."""
+    return _GatherSeq.apply(x, dim, grp, n)
+
+
+def scatter_seq(x: torch.Tensor, grp: TPGroup, dim: int = 1) -> torch.Tensor:
+    """This rank's sequence slice of the sum over the group of ``x``, the
+    partial sums of a row-parallel block: its exit to the residual."""
+    return _ScatterSeq.apply(x, dim, grp)
+
+
+def seq_slice(x: torch.Tensor, grp: TPGroup, dim: int = 1) -> torch.Tensor:
+    """This rank's sequence slice of ``x``, which every rank holds alike
+    (no collective)."""
+    s0, s1 = grp.bounds(x.shape[dim])
+    return x.narrow(dim, s0, s1 - s0)
+
+
+def gather_model(x: torch.Tensor, grp: TPGroup, dim: int = -1) -> torch.Tensor:
+    """A dim split evenly over the group, whole (all-gather; backward
+    reduce-scatter)."""
+    dim = dim % x.dim()
+    return _GatherSeq.apply(x, dim, grp, x.shape[dim] * grp.size)
+
+
+def reduce_model(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+    """The sum over the group of the ranks' ``x``, which every rank then
+    uses alike (the loss's sums): backward the identity, so each rank's
+    ``x`` gets the gradient of its own share."""
+    return _Reduce.apply(x, grp, False)
+
+
+def reduce_model_shared(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+    """The sum over the group of the ranks' ``x``, which each rank then
+    uses on its own share of a split dim (a norm's moment): backward an
+    all-reduce."""
+    return _Reduce.apply(x, grp, True)
+
+
+def max_model(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+    """The elementwise max over the group (no gradient)."""
+    import torch.distributed as dist
+    return _all_reduce(x.detach(), grp, dist.ReduceOp.MAX)
+
+
+def min_model(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+    """The elementwise min over the group (no gradient)."""
+    import torch.distributed as dist
+    return _all_reduce(x.detach(), grp, dist.ReduceOp.MIN)
+
+
+class _LogsumexpVocab(torch.autograd.Function):
+    """logsumexp over a last dim split over the group: each rank's
+    ``torch.logsumexp`` of its share, then the logsumexp of those across
+    the ranks (on one rank the first alone, bit for bit); the backward is
+    ``torch.logsumexp``'s, exp(x - result), on this rank's share."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        import torch.distributed as dist
+        part = torch.logsumexp(x, dim=-1)
+        m = _all_reduce(part, grp, dist.ReduceOp.MAX)
+        out = m + torch.log(_all_reduce(torch.exp(part - m), grp))
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - out[..., None]), None
+
+
+def logsumexp_vocab(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)`` of logits whose vocabulary (last dim) is
+    split over the group, alike on every rank (the loss then taken from it
+    is every rank's): each rank's gradient is its share's softmax."""
+    return _LogsumexpVocab.apply(x, grp)
+
+
+def fused_split_ok(widths, fuse: int, tp: int) -> bool:
+    """Whether a projection whose fused output dim holds ``widths`` in
+    ``fuse`` interleaved blocks (``split_fused``) splits over ``tp``
+    ranks into each part's own columns: every block whole on one rank."""
+    return tp == 1 or (fuse > 1 and fuse % tp == 0
+                       and all(w % fuse == 0 for w in widths))
+
+
+def _model_dim(p) -> Optional[int]:
+    """The tensor dim the DTensor ``p`` splits over 'model' (None: whole
+    there)."""
+    from torch.distributed.tensor import Shard
+    names = p.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    pl = p.placements[names.index("model")]
+    return pl.dim if isinstance(pl, Shard) else None
+
+
+def gather_for_compute(w, model_dim: Optional[int],
+                       dtype=None) -> torch.Tensor:
+    """This rank's compute copy of the DTensor ``w``: its shard (cast to
+    ``dtype`` first, if given) gathered over every data axis it is split
+    on, and over 'model' re-split on tensor dim ``model_dim`` (None:
+    gathered whole): nothing where the storage splits that dim already, a
+    slice where it keeps the leaf whole, one all-to-all where it splits
+    another dim (a row-parallel weight, the experts). A plain tensor."""
+    from torch.distributed.tensor import Shard
+    mesh = w.device_mesh
+    x = w.to_local()
+    if dtype is not None:
+        x = x.to(dtype)
+    for i, (name, pl) in enumerate(zip(mesh.mesh_dim_names, w.placements)):
+        if name not in MODEL_AXES and isinstance(pl, Shard):
+            x = _all_gather(x, pl.dim, _axis_group(mesh, i),
+                            x.shape[pl.dim] * mesh.size(i))
+    if "model" not in mesh.mesh_dim_names:
+        return x
+    grp = _axis_group(mesh, mesh.mesh_dim_names.index("model"))
+    src, dst = _model_dim(w), model_dim
+    if src == dst:
+        return x
+    if dst is None:
+        return _all_gather(x, src, grp, x.shape[src] * grp.size)
+    if src is None:
+        c = x.shape[dst] // grp.size
+        return x.narrow(dst, grp.rank * c, c).clone(
+            memory_format=torch.contiguous_format)
+    return _all_to_all(x, src, dst, grp)
+
+
+def grad_to_storage(g: torch.Tensor, p, model_dim: Optional[int],
+                    summed: Tuple[str, ...]) -> torch.Tensor:
+    """The gradient of :func:`gather_for_compute`'s copy (laid out as it
+    is, ``model_dim``), returned as this rank's shard of ``p`` (f32),
+    summed over the mesh axes ``summed``: the data axes that split the
+    batch and, for a leaf used whole (computed on each rank's sequence
+    slice), 'model'. A split leaf's gradient is whole for its split: it is
+    moved back to the storage's split, and 'model' in ``summed`` is not
+    read for it."""
+    mesh = p.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    if "model" not in names or model_dim is None:
+        return _to_shard(g, p, summed)
+    grp = _axis_group(mesh, names.index("model"))
+    src = _model_dim(p)
+    if src is None:
+        g = _all_gather(g, model_dim, grp, g.shape[model_dim] * grp.size)
+        return _to_shard(g, p, summed)
+    if src != model_dim:
+        g = _all_to_all(g, model_dim, src, grp)
+    return _to_shard(g, p, summed, held=("model",))
+
+
+def _to_shard(g, p, axes, held=()):
+    """This rank's shard, placed as the DTensor ``p``, of the per-rank
+    gradient ``g`` summed over the mesh axes ``axes`` (f32). ``g`` is
+    whole on every mesh axis but those in ``held``, where it is this
+    rank's shard already. Mesh dims not in ``axes`` first cut this rank's
+    chunk, where no summed dim splits the same tensor dim, so less is
+    sent; the rest go in mesh order (a tensor dim split by several mesh
+    dims is split major first): a summed dim reduce-scatters where ``p``
+    is sharded on it and all-reduces where it is replicated, any other
+    keeps its chunk. The specs are divisibility-guarded, so every split is
+    even."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    mesh = p.device_mesh
+    coord = mesh.get_coordinate()
+    dims = [(i, name, pl) for i, (name, pl) in enumerate(
+        zip(mesh.mesh_dim_names, p.placements))
+        if mesh.size(i) > 1 and name not in held]
+    summed = {pl.dim for _, name, pl in dims
+              if name in axes and isinstance(pl, Shard)}
+    first = [x for x in dims if x[1] not in axes
+             and isinstance(x[2], Shard) and x[2].dim not in summed]
+    g = g.float().contiguous()
+    for i, name, pl in first + [x for x in dims if x not in first]:
+        n = mesh.size(i)
+        if not isinstance(pl, Shard):
+            if name in axes:
+                dist.all_reduce(g, group=mesh.get_group(i))
+        elif name not in axes:      # a copy: the whole g is not kept
+            g = g.chunk(n, dim=pl.dim)[coord[i]].clone(
+                memory_format=torch.contiguous_format)
+        else:
+            src = g.movedim(pl.dim, 0).contiguous()
+            out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=mesh.get_group(i))
+            g = out.movedim(0, pl.dim).contiguous()
+    return g

@@ -13,8 +13,11 @@ under ``experiments/dryrun_torch/`` (the reference's records stay in
 
   * train cells trace the port's real step, ``make_train_step(cfg,
     OptConfig(), mesh=)``, on ``shard_train_state`` of fake f32 weights:
-    the DTensor state, the cast copy gathered whole, the rank's rows, the
-    gradients reduced leaf by leaf, AdamW on the shards;
+    the DTensor state, the cast copy gathered over 'data' and laid out
+    over 'model', the rank's rows computed tensor-parallel over 'model'
+    (its sequence slice of the residual, its heads, columns, rows, vocab
+    or experts), the gradients reduced leaf by leaf, AdamW on the shards;
+    ``"tp_compute"`` is the size of 'model' the compute is split over;
   * prefill and decode cells trace ``make_prefill_step`` /
     ``make_decode_step`` on one rank's rows (``global_batch / n_chips``,
     at least 1) with whole bf16 weights and a whole cache, since the
@@ -196,6 +199,7 @@ def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
         "mesh": "x".join(map(str, mesh_shape)), "mesh_axes": list(axes),
         "n_chips": n_chips, "tag": extra_tag, "policy": policy,
         "kernels": "plain", "sharded_compute": shape.kind == "train",
+        **({"tp_compute": tp} if shape.kind == "train" else {}),
         "rows_per_rank": t["rows"], "trace_s": round(t["trace_s"], 1),
         "flops_per_chip": flops_per_chip,
         "flops_breakdown": fl,

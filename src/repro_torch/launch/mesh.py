@@ -55,15 +55,16 @@ def make_tp2d_mesh(*, multi_pod: bool = False):
 
 def make_local_mesh():
     """Every rank of the process group, as a (1, N) ('data', 'model')
-    mesh."""
+    mesh: the training step splits its compute over the N ranks of
+    'model' (tensor-parallel), each rank computing its share of the same
+    rows."""
     return _mesh((1, dist.get_world_size()), ("data", "model"))
 
 
 def make_data_mesh():
     """Every rank of the process group on 'data', as an (N, 1) ('data',
-    'model') mesh: data parallelism. Compute is not tensor-parallel yet,
-    so ranks of one 'model' group would compute the same rows; the
-    training launcher takes this mesh below the production sizes."""
+    'model') mesh: data parallelism, each rank its own rows. The training
+    launcher takes this mesh below the production sizes."""
     return _mesh((dist.get_world_size(), 1), ("data", "model"))
 
 

@@ -3,11 +3,13 @@
 admission-time planner emits (``core/workflow.generate_jobs`` in campaign
 mode).
 
-A pod script runs one array task a host, each with one GPU: it exports the
-variables ``repro_torch.launch.train`` reads (``MASTER_ADDR`` and
-``MASTER_PORT`` from the coordinator, ``WORLD_SIZE``, ``RANK`` from the
-array index, ``LOCAL_RANK``), so the hosts join one NCCL process group and
-train on one mesh. The reference's pod script exports ``JAX_*`` variables
+A pod script is one job over ``n_hosts`` hosts with one task a GPU
+(``gpus_per_host`` tasks a host): it exports the variables
+``repro_torch.launch.train`` reads (``MASTER_ADDR`` and ``MASTER_PORT``
+from the coordinator, ``WORLD_SIZE`` = hosts x GPUs a host, and in each
+task ``RANK`` from ``SLURM_PROCID`` and ``LOCAL_RANK`` from
+``SLURM_LOCALID``), so every GPU of every host joins one NCCL process
+group and trains on one mesh. The reference's pod script exports ``JAX_*`` variables
 that its training launcher never reads (ROADMAP Queue 3, R11). A shard
 script's task runs ``python -m repro_torch.core.workflow --run-one``. Both
 first eval ``repro_torch.launch.env``'s worker profile (the allocator
@@ -22,24 +24,25 @@ from typing import Optional
 
 POD_TEMPLATE = """#!/bin/bash
 #SBATCH --job-name={name}
-#SBATCH --array=0-{last_host}
-#SBATCH --nodes=1
+#SBATCH --nodes={n_hosts}
+#SBATCH --ntasks-per-node={gpus_per_host}
 #SBATCH --gpus-per-task=1
 #SBATCH --cpus-per-task={cpus}
 #SBATCH --time={walltime}
-#SBATCH --output={log_dir}/%x_%a.out
+#SBATCH --output={log_dir}/%x_%j.out
 set -euo pipefail
 
 export MASTER_ADDR={coordinator_host}
 export MASTER_PORT={coordinator_port}
-export WORLD_SIZE={n_hosts}
-export RANK=$SLURM_ARRAY_TASK_ID
-export LOCAL_RANK=0
+export WORLD_SIZE={world}
 eval "$(python -m repro_torch.launch.env --role worker 2>/dev/null || true)"
 
-srun python -m repro_torch.launch.train \\
+srun bash -c 'set -euo pipefail
+export RANK=$SLURM_PROCID
+export LOCAL_RANK=$SLURM_LOCALID
+exec python -m repro_torch.launch.train \\
     --arch {arch} --full --steps {steps} \\
-    --data-dir {data_dir} --ckpt-dir {ckpt_dir} --resume
+    --data-dir {data_dir} --ckpt-dir {ckpt_dir} --resume'
 """
 
 
@@ -95,18 +98,21 @@ def write_shard_script(out_dir: Path, *, name: str, n_units: int,
 
 
 def write_pod_launch(out_dir: Path, *, arch: str, n_hosts: int = 64,
+                     gpus_per_host: int = 8,
                      coordinator: str = "pod0-host0:8476", steps: int = 10000,
                      data_dir: str = "/data/shards", ckpt_dir: str = "/ckpt",
                      cpus: int = 16, walltime: str = "48:00:00") -> Path:
-    """Write the training array of ``n_hosts`` tasks, one GPU each, that
-    rendezvous at ``coordinator`` (``host:port``)."""
+    """Write the training job of ``n_hosts`` hosts, ``gpus_per_host``
+    tasks a host and one GPU a task, that rendezvous at ``coordinator``
+    (``host:port``)."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     host, port = coordinator.rsplit(":", 1)
     script = POD_TEMPLATE.format(
-        name=f"train_{arch}", last_host=n_hosts - 1, n_hosts=n_hosts,
-        coordinator_host=host, coordinator_port=port, arch=arch, steps=steps,
-        data_dir=data_dir, ckpt_dir=ckpt_dir, cpus=cpus, walltime=walltime,
+        name=f"train_{arch}", n_hosts=n_hosts, gpus_per_host=gpus_per_host,
+        world=n_hosts * gpus_per_host, coordinator_host=host,
+        coordinator_port=port, arch=arch, steps=steps, data_dir=data_dir,
+        ckpt_dir=ckpt_dir, cpus=cpus, walltime=walltime,
         log_dir=str(out_dir / "logs"))
     p = out_dir / f"train_{arch}.slurm"
     p.write_text(script)

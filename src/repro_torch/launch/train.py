@@ -77,8 +77,10 @@ def init_process_group(env: Dict, device) -> torch.device:
 def default_mesh():
     """The mesh by world size: the reference's production mesh at 256
     ranks, two pods at 512, else every rank on 'data' of an (N, 1) mesh
-    (data parallelism; a (1, N) mesh would repeat one rank's compute N
-    times)."""
+    (data parallelism). A (1, N) mesh would split each step's compute N
+    ways over 'model' (tensor-parallel, ``train/train_step.py``) rather
+    than repeat it; below the production sizes the data mesh is kept, as
+    it moves no activations between ranks."""
     from .mesh import make_data_mesh, make_production_mesh
     world = dist.get_world_size()
     if world in (256, 512):

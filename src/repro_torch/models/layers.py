@@ -9,10 +9,18 @@ CPU tensor. The kernels have no backward, so training runs
 ``rmsnorm_train`` and ``attention_train`` instead: the reference's XLA
 ``rmsnorm`` and ``attention`` (with ``_attend_block`` under
 ``jax.checkpoint``) as torch ops under autograd, the reference's
-``jax.checkpoint`` (nothing saveable) being :func:`checkpointed`. The reference's
-sharding constraints (``constrain*``) are dropped: on a mesh the port
-computes on the gathered copy of the weights (``train/train_step.py``),
-so no activation is sharded.
+``jax.checkpoint`` (nothing saveable) being :func:`checkpointed`.
+
+On a mesh the training step computes tensor-parallel over 'model'
+(``dist/sharding.py``): :func:`attention_tp` and :func:`mlp_tp` take this
+rank's sequence slice of the residual and return its slice of the block's
+output, with the collectives at the reference's constraint sites.
+Attention splits its heads (column-parallel ``wqkv``, split through
+``split_fused`` with no collective; row-parallel ``wo``) where
+:func:`attn_layout` allows, and otherwise (the reference's "q" choice)
+attends from the rank's query positions with whole weights; the MLP is
+column- then row-parallel where its fused ``w13`` splits, else whole on the
+sequence slice.
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
            "rmsnorm_train", "attention_train", "checkpointed", "upcast",
            "decode_attention", "split_fused", "qkv_fusable", "attn_qkv",
            "attn_out", "mlp", "normal_init", "draws_through", "init_attn",
-           "init_mlp"]
+           "init_mlp", "attn_layout", "attention_tp", "mlp_split", "mlp_tp"]
 
 
 # Query-chunk size of the training attention, the reference's ATTN_CHUNK
@@ -265,6 +273,130 @@ def mlp(x: torch.Tensor, p, kind: str = "swiglu",
     else:  # gelu: jax.nn.gelu's default is the tanh approximation
         h = F.gelu(_proj(x, p["w1"]), approximate="tanh")
     return _proj(h, p["w2"])
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel blocks (the training step on a mesh)
+# ---------------------------------------------------------------------------
+
+def attn_layout(cfg, tp: int, choice: Optional[str]) -> str:
+    """"heads" or "seq": how attention runs over a 'model' of ``tp`` ranks,
+    given the reference's ``attn_shard_choice``. "heads" where the choice
+    is None (tp factors over (KV, G)) or names a head dim, the query heads
+    split evenly in order, each rank's query heads share KV heads it holds
+    whole or one KV head split over tp / KV ranks (rebuilt before the
+    scores, never a split contraction), and a fused ``wqkv`` splits into
+    each part's own columns. Otherwise ("q", or nothing fits) "seq": the
+    rank's query positions against every key, with whole weights."""
+    from ..dist.sharding import fused_split_ok
+    if choice == "q":
+        return "seq"
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    ok = H % tp == 0 and (KV % tp == 0 or (
+        tp % KV == 0 and (H // KV) % (tp // KV) == 0))
+    if qkv_fusable(cfg):
+        ok = ok and fused_split_ok([H * Dh, KV * Dh, KV * Dh], cfg.tp_fuse,
+                                   tp)
+    return "heads" if ok else "seq"
+
+
+def attn_choice(cfg, tp: int, q_len: int) -> Optional[str]:
+    """The reference's ``attn_shard_choice`` for ``cfg``'s heads."""
+    from ..dist import sharding
+    return sharding.attn_shard_choice(cfg.n_kv_heads,
+                                      cfg.n_heads // cfg.n_kv_heads,
+                                      min(q_len, ATTN_CHUNK), tp)
+
+
+def _qkv_cols(x: torch.Tensor, p, cfg, tp: int):
+    """This rank's columns of q, k and v, (B, S, -) each, from its slices
+    of column-parallel weights."""
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if "wqkv" in p:
+        return split_fused(_proj(x, p["wqkv"]),
+                           [H * Dh // tp, KV * Dh // tp, KV * Dh // tp],
+                           max(cfg.tp_fuse // tp, 1))
+    return [_proj(x, p[n]) for n in ("wq", "wk", "wv")]
+
+
+def _own_kv(k: torch.Tensor, cfg, grp) -> torch.Tensor:
+    """(B, S, KV_r, Dh): the KV heads of this rank's query heads, from its
+    columns of k: whole heads where tp divides KV, else its KV head
+    rebuilt from the tp / KV ranks that hold a slice of its Dh."""
+    from ..dist.sharding import gather_model
+    B, S, _ = k.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if KV % grp.size == 0:
+        return k.reshape(B, S, KV // grp.size, Dh)
+    j = (grp.rank * (H // grp.size)) // (H // KV)
+    whole = gather_model(k, grp)
+    return whole[..., j * Dh:(j + 1) * Dh].reshape(B, S, 1, Dh)
+
+
+def attention_tp(cfg, h: torch.Tensor, p, positions: torch.Tensor, grp, *,
+                 causal: bool = True, window: Optional[int] = None,
+                 rope: bool = True, src: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Tensor-parallel attention (:func:`attention_train` inside) of this
+    rank's sequence slice ``h`` (B, s, D) of the normed residual, whose
+    whole sequence has ``positions`` (n,): this rank's slice (B, s, D) of
+    the projected output. ``src`` (B, n_src, D), whole on every rank, is a
+    cross-attention's key and value input (the encoder's output)."""
+    from ..dist.sharding import gather_seq, scatter_seq
+    n = positions.shape[0]
+    B = h.shape[0]
+    H, Dh = cfg.n_heads, cfg.d_head
+    s0, s1 = grp.bounds(n)
+    choice = attn_choice(cfg, grp.size, n)
+    if attn_layout(cfg, grp.size, choice) == "heads":
+        hf = gather_seq(h, n, grp)
+        q, k, v = _qkv_cols(hf, p, cfg, grp.size)
+        if src is not None:
+            _, k, v = _qkv_cols(src, p, cfg, grp.size)
+        q = q.reshape(B, n, H // grp.size, Dh)
+        k, v = _own_kv(k, cfg, grp), _own_kv(v, cfg, grp)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        o = attention_train(q, k, v, causal=causal, window=window)
+        return scatter_seq(_proj(o.reshape(B, n, -1), p["wo"]), grp)
+    q, k, v = attn_qkv(h, p, cfg)
+    if src is not None:
+        _, k, v = attn_qkv(src, p, cfg)
+    if rope:
+        q = apply_rope(q, positions[s0:s1], cfg.rope_theta)
+        k = apply_rope(k, positions[s0:s1], cfg.rope_theta)
+    if src is None:
+        k, v = gather_seq(k, n, grp), gather_seq(v, n, grp)
+    o = attention_train(q, k, v, causal=causal, window=window, q_offset=s0)
+    return attn_out(o, p)
+
+
+def mlp_split(kind: str, d_ff: int, fuse: int, tp: int) -> bool:
+    """Whether the MLP runs column- then row-parallel over ``tp`` ranks
+    (else whole on the sequence slice): a SwiGLU's fused ``w13`` must
+    split into gate and up columns."""
+    from ..dist.sharding import fused_split_ok
+    if kind == "swiglu":
+        return fused_split_ok([d_ff, d_ff], fuse, tp)
+    return d_ff % tp == 0
+
+
+def mlp_tp(cfg, h: torch.Tensor, p, n: int, grp) -> torch.Tensor:
+    """The MLP of this rank's sequence slice ``h`` of the normed residual
+    (whole sequence ``n``): this rank's slice of its output."""
+    from ..dist.sharding import gather_seq, scatter_seq
+    if not mlp_split(cfg.mlp, cfg.d_ff, cfg.tp_fuse, grp.size):
+        return mlp(h, p, cfg.mlp, cfg.tp_fuse)
+    hf = gather_seq(h, n, grp)
+    if cfg.mlp == "swiglu":
+        gu = _proj(hf, p["w13"])
+        gate, up = split_fused(gu, [gu.shape[-1] // 2] * 2,
+                               max(cfg.tp_fuse // grp.size, 1))
+        a = F.silu(gate) * up
+    else:
+        a = F.gelu(_proj(hf, p["w1"]), approximate="tanh")
+    return scatter_seq(_proj(a, p["w2"]), grp)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,15 @@ kernel K6 (``kernels/mamba2_ssd``) and on a CPU tensor its plain version;
 decode is the exact recurrence in plain torch, as in the reference. K6 has
 no backward, so training (``train=True``) runs ``ssd_chunked_train``, the
 reference's XLA chunked scan as torch ops under autograd.
-Parameters keep the reference's names and ``(L, ...)``-stacked layout; the
-reference's sharding constraints are dropped: on a mesh the port computes
-on the gathered copy of the weights (``train/train_step.py``), so no
-activation is sharded.
+Parameters keep the reference's names and ``(L, ...)``-stacked layout.
+
+On a mesh the training step splits the SSD heads over 'model', as the
+reference's constraint on ``xh`` and ``dt`` (``mamba2.py:136-137``) does
+(:func:`mamba_block_tp`): each rank gathers the sequence, projects its
+heads' columns of z, x and dt and the shared B and C from the whole
+``in_proj``, convolves its channels, scans its heads, takes the gated
+norm's moment over every rank's share of ``d_inner`` and leaves through
+the row-parallel ``out_proj``.
 """
 from __future__ import annotations
 
@@ -189,3 +194,63 @@ def init_mamba_state(cfg, n_layers: int, batch: int, dtype=torch.float32,
         "conv": torch.zeros((n_layers, batch, s.d_conv - 1, di + 2 * N),
                             dtype=dtype, device=dev),
     }
+
+
+def ssd_heads_split(cfg, tp: int) -> bool:
+    """Whether the SSD heads split over a 'model' of ``tp`` ranks; else
+    every rank runs the whole layer on the whole sequence."""
+    s = cfg.ssm
+    return (s.expand * cfg.d_model // s.d_head) % tp == 0
+
+
+def _rmsnorm_split(x, scale, eps: float, d: int, grp):
+    """:func:`rmsnorm_train` of a last dim of ``d`` split over the group
+    (x and scale this rank's share): the mean of squares summed over it."""
+    from ..dist.sharding import reduce_model_shared
+    xf = upcast(x)
+    var = reduce_model_shared(torch.sum(xf * xf, -1), grp) / d
+    r = torch.rsqrt(var + eps)[..., None].to(x.dtype)
+    return (x * r) * scale.to(x.dtype)
+
+
+def mamba_block_tp(x, p, cfg, n: int, grp):
+    """Head-parallel :func:`mamba_block` (training) of this rank's sequence
+    slice ``x`` (B, s, D), the whole sequence ``n`` long: x plus this
+    rank's slice of the layer's output."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    s = cfg.ssm
+    D = cfg.d_model
+    di = s.expand * D
+    H, dh, N = di // s.d_head, s.d_head, s.d_state
+    B = x.shape[0]
+
+    def zero(heads):
+        return torch.zeros((B, heads, dh, N), dtype=torch.float32,
+                           device=x.device)
+    if not ssd_heads_split(cfg, grp.size):
+        full = mamba_block(gather_seq(x, n, grp), p, cfg,
+                           {"ssm": zero(H), "conv": None}, train=True)[0]
+        return seq_slice(full, grp)
+    h = gather_seq(rmsnorm_train(x, p["ln"], cfg.norm_eps), n, grp)
+    Hl, dl = H // grp.size, di // grp.size
+    hs = slice(grp.rank * Hl, (grp.rank + 1) * Hl)
+    ds = torch.arange(grp.rank * dl, (grp.rank + 1) * dl, device=x.device)
+    cols = torch.cat([ds, di + ds,                              # z, x
+                      torch.arange(2 * di, 2 * di + 2 * N,      # B, C
+                                   device=x.device),
+                      2 * di + 2 * N + torch.arange(hs.start, hs.stop,
+                                                    device=x.device)])
+    chans = torch.cat([ds, torch.arange(di, di + 2 * N, device=x.device)])
+    proj = h @ p["in_proj"][:, cols].to(x.dtype)
+    z, conv_in, dt = torch.split(proj, [dl, dl + 2 * N, Hl], dim=-1)
+    conv_out, _ = _causal_conv(conv_in, p["conv_w"][:, chans],
+                               p["conv_b"][chans])
+    xin, Bm, Cm = torch.split(F.silu(conv_out), [dl, N, N], dim=-1)
+    dt = F.softplus(upcast(dt) + upcast(p["dt_bias"][hs]))
+    xh = xin.reshape(B, n, Hl, dh)
+    y, _ = ssd_chunked_train(xh, dt, p["A_log"][hs], Bm, Cm, zero(Hl),
+                             s.chunk)
+    y = y + upcast(p["D"][hs])[None, None, :, None] * upcast(xh)
+    y = y.reshape(B, n, dl).to(x.dtype)
+    y = _rmsnorm_split(y * F.silu(z), p["norm"][ds], cfg.norm_eps, di, grp)
+    return x + scatter_seq(y @ p["out_proj"].to(x.dtype), grp)

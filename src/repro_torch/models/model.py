@@ -26,6 +26,16 @@ the kernels K4-K7, which have no backward (and refuse an input that requires
 grad). ``remat=True`` puts each layer under ``torch.utils.checkpoint``, the
 reference's ``jax.checkpoint`` of its scan body.
 
+Under the rules of a mesh with a 'model' axis (the training step,
+``train/train_step.py``), ``forward_train`` computes tensor-parallel over
+'model' on the compute copy that :func:`compute_model_dims` lays out: each
+rank keeps a sequence slice of the residual (the reference's ``res_seq``,
+``constrain_residual`` after attention and after the FFN), looks up the
+tokens of its vocabulary slice, runs the blocks of ``layers.py``,
+``moe.py``, ``mamba2.py`` and ``rwkv6.py`` head-, column/row- or
+expert-parallel, and takes the loss vocab-parallel (logsumexp, the
+target's logit and the argmax across the ranks).
+
 Caches:
   * transformer: ``{"k","v": (L, B, Smax, KV, Dh)}``; sliding-window
     configs a ring of length ``window``; audio adds the encoder's
@@ -47,11 +57,12 @@ import torch
 from ..device import resolve_init_device
 from . import mamba2 as mamba_mod
 from . import rwkv6 as rwkv_mod
-from .layers import (apply_rope, attention, attention_train, attn_out,
+from .layers import (ATTN_CHUNK, apply_rope, attention, attention_train,
+                     attention_tp, attn_choice, attn_layout, attn_out,
                      attn_qkv, checkpointed, decode_attention, init_attn,
-                     init_mlp, mlp, normal_init, rmsnorm, rmsnorm_train,
-                     upcast)
-from .moe import init_moe, moe_mlp
+                     init_mlp, mlp, mlp_split, mlp_tp, normal_init, rmsnorm,
+                     rmsnorm_train, upcast)
+from .moe import experts_split, init_moe, moe_mlp, moe_mlp_tp
 
 Params = Dict[str, Any]
 
@@ -424,7 +435,13 @@ def forward_train(cfg, params: Params, batch, compute_dtype=torch.bfloat16,
     (audio, the encoder's input). The targets cover every position, patches
     included. Moe adds ``router_aux_weight * aux / n_layers`` to the loss.
     Runs the differentiable ops (never the kernels), each layer under
-    ``torch.utils.checkpoint`` with ``remat``."""
+    ``torch.utils.checkpoint`` with ``remat``; tensor-parallel under the
+    rules of a mesh (the module docstring)."""
+    from ..dist.sharding import tp_group
+    grp = tp_group()
+    if grp is not None:
+        return _forward_train_tp(cfg, params, batch, compute_dtype, remat,
+                                 grp)
     kind = _kind(cfg)
     x = _build_inputs(cfg, params, batch, compute_dtype)
     dev = x.device
@@ -505,6 +522,243 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
     denom = torch.clamp(n, min=1.0)
     loss = nll / denom
     return loss, {"loss": loss, "acc": acc / denom, "tokens": n}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training over 'model'
+# ---------------------------------------------------------------------------
+
+def compute_model_dims(cfg, params, tp: int):
+    """The tree of ``params``' layout in the training step's compute copy
+    over a 'model' of ``tp`` ranks: for each leaf the tensor dim split over
+    'model', or None where every rank uses it whole (on its sequence
+    slice). Split: the embedding and the head on vocab; attention's
+    ``wqkv``/``wq``/``wk``/``wv`` on their output (heads) and ``wo`` on its
+    input where :func:`attn_layout` gives "heads"; the MLP's ``w13``/``w1``
+    and ``w2`` likewise where it splits; the experts' ``w13``/``w2`` on the
+    expert dim; Mamba-2's ``out_proj`` and rwkv's head projections,
+    ``wo``, ``wck`` and ``wcv`` where their heads or ``d_ff`` split."""
+    from . import mamba2, rwkv6
+    heads = attn_layout(cfg, tp, attn_choice(cfg, tp, ATTN_CHUNK)) == "heads"
+    mlp_ok = mlp_split(cfg.mlp, cfg.d_ff, cfg.tp_fuse, tp)
+
+    def dim(path, w):
+        parts = [str(p) for p in path]
+        o = 1 if "layers" in parts else 0
+        name, last = parts[-1], w.dim() - 1
+        if w.dim() - o < 2:
+            return None
+        if parts[0] == "embed":
+            return 0 if w.shape[0] % tp == 0 else None
+        if parts[0] == "lm_head":
+            return last if w.shape[last] % tp == 0 else None
+        if "attn" in parts or "xattn" in parts:
+            return None if not heads else (o if name == "wo" else last)
+        if "mlp" in parts:
+            return None if not mlp_ok else (o if name == "w2" else last)
+        if "moe" in parts:
+            return o if name != "router" and experts_split(cfg, tp) else None
+        if "mamba" in parts:
+            return o if name == "out_proj" and \
+                mamba2.ssd_heads_split(cfg, tp) else None
+        if "rwkv" in parts:
+            split = {"wr": last, "wk": last, "wv": last, "wg": last,
+                     "wb": last, "wo": o}
+            if name in split and rwkv6.rwkv_heads_split(cfg, tp):
+                return split[name]
+            if name in ("wck", "wcv") and rwkv6.channel_split(cfg, tp):
+                return last if name == "wck" else o
+        return None
+
+    from .. import tree as tree_util
+    return tree_util.map_with_paths(dim, params)
+
+
+def _build_inputs_tp(cfg, params: Params, batch, compute_dtype, grp):
+    """(this rank's sequence slice of :func:`_build_inputs`, the whole
+    length): a vocab-parallel lookup (each rank the rows it holds, zero
+    elsewhere, the partial sums reduce-scattered to the slices; the vlm's
+    patch embeddings enter on rank 0), or with a table used whole each
+    rank's slice of the lookup."""
+    from ..dist.sharding import scatter_seq, seq_slice
+    table = params["embed"]["tok"]
+    dev = table.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    extra = None
+    if cfg.vlm is not None and "embeds" in batch:
+        extra = torch.as_tensor(batch["embeds"], device=dev).to(compute_dtype)
+    if cfg.vocab_size % grp.size:
+        x = embed_tokens(cfg, params, tokens, compute_dtype)
+        if extra is not None:
+            x = torch.cat([extra, x], dim=1)
+        return seq_slice(x, grp), x.shape[1]
+    v0 = grp.rank * table.shape[0]
+    mine = (tokens >= v0) & (tokens < v0 + table.shape[0])
+    x = table[torch.where(mine, tokens - v0, 0)].to(compute_dtype) * \
+        mine[..., None].to(compute_dtype)
+    if cfg.family == "audio":
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    if extra is not None:
+        x = torch.cat([extra if grp.rank == 0 else torch.zeros_like(extra),
+                       x], dim=1)
+    return scatter_seq(x, grp), x.shape[1]
+
+
+def _txf_layer_tp(cfg, x, lp: Params, positions, enc_full, grp):
+    """:func:`_txf_layer` (training) on this rank's slice of the residual,
+    ``constrain_residual`` after attention and after the FFN: (x, aux or
+    None)."""
+    n = positions.shape[0]
+    audio = cfg.family == "audio"
+    h = rmsnorm_train(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention_tp(cfg, h, lp["attn"], positions, grp, causal=True,
+                         window=cfg.sliding_window, rope=not audio)
+    if enc_full is not None:
+        h = rmsnorm_train(x, lp["ln2"], cfg.norm_eps)
+        x = x + attention_tp(cfg, h, lp["xattn"], positions, grp,
+                             causal=False, rope=False, src=enc_full)
+    h = rmsnorm_train(x, lp["ln2"], cfg.norm_eps)
+    if "moe" in lp:
+        y, aux = moe_mlp_tp(h, lp["moe"], cfg, n, grp)
+    else:
+        y, aux = mlp_tp(cfg, h, lp["mlp"], n, grp), None
+    return x + y, aux
+
+
+def _encoder_forward_tp(cfg, params: Params, enc_embeds, compute_dtype, grp):
+    """Whisper's encoder on sequence slices: its output whole on every
+    rank (B, enc_seq, D), for the decoder's cross-attention."""
+    from ..dist.sharding import gather_seq, seq_slice
+    n = enc_embeds.shape[1]
+    positions = torch.arange(n, device=enc_embeds.device)
+    x = seq_slice(enc_embeds.to(compute_dtype), grp)
+    lps = params["encoder"]["layers"]
+    for i in range(lps["ln1"].shape[0]):
+        lp = _layer(lps, i)
+        h = rmsnorm_train(x, lp["ln1"], cfg.norm_eps)
+        x = x + attention_tp(cfg, h, lp["attn"], positions, grp,
+                             causal=False, rope=False)
+        h = rmsnorm_train(x, lp["ln2"], cfg.norm_eps)
+        x = x + mlp_tp(cfg, h, lp["mlp"], n, grp)
+    x = rmsnorm_train(x, params["encoder"]["final_norm"], cfg.norm_eps)
+    return gather_seq(x, n, grp)
+
+
+def _shared_block_tp(cfg, sp: Params, x, positions, grp):
+    h = rmsnorm_train(x, sp["ln1"], cfg.norm_eps)
+    x = x + attention_tp(cfg, h, sp["attn"], positions, grp, causal=True)
+    h = rmsnorm_train(x, sp["ln2"], cfg.norm_eps)
+    return x + mlp_tp(cfg, h, sp["mlp"], positions.shape[0], grp)
+
+
+def _forward_train_tp(cfg, params: Params, batch, compute_dtype, remat, grp):
+    """:func:`forward_train` over the 'model' group ``grp``."""
+    kind = _kind(cfg)
+    x, n = _build_inputs_tp(cfg, params, batch, compute_dtype, grp)
+    dev = x.device
+    targets = torch.as_tensor(batch["targets"], device=dev).long()
+    positions = torch.arange(n, device=dev)
+
+    def run(layer, *args):
+        return checkpointed(layer, *args) if remat else layer(*args)
+    aux = None
+    if kind == "rwkv":
+        lps = params["layers"]["rwkv"]
+        for i in range(lps["ln1"].shape[0]):
+            x = run(lambda x, lp: rwkv_mod.rwkv_block_tp(x, lp, cfg, n, grp),
+                    x, _layer(lps, i))
+    elif kind == "hybrid":
+        every, sp = cfg.shared_attn_every, params["shared"]
+        lps = params["layers"]["mamba"]
+
+        def hybrid(x, lp, shared):
+            x = mamba_mod.mamba_block_tp(x, lp, cfg, n, grp)
+            return _shared_block_tp(cfg, sp, x, positions, grp) \
+                if shared else x
+        for i in range(lps["ln"].shape[0]):
+            x = run(hybrid, x, _layer(lps, i), i % every == every - 1)
+    else:
+        enc_full = None
+        if cfg.encoder is not None:
+            enc = torch.as_tensor(batch["enc_embeds"], device=dev)
+            enc_full = _encoder_forward_tp(cfg, params, enc, compute_dtype,
+                                           grp)
+            s0, s1 = grp.bounds(n)
+            x = x + params["pos_emb"][s0:s1].to(compute_dtype)
+        aux = torch.zeros((), dtype=torch.promote_types(x.dtype,
+                                                        torch.float32),
+                          device=dev)
+        lps = params["layers"]
+        for i in range(lps["ln1"].shape[0]):
+            x, a = run(lambda x, lp: _txf_layer_tp(cfg, x, lp, positions,
+                                                   enc_full, grp),
+                       x, _layer(lps, i))
+            if a is not None:
+                aux = aux + a
+    x = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
+    loss, metrics = _cross_entropy_tp(cfg, params, x, targets, grp)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+        metrics["aux_loss"] = aux / cfg.n_layers
+    return loss, metrics
+
+
+def _ce_sums_vocab(logits: torch.Tensor, targets: torch.Tensor, v0: int,
+                   grp):
+    """:func:`_ce_sums` of logits split over the vocabulary (this rank's
+    columns start at ``v0``): the logsumexp and the target's logit summed
+    across the ranks, the argmax the lowest global index of the row's
+    largest logit, as ``torch.argmax`` over the whole row picks it."""
+    from ..dist.sharding import (logsumexp_vocab, max_model, min_model,
+                                 reduce_model)
+    mask = (targets >= 0).float()
+    tgt = targets.clamp(min=0)
+    lg = upcast(logits)
+    logz = logsumexp_vocab(lg, grp)
+    mine = (tgt >= v0) & (tgt < v0 + logits.shape[-1])
+    ll = upcast(torch.gather(logits, -1, torch.where(
+        mine, tgt - v0, 0)[..., None])[..., 0]) * mine
+    nll = torch.sum((logz - reduce_model(ll, grp)) * mask)
+    top = lg.detach().argmax(-1)
+    best = torch.gather(lg.detach(), -1, top[..., None])[..., 0]
+    cand = torch.where(best == max_model(best, grp), top + v0,
+                       torch.iinfo(top.dtype).max)
+    acc = torch.sum((min_model(cand, grp) == tgt).float() * mask)
+    return nll, acc, mask.sum()
+
+
+def _cross_entropy_tp(cfg, params: Params, x, targets, grp, chunk: int = 512):
+    """:func:`chunked_cross_entropy` of this rank's slice ``x`` of the
+    final residual: vocab-parallel over the gathered sequence where the
+    head splits, else on the slice with the whole head, the sums added
+    over 'model'; chunks of ``chunk`` positions (the last may be short),
+    each under :func:`checkpointed`, the head cast once."""
+    from ..dist.sharding import gather_seq, reduce_model
+    n = targets.shape[1]
+    head = params["embed"]["tok"].T if cfg.tie_embeddings \
+        else params["lm_head"]
+    head = head.to(x.dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    nll, acc, cnt = zero, zero, zero
+    if cfg.vocab_size % grp.size == 0:
+        xf = gather_seq(x, n, grp)
+        v0 = grp.rank * head.shape[1]
+        for c0 in range(0, n, chunk):
+            c = checkpointed(lambda xb, tb, hd: _ce_sums_vocab(
+                xb @ hd, tb, v0, grp), xf[:, c0:c0 + chunk],
+                targets[:, c0:c0 + chunk], head)
+            nll, acc, cnt = nll + c[0], acc + c[1], cnt + c[2]
+    else:
+        s0, s1 = grp.bounds(n)
+        t = targets[:, s0:s1]
+        for c0 in range(0, s1 - s0, chunk):
+            c = checkpointed(_ce_chunk, x[:, c0:c0 + chunk],
+                             t[:, c0:c0 + chunk], head)
+            nll, acc, cnt = nll + c[0], acc + c[1], cnt + c[2]
+        nll, acc, cnt = (reduce_model(v, grp) for v in (nll, acc, cnt))
+    cnt = torch.clamp(cnt, min=1.0)
+    loss = nll / cnt
+    return loss, {"loss": loss, "acc": acc / cnt, "tokens": cnt}
 
 
 def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):

@@ -16,18 +16,24 @@ code. A single-token call (``S == 1``: decode, or a one-token prompt) takes
 the reference's dense mixture over every expert.
 
 The expert products are plain batched matmuls, which the reference leaves
-to XLA outside any Pallas kernel; no kernel of the port runs here. The
-reference's sharding hints (``constrain``) are dropped: on a mesh the port
-computes on the gathered copy of the weights (``train/train_step.py``), so
-no activation is sharded. The load-balance statistics are means over the
-batch, which the reference's SPMD step takes over the global batch; the
-port's mesh step makes them so with ``batch_mean`` (the identity without a
+to XLA outside any Pallas kernel; no kernel of the port runs here.
+
+On a mesh the training step computes expert-parallel over 'model', as
+the reference's dispatch constraint (``moe.py:103``) places the experts:
+each rank gathers the sequence, routes it whole (so capacity and drop
+order are the reference's, per sequence), fills the buffer slots of its
+own experts only, runs them on its slice of ``w13``/``w2`` and combines
+their share of every token; the partial sums leave through a
+reduce-scatter to its sequence slice. The load-balance statistics are
+means over the global batch, which the reference's SPMD step takes: each
+rank adds its sequence slice's share over 'model' (``reduce_model``) and
+``batch_mean`` averages over the data axes (both the identity without a
 mesh).
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,10 +64,12 @@ def top_k(probs: torch.Tensor, k: int):
     return w[..., :k], sel[..., :k]
 
 
-def _route(x: torch.Tensor, router: torch.Tensor, m):
+def _route(x: torch.Tensor, router: torch.Tensor, m, grp=None):
     """x: (B, S, D) -> sel (B, S, k) int64, w (B, S, k) f32, aux loss (f32
     scalar; f64 for an f64 x). The router logits are a product in x's dtype,
-    then widened."""
+    then widened. With ``grp`` (tensor-parallel, x the whole sequence on
+    every rank) the statistics are taken over this rank's sequence slice
+    and summed over the group."""
     logits = upcast(x @ router.to(x.dtype))
     probs = torch.softmax(logits, dim=-1)
     w, sel = top_k(probs, m.top_k)
@@ -69,18 +77,28 @@ def _route(x: torch.Tensor, router: torch.Tensor, m):
     E = probs.shape[-1]
     # over the global batch when a mesh splits it (identity otherwise);
     # imported here: ``dist`` imports ``core``, which imports the models
-    from ..dist.sharding import batch_mean
-    f = F.one_hot(sel[..., 0], E).to(probs.dtype).mean(dim=(0, 1))
-    f, p = batch_mean(f), batch_mean(probs.mean(dim=(0, 1)))
+    from ..dist.sharding import batch_mean, reduce_model
+    onehot = F.one_hot(sel[..., 0], E).to(probs.dtype)
+    if grp is None:
+        f, p = onehot.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+    else:
+        s0, s1 = grp.bounds(x.shape[1])
+        count = x.shape[0] * x.shape[1]
+        f, p = (reduce_model(t[:, s0:s1].sum(dim=(0, 1)) / count, grp)
+                for t in (onehot, probs))
+    f, p = batch_mean(f), batch_mean(p)
     return sel, w, E * torch.sum(f * p)
 
 
 def _dispatch_seq(x: torch.Tensor, sel: torch.Tensor, w: torch.Tensor,
-                  E: int, C: int):
+                  E: int, C: int, experts: Optional[Tuple[int, int]] = None):
     """Per-sequence dispatch. x: (..., S, D); sel, w: (..., S, k), the
     leading dims (if any) independent sequences. Returns the buffer (...,
     E * C, D), the flat slot index (..., S, k) and the keep mask (..., S, k).
-    ``w`` is unused, as in the reference's signature."""
+    ``w`` is unused, as in the reference's signature. ``experts`` (e0, e1)
+    fills only those experts' slots: the buffer is (..., (e1 - e0) * C, D),
+    the index is into it and the mask keeps only their slots; positions
+    and drops are the whole routing's."""
     *lead, S, k = sel.shape
     oh = F.one_hot(sel, E)                               # (..., S, k, E)
     row = oh.sum(-2)                                     # (..., S, E)
@@ -90,16 +108,21 @@ def _dispatch_seq(x: torch.Tensor, sel: torch.Tensor, w: torch.Tensor,
     intra = torch.cumsum(oh, dim=-2) - oh                # (..., S, k, E)
     pos = torch.gather(excl[..., None, :] + intra, -1, sel[..., None])[..., 0]
     keep = pos < C
+    e0, e1 = (0, E) if experts is None else experts
+    if experts is not None:
+        keep = keep & (sel >= e0) & (sel < e1)
+        sel = torch.where(keep, sel - e0, torch.zeros_like(sel))
     slot = torch.where(keep, pos, torch.zeros_like(pos))  # dropped: slot 0
     idx = sel * C + slot
     contrib = keep[..., None].to(x.dtype)
     vals = (x[..., None, :] * contrib).reshape(*lead, S * k, x.shape[-1])
     n = math.prod(lead)
     b = torch.arange(n, device=x.device).repeat_interleave(S * k)
-    buf = torch.zeros((n, E, C, x.shape[-1]), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((n, e1 - e0, C, x.shape[-1]), dtype=x.dtype,
+                      device=x.device)
     buf = buf.index_put((b, sel.reshape(-1), slot.reshape(-1)),
                         vals.reshape(n * S * k, -1), accumulate=True)
-    return buf.reshape(*lead, E * C, x.shape[-1]), idx, keep
+    return buf.reshape(*lead, (e1 - e0) * C, x.shape[-1]), idx, keep
 
 
 def capacity(cfg, S: int) -> int:
@@ -139,3 +162,33 @@ def moe_mlp(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
                             .expand(-1, -1, D)).reshape(B, S, m.top_k, D)
     wk = (w * keep).to(x.dtype)
     return torch.einsum("bskd,bsk->bsd", gathered, wk), aux
+
+
+def experts_split(cfg, tp: int) -> bool:
+    """Whether the experts split over a 'model' of ``tp`` ranks (expert
+    parallel); else every rank runs them all."""
+    return cfg.moe.n_experts % tp == 0
+
+
+def moe_mlp_tp(x: torch.Tensor, p, cfg, n: int, grp):
+    """Expert-parallel :func:`moe_mlp` of this rank's sequence slice ``x``
+    (B, s, D) (the whole sequence is ``n`` long): (this rank's slice of the
+    output, the aux loss, alike on every rank)."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    m = cfg.moe
+    B, D, E = x.shape[0], x.shape[-1], m.n_experts
+    xf = gather_seq(x, n, grp)
+    sel, w, aux = _route(xf, p["router"], m, grp)
+    C = capacity(cfg, n)
+    mine, El = None, E
+    if experts_split(cfg, grp.size):
+        El = E // grp.size
+        mine = (grp.rank * El, (grp.rank + 1) * El)
+    buf, idx, keep = _dispatch_seq(xf, sel, w, E, C, mine)
+    y = _experts(buf.reshape(B, El, C, D), p["w13"], p["w2"],
+                 "becd,edf->becf", "becf,efd->becd").reshape(B, El * C, D)
+    gathered = torch.gather(y, 1, idx.reshape(B, n * m.top_k, 1)
+                            .expand(-1, -1, D)).reshape(B, n, m.top_k, D)
+    out = torch.einsum("bskd,bsk->bsd", gathered, (w * keep).to(x.dtype))
+    return (seq_slice(out, grp) if mine is None
+            else scatter_seq(out, grp)), aux

@@ -10,8 +10,16 @@ kernel K7 (``kernels/rwkv6``) and on a CPU tensor its plain version; decode
 is the exact single-step recurrence in plain torch, as in the reference. K7
 has no backward, so training (``train=True``) runs ``wkv_chunked_train``,
 the reference's XLA chunked form as torch ops under autograd.
-Parameters keep the reference's names and ``(L, ...)``-stacked layout; the
-reference's sharding constraints are dropped (the identity without a mesh).
+Parameters keep the reference's names and ``(L, ...)``-stacked layout.
+
+On a mesh the training step splits the heads over 'model', as the
+reference's constraint on r, k, v and logw (``rwkv6.py:73``) does
+(:func:`rwkv_block_tp`): each rank gathers the sequence, token-shifts it
+whole, projects its heads' columns (``wr``, ``wk``, ``wv``, ``wg``, the
+decay LoRA's ``wb``), scans and group-norms them and leaves through the
+row-parallel ``wo``; the channel mix is column-parallel in ``wck`` and
+row-parallel in ``wcv``, its receptance taken on the rank's sequence
+slice with the whole ``wcr``.
 """
 from __future__ import annotations
 
@@ -201,3 +209,71 @@ def init_rwkv_state(cfg, batch: int, dtype=torch.float32, device=None):
                            device=dev),
         "cshift": torch.zeros((L, batch, 1, D), dtype=dtype, device=dev),
     }
+
+
+def rwkv_heads_split(cfg, tp: int) -> bool:
+    """Whether the time mix splits its heads over a 'model' of ``tp``
+    ranks; else every rank runs it whole on the whole sequence."""
+    return cfg.n_heads % tp == 0
+
+
+def channel_split(cfg, tp: int) -> bool:
+    """Whether the channel mix splits ``d_ff`` over ``tp`` ranks."""
+    return cfg.d_ff % tp == 0
+
+
+def _time_mix_tp(h, p, cfg, n: int, grp):
+    """The time mix of this rank's slice ``h`` of the normed residual:
+    this rank's slice of its output."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    H, dh = cfg.n_heads, cfg.rwkv.head_size
+    B, _, D = h.shape
+    hf = gather_seq(h, n, grp)
+    zero = {"shift": torch.zeros((B, 1, D), dtype=h.dtype, device=h.device),
+            "wkv": torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                               device=h.device)}
+    if not rwkv_heads_split(cfg, grp.size):
+        return seq_slice(time_mix(hf, p, cfg, zero, True)[0], grp)
+    Hl = H // grp.size
+    hs = slice(grp.rank * Hl, (grp.rank + 1) * Hl)
+    cs = slice(hs.start * dh, hs.stop * dh)
+    r, k, v, g, logw = _projections(hf, _shift(hf, zero["shift"]),
+                                    {**p, "w0": p["w0"][hs]}, Hl, dh)
+    out, _ = wkv_chunked_train(r, k, v, logw, p["u"][hs], zero["wkv"][:, hs],
+                               cfg.rwkv.chunk)
+    out = out.reshape(B, n, Hl, dh).to(h.dtype)
+    out = out * torch.rsqrt(torch.mean(torch.square(upcast(out)), -1,
+                                       keepdim=True) + 1e-5).to(h.dtype)
+    out = out.reshape(B, n, Hl * dh) * p["gn"][cs].to(h.dtype)
+    out = out * F.silu(g)
+    return scatter_seq(out @ p["wo"].to(h.dtype), grp)
+
+
+def _channel_mix_tp(h, p, n: int, grp):
+    """The channel mix of this rank's slice ``h`` of the normed residual:
+    this rank's slice of its output."""
+    from ..dist.sharding import gather_seq, scatter_seq
+    hf = gather_seq(h, n, grp)
+    xprev = _shift(hf, torch.zeros_like(hf[:, :1]))
+    mu = p["mu_c"].to(h.dtype)
+    s0, s1 = grp.bounds(n)
+    xk = hf + (xprev - hf) * mu[0]
+    xr = (hf + (xprev - hf) * mu[1])[:, s0:s1]
+    kk = torch.square(torch.relu(xk @ p["wck"].to(h.dtype)))
+    rr = torch.sigmoid(xr @ p["wcr"].to(h.dtype))
+    return rr * scatter_seq(kk @ p["wcv"].to(h.dtype), grp)
+
+
+def rwkv_block_tp(x, p, cfg, n: int, grp):
+    """Head-parallel :func:`rwkv_block` (training, zero state) of this
+    rank's sequence slice ``x`` (B, s, D), the whole sequence ``n`` long:
+    the new slice."""
+    from ..dist.sharding import gather_seq, seq_slice
+    x = x + _time_mix_tp(rmsnorm_train(x, p["ln1"], cfg.norm_eps), p, cfg,
+                         n, grp)
+    h = rmsnorm_train(x, p["ln2"], cfg.norm_eps)
+    if channel_split(cfg, grp.size):
+        return x + _channel_mix_tp(h, p, n, grp)
+    hf = gather_seq(h, n, grp)
+    return x + seq_slice(channel_mix(hf, p, torch.zeros_like(hf[:, :1]))[0],
+                         grp)

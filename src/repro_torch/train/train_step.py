@@ -7,30 +7,37 @@ the reference's specs place it: the f32 masters and the AdamW moments are
 DTensors placed by ``param_specs`` (FSDP storage over every mesh axis),
 ``step`` is replicated, and each step
 
-  * casts the masters to ``compute_dtype`` on each shard and gathers the
-    cast copy whole, one collective a leaf (``full_tensor``), however many
-    microbatches follow (the reference's G3b; its partial gather,
-    ``constrain_params_gathered``, waits for tensor-parallel compute);
-  * runs ``forward_train`` on plain tensors over the rows of the global
-    batch that ``Rules(mesh, "train").spec("batch")`` gives this rank
-    (ranks of one 'model' group compute the same rows: the compute is
-    not tensor-parallel);
+  * casts the masters to ``compute_dtype`` on each shard and builds the
+    compute copy once, however many microbatches follow (the reference's
+    G3b): ``constrain_params_gathered`` gathers each leaf over the data
+    axes and lays it out over 'model' as ``compute_model_dims`` says
+    (column-, row-, vocab- or expert-parallel, else whole), one or two
+    collectives a leaf;
+  * runs ``forward_train`` tensor-parallel over 'model' under the rules
+    (``models/model.py``) on the rows of the global batch that
+    ``Rules(mesh, "train").spec("batch")`` gives this rank: the ranks of
+    one 'model' group share those rows and split the work on them;
   * weights each rank's loss by its share of the global batch's unmasked
     targets, so the summed gradient is that of the global token mean, as
     the reference's one loss over the whole batch (moe's load-balance
-    statistics are global means through ``batch_mean``);
-  * sums the gradients over the axes that split the batch, never over
-    'model', leaf by leaf: a reduce-scatter where the leaf is sharded on
-    such an axis, an all-reduce where it is replicated, after cutting
-    this rank's chunk on the other axes; then AdamW on the local shards
-    after one global norm across them.
+    statistics are global means through ``reduce_model`` and
+    ``batch_mean``);
+  * sums the gradients leaf by leaf (``grad_to_storage``) over the axes
+    that split the batch and, for a leaf used whole (computed on each
+    rank's sequence slice), over 'model'; a leaf split over 'model' is
+    whole for its split and goes back to the storage's split (an
+    all-to-all for a row-parallel weight or the experts); a reduce-scatter
+    where the storage shards a summed axis, an all-reduce where it
+    replicates it; then AdamW on the local shards after one global norm
+    across them.
 
 Per rank the card holds the f32 masters and moments of its shards (12
-bytes a parameter over the ranks that shard it), plus, during a step,
-the whole compute copy and the whole gradient in ``compute_dtype`` (2 + 2
-bytes a parameter in bf16), one leaf's f32 gradient, and the activations
-(``accum_steps`` > 1 adds a whole f32 gradient sum). Only tensor-parallel
-compute would cut the whole copy and gradient.
+bytes a parameter over the ranks that shard it), plus, during a step, the
+compute copy and its gradient in ``compute_dtype``: 1/tp of each split
+leaf and the whole of each leaf used whole (2 + 2 bytes a parameter in
+bf16), one leaf's f32 gradient, and the activations of this rank's rows
+and sequence slice (``accum_steps`` > 1 adds an f32 gradient sum of the
+compute copy's size).
 """
 from __future__ import annotations
 
@@ -214,11 +221,13 @@ def _local_rows(batch, rules):
     return {k: v[rows] for k, v in batch.items()}
 
 
-def _grad_reduce_dims(rules):
-    """The mesh axes whose ranks hold different rows: gradients are summed
-    over these and no others."""
-    from ..dist.sharding import batch_axes
-    return batch_axes(rules)
+def _grad_reduce_dims(rules, split: bool):
+    """The mesh axes a leaf's gradient is summed over: those whose ranks
+    hold different rows, and for a leaf used whole (``split`` False) those
+    whose ranks hold different sequence slices of them ('model' when the
+    compute is tensor-parallel)."""
+    from ..dist.sharding import batch_axes, seq_axes
+    return batch_axes(rules) + (() if split else seq_axes(rules))
 
 
 def _unmasked(targets) -> int:
@@ -228,42 +237,6 @@ def _unmasked(targets) -> int:
 
 def _dim_size(mesh, name: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(name))
-
-
-def _to_shard(g, p, axes):
-    """This rank's shard, placed as the DTensor ``p``, of the whole
-    per-rank gradient ``g`` summed over the mesh axes ``axes`` (f32).
-    Mesh dims not in ``axes`` first cut this rank's chunk, where no
-    summed dim splits the same tensor dim, so less is sent; the rest go
-    in mesh order (a tensor dim split by several mesh dims is split major
-    first): a summed dim reduce-scatters where ``p`` is sharded on it and
-    all-reduces where it is replicated, any other keeps its chunk. The
-    specs are divisibility-guarded, so every split is even."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import Shard
-    mesh = p.device_mesh
-    coord = mesh.get_coordinate()
-    dims = [(i, name, pl) for i, (name, pl) in enumerate(
-        zip(mesh.mesh_dim_names, p.placements)) if mesh.size(i) > 1]
-    summed = {pl.dim for _, name, pl in dims
-              if name in axes and isinstance(pl, Shard)}
-    first = [x for x in dims if x[1] not in axes
-             and isinstance(x[2], Shard) and x[2].dim not in summed]
-    g = g.float().contiguous()
-    for i, name, pl in first + [x for x in dims if x not in first]:
-        n = mesh.size(i)
-        if not isinstance(pl, Shard):
-            if name in axes:
-                dist.all_reduce(g, group=mesh.get_group(i))
-        elif name not in axes:      # a copy: the whole g is not kept
-            g = g.chunk(n, dim=pl.dim)[coord[i]].clone(
-                memory_format=torch.contiguous_format)
-        else:
-            src = g.movedim(pl.dim, 0).contiguous()
-            out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
-            dist.reduce_scatter_tensor(out, src, group=mesh.get_group(i))
-            g = out.movedim(0, pl.dim).contiguous()
-    return g
 
 
 def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
@@ -277,14 +250,13 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
                 dist.all_reduce(t, group=mesh.get_group(a))
         return t
 
-    def gathered(params):
-        """The compute copy: each leaf cast on its shard, then gathered
-        whole (one collective a leaf)."""
-        return tree_util.tree_map(
-            lambda w: sharding.full(
-                w.to(compute_dtype)
-                if w.dtype == torch.float32 and w.dim() > 1 else w).detach(),
-            params)
+    def gathered(params, rules):
+        """The compute copy: each leaf cast on its shard, then laid out as
+        ``compute_model_dims`` says (a plain tensor each)."""
+        with sharding.use_rules(rules):
+            return tree_util.tree_map(
+                lambda w: w.detach(), sharding.constrain_params_gathered(
+                    params, cfg, compute_dtype))
 
     def micro(flat, pc, batch, rules):
         """(global metrics, this rank's gradient of its weighted loss, in
@@ -303,7 +275,7 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
             grads = torch.autograd.grad(obj, flat, allow_unused=True,
                                         materialize_grads=True)
         sums = reduce(torch.stack([ce.detach() * w, m["acc"] * w]),
-                      _grad_reduce_dims(rules))
+                      sharding.batch_axes(rules))
         metrics = {"loss": sums[0], "acc": sums[1],
                    "tokens": torch.tensor(float(n_all), device=ce.device)}
         if "aux_loss" in m:
@@ -311,12 +283,12 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
         return metrics, list(grads)
 
     def grads(params, batch):
-        pc = gathered(params)
-        flat = [t.requires_grad_(True) for t in tree_util.leaves(pc)]
-        pc = tree_util.unflatten_like(params, flat)
         B = len(batch["tokens"])
         n = B // max(accum_steps, 1)
         rules = sharding.Rules(mesh, "train", global_batch=n)
+        pc = gathered(params, rules)
+        flat = [t.requires_grad_(True) for t in tree_util.leaves(pc)]
+        pc = tree_util.unflatten_like(params, flat)
         if accum_steps <= 1:
             metrics, gsum = micro(flat, pc, batch, rules)
         else:
@@ -332,11 +304,15 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
             metrics = {k: v / accum_steps for k, v in msum.items()}
             metrics["tokens"] = msum["tokens"]
         del flat, pc                    # the compute copy goes first
-        axes = _grad_reduce_dims(rules)
+        with sharding.use_rules(rules):
+            dims = sharding.compute_layout(params, cfg)
         out = []
-        for i, p in enumerate(tree_util.leaves(params)):
-            # each whole gradient is dropped once its shard is taken
-            mine, gsum[i] = _to_shard(gsum[i], p, axes), None
+        for i, (path, p) in enumerate(tree_util.flatten_with_paths(params)):
+            d = tree_util.at(dims, path)
+            # each compute-layout gradient is dropped once its shard is
+            # taken
+            mine, gsum[i] = sharding.grad_to_storage(
+                gsum[i], p, d, _grad_reduce_dims(rules, d is not None)), None
             if accum_steps > 1:
                 mine = mine / accum_steps
             out.append(sharding.from_local(mine, mesh, p.placements,

@@ -8,6 +8,7 @@ chips, tp 1 and 16). ``roofline.py`` keeps the reference's terms with an
 H100 row; ``summarize_memory`` reads a ``MemTracker`` snapshot;
 ``comm_count.summarize`` weights an all-reduce twice as ``hlo_parse``
 does. Nothing here traces a step (``test_torch_dryrun.py`` does)."""
+import json
 import os
 import subprocess
 import sys
@@ -120,6 +121,48 @@ def test_collective_summary_weights_all_reduce_twice():
     assert s["per_op"]["all-gather"] == 105
     assert s["raw_bytes"] == 155 and s["weighted_bytes"] == 165
     assert s["ops"] == ops
+
+
+_KINDS = """
+import json, torch, torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor.debug import CommDebugMode
+from repro_torch.analysis.comm_count import CollectiveLog, comm_debug_counts
+from repro_torch.launch.mesh import placeholder_mesh
+mesh = placeholder_mesh((4, 4), ("data", "model"))
+g = mesh.get_group("model")
+with FakeTensorMode(allow_non_fake_inputs=True):
+    x = torch.empty(4, 8)
+    with CommDebugMode() as debug, CollectiveLog() as log:
+        dist.all_gather_into_tensor(torch.empty(16, 8), x, group=g)
+        dist.reduce_scatter_tensor(torch.empty(1, 8), x, group=g)
+        dist.all_reduce(x, group=g)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=g)
+        dist.all_to_all_single(torch.empty(4, 8), x, group=g)
+print(json.dumps([comm_debug_counts(debug), log.summary()["counts"],
+                  log.summary()["per_op"], [o["group"] for o in log.ops]]))
+"""
+
+
+def test_collective_log_sees_every_kind_the_tp_step_issues():
+    """The ``c10d`` ops the tensor-parallel step calls (all-gather,
+    reduce-scatter, all-reduce of a sum and of a max, all-to-all) on fake
+    tensors over a placeholder mesh's 'model' group (in a fresh
+    interpreter: the placeholder replaces the process group): counted as
+    ``CommDebugMode`` counts them, with their bytes (an all-gather's
+    output, a reduce-scatter's and an all-to-all's input) and group."""
+    out = subprocess.run([sys.executable, "-c", _KINDS], capture_output=True,
+                         text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(SRC)})
+    assert out.returncode == 0, out.stderr[-3000:]
+    debug, counts, per_op, groups = json.loads(out.stdout.splitlines()[-1])
+    assert debug == counts == {"all-gather": 1, "all-reduce": 2,
+                               "reduce-scatter": 1, "all-to-all": 1,
+                               "broadcast": 0}
+    assert per_op == {"all-gather": 512, "all-reduce": 256,
+                      "reduce-scatter": 128, "all-to-all": 128,
+                      "broadcast": 0}
+    assert groups == [4] * 5
 
 
 _NO_JAX = (

@@ -7,13 +7,17 @@ a test process that may hold a gloo group.
 
   * A reduced config's train step, traced on a (2, 2) placeholder mesh,
     issues the collectives ``train/train_step.py`` implies, with their
-    bytes: per sharded leaf of the cast copy one all-gather per mesh dim
-    that shards it (each one's output the leaf gathered so far, the last
-    the whole leaf); per gradient leaf one reduce-scatter (sharded on
-    'data') or all-reduce (replicated on it) of its f32 gradient, after
-    cutting its 'model' chunk where that splits another dim; one
-    all-reduce of the step's metrics; the global norm's all-reduces;
-    moe's load-balance statistics' batch means.
+    bytes: first, per leaf of the cast copy, an all-gather over 'data'
+    where the specs shard it there and its move over 'model' to the
+    layout ``compute_model_dims`` gives (an all-gather where it is used
+    whole, an all-to-all where it is split on another dim); last, one
+    all-reduce of the step's metrics, per gradient leaf its move back
+    over 'model' and its sum (a reduce-scatter where the storage shards
+    the summed axis, an all-reduce where it replicates it: over 'data',
+    and over 'model' for a leaf used whole), and the global norm's
+    all-reduces; between them the tensor-parallel forward's and
+    backward's collectives (the sequence gathers and scatters, the loss's
+    reductions, moe's batch means), each over a group of 2.
   * The committed llama3.2-1b x train_4k record, regenerated through the
     CLI, equals the committed one in every count, its counted flops
     within 2 %.
@@ -69,48 +73,71 @@ def small():
 
 
 def _expected(cfg):
-    """The (op, bytes) multiset one step on a (2, 2) ('data', 'model')
-    mesh must issue, from the specs alone."""
-    import math
+    """The (op, bytes) multisets one step on a (2, 2) ('data', 'model')
+    mesh must issue before its forward (the compute copy) and after its
+    backward (the metrics, the gradients, the global norm), from the specs
+    and the compute copy's layout alone."""
     from torch.distributed.tensor import Shard
     from repro_torch import tree as tree_util
     from repro_torch.dist.sharding import MeshShape, param_specs, \
         placements_for
-    from repro_torch.models import init_params
+    from repro_torch.models import compute_model_dims, init_params
     mesh = MeshShape((2, 2), ("data", "model"))
     meta = init_params(cfg, None, device="meta")
     specs = param_specs(meta, mesh)
-    ops, norm_groups = Counter(), Counter()
+    dims = compute_model_dims(cfg, meta, 2)
+    first, last, norm_groups = Counter(), Counter(), Counter()
+    last["all-reduce", 2 * 4] += 1                  # loss and accuracy
     for path, leaf in tree_util.flatten_with_paths(meta):
         pl = placements_for(tree_util.at(specs, path), mesh)
+        d = tree_util.at(dims, path)
         n = leaf.numel()
         size = 2 if leaf.dim() > 1 else 4           # the cast copy
-        shard = [i for i, p in enumerate(pl) if isinstance(p, Shard)]
-        left = [2] * len(shard)
-        for _ in reversed(shard):                   # last mesh dim first
-            left.pop()
-            ops["all-gather", n * size // math.prod(left)] += 1
         data, model = pl
-        cut = isinstance(model, Shard) and not (
-            isinstance(data, Shard) and data.dim == model.dim)
-        kind = "reduce-scatter" if isinstance(data, Shard) else "all-reduce"
-        ops[kind, n * 4 // (2 if cut else 1)] += 1
-        norm_groups[tuple(shard)] += 1
-    ops["all-reduce", 2 * 4] += 1                   # loss and accuracy
-    if cfg.moe is not None:     # two batch means a layer, again in remat
-        ops["all-reduce", cfg.moe.n_experts * 4] += 2 * 2 * cfg.n_layers
-    for dims, k in norm_groups.items():             # the global norm
-        for _ in dims:
-            ops["all-reduce", 4 * k] += 1
-    return ops
+        s = model.dim if isinstance(model, Shard) else None
+        if isinstance(data, Shard):
+            first["all-gather", n * size // (1 if s is None else 2)] += 1
+        if d is None and s is not None:
+            first["all-gather", n * size] += 1
+        elif None not in (d, s) and d != s:
+            first["all-to-all", n * size // 2] += 1
+        g = n * 4                # the gradient, summed in f32
+        if d is None:
+            summed = (data, model)
+        else:                    # moved back in the copy's dtype
+            if s is None:
+                last["all-gather", n * size] += 1
+            else:
+                g //= 2
+                if d != s:
+                    last["all-to-all", n * size // 2] += 1
+            summed = (data,)
+        for p in summed:
+            kind = "reduce-scatter" if isinstance(p, Shard) else "all-reduce"
+            last[kind, g] += 1
+            g //= 2 if isinstance(p, Shard) else 1
+        norm_groups[tuple(i for i, p in enumerate(pl)
+                          if isinstance(p, Shard))] += 1
+    for groups, k in norm_groups.items():           # the global norm
+        for _ in groups:
+            last["all-reduce", 4 * k] += 1
+    return first, last
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_collectives_are_the_ones_the_specs_imply(small, arch):
     cfg = get_config(arch).reduced(n_layers=2, vocab_size=128)
     rec = small[arch]
-    got = Counter((o["op"], o["bytes"]) for o in rec["collectives"]["ops"])
-    assert got == _expected(cfg)
+    ops = [(o["op"], o["bytes"]) for o in rec["collectives"]["ops"]]
+    first, last = _expected(cfg)
+    k, m = sum(first.values()), sum(last.values())
+    assert Counter(ops[:k]) == first
+    assert Counter(ops[-m:]) == last
+    middle = ops[k:-m]
+    seq = BATCH // 2 * SEQ * cfg.d_model * 2        # a rank's (B, S, D)
+    assert {op for op, _ in middle} <= {"all-gather", "reduce-scatter",
+                                        "all-reduce"}
+    assert Counter(middle)["all-gather", seq] >= 2 * cfg.n_layers
     assert all(o["group"] == 2 for o in rec["collectives"]["ops"])
     c = rec["collectives"]
     assert c["weighted_bytes"] == c["raw_bytes"] + c["per_op"]["all-reduce"]
@@ -118,16 +145,17 @@ def test_collectives_are_the_ones_the_specs_imply(small, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_small_record_counts_the_step(small, arch):
-    """Rows split over 'data'; counted flops above the model's 6·N·T of
-    the rank's rows (remat adds a forward); the peak holds the rank's
-    state, which MemTracker was given."""
+    """Rows split over 'data'; counted flops above half the model's
+    6·N·T of the rank's rows (the two 'model' ranks split the work, remat
+    adds a forward); the peak holds the rank's state, which MemTracker
+    was given."""
     cfg = get_config(arch).reduced(n_layers=2, vocab_size=128)
     rec = small[arch]
     assert rec["rows_per_rank"] == BATCH // 2
     assert rec["sharded_compute"] is True and rec["kernels"] == "plain"
     assert rec["n_chips"] == 4 and rec["mesh"] == "2x2"
     model = 6 * cfg.n_active_params() * BATCH // 2 * SEQ
-    assert rec["counted_flops_per_rank"] > model
+    assert rec["counted_flops_per_rank"] > model / 2
     state = 3 * 4 * cfg.n_params() / 4            # f32 masters and moments
     assert rec["peak_bytes_by_kind"]["other"] >= state
     assert rec["peak_est_bytes"] > state

@@ -12,14 +12,24 @@ ranks run meshes (2, 1) and (1, 2), four run (2, 2), each for a dense
 (llama3.2-1b), rwkv (rwkv6-1.6b), hybrid (zamba2-1.2b) and moe
 (moonshot-v1-16b-a3b, with its aux loss) config at 2 layers, vocab 128,
 batch 4 x 32, with rows 0-1 partly masked (-100), so ranks of a split
-batch hold different token counts.
+batch hold different token counts; the audio (whisper-small) and vlm
+(internvl2-76b) families on (1, 2) and (2, 2). The step computes
+tensor-parallel over 'model' (``test_torch_tp.py`` runs (1, 4)): on (1, 2)
+each rank's compute copy holds half of every split leaf, and its counted
+flops are about half the one-process step's.
 
 Tolerances and why:
   * losses of three f32-compute steps: 1e-5 relative. The mesh sums the
     same terms in another order (the token mean and the gradient over the
-    data axes, the global norm over shards); the runs measure ~1e-7.
+    data axes, the global norm over shards, the vocab-parallel logsumexp
+    and the row-parallel partial sums over 'model'); the runs measure
+    ~1e-7.
   * the first step's reduced gradient: 1e-5 of each leaf's largest |g|
-    (~4e-7 measured). f32 compute, not bf16: a reduction in another order
+    (~4e-7 to 1.2e-6 measured; ~7e-6 for Mamba-2's ``A_log`` and
+    ``dt_bias`` on a split 'model', sums with much cancellation).
+  * a rank's counted flops on (1, 2): at most 0.6 of the one-process
+    step's (the router, Mamba-2's B and C and the loss's reductions are
+    computed on both ranks). f32 compute, not bf16: a reduction in another order
     moves bf16's last bits, and AdamW's first steps turn a flipped sign of
     a near-zero gradient into a 2 lr move; the bf16 path is held on the
     card (chip_smoke phase 5e).
@@ -36,7 +46,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from torch_mesh_ranks import ARCHS, cfg_of, init_state, template
+from torch_mesh_ranks import ARCHS, FAMILIES, cfg_of, init_state, template
 from torch_ranks import SRC, free_port, run_ranks
 
 LOSS_TOL = GRAD_TOL = 1e-5
@@ -64,6 +74,10 @@ def _runs(two, four, arch, shape):
     return [r[arch, shape] for r in (four if shape == (2, 2) else two)]
 
 
+CASES = [(a, s) for a in ARCHS for s in MESHES] + \
+    [(a, s) for a in FAMILIES for s in ((1, 2), (2, 2))]
+
+
 @pytest.mark.parametrize("shape", MESHES, ids=str)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_losses_and_gradients_match_one_device(two, four, arch, shape):
@@ -72,8 +86,17 @@ def test_losses_and_gradients_match_one_device(two, four, arch, shape):
         assert max(run["grad_err"]) <= GRAD_TOL, (rank, run["grad_err"])
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=str)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2)], ids=str)
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_families_match_one_device(two, four, arch, shape):
+    """The audio family (its encoder and cross-attention) and the vlm
+    family (patch embeddings ahead of the tokens) on split 'model's."""
+    for rank, run in enumerate(_runs(two, four, arch, shape)):
+        assert max(run["loss_err"]) <= LOSS_TOL, (rank, run["loss_err"])
+        assert max(run["grad_err"]) <= GRAD_TOL, (rank, run["grad_err"])
+
+
+@pytest.mark.parametrize("arch,shape", CASES, ids=str)
 def test_masters_and_moments_stored_by_the_specs(two, four, arch, shape):
     """Each rank's local master and moment shapes and placements are the
     spec's, before and after the steps."""
@@ -82,25 +105,54 @@ def test_masters_and_moments_stored_by_the_specs(two, four, arch, shape):
 
 
 def test_ranks_agree_on_the_losses(two, four):
-    for arch in ARCHS:
-        for shape in MESHES:
-            runs = _runs(two, four, arch, shape)
-            assert all(r["losses"] == runs[0]["losses"] for r in runs)
+    for arch, shape in CASES:
+        runs = _runs(two, four, arch, shape)
+        assert all(r["losses"] == runs[0]["losses"] for r in runs)
+
+
+@pytest.mark.parametrize("arch,shape", [c for c in CASES if c[1] != (2, 1)],
+                         ids=str)
+def test_compute_copy_holds_its_share_of_split_leaves(two, four, arch,
+                                                      shape):
+    """During the step each rank's compute copy holds 1/tp of every leaf
+    split over 'model' (tp = 2 here) and the whole of each leaf used
+    whole, and split leaves hold most of the parameters."""
+    tp = shape[1]
+    for rank, run in enumerate(_runs(two, four, arch, shape)):
+        split = [(n, m) for d, n, m in run["layout"] if d is not None]
+        whole = [(n, m) for d, n, m in run["layout"] if d is None]
+        assert split and all(m * tp == n for n, m in split), (rank, split)
+        assert all(m == n for n, m in whole), (rank, whole)
+        assert sum(n for n, _ in split) > sum(n for n, _ in whole)
+
+
+@pytest.mark.parametrize("arch", ARCHS + FAMILIES)
+def test_flops_on_one_by_two_about_halve(two, arch):
+    """A rank's counted flops (``FlopCounterMode``: the matmuls, forward,
+    recomputation and backward) of the first step on (1, 2) are at most
+    0.6 of the one-process step's: 'model' splits the work, not repeats
+    it."""
+    for rank, r in enumerate(two):
+        ratio = r[arch, (1, 2)]["flops"] / r["flops", arch]
+        assert ratio <= 0.6, (rank, ratio)
 
 
 def test_accumulation_gathers_once_a_step(two):
     """``accum_steps=2`` on (2, 1) (moe: its aux statistics over each
     global microbatch) gives the one-device accumulated losses, and the
-    cast copy is gathered once a step: one ``full`` a leaf, not one a
-    microbatch."""
+    cast copy is gathered once a step: one ``gather_for_compute`` a leaf,
+    not one a microbatch."""
     for r in (x["accum"] for x in two):
         assert max(r["loss_err"]) <= LOSS_TOL, r["loss_err"]
         assert r["gathers"] == [r["leaves"]] * 3, r
 
 
 def test_gradients_summed_over_model_fail_the_check(two):
-    """The broken control: summing over 'model' as well doubles every
-    gradient of a (1, 2) mesh, which the gradient check must catch."""
+    """The broken control: under sequence parallelism the leaves used
+    whole (the norms' scales) must be summed over 'model', where each rank
+    computed them on its own sequence slice; with that sum dropped on a
+    (1, 2) mesh a rank holds its slice's share only, which the gradient
+    check must catch."""
     for run in (r["broken"] for r in two):
         assert max(run["grad_err"]) > 0.5
 

@@ -1,9 +1,13 @@
-"""What each gloo rank runs for ``test_torch_mesh_train.py`` (through
-``torch_ranks.run_ranks``): the port's training on a ``DeviceMesh`` against
-its own one-process run, at reduced configs (2 layers, vocab 128, batch 4
-x 32 tokens, f32 compute), with one rank's rows partly masked (-100
-targets) so ranks hold different token counts. Each function returns
-plain numbers and flags; the test file asserts on them."""
+"""What each gloo rank runs for ``test_torch_mesh_train.py`` and
+``test_torch_tp.py`` (through ``torch_ranks.run_ranks``): the port's
+training on a ``DeviceMesh``, tensor-parallel over 'model', against its own
+one-process run, at reduced configs (2 layers, vocab 128, batch 4 x 32
+tokens, f32 compute; whisper with 64 encoder frames, internvl2 with 16
+patches ahead of the tokens), with one rank's rows partly masked (-100
+targets) so ranks hold different token counts. Each function returns plain
+numbers and flags; the test files assert on them."""
+import contextlib
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -22,6 +26,7 @@ from repro_torch.train import (OptConfig, draw_sharded_state,
 from repro_torch.train import train_step as train_step_mod
 
 ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "zamba2-1.2b", "moonshot-v1-16b-a3b")
+FAMILIES = ("whisper-small", "internvl2-76b")
 STEPS, BATCH, SEQ = 3, 4, 32
 OPT = OptConfig(lr=1e-3, warmup_steps=1)
 
@@ -30,12 +35,26 @@ def cfg_of(arch):
     return get_config(arch).reduced(n_layers=2, vocab_size=128)
 
 
-def batches(cfg):
-    out = make_lm_batches(cfg, BATCH, SEQ, STEPS, seed=1)
+def batches(cfg, seq=SEQ):
+    """STEPS global batches; the frames (audio) or the patch embeddings
+    (vlm, whose targets then cover the patches) the config takes."""
+    import numpy as np
+    out = make_lm_batches(cfg, BATCH, seq, STEPS, seed=1)
+    rng = np.random.default_rng(1001)
     for b in out:                  # rows 0-1 of the 4 partly masked
+        if cfg.encoder is not None:
+            b["enc_embeds"] = rng.standard_normal(
+                (BATCH, cfg.encoder.enc_seq, cfg.d_model)).astype(np.float32)
+        if cfg.vlm is not None:
+            P = cfg.vlm.n_patches
+            b["embeds"] = rng.standard_normal(
+                (BATCH, P, cfg.d_model)).astype(np.float32)
+            b["targets"] = np.concatenate([rng.integers(
+                0, cfg.vocab_size, (BATCH, P)).astype(np.int32),
+                b["targets"]], axis=1)
         b["targets"] = b["targets"].copy()
         b["targets"][0, :] = -100
-        b["targets"][1, : SEQ // 2] = -100
+        b["targets"][1, : seq // 2] = -100
     return out
 
 
@@ -44,10 +63,10 @@ def init_state(cfg):
                             device="cpu")
 
 
-def one_device(cfg):
+def one_device(cfg, bs=None):
     """The port's one-process run: (losses, first-step gradient tree)."""
     params, opt_state = init_state(cfg)
-    bs = batches(cfg)
+    bs = bs or batches(cfg)
     flat = [p.detach().requires_grad_(True) for p in tree_util.leaves(params)]
     loss, _ = forward_train(cfg, tree_util.unflatten_like(params, flat),
                             bs[0], torch.float32, remat=True)
@@ -95,17 +114,43 @@ def storage_mismatches(mesh, params, opt_state):
     return bad
 
 
-def mesh_run(cfg, mesh, ref, *, save_to=None):
+def copy_layout(cfg, mesh):
+    """Records each leaf's compute copy as the step builds it:
+    ``records`` gets (the 'model' dim it is split on or None, the leaf's
+    elements, the copy's elements on this rank)."""
+    from repro_torch.dist import sharding
+    real, records = sharding.gather_for_compute, []
+
+    def counted(w, dim, dtype=None):
+        out = real(w, dim, dtype)
+        records.append((dim, w.numel(), out.numel()))
+        return out
+    return counted, real, records
+
+
+def mesh_run(cfg, mesh, ref, *, save_to=None, bs=None, flops=False):
     """Train STEPS steps on ``mesh``: (loss errors relative to the
     one-device run, first-step gradient errors, storage mismatches, the
-    losses). With ``save_to`` the state after step 2 is saved there, and
-    its gathered values as a plain one-device save beside it."""
+    losses, the compute copy's layout of the first step: (split dim,
+    leaf elements, local elements) a leaf; with ``flops`` the first
+    step's counted flops on this rank). With ``save_to`` the state after
+    step 2 is saved there, and its gathered values as a plain one-device
+    save beside it."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.dist import sharding
     ref_losses, ref_grads = ref
     params, opt_state = shard_train_state(*init_state(cfg), mesh)
     bad = storage_mismatches(mesh, params, opt_state)
     step = make_train_step(cfg, OPT, torch.float32, remat=True, mesh=mesh)
-    bs = batches(cfg)
-    _, g = step.grads(params, bs[0])
+    bs = bs or batches(cfg)
+    counted, real, layout = copy_layout(cfg, mesh)
+    sharding.gather_for_compute = counted
+    fc = FlopCounterMode(display=False) if flops else contextlib.nullcontext()
+    try:
+        with fc:
+            _, g = step.grads(params, bs[0])
+    finally:
+        sharding.gather_for_compute = real
     gerr = grad_errors(g, ref_grads)
     losses = []
     for i, b in enumerate(bs):
@@ -121,7 +166,18 @@ def mesh_run(cfg, mesh, ref, *, save_to=None):
     bad += storage_mismatches(mesh, params, opt_state)
     lerr = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     return {"loss_err": lerr, "grad_err": gerr, "storage": bad,
-            "losses": losses}
+            "losses": losses, "layout": layout,
+            "flops": fc.get_total_flops() if flops else None}
+
+
+def one_device_flops(cfg, bs=None):
+    """The counted flops of the one-process step's first step."""
+    from torch.utils.flop_counter import FlopCounterMode
+    params, opt_state = init_state(cfg)
+    step = make_train_step(cfg, OPT, torch.float32, remat=True)
+    with FlopCounterMode(display=False) as fc:
+        step(params, opt_state, (bs or batches(cfg))[0])
+    return fc.get_total_flops()
 
 
 def accum_run(cfg, mesh):
@@ -138,12 +194,12 @@ def accum_run(cfg, mesh):
     params, opt_state = shard_train_state(init_state(cfg)[0], None, mesh)
     step = make_train_step(cfg, OPT, torch.float32, remat=True,
                            accum_steps=2, mesh=mesh)
-    real, calls = sharding.full, []
+    real, calls = sharding.gather_for_compute, []
 
-    def counted(x):
+    def counted(w, dim, dtype=None):
         calls.append(1)
-        return real(x)
-    sharding.full = counted
+        return real(w, dim, dtype)
+    sharding.gather_for_compute = counted
     try:
         got, gathers = [], []
         for b in batches(cfg):
@@ -152,7 +208,7 @@ def accum_run(cfg, mesh):
             got.append(float(m["loss"]))
             gathers.append(len(calls))
     finally:
-        sharding.full = real
+        sharding.gather_for_compute = real
     return {"loss_err": [abs(a - b) / abs(b) for a, b in zip(got, want)],
             "gathers": gathers, "leaves": len(tree_util.leaves(params))}
 
@@ -301,25 +357,31 @@ def corrupted_restore(ckpt, cfg, mesh):
 
 
 def group_two(rank, world, ckpt):
-    """Meshes (2, 1) and (1, 2); the broken control; the checkpoint
-    written on (2, 1) and resumed on (1, 2)."""
+    """Meshes (2, 1) and (1, 2) (the audio and vlm families on (1, 2),
+    with each arch's counted flops there); the broken control; the
+    checkpoint written on (2, 1) and resumed on (1, 2)."""
     from pathlib import Path
     ckpt = Path(ckpt)
     out = {}
-    for arch in ARCHS:
+    for arch in ARCHS + FAMILIES:
         cfg = cfg_of(arch)
         ref = one_device(cfg)
+        out["flops", arch] = one_device_flops(cfg)
         for shape in ((2, 1), (1, 2)):
+            if arch in FAMILIES and shape == (2, 1):
+                continue
             save = ckpt if (arch, shape) == ("llama3.2-1b", (2, 1)) else None
             out[arch, shape] = mesh_run(cfg, mesh_of(shape), ref,
-                                        save_to=save)
+                                        save_to=save, flops=shape == (1, 2))
     out["accum"] = accum_run(cfg_of("moonshot-v1-16b-a3b"), mesh_of((2, 1)))
     out["save_fails"] = failed_saves(cfg_of("llama3.2-1b"), mesh_of((2, 1)),
                                      ckpt / "failing")
-    # broken control: gradients summed over 'model' too
+    # broken control: the gradients of the leaves used whole (norms) not
+    # summed over 'model', though each rank computed them on its own
+    # sequence slice
     cfg = cfg_of("llama3.2-1b")
     real = train_step_mod._grad_reduce_dims
-    train_step_mod._grad_reduce_dims = lambda rules: ("data", "model")
+    train_step_mod._grad_reduce_dims = lambda rules, split: ("data",)
     try:
         out["broken"] = mesh_run(cfg, mesh_of((1, 2)), one_device(cfg))
     finally:
@@ -345,11 +407,117 @@ def group_four(rank, world, ckpt):
     from pathlib import Path
     out = {}
     mesh = mesh_of((2, 2))
-    for arch in ARCHS:
+    for arch in ARCHS + FAMILIES:
         cfg = cfg_of(arch)
         out[arch, (2, 2)] = mesh_run(cfg, mesh, one_device(cfg))
     step, bad, _ = restored_equal(Path(ckpt), cfg_of("llama3.2-1b"), mesh)
     out["restore"] = {"step": step, "bad": bad}
     out["draws"] = {(2, 2): sharded_draws(mesh)}
     out["checked"] = checked_restore(Path(ckpt), cfg_of("llama3.2-1b"), mesh)
+    return out
+
+
+# attention layouts over a 'model' of 4 (llama3.2-1b cut, 2 layers): the
+# reference's attn_shard_choice is None for (H 4, KV 2), "q" for (6, 6) at
+# 32 tokens, and None (nothing fits: replicate) for (6, 6) at 30 tokens,
+# which 4 ranks split unevenly (8, 8, 8, 6), with a vocabulary of 130 that
+# 4 does not divide (the embedding and the head used whole); "kv" (8, 4)
+# and "g" (8, 2) are never returned, and are forced by replacing the
+# function
+BRANCHES = {"none": (dict(n_heads=4, n_kv_heads=2), 32, None),
+            "q": (dict(n_heads=6, n_kv_heads=6, d_head=16), 32, None),
+            "nothing_fits": (dict(n_heads=6, n_kv_heads=6, d_head=16,
+                                  vocab_size=130), 30, None),
+            "kv": (dict(n_heads=8, n_kv_heads=4, d_head=16), 32, "kv"),
+            "g": (dict(n_heads=8, n_kv_heads=2, d_head=16), 32, "g")}
+
+
+# blocks that a 'model' of 4 cannot split, so every rank runs them whole on
+# the gathered sequence and keeps its slice: Mamba-2 with 6 SSD heads and an
+# MLP whose gate and up are not interleaved (tp_fuse 1), experts 6, rwkv
+# with 3 heads and a d_ff of 250
+WHOLE = {"zamba2-1.2b": dict(d_model=96, tp_fuse=1),
+         "moonshot-v1-16b-a3b": dict(tp_fuse=1, moe=dict(n_experts=6)),
+         "rwkv6-1.6b": dict(d_model=96, n_heads=3, d_ff=250)}
+
+
+def whole_cfg(arch):
+    import dataclasses
+    kw = dict(WHOLE[arch])
+    cfg = get_config(arch)
+    if "moe" in kw:
+        kw["moe"] = dataclasses.replace(cfg.reduced().moe, **kw["moe"])
+    return cfg.reduced(**{"n_layers": 2, "vocab_size": 128, **kw})
+
+
+def branch_cfg(name):
+    kw, seq, _ = BRANCHES[name]
+    return get_config("llama3.2-1b").reduced(
+        **{"n_layers": 2, "vocab_size": 128, **kw}), seq
+
+
+def group_tp(rank, world, ref_params):
+    """Mesh (1, 4): every arch and family, each attention layout
+    (``BRANCHES``, with the choice the port's ``attn_shard_choice`` made),
+    the blocks 4 ranks cannot split (``WHOLE``), and the reference's params (``ref_params``, a pickle of llama3.2-1b's
+    and moonshot's) trained as ``torch_tp_ref.py`` trains them there."""
+    import pickle
+    from repro_torch.convert import from_jax
+    from repro_torch.dist import sharding
+    from repro_torch.models.layers import attn_choice
+    mesh = mesh_of((1, 4))
+    out = {}
+    for arch in ARCHS + FAMILIES:
+        cfg = cfg_of(arch)
+        out[arch] = mesh_run(cfg, mesh, one_device(cfg))
+    real = sharding.attn_shard_choice
+    for name, (_, seq, forced) in BRANCHES.items():
+        cfg, seq = branch_cfg(name)
+        bs = batches(cfg, seq)
+        if forced is not None:
+            sharding.attn_shard_choice = lambda *a, c=forced: c
+        try:
+            out[name] = mesh_run(cfg, mesh, one_device(cfg, bs), bs=bs)
+            out[name]["choice"] = attn_choice(cfg, 4, seq)
+        finally:
+            sharding.attn_shard_choice = real
+    for arch in WHOLE:
+        cfg = whole_cfg(arch)
+        out["whole", arch] = mesh_run(cfg, mesh, one_device(cfg))
+    with open(ref_params, "rb") as f:
+        ref = pickle.load(f)
+    for arch, params in ref["params"].items():
+        cfg = cfg_of(arch)
+        p, opt_state = shard_train_state(from_jax(params, "cpu"), None, mesh)
+        step = make_train_step(cfg, OPT, torch.float32, remat=True,
+                               mesh=mesh)
+        losses = []
+        for b in ref["batches"][arch]:
+            p, opt_state, m = step(p, opt_state, b)
+            losses.append(float(m["loss"]))
+        out["ref", arch] = losses
+    return out
+
+
+def group_one(rank, world):
+    """One rank, a (1, 1) mesh: three bf16 steps of every arch and family
+    through the tensor-parallel path over a 'model' of one, and through
+    the one-process step (no mesh): the losses of each."""
+    mesh = mesh_of((1, 1))
+    out = {}
+    for arch in ARCHS + FAMILIES:
+        cfg = cfg_of(arch)
+        runs = []
+        for m in (None, mesh):
+            params, opt_state = init_state(cfg)
+            if m is not None:
+                params, opt_state = shard_train_state(params, opt_state, m)
+            step = make_train_step(cfg, OPT, torch.bfloat16, remat=True,
+                                   mesh=m)
+            losses = []
+            for b in batches(cfg):
+                params, opt_state, met = step(params, opt_state, b)
+                losses.append(float(met["loss"]))
+            runs.append(losses)
+        out[arch] = runs
     return out
