@@ -2257,13 +2257,17 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
                                   mesh=mesh)
         losses, times = [], []
         # the tensor-parallel path's collectives, counted over the steps
+        # where they are given a group (without one they are the identity)
         tp_calls = {"gather_seq": 0, "scatter_seq": 0,
                     "gather_for_compute": 0}
+        grp_at = {"gather_seq": 2, "scatter_seq": 1}
         real_tp = {k: getattr(sharding, k) for k in tp_calls}
 
         def counting(name):
             def call(*a, **k):
-                tp_calls[name] += 1
+                if name not in grp_at or (a[grp_at[name]] if len(a) >
+                                          grp_at[name] else k["grp"]):
+                    tp_calls[name] += 1
                 return real_tp[name](*a, **k)
             return call
         torch.cuda.synchronize()
@@ -2476,8 +2480,13 @@ def tp_dryrun_phase(card: str):
                 f"{r['collectives']['per_op']} bytes, traced in "
                 f"{r['trace_s']} s")
     log(f"tp dryrun {TRAIN_ARCH} x train_4k, 16 x 16 placeholder mesh, "
-        f"rank 0, 'model' {rec['tp_compute']}: {line(rec)}; broken control "
-        f"(act_model, vocab and res_seq to None): {line(broken)}; on {card}")
+        f"rank 0, compute split over a 'model' of {rec['tp_compute']}: "
+        f"{line(rec)}; broken control (act_model, vocab and res_seq to "
+        f"None, compute split over {broken['tp_compute']}): {line(broken)}; "
+        f"on {card}")
+    check(rec["tp_compute"] == 16 and broken["tp_compute"] == 1,
+          f"tp dryrun: the steps split their compute over "
+          f"{rec['tp_compute']} and {broken['tp_compute']} ranks")
     check(verdict(rec), f"tp dryrun: {rec['counted_to_analytic']} of the "
           f"analytic flops, peak {rec['peak_est_bytes'] / 1e9} GB")
     check(not verdict(broken), f"tp dryrun: the broken control passed: "

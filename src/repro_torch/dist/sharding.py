@@ -502,18 +502,22 @@ def tp_group() -> Optional[TPGroup]:
     """The 'model' group of the active rules' mesh, when the rules map
     ``act_model``, ``vocab`` and ``res_seq`` onto 'model' (the compute is
     tensor-parallel); None outside rules, on a shape-only mesh and when
-    they map elsewhere. A mesh whose 'model2' axis is larger than 1
-    (``tp2d``) is not supported: its compute would split over both axes,
-    its storage over 'model' alone."""
+    they map elsewhere. Rules that map them over 'model' and a 'model2'
+    larger than 1 (``tp2d``) raise: the compute would split over both
+    axes, the storage over 'model' alone."""
     r = current_rules()
-    if r is None or not hasattr(r.mesh, "get_group") or any(
-            r.map.get(k) != "model" for k in ("act_model", "vocab",
-                                              "res_seq")):
+    if r is None or not hasattr(r.mesh, "get_group"):
         return None
     names = axis_names(r.mesh)
-    if "model2" in names and r.mesh.size(names.index("model2")) > 1:
+    sizes = _mesh_sizes(r.mesh)
+    maps = [tuple(a for a in _axes(r.map.get(k))
+                  if a == "model" or sizes.get(a, 1) > 1)
+            for k in ("act_model", "vocab", "res_seq")]
+    if any("model2" in m for m in maps):
         raise NotImplementedError("tensor-parallel compute over 'model' "
                                   "and 'model2' (tp2d)")
+    if any(m != ("model",) for m in maps):
+        return None
     return _axis_group(r.mesh, names.index("model"))
 
 
@@ -535,38 +539,45 @@ def compute_layout(params, cfg):
     return compute_model_dims(cfg, params, tp.size)
 
 
+def _pad_to(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` zero-padded along ``dim`` to ``n`` (itself when as long)."""
+    if x.shape[dim] == n:
+        return x
+    pad = list(x.shape)
+    pad[dim] = n - x.shape[dim]
+    return torch.cat([x, x.new_zeros(pad)], dim)
+
+
 def _all_gather(x: torch.Tensor, dim: int, grp: TPGroup,
                 n: int) -> torch.Tensor:
     """Every rank's slice of a dim of ``n`` split as :meth:`TPGroup.bounds`
-    gives, along ``dim``: the whole dim, in rank order."""
+    gives, along ``dim``: the whole dim, in rank order. The slices arrive
+    stacked on a new leading dim and merge into ``dim``: a copy unless
+    ``dim`` leads or the group is one rank."""
     import torch.distributed as dist
     c = -(-n // grp.size)
-    xs = x.movedim(dim, 0)
-    if xs.shape[0] != c:                     # a short (last) slice
-        xs = torch.cat([xs, xs.new_zeros((c - xs.shape[0],)
-                                         + xs.shape[1:])])
-    xs = xs.contiguous()
-    out = xs.new_empty((c * grp.size,) + xs.shape[1:])
+    xs = _pad_to(x, dim, c).contiguous()     # a short (last) slice padded
+    out = xs.new_empty((grp.size * xs.shape[0],) + xs.shape[1:])
     dist.all_gather_into_tensor(out, xs, group=grp.group)
-    return out[:n].movedim(0, dim).contiguous()
+    out = out.unflatten(0, (grp.size, xs.shape[0])).movedim(0, dim)
+    out = out.flatten(dim, dim + 1)
+    return out if n == out.shape[dim] else out.narrow(dim, 0, n)
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int,
                     grp: TPGroup) -> torch.Tensor:
     """The sum over the group of ``x``, this rank's slice of ``dim`` of
-    it (:meth:`TPGroup.bounds`)."""
+    it (:meth:`TPGroup.bounds`). The ranks' slices move to a new leading
+    dim first: a copy unless ``dim`` leads or the group is one rank."""
     import torch.distributed as dist
     n = x.shape[dim]
     c = -(-n // grp.size)
-    xs = x.movedim(dim, 0)
-    if n != c * grp.size:
-        xs = torch.cat([xs, xs.new_zeros((c * grp.size - n,)
-                                         + xs.shape[1:])])
-    xs = xs.contiguous()
-    out = xs.new_empty((c,) + xs.shape[1:])
-    dist.reduce_scatter_tensor(out, xs, group=grp.group)
+    xs = _pad_to(x, dim, c * grp.size).unflatten(dim, (grp.size, c))
+    xs = xs.movedim(dim, 0).contiguous()
+    out = xs.new_empty(xs.shape[1:])
+    dist.reduce_scatter_tensor(out, xs.flatten(0, 1), group=grp.group)
     s0, s1 = grp.bounds(n)
-    return out[:s1 - s0].movedim(0, dim).contiguous()
+    return out if s1 - s0 == c else out.narrow(dim, 0, s1 - s0)
 
 
 def _all_reduce(x: torch.Tensor, grp: TPGroup, op=None) -> torch.Tensor:
@@ -579,18 +590,18 @@ def _all_reduce(x: torch.Tensor, grp: TPGroup, op=None) -> torch.Tensor:
 def _all_to_all(x: torch.Tensor, src: int, dst: int,
                 grp: TPGroup) -> torch.Tensor:
     """``x``, this rank's even slice of tensor dim ``src``, re-split over
-    the group on dim ``dst`` (``src`` whole): one all-to-all."""
+    the group on dim ``dst`` (``src`` whole): one all-to-all. Chunk j of
+    ``dst`` goes to rank j from a new leading dim, and what comes back,
+    rank j's slice of ``src``, merges into ``src``: a copy each way unless
+    that dim leads or the group is one rank."""
     import torch.distributed as dist
     n = grp.size
-    xs = x.movedim(dst, 0)
-    at = src + 1 if src < dst else src       # src's index in xs
-    inp = xs.reshape((n, xs.shape[0] // n) + xs.shape[1:]).contiguous()
+    inp = x.unflatten(dst, (n, x.shape[dst] // n)).movedim(dst, 0)
+    inp = inp.contiguous()
     out = torch.empty_like(inp)
     dist.all_to_all_single(out, inp, group=grp.group)
-    # out[j] is rank j's slice of src: put j before it, major, and merge
-    out = out.movedim(0, at)
-    shape = out.shape[:at] + (n * out.shape[at + 1],) + out.shape[at + 2:]
-    return out.reshape(shape).movedim(0, dst).contiguous()
+    # out's dims are x's, one place on: rank j goes just before src
+    return out.movedim(0, src).flatten(src, src + 1)
 
 
 class _GatherSeq(torch.autograd.Function):
@@ -633,58 +644,58 @@ class _Reduce(torch.autograd.Function):
         return (_all_reduce(g, ctx.grp) if ctx.shared else g), None, None
 
 
-def gather_seq(x: torch.Tensor, n: int, grp: TPGroup,
+# The constraint sites. Each takes the group of :func:`tp_group` and is the
+# identity (or the plain op) when it is None, so the model's blocks run one
+# code path with and without tensor-parallel compute.
+
+def gather_seq(x: torch.Tensor, n: Optional[int], grp: Optional[TPGroup],
                dim: int = 1) -> torch.Tensor:
     """The whole sequence (``n`` long) of a ``res_seq`` residual, from
     this rank's slice: the entry of a column-parallel block. Its backward
     sums every rank's gradient and keeps this rank's slice."""
-    return _GatherSeq.apply(x, dim, grp, n)
+    return x if grp is None else _GatherSeq.apply(x, dim, grp, n)
 
 
-def scatter_seq(x: torch.Tensor, grp: TPGroup, dim: int = 1) -> torch.Tensor:
+def scatter_seq(x: torch.Tensor, grp: Optional[TPGroup],
+                dim: int = 1) -> torch.Tensor:
     """This rank's sequence slice of the sum over the group of ``x``, the
     partial sums of a row-parallel block: its exit to the residual."""
-    return _ScatterSeq.apply(x, dim, grp)
+    return x if grp is None else _ScatterSeq.apply(x, dim, grp)
 
 
-def seq_slice(x: torch.Tensor, grp: TPGroup, dim: int = 1) -> torch.Tensor:
+def seq_slice(x: torch.Tensor, grp: Optional[TPGroup],
+              dim: int = 1) -> torch.Tensor:
     """This rank's sequence slice of ``x``, which every rank holds alike
     (no collective)."""
+    if grp is None:
+        return x
     s0, s1 = grp.bounds(x.shape[dim])
     return x.narrow(dim, s0, s1 - s0)
 
 
-def gather_model(x: torch.Tensor, grp: TPGroup, dim: int = -1) -> torch.Tensor:
+def gather_model(x: torch.Tensor, grp: Optional[TPGroup],
+                 dim: int = -1) -> torch.Tensor:
     """A dim split evenly over the group, whole (all-gather; backward
     reduce-scatter)."""
+    if grp is None:
+        return x
     dim = dim % x.dim()
     return _GatherSeq.apply(x, dim, grp, x.shape[dim] * grp.size)
 
 
-def reduce_model(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+def reduce_model(x: torch.Tensor, grp: Optional[TPGroup]) -> torch.Tensor:
     """The sum over the group of the ranks' ``x``, which every rank then
     uses alike (the loss's sums): backward the identity, so each rank's
     ``x`` gets the gradient of its own share."""
-    return _Reduce.apply(x, grp, False)
+    return x if grp is None else _Reduce.apply(x, grp, False)
 
 
-def reduce_model_shared(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+def reduce_model_shared(x: torch.Tensor,
+                        grp: Optional[TPGroup]) -> torch.Tensor:
     """The sum over the group of the ranks' ``x``, which each rank then
     uses on its own share of a split dim (a norm's moment): backward an
     all-reduce."""
-    return _Reduce.apply(x, grp, True)
-
-
-def max_model(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
-    """The elementwise max over the group (no gradient)."""
-    import torch.distributed as dist
-    return _all_reduce(x.detach(), grp, dist.ReduceOp.MAX)
-
-
-def min_model(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
-    """The elementwise min over the group (no gradient)."""
-    import torch.distributed as dist
-    return _all_reduce(x.detach(), grp, dist.ReduceOp.MIN)
+    return x if grp is None else _Reduce.apply(x, grp, True)
 
 
 class _LogsumexpVocab(torch.autograd.Function):
@@ -708,11 +719,30 @@ class _LogsumexpVocab(torch.autograd.Function):
         return g[..., None] * torch.exp(x - out[..., None]), None
 
 
-def logsumexp_vocab(x: torch.Tensor, grp: TPGroup) -> torch.Tensor:
+def logsumexp_vocab(x: torch.Tensor,
+                    grp: Optional[TPGroup]) -> torch.Tensor:
     """``torch.logsumexp(x, -1)`` of logits whose vocabulary (last dim) is
     split over the group, alike on every rank (the loss then taken from it
     is every rank's): each rank's gradient is its share's softmax."""
+    if grp is None:
+        return torch.logsumexp(x, dim=-1)
     return _LogsumexpVocab.apply(x, grp)
+
+
+def argmax_vocab(x: torch.Tensor, v0: int,
+                 grp: Optional[TPGroup]) -> torch.Tensor:
+    """``torch.argmax(x, -1)`` over a last dim split over the group (this
+    rank's share starts at global index ``v0``): the lowest global index
+    of the row's largest value, as the argmax over the whole row picks it,
+    alike on every rank (no gradient)."""
+    import torch.distributed as dist
+    top = x.detach().argmax(-1)
+    if grp is None:
+        return top + v0
+    best = torch.gather(x.detach(), -1, top[..., None])[..., 0]
+    cand = torch.where(best == _all_reduce(best, grp, dist.ReduceOp.MAX),
+                       top + v0, torch.iinfo(top.dtype).max)
+    return _all_reduce(cand, grp, dist.ReduceOp.MIN)
 
 
 def fused_split_ok(widths, fuse: int, tp: int) -> bool:
@@ -761,8 +791,7 @@ def gather_for_compute(w, model_dim: Optional[int],
         return _all_gather(x, src, grp, x.shape[src] * grp.size)
     if src is None:
         c = x.shape[dst] // grp.size
-        return x.narrow(dst, grp.rank * c, c).clone(
-            memory_format=torch.contiguous_format)
+        return x.narrow(dst, grp.rank * c, c).contiguous()
     return _all_to_all(x, src, dst, grp)
 
 

@@ -17,7 +17,8 @@ under ``experiments/dryrun_torch/`` (the reference's records stay in
     over 'model', the rank's rows computed tensor-parallel over 'model'
     (its sequence slice of the residual, its heads, columns, rows, vocab
     or experts), the gradients reduced leaf by leaf, AdamW on the shards;
-    ``"tp_compute"`` is the size of 'model' the compute is split over;
+    ``"tp_compute"`` is the size of the 'model' group the traced step's
+    compute was split over (``step.tp_compute``; 1 where it was not);
   * prefill and decode cells trace ``make_prefill_step`` /
     ``make_decode_step`` on one rank's rows (``global_batch / n_chips``,
     at least 1) with whole bf16 weights and a whole cache, since the
@@ -104,7 +105,8 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
     """Trace one step of the cell under fake tensors, as rank 0 of a
     placeholder mesh: the rows a rank computes, the counted flops,
     MemTracker's peak snapshot (the step's inputs and state included),
-    the collectives and the seconds the trace took."""
+    the collectives, the size of 'model' a train step's compute was split
+    over (None for serving) and the seconds the trace took."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.debug import CommDebugMode
@@ -175,6 +177,7 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
         peak = tracker.get_tracker_snapshot("peak")
     return {"rows": rows, "flops": flops.get_total_flops(), "peak": peak,
             "collectives": collectives,
+            "tp_compute": step.tp_compute if shape.kind == "train" else None,
             "trace_s": time.perf_counter() - t0}
 
 
@@ -199,7 +202,8 @@ def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
         "mesh": "x".join(map(str, mesh_shape)), "mesh_axes": list(axes),
         "n_chips": n_chips, "tag": extra_tag, "policy": policy,
         "kernels": "plain", "sharded_compute": shape.kind == "train",
-        **({"tp_compute": tp} if shape.kind == "train" else {}),
+        **({"tp_compute": t["tp_compute"]} if shape.kind == "train"
+           else {}),
         "rows_per_rank": t["rows"], "trace_s": round(t["trace_s"], 1),
         "flops_per_chip": flops_per_chip,
         "flops_breakdown": fl,

@@ -12,15 +12,16 @@ CPU tensor. The kernels have no backward, so training runs
 ``jax.checkpoint`` (nothing saveable) being :func:`checkpointed`.
 
 On a mesh the training step computes tensor-parallel over 'model'
-(``dist/sharding.py``): :func:`attention_tp` and :func:`mlp_tp` take this
-rank's sequence slice of the residual and return its slice of the block's
-output, with the collectives at the reference's constraint sites.
-Attention splits its heads (column-parallel ``wqkv``, split through
-``split_fused`` with no collective; row-parallel ``wo``) where
-:func:`attn_layout` allows, and otherwise (the reference's "q" choice)
-attends from the rank's query positions with whole weights; the MLP is
-column- then row-parallel where its fused ``w13`` splits, else whole on the
-sequence slice.
+(``dist/sharding.py``): given the 'model' group, :func:`attention_block`,
+:func:`mlp` and :func:`mlp_block` take this rank's sequence slice of the
+residual and return its slice of the block's output, with the collectives
+at the reference's constraint sites (the identity without a group, so
+prefill, decode and the one-device step run the same code). Attention
+splits its heads (column-parallel ``wqkv``, split through ``split_fused``
+with no collective; row-parallel ``wo``) where :func:`attn_layout` allows,
+and otherwise (the reference's "q" choice) attends from the rank's query
+positions with whole weights; the MLP is column- then row-parallel where
+its fused ``w13`` splits, else whole on the sequence slice.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
            "rmsnorm_train", "attention_train", "checkpointed", "upcast",
            "decode_attention", "split_fused", "qkv_fusable", "attn_qkv",
            "attn_out", "mlp", "normal_init", "draws_through", "init_attn",
-           "init_mlp", "attn_layout", "attention_tp", "mlp_split", "mlp_tp"]
+           "init_mlp", "attn_layout", "attention_block", "mlp_split",
+           "mlp_block"]
 
 
 # Query-chunk size of the training attention, the reference's ATTN_CHUNK
@@ -246,37 +248,72 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
-def attn_qkv(x: torch.Tensor, p, cfg):
-    """x: (B, S, D) -> q (B,S,H,Dh), k and v (B,S,KV,Dh)."""
+def _tp(grp) -> int:
+    return 1 if grp is None else grp.size
+
+
+def _own_kv(k: torch.Tensor, cfg, grp) -> torch.Tensor:
+    """(B, S, KV_r, Dh): the KV heads of this rank's query heads, from its
+    columns of k: whole heads where tp divides KV, else its KV head
+    rebuilt from the tp / KV ranks that hold a slice of its Dh."""
+    from ..dist.sharding import gather_model
+    B, S, _ = k.shape
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if KV % _tp(grp) == 0:
+        return k.reshape(B, S, KV // _tp(grp), Dh)
+    j = (grp.rank * (H // grp.size)) // (H // KV)
+    whole = gather_model(k, grp)
+    return whole[..., j * Dh:(j + 1) * Dh].reshape(B, S, 1, Dh)
+
+
+def attn_qkv(x: torch.Tensor, p, cfg, grp=None):
+    """x: (B, S, D) -> q (B,S,H,Dh), k and v (B,S,KV,Dh). With ``grp``
+    (tensor-parallel, the weights column-parallel: this rank's columns of
+    ``wqkv``, split through ``split_fused`` with no collective, or of
+    ``wq``/``wk``/``wv``) this rank's H/tp query heads and the KV heads
+    they use."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    tp = _tp(grp)
     if "wqkv" in p:
-        q, k, v = split_fused(_proj(x, p["wqkv"]), [H * Dh, KV * Dh, KV * Dh],
-                              cfg.tp_fuse)
+        q, k, v = split_fused(_proj(x, p["wqkv"]),
+                              [H * Dh // tp, KV * Dh // tp, KV * Dh // tp],
+                              max(cfg.tp_fuse // tp, 1))
     else:
         q, k, v = (_proj(x, p[n]) for n in ("wq", "wk", "wv"))
-    return (q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh),
-            v.reshape(B, S, KV, Dh))
+    return (q.reshape(B, S, H // tp, Dh), _own_kv(k, cfg, grp),
+            _own_kv(v, cfg, grp))
 
 
-def attn_out(o: torch.Tensor, p) -> torch.Tensor:
-    B, S, H, Dh = o.shape
-    return _proj(o.reshape(B, S, H * Dh), p["wo"])
+def attn_out(o: torch.Tensor, p, grp=None) -> torch.Tensor:
+    """o: (B, S, H, Dh) -> (B, S, D). With ``grp`` (``wo`` row-parallel,
+    ``o`` this rank's heads over the whole sequence) this rank's sequence
+    slice of the sum over the ranks."""
+    from ..dist.sharding import scatter_seq
+    B, S = o.shape[:2]
+    return scatter_seq(_proj(o.reshape(B, S, -1), p["wo"]), grp)
 
 
-def mlp(x: torch.Tensor, p, kind: str = "swiglu",
-        fuse: int = 1) -> torch.Tensor:
+def mlp(x: torch.Tensor, p, kind: str = "swiglu", fuse: int = 1, grp=None,
+        n: Optional[int] = None) -> torch.Tensor:
+    """The MLP. With ``grp`` (its weights column- then row-parallel,
+    :func:`mlp_split`) ``x`` is this rank's sequence slice of a sequence
+    ``n`` long, gathered in, and the result its slice of the output, the
+    partial sums reduce-scattered out."""
+    from ..dist.sharding import gather_seq, scatter_seq
+    x = gather_seq(x, n, grp)
     if kind == "swiglu":
         gu = _proj(x, p["w13"])
-        gate, up = split_fused(gu, [gu.shape[-1] // 2] * 2, fuse)
+        gate, up = split_fused(gu, [gu.shape[-1] // 2] * 2,
+                               max(fuse // _tp(grp), 1))
         h = F.silu(gate) * up
     else:  # gelu: jax.nn.gelu's default is the tanh approximation
         h = F.gelu(_proj(x, p["w1"]), approximate="tanh")
-    return _proj(h, p["w2"])
+    return scatter_seq(_proj(h, p["w2"]), grp)
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel blocks (the training step on a mesh)
+# the attention block, with and without tensor-parallel compute
 # ---------------------------------------------------------------------------
 
 def attn_layout(cfg, tp: int, choice: Optional[str]) -> str:
@@ -308,58 +345,37 @@ def attn_choice(cfg, tp: int, q_len: int) -> Optional[str]:
                                       min(q_len, ATTN_CHUNK), tp)
 
 
-def _qkv_cols(x: torch.Tensor, p, cfg, tp: int):
-    """This rank's columns of q, k and v, (B, S, -) each, from its slices
-    of column-parallel weights."""
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if "wqkv" in p:
-        return split_fused(_proj(x, p["wqkv"]),
-                           [H * Dh // tp, KV * Dh // tp, KV * Dh // tp],
-                           max(cfg.tp_fuse // tp, 1))
-    return [_proj(x, p[n]) for n in ("wq", "wk", "wv")]
+def attention_block(cfg, h: torch.Tensor, p, positions: torch.Tensor,
+                    grp=None, *, attend=attention_train, causal: bool = True,
+                    window: Optional[int] = None, rope: bool = True,
+                    src: Optional[torch.Tensor] = None):
+    """Attention of the normed residual ``h`` (B, s, D), whose whole
+    sequence has ``positions`` (n,): projections, RoPE (``rope``),
+    ``attend`` (:func:`attention_train`, or the kernel K5) and ``wo``.
+    ``src`` (B, n_src, D) is a cross-attention's key and value input.
+    Returns (the output (B, s, D), the (k, v) attended to).
 
-
-def _own_kv(k: torch.Tensor, cfg, grp) -> torch.Tensor:
-    """(B, S, KV_r, Dh): the KV heads of this rank's query heads, from its
-    columns of k: whole heads where tp divides KV, else its KV head
-    rebuilt from the tp / KV ranks that hold a slice of its Dh."""
-    from ..dist.sharding import gather_model
-    B, S, _ = k.shape
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if KV % grp.size == 0:
-        return k.reshape(B, S, KV // grp.size, Dh)
-    j = (grp.rank * (H // grp.size)) // (H // KV)
-    whole = gather_model(k, grp)
-    return whole[..., j * Dh:(j + 1) * Dh].reshape(B, S, 1, Dh)
-
-
-def attention_tp(cfg, h: torch.Tensor, p, positions: torch.Tensor, grp, *,
-                 causal: bool = True, window: Optional[int] = None,
-                 rope: bool = True, src: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
-    """Tensor-parallel attention (:func:`attention_train` inside) of this
-    rank's sequence slice ``h`` (B, s, D) of the normed residual, whose
-    whole sequence has ``positions`` (n,): this rank's slice (B, s, D) of
-    the projected output. ``src`` (B, n_src, D), whole on every rank, is a
-    cross-attention's key and value input (the encoder's output)."""
-    from ..dist.sharding import gather_seq, scatter_seq
+    With ``grp`` ``h`` is this rank's sequence slice, ``src`` whole on
+    every rank, and the output this rank's slice. Where
+    :func:`attn_layout` gives "heads" the sequence is gathered, the rank's
+    heads attend (``attn_qkv``'s column-parallel split) and ``wo``
+    row-parallel reduce-scatters; otherwise ("seq") the rank's query
+    positions attend to the gathered keys and values with whole
+    weights."""
+    from ..dist.sharding import gather_seq
     n = positions.shape[0]
-    B = h.shape[0]
-    H, Dh = cfg.n_heads, cfg.d_head
-    s0, s1 = grp.bounds(n)
-    choice = attn_choice(cfg, grp.size, n)
-    if attn_layout(cfg, grp.size, choice) == "heads":
+    tp = _tp(grp)
+    if attn_layout(cfg, tp, attn_choice(cfg, tp, n)) == "heads":
         hf = gather_seq(h, n, grp)
-        q, k, v = _qkv_cols(hf, p, cfg, grp.size)
+        q, k, v = attn_qkv(hf, p, cfg, grp)
         if src is not None:
-            _, k, v = _qkv_cols(src, p, cfg, grp.size)
-        q = q.reshape(B, n, H // grp.size, Dh)
-        k, v = _own_kv(k, cfg, grp), _own_kv(v, cfg, grp)
+            _, k, v = attn_qkv(src, p, cfg, grp)
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        o = attention_train(q, k, v, causal=causal, window=window)
-        return scatter_seq(_proj(o.reshape(B, n, -1), p["wo"]), grp)
+        o = attend(q, k, v, causal=causal, window=window)
+        return attn_out(o, p, grp), (k, v)
+    s0, s1 = grp.bounds(n)
     q, k, v = attn_qkv(h, p, cfg)
     if src is not None:
         _, k, v = attn_qkv(src, p, cfg)
@@ -368,8 +384,8 @@ def attention_tp(cfg, h: torch.Tensor, p, positions: torch.Tensor, grp, *,
         k = apply_rope(k, positions[s0:s1], cfg.rope_theta)
     if src is None:
         k, v = gather_seq(k, n, grp), gather_seq(v, n, grp)
-    o = attention_train(q, k, v, causal=causal, window=window, q_offset=s0)
-    return attn_out(o, p)
+    o = attend(q, k, v, causal=causal, window=window, q_offset=s0)
+    return attn_out(o, p), (k, v)
 
 
 def mlp_split(kind: str, d_ff: int, fuse: int, tp: int) -> bool:
@@ -382,21 +398,15 @@ def mlp_split(kind: str, d_ff: int, fuse: int, tp: int) -> bool:
     return d_ff % tp == 0
 
 
-def mlp_tp(cfg, h: torch.Tensor, p, n: int, grp) -> torch.Tensor:
-    """The MLP of this rank's sequence slice ``h`` of the normed residual
-    (whole sequence ``n``): this rank's slice of its output."""
-    from ..dist.sharding import gather_seq, scatter_seq
-    if not mlp_split(cfg.mlp, cfg.d_ff, cfg.tp_fuse, grp.size):
-        return mlp(h, p, cfg.mlp, cfg.tp_fuse)
-    hf = gather_seq(h, n, grp)
-    if cfg.mlp == "swiglu":
-        gu = _proj(hf, p["w13"])
-        gate, up = split_fused(gu, [gu.shape[-1] // 2] * 2,
-                               max(cfg.tp_fuse // grp.size, 1))
-        a = F.silu(gate) * up
-    else:
-        a = F.gelu(_proj(hf, p["w1"]), approximate="tanh")
-    return scatter_seq(_proj(a, p["w2"]), grp)
+def mlp_block(cfg, h: torch.Tensor, p, n: Optional[int] = None,
+              grp=None) -> torch.Tensor:
+    """:func:`mlp` of the normed residual ``h`` with ``cfg``'s kind: with
+    ``grp`` column- then row-parallel where :func:`mlp_split` allows, else
+    whole on this rank's sequence slice."""
+    if grp is not None and not mlp_split(cfg.mlp, cfg.d_ff, cfg.tp_fuse,
+                                         grp.size):
+        grp = None
+    return mlp(h, p, cfg.mlp, cfg.tp_fuse, grp, n)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ Parameters keep the reference's names and ``(L, ...)``-stacked layout.
 
 On a mesh the training step splits the SSD heads over 'model', as the
 reference's constraint on ``xh`` and ``dt`` (``mamba2.py:136-137``) does
-(:func:`mamba_block_tp`): each rank gathers the sequence, projects its
+(``mamba_block`` given the 'model' group): each rank gathers the sequence, projects its
 heads' columns of z, x and dt and the shared B and C from the whole
 ``in_proj``, convolves its channels, scans its heads, takes the gated
 norm's moment over every rank's share of ``d_inner`` and leaves through
@@ -21,6 +21,7 @@ the row-parallel ``out_proj``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -149,22 +150,40 @@ def ssd_step(xh, dt, a_log, Bm, Cm, state):
     return y[:, None], state
 
 
-def mamba_block(x, p, cfg, state, train: bool = False):
-    """One Mamba2 layer. state: {ssm (B,H,dh,N) fp32, conv (B,K-1,di+2N)}.
-    ``train``: the differentiable ops in place of K4 and K6."""
+def mamba_block(x, p, cfg, state, train: bool = False,
+                n: Optional[int] = None, grp=None):
+    """One Mamba2 layer. state: {ssm (B,H,dh,N) fp32, conv (B,K-1,di+2N)},
+    or None for a zero state. ``train``: the differentiable ops in place
+    of K4 and K6. Returns (x plus the layer's output, the new state).
+
+    With ``grp`` (training, tensor-parallel) ``x`` is this rank's sequence
+    slice of a sequence ``n`` long, the layer runs on the gathered
+    sequence and adds this rank's slice of its output: its SSD heads split
+    over the group where :func:`ssd_heads_split` (:func:`_head_share`; the
+    gated norm's moment summed over the ranks, ``out_proj``
+    row-parallel), else every rank runs the whole layer."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    if grp is not None and not ssd_heads_split(cfg, grp.size):
+        full, st = mamba_block(gather_seq(x, n, grp), p, cfg, state, train)
+        return seq_slice(full, grp), st
     s = cfg.ssm
-    D = cfg.d_model
-    di = s.expand * D
-    H, dh, N = di // s.d_head, s.d_head, s.d_state
-    B, S, _ = x.shape
+    di = s.expand * cfg.d_model
+    tp = 1 if grp is None else grp.size
+    H, dh, N = di // s.d_head // tp, s.d_head, s.d_state
     norm = rmsnorm_train if train else rmsnorm
-    h = norm(x, p["ln"], cfg.norm_eps)
+    h = gather_seq(norm(x, p["ln"], cfg.norm_eps), n, grp)
+    B, S, _ = h.shape
+    p, state = _head_share(p, state, cfg, grp)
+    if state is None:
+        state = {"ssm": torch.zeros((B, H, dh, N), dtype=torch.float32,
+                                    device=x.device), "conv": None}
     proj = h @ p["in_proj"].to(x.dtype)
-    z, conv_in, dt = torch.split(proj, [di, di + 2 * N, H], dim=-1)
+    z, conv_in, dt = torch.split(proj, [di // tp, di // tp + 2 * N, H],
+                                 dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
                                         state["conv"])
     conv_out = F.silu(conv_out)
-    xin, Bm, Cm = torch.split(conv_out, [di, N, N], dim=-1)
+    xin, Bm, Cm = torch.split(conv_out, [di // tp, N, N], dim=-1)
     # torch's softplus returns x itself above 20 and jax.nn.softplus
     # x + log1p(exp(-x)); the difference, under 2.1e-9, is below f32's
     # resolution there (one ulp of 20 is 1.9e-6)
@@ -176,9 +195,10 @@ def mamba_block(x, p, cfg, state, train: bool = False):
         scan = ssd_chunked_train if train else ssd_chunked
         y, ssm = scan(xh, dt, p["A_log"], Bm, Cm, state["ssm"], s.chunk)
     y = y + upcast(p["D"])[None, None, :, None] * upcast(xh)
-    y = y.reshape(B, S, di).to(x.dtype)
-    y = norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    y = y.reshape(B, S, di // tp).to(x.dtype) * F.silu(z)
+    y = norm(y, p["norm"], cfg.norm_eps) if grp is None else \
+        _rmsnorm_split(y, p["norm"], cfg.norm_eps, di, grp)
+    out = scatter_seq(y @ p["out_proj"].to(x.dtype), grp)
     return x + out, {"ssm": ssm, "conv": conv_state}
 
 
@@ -203,6 +223,37 @@ def ssd_heads_split(cfg, tp: int) -> bool:
     return (s.expand * cfg.d_model // s.d_head) % tp == 0
 
 
+def _head_share(p, state, cfg, grp):
+    """(this rank's share of the layer's weights, of its state) when its
+    SSD heads split over ``grp``: the columns of ``in_proj`` for its z, x
+    and dt (B and C whole), its channels of the conv and the gated norm,
+    its heads' ``dt_bias``, ``A_log``, ``D`` and state (None stays None);
+    all of them when ``grp`` is None."""
+    if grp is None:
+        return p, state
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    H, N = di // s.d_head, s.d_state
+    Hl, dl = H // grp.size, di // grp.size
+    dev = p["in_proj"].device
+    hs = slice(grp.rank * Hl, (grp.rank + 1) * Hl)
+    ds = torch.arange(grp.rank * dl, (grp.rank + 1) * dl, device=dev)
+    bc = torch.arange(di, di + 2 * N, device=dev)
+    cols = torch.cat([ds, di + ds, di + bc,                 # z, x, B, C
+                      2 * di + 2 * N + torch.arange(hs.start, hs.stop,
+                                                    device=dev)])
+    chans = torch.cat([ds, bc])
+    share = {"in_proj": p["in_proj"][:, cols],
+             "conv_w": p["conv_w"][:, chans], "conv_b": p["conv_b"][chans],
+             "dt_bias": p["dt_bias"][hs], "A_log": p["A_log"][hs],
+             "D": p["D"][hs], "norm": p["norm"][ds]}
+    if state is not None:
+        conv = state["conv"]
+        state = {"ssm": state["ssm"][:, hs],
+                 "conv": None if conv is None else conv[..., chans]}
+    return {**p, **share}, state
+
+
 def _rmsnorm_split(x, scale, eps: float, d: int, grp):
     """:func:`rmsnorm_train` of a last dim of ``d`` split over the group
     (x and scale this rank's share): the mean of squares summed over it."""
@@ -211,46 +262,3 @@ def _rmsnorm_split(x, scale, eps: float, d: int, grp):
     var = reduce_model_shared(torch.sum(xf * xf, -1), grp) / d
     r = torch.rsqrt(var + eps)[..., None].to(x.dtype)
     return (x * r) * scale.to(x.dtype)
-
-
-def mamba_block_tp(x, p, cfg, n: int, grp):
-    """Head-parallel :func:`mamba_block` (training) of this rank's sequence
-    slice ``x`` (B, s, D), the whole sequence ``n`` long: x plus this
-    rank's slice of the layer's output."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
-    s = cfg.ssm
-    D = cfg.d_model
-    di = s.expand * D
-    H, dh, N = di // s.d_head, s.d_head, s.d_state
-    B = x.shape[0]
-
-    def zero(heads):
-        return torch.zeros((B, heads, dh, N), dtype=torch.float32,
-                           device=x.device)
-    if not ssd_heads_split(cfg, grp.size):
-        full = mamba_block(gather_seq(x, n, grp), p, cfg,
-                           {"ssm": zero(H), "conv": None}, train=True)[0]
-        return seq_slice(full, grp)
-    h = gather_seq(rmsnorm_train(x, p["ln"], cfg.norm_eps), n, grp)
-    Hl, dl = H // grp.size, di // grp.size
-    hs = slice(grp.rank * Hl, (grp.rank + 1) * Hl)
-    ds = torch.arange(grp.rank * dl, (grp.rank + 1) * dl, device=x.device)
-    cols = torch.cat([ds, di + ds,                              # z, x
-                      torch.arange(2 * di, 2 * di + 2 * N,      # B, C
-                                   device=x.device),
-                      2 * di + 2 * N + torch.arange(hs.start, hs.stop,
-                                                    device=x.device)])
-    chans = torch.cat([ds, torch.arange(di, di + 2 * N, device=x.device)])
-    proj = h @ p["in_proj"][:, cols].to(x.dtype)
-    z, conv_in, dt = torch.split(proj, [dl, dl + 2 * N, Hl], dim=-1)
-    conv_out, _ = _causal_conv(conv_in, p["conv_w"][:, chans],
-                               p["conv_b"][chans])
-    xin, Bm, Cm = torch.split(F.silu(conv_out), [dl, N, N], dim=-1)
-    dt = F.softplus(upcast(dt) + upcast(p["dt_bias"][hs]))
-    xh = xin.reshape(B, n, Hl, dh)
-    y, _ = ssd_chunked_train(xh, dt, p["A_log"][hs], Bm, Cm, zero(Hl),
-                             s.chunk)
-    y = y + upcast(p["D"][hs])[None, None, :, None] * upcast(xh)
-    y = y.reshape(B, n, dl).to(x.dtype)
-    y = _rmsnorm_split(y * F.silu(z), p["norm"][ds], cfg.norm_eps, di, grp)
-    return x + scatter_seq(y @ p["out_proj"].to(x.dtype), grp)

@@ -34,7 +34,9 @@ rank keeps a sequence slice of the residual (the reference's ``res_seq``,
 tokens of its vocabulary slice, runs the blocks of ``layers.py``,
 ``moe.py``, ``mamba2.py`` and ``rwkv6.py`` head-, column/row- or
 expert-parallel, and takes the loss vocab-parallel (logsumexp, the
-target's logit and the argmax across the ranks).
+target's logit and the argmax across the ranks). It is one code path:
+every block takes the 'model' group (``grp``), and without one (no
+mesh, prefill, decode) its collectives are the identity.
 
 Caches:
   * transformer: ``{"k","v": (L, B, Smax, KV, Dh)}``; sliding-window
@@ -57,12 +59,12 @@ import torch
 from ..device import resolve_init_device
 from . import mamba2 as mamba_mod
 from . import rwkv6 as rwkv_mod
-from .layers import (ATTN_CHUNK, apply_rope, attention, attention_train,
-                     attention_tp, attn_choice, attn_layout, attn_out,
+from .layers import (ATTN_CHUNK, apply_rope, attention, attention_block,
+                     attention_train, attn_choice, attn_layout, attn_out,
                      attn_qkv, checkpointed, decode_attention, init_attn,
-                     init_mlp, mlp, mlp_split, mlp_tp, normal_init, rmsnorm,
-                     rmsnorm_train, upcast)
-from .moe import experts_split, init_moe, moe_mlp, moe_mlp_tp
+                     init_mlp, mlp, mlp_block, mlp_split, normal_init,
+                     rmsnorm, rmsnorm_train, upcast)
+from .moe import experts_split, init_moe, moe_mlp
 
 Params = Dict[str, Any]
 
@@ -132,36 +134,58 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params: Params, tokens: torch.Tensor,
-                 compute_dtype) -> torch.Tensor:
-    x = params["embed"]["tok"][tokens].to(compute_dtype)
+                 compute_dtype, grp=None) -> torch.Tensor:
+    """The tokens' rows of the table in ``compute_dtype`` (audio: times
+    sqrt(d)). With ``grp`` (a table split over its vocabulary) this rank's
+    rows, zero for a token another rank holds: a partial sum."""
+    table = params["embed"]["tok"]
+    if grp is None:
+        x = table[tokens].to(compute_dtype)
+    else:
+        v0 = grp.rank * table.shape[0]
+        mine = (tokens >= v0) & (tokens < v0 + table.shape[0])
+        x = table[torch.where(mine, tokens - v0, 0)].to(compute_dtype) * \
+            mine[..., None].to(compute_dtype)
     if cfg.family != "audio":
         return x
     # sqrt(d) rounded to x's dtype first, as JAX rounds a Python scalar
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
-def _build_inputs(cfg, params: Params, batch, compute_dtype) -> torch.Tensor:
-    """Token embeddings, with the vlm's patch embeddings
-    (``batch["embeds"]``, (B, n_patches, D)) prepended."""
+def _build_inputs(cfg, params: Params, batch, compute_dtype, grp=None):
+    """(token embeddings, with the vlm's patch embeddings
+    (``batch["embeds"]``, (B, n_patches, D)) prepended; the sequence's
+    length). With ``grp`` (tensor-parallel) the embeddings are this rank's
+    sequence slice: a vocab-parallel lookup whose partial sums are
+    reduce-scattered to the slices (the patch embeddings enter on rank
+    0), or, with a table used whole, each rank's slice of the lookup."""
+    from ..dist.sharding import scatter_seq, seq_slice
     dev = params["embed"]["tok"].device
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    x = embed_tokens(cfg, params, tokens, compute_dtype)
+    split = grp is not None and cfg.vocab_size % grp.size == 0
+    x = embed_tokens(cfg, params, tokens, compute_dtype,
+                     grp if split else None)
     if cfg.vlm is not None and "embeds" in batch:
-        x = torch.cat([torch.as_tensor(batch["embeds"], device=dev)
-                       .to(compute_dtype), x], dim=1)
-    return x
+        e = torch.as_tensor(batch["embeds"], device=dev).to(compute_dtype)
+        x = torch.cat([torch.zeros_like(e) if split and grp.rank else e, x],
+                      dim=1)
+    n = x.shape[1]
+    return (scatter_seq(x, grp) if split else seq_slice(x, grp)), n
 
 
-def _encoder_inputs(cfg, params: Params, batch, x: torch.Tensor,
-                    compute_dtype, train: bool = False):
+def _encoder_inputs(cfg, params: Params, batch, x: torch.Tensor, n: int,
+                    compute_dtype, train: bool = False, grp=None):
     """For an encoder config: the encoder's output over
-    ``batch["enc_embeds"]`` and ``x`` with the learned positions
-    ``pos_emb[:S]`` added; else (None, x)."""
+    ``batch["enc_embeds"]`` (whole on every rank) and ``x`` with the
+    learned positions ``pos_emb[:n]`` added (with ``grp`` its slice of
+    them); else (None, x)."""
+    from ..dist.sharding import seq_slice
     if cfg.encoder is None:
         return None, x
     enc = torch.as_tensor(batch["enc_embeds"], device=x.device)
-    enc_out = _encoder_forward(cfg, params, enc, compute_dtype, train)
-    return enc_out, x + params["pos_emb"][:x.shape[1]].to(compute_dtype)
+    enc_out = _encoder_forward(cfg, params, enc, compute_dtype, train, grp)
+    pos = seq_slice(params["pos_emb"][:n], grp, dim=0)
+    return enc_out, x + pos.to(compute_dtype)
 
 
 def lm_logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -171,7 +195,10 @@ def lm_logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a tree of stacked ``(L, ...)`` tensors."""
+    """Layer ``i`` of a tree of stacked ``(L, ...)`` tensors (None: a zero
+    state, for every layer)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -194,69 +221,83 @@ def _ops(train: bool):
     return (rmsnorm_train, attention_train) if train else (rmsnorm, attention)
 
 
-def _ffn(cfg, h: torch.Tensor, lp: Params):
-    """The layer's MLP, or its MoE and that layer's aux loss (else None)."""
+def _ffn(cfg, h: torch.Tensor, lp: Params, n: Optional[int] = None,
+         grp=None):
+    """The layer's MLP, or its MoE and that layer's aux loss (else None);
+    ``n`` and ``grp`` as for :func:`_txf_layer`."""
     if "moe" in lp:
-        return moe_mlp(h, lp["moe"], cfg)
-    return mlp(h, lp["mlp"], cfg.mlp, cfg.tp_fuse), None
+        return moe_mlp(h, lp["moe"], cfg, n, grp)
+    return mlp_block(cfg, h, lp["mlp"], n, grp), None
 
 
 def _txf_layer(cfg, x: torch.Tensor, lp: Params, positions: torch.Tensor,
-               enc_out: Optional[torch.Tensor] = None, train: bool = False):
+               enc_out: Optional[torch.Tensor] = None, train: bool = False,
+               grp=None):
     """One decoder layer (``model.py:140``). Returns (x, the layer's aux
     loss or None, its cache entries: (k, v), and with ``enc_out`` also the
-    cross-attention's (kx, vx))."""
+    cross-attention's (kx, vx)). With ``grp`` (training, tensor-parallel)
+    ``x`` is this rank's sequence slice of the residual, whose whole
+    sequence has ``positions``: the reference's ``constrain_residual``
+    after attention and after the FFN."""
     norm, attend = _ops(train)
     h = norm(x, lp["ln1"], cfg.norm_eps)
-    q, k, v = attn_qkv(h, lp["attn"], cfg)
-    if cfg.family != "audio":       # audio: learned positions, no RoPE
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    o = attend(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + attn_out(o, lp["attn"])
-    kv = (k, v)
+    # audio: learned positions, no RoPE
+    y, kv = attention_block(cfg, h, lp["attn"], positions, grp,
+                            attend=attend, causal=True,
+                            window=cfg.sliding_window,
+                            rope=cfg.family != "audio")
+    x = x + y
     if enc_out is not None:
         # normed with ln2, which the MLP's norm below uses again: the
         # reference's init makes no "ln_x" for its ``"ln_x" in lp`` test
         # (ROADMAP Queue 3, R10)
         h = norm(x, lp["ln2"], cfg.norm_eps)
-        qx = attn_qkv(h, lp["xattn"], cfg)[0]
-        _, kx, vx = attn_qkv(enc_out, lp["xattn"], cfg)
-        x = x + attn_out(attend(qx, kx, vx, causal=False), lp["xattn"])
-        kv = kv + (kx, vx)
-    y, aux = _ffn(cfg, norm(x, lp["ln2"], cfg.norm_eps), lp)
+        y, kvx = attention_block(cfg, h, lp["xattn"], positions, grp,
+                                 attend=attend, causal=False, rope=False,
+                                 src=enc_out)
+        x = x + y
+        kv = kv + kvx
+    y, aux = _ffn(cfg, norm(x, lp["ln2"], cfg.norm_eps), lp,
+                  positions.shape[0], grp)
     return x + y, aux, kv
 
 
 def _encoder_forward(cfg, params: Params, enc_embeds: torch.Tensor,
-                     compute_dtype, train: bool = False) -> torch.Tensor:
+                     compute_dtype, train: bool = False,
+                     grp=None) -> torch.Tensor:
     """Whisper's encoder (``model.py:168``) over precomputed frame
     embeddings (B, enc_seq, D): non-causal self-attention, the MLP, and
-    its own final norm."""
+    its own final norm. With ``grp`` each rank runs its sequence slice;
+    the output is whole on every rank."""
+    from ..dist.sharding import gather_seq, seq_slice
     norm, attend = _ops(train)
-    x = enc_embeds.to(compute_dtype)
+    n = enc_embeds.shape[1]
+    positions = torch.arange(n, device=enc_embeds.device)
+    x = seq_slice(enc_embeds.to(compute_dtype), grp)
     lps = params["encoder"]["layers"]
     for i in range(lps["ln1"].shape[0]):
         lp = _layer(lps, i)
         h = norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn_qkv(h, lp["attn"], cfg)
-        x = x + attn_out(attend(q, k, v, causal=False), lp["attn"])
+        x = x + attention_block(cfg, h, lp["attn"], positions, grp,
+                                attend=attend, causal=False, rope=False)[0]
         h = norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp(h, lp["mlp"], cfg.mlp, cfg.tp_fuse)
-    return norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+        x = x + mlp_block(cfg, h, lp["mlp"], n, grp)
+    return gather_seq(norm(x, params["encoder"]["final_norm"], cfg.norm_eps),
+                      n, grp)
 
 
 def _txf_stack(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
                enc_out: Optional[torch.Tensor] = None, *,
                remat: bool = False, train: bool = False,
-               collect_cache: bool = False):
+               collect_cache: bool = False, grp=None):
     """x: (B, S, D) through every layer of ``params["layers"]``; positions
     (S,); ``enc_out`` the encoder's output for cross-attention (audio).
     Returns (x, the layers' summed aux loss (f32; f64 for f64 compute),
     cache or None), the cache ``{"k","v": (L, B, S, KV, Dh)}`` (and
     ``"ck","cv": (L, B, enc_seq, KV, Dh)`` with ``enc_out``) when
     ``collect_cache``. ``train``: the differentiable ops; ``remat``: each
-    layer under ``torch.utils.checkpoint``."""
+    layer under ``torch.utils.checkpoint``; ``grp``: tensor-parallel, x
+    this rank's sequence slice (:func:`_txf_layer`)."""
     if _kind(cfg) != "transformer":
         raise ValueError(f"{cfg.name} is not a transformer config")
     aux = torch.zeros((), dtype=torch.promote_types(x.dtype, torch.float32),
@@ -264,7 +305,8 @@ def _txf_stack(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
     kvs = []
 
     def layer(x, lp):
-        return _txf_layer(cfg, x, lp, positions, enc_out, train)
+        x, a, kv = _txf_layer(cfg, x, lp, positions, enc_out, train, grp)
+        return x, a, (kv if collect_cache else None)
     for i in range(params["layers"]["ln1"].shape[0]):
         lp = _layer(params["layers"], i)
         x, a, kv = checkpointed(layer, x, lp) if remat else layer(x, lp)
@@ -327,59 +369,70 @@ def backbone_logits(cfg, params: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _rwkv_stack(cfg, params: Params, x: torch.Tensor, state, *,
-                remat: bool = False, train: bool = False):
-    """Every rwkv layer in turn; returns (x, the new stacked state)."""
+                remat: bool = False, train: bool = False,
+                n: Optional[int] = None, grp=None):
+    """Every rwkv layer in turn; returns (x, the new stacked state). A
+    state of None is a zero one, and then no state is kept or returned
+    (the training forward). ``n`` and ``grp``: tensor-parallel, x this
+    rank's sequence slice of a sequence ``n`` long."""
     new = []
 
     def layer(x, lp, st):
-        return rwkv_mod.rwkv_block(x, lp, cfg, st, train)
+        x, st = rwkv_mod.rwkv_block(x, lp, cfg, st, train, n, grp)
+        return x, (None if state is None else st)
     for i in range(params["layers"]["rwkv"]["ln1"].shape[0]):
         args = (x, _layer(params["layers"]["rwkv"], i), _layer(state, i))
         x, st = checkpointed(layer, *args) if remat else layer(*args)
         new.append(st)
-    return x, _stack(new)
+    return x, None if state is None else _stack(new)
 
 
 def _shared_block(cfg, sp: Params, x: torch.Tensor, positions: torch.Tensor,
-                  train: bool = False):
+                  train: bool = False, grp=None):
+    """The hybrid's shared attention block; ``grp`` as for
+    :func:`_txf_layer`. Returns (x, its (k, v))."""
     norm, attend = _ops(train)
     h = norm(x, sp["ln1"], cfg.norm_eps)
-    q, k, v = attn_qkv(h, sp["attn"], cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    x = x + attn_out(attend(q, k, v, causal=True), sp["attn"])
+    y, kv = attention_block(cfg, h, sp["attn"], positions, grp,
+                            attend=attend, causal=True)
+    x = x + y
     h = norm(x, sp["ln2"], cfg.norm_eps)
-    return x + mlp(h, sp["mlp"], cfg.mlp, cfg.tp_fuse), (k, v)
+    return x + mlp_block(cfg, h, sp["mlp"], positions.shape[0], grp), kv
 
 
 def _hybrid_layer(cfg, x, lp, st, sp, positions, shared: bool,
-                  train: bool):
+                  train: bool, grp=None):
     """One Mamba2 layer, then the shared block if ``shared``. Returns (x,
     new state, the shared block's (k, v) or None)."""
-    x, st = mamba_mod.mamba_block(x, lp, cfg, st, train)
+    x, st = mamba_mod.mamba_block(x, lp, cfg, st, train, positions.shape[0],
+                                  grp)
     kv = None
     if shared:
-        x, kv = _shared_block(cfg, sp, x, positions, train)
+        x, kv = _shared_block(cfg, sp, x, positions, train, grp)
     return x, st, kv
 
 
 def _hybrid_stack(cfg, params: Params, x: torch.Tensor, state,
                   positions: torch.Tensor, *, remat: bool = False,
-                  train: bool = False, collect_cache: bool = False):
+                  train: bool = False, collect_cache: bool = False,
+                  grp=None):
     """Zamba2: the Mamba2 layers in turn; the shared attention block after
     every ``shared_attn_every``-th. Returns (x, new stacked state, cache or
     None); the cache holds the K/V of the ``n_layers // every`` slots where
     the shared block ran, (n_slots, B, S, KV, Dh), as the reference's
     ``nonzero(flags, size=n_slots)`` selects them. ``train`` and ``remat``
     as for the dense stack (a layer with its shared block is one
-    checkpoint)."""
+    checkpoint); a state of None and ``grp`` as for :func:`_rwkv_stack`."""
     every = cfg.shared_attn_every
     n_slots = cfg.n_layers // every
     sp = params["shared"]
     new, ks, vs = [], [], []
 
     def layer(x, lp, st, shared):
-        return _hybrid_layer(cfg, x, lp, st, sp, positions, shared, train)
+        x, st, kv = _hybrid_layer(cfg, x, lp, st, sp, positions, shared,
+                                  train, grp)
+        return (x, None if state is None else st,
+                kv if collect_cache else None)
     for i in range(params["layers"]["mamba"]["ln"].shape[0]):
         args = (x, _layer(params["layers"]["mamba"], i), _layer(state, i),
                 i % every == every - 1)
@@ -393,7 +446,7 @@ def _hybrid_stack(cfg, params: Params, x: torch.Tensor, state,
     if collect_cache:
         cache = {"k": torch.stack(ks[:n_slots]),
                  "v": torch.stack(vs[:n_slots])}
-    return x, _stack(new), cache
+    return x, None if state is None else _stack(new), cache
 
 
 def _hybrid_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int):
@@ -435,83 +488,100 @@ def forward_train(cfg, params: Params, batch, compute_dtype=torch.bfloat16,
     (audio, the encoder's input). The targets cover every position, patches
     included. Moe adds ``router_aux_weight * aux / n_layers`` to the loss.
     Runs the differentiable ops (never the kernels), each layer under
-    ``torch.utils.checkpoint`` with ``remat``; tensor-parallel under the
-    rules of a mesh (the module docstring)."""
+    ``torch.utils.checkpoint`` with ``remat``; tensor-parallel over the
+    'model' group of the active rules (``dist.sharding.tp_group``; the
+    module docstring)."""
     from ..dist.sharding import tp_group
     grp = tp_group()
-    if grp is not None:
-        return _forward_train_tp(cfg, params, batch, compute_dtype, remat,
-                                 grp)
     kind = _kind(cfg)
-    x = _build_inputs(cfg, params, batch, compute_dtype)
+    x, n = _build_inputs(cfg, params, batch, compute_dtype, grp)
     dev = x.device
     targets = torch.as_tensor(batch["targets"], device=dev).long()
-    B, S = x.shape[0], x.shape[1]
-    positions = torch.arange(S, device=dev)
-    kw = dict(remat=remat, train=True)
+    positions = torch.arange(n, device=dev)
+    kw = dict(remat=remat, train=True, grp=grp)
     aux = None
     if kind == "rwkv":
-        state = rwkv_mod.init_rwkv_state(cfg, B, compute_dtype, dev)
-        x, _ = _rwkv_stack(cfg, params, x, state, **kw)
+        x, _ = _rwkv_stack(cfg, params, x, None, n=n, **kw)
     elif kind == "hybrid":
-        state = mamba_mod.init_mamba_state(cfg, cfg.n_layers, B,
-                                           compute_dtype, dev)
-        x, _, _ = _hybrid_stack(cfg, params, x, state, positions, **kw)
+        x, _, _ = _hybrid_stack(cfg, params, x, None, positions, **kw)
     else:
-        enc_out, x = _encoder_inputs(cfg, params, batch, x, compute_dtype,
-                                     train=True)
+        enc_out, x = _encoder_inputs(cfg, params, batch, x, n, compute_dtype,
+                                     True, grp)
         x, aux, _ = _txf_stack(cfg, params, x, positions, enc_out, **kw)
     x = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
-    loss, metrics = chunked_cross_entropy(cfg, params, x, targets)
+    loss, metrics = chunked_cross_entropy(cfg, params, x, targets, grp=grp)
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
         metrics["aux_loss"] = aux / cfg.n_layers
     return loss, metrics
 
 
-def _ce_sums(logits: torch.Tensor, targets: torch.Tensor):
+def _ce_sums(logits: torch.Tensor, targets: torch.Tensor, v0: int = 0,
+             grp=None):
     """(sum of the masked nll, of the masked hits, the count of unmasked
     targets): logsumexp in f32 (f64 for f64 logits), the target's logit as
     it is in ``logits``' dtype (the reference's one-hot product accumulated
-    in f32 picks it exactly)."""
+    in f32 picks it exactly). With ``grp`` the logits are this rank's share
+    of the vocabulary, from global index ``v0``: the logsumexp, the
+    target's logit (on the rank that holds it) and the argmax (the lowest
+    global index of the row's largest logit) are taken across the
+    ranks."""
+    from ..dist.sharding import argmax_vocab, logsumexp_vocab, reduce_model
     mask = (targets >= 0).float()
     tgt = targets.clamp(min=0)
     lg = upcast(logits)
-    logz = torch.logsumexp(lg, dim=-1)
-    ll = upcast(torch.gather(logits, -1, tgt[..., None])[..., 0])
-    nll = torch.sum((logz - ll) * mask)
-    acc = torch.sum((torch.argmax(lg, dim=-1) == tgt).float() * mask)
+    logz = logsumexp_vocab(lg, grp)
+    mine = (tgt >= v0) & (tgt < v0 + logits.shape[-1])
+    ll = upcast(torch.gather(logits, -1, torch.where(
+        mine, tgt - v0, 0)[..., None])[..., 0]) * mine
+    nll = torch.sum((logz - reduce_model(ll, grp)) * mask)
+    acc = torch.sum((argmax_vocab(lg, v0, grp) == tgt).float() * mask)
     return nll, acc, mask.sum()
 
 
-def _ce_chunk(xb: torch.Tensor, tb: torch.Tensor, head: torch.Tensor):
-    return _ce_sums(xb @ head, tb)
+def _ce_chunk(xb: torch.Tensor, tb: torch.Tensor, head: torch.Tensor,
+              v0: int = 0, grp=None):
+    return _ce_sums(xb @ head, tb, v0, grp)
 
 
 def chunked_cross_entropy(cfg, params: Params, x: torch.Tensor,
-                          targets: torch.Tensor, chunk: int = 512):
+                          targets: torch.Tensor, chunk: int = 512, grp=None):
     """The reference's sequence-chunked loss (``model.py:407``): the (B,
     chunk, V) logits of one chunk at a time, reduced and dropped, and
     recomputed in backward (each chunk under ``torch.utils.checkpoint``),
     so the (B, S, V) logits never exist; the head is cast to x's dtype once
-    and is all that is kept, as ``save_only_these_names("ce_head")``. A
-    sequence that is not a multiple of ``chunk``, or no longer than one,
-    takes :func:`cross_entropy`."""
-    B, S, D = x.shape
-    if S % chunk or S <= chunk:
-        return cross_entropy(lm_logits(cfg, params, x), targets)
+    and is all that is kept, as ``save_only_these_names("ce_head")``.
+    Where the reference takes :func:`cross_entropy` (a sequence not a
+    multiple of ``chunk``, or no longer than one) this takes chunks all the
+    same, the last one short, and reports its unclamped token count.
+
+    With ``grp`` (tensor-parallel) ``x`` is this rank's slice of the final
+    residual: where the head splits over the vocabulary the sequence is
+    gathered and the loss taken vocab-parallel (:func:`_ce_sums`), else
+    each rank takes the sums of its slice with the whole head and they are
+    added over the group."""
+    from ..dist.sharding import gather_seq, reduce_model, seq_slice
+    n = targets.shape[1]
     head = params["embed"]["tok"].T if cfg.tie_embeddings \
         else params["lm_head"]
     head = head.to(x.dtype)
+    vocab = grp is not None and cfg.vocab_size % grp.size == 0
+    if vocab:
+        x, v0, g_ce, g_sum = gather_seq(x, n, grp), grp.rank * \
+            head.shape[1], grp, None
+    else:
+        targets, v0, g_ce, g_sum = seq_slice(targets, grp), 0, None, grp
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    nll, acc, n = zero, zero, zero
-    for c0 in range(0, S, chunk):
-        c_nll, c_acc, c_n = checkpointed(
-            _ce_chunk, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk], head)
-        nll, acc, n = nll + c_nll, acc + c_acc, n + c_n
-    n = torch.clamp(n, min=1.0)
-    loss = nll / n
-    return loss, {"loss": loss, "acc": acc / n, "tokens": n}
+    nll, acc, cnt = zero, zero, zero
+    for c0 in range(0, x.shape[1], chunk):
+        c = checkpointed(_ce_chunk, x[:, c0:c0 + chunk],
+                         targets[:, c0:c0 + chunk], head, v0, g_ce)
+        nll, acc, cnt = nll + c[0], acc + c[1], cnt + c[2]
+    nll, acc, cnt = (reduce_model(v, g_sum) for v in (nll, acc, cnt))
+    denom = torch.clamp(cnt, min=1.0)
+    loss = nll / denom
+    return loss, {"loss": loss, "acc": acc / denom,
+                  "tokens": cnt if n % chunk or n <= chunk else denom}
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
@@ -525,7 +595,7 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel training over 'model'
+# the compute copy's layout over 'model'
 # ---------------------------------------------------------------------------
 
 def compute_model_dims(cfg, params, tp: int):
@@ -574,200 +644,13 @@ def compute_model_dims(cfg, params, tp: int):
     return tree_util.map_with_paths(dim, params)
 
 
-def _build_inputs_tp(cfg, params: Params, batch, compute_dtype, grp):
-    """(this rank's sequence slice of :func:`_build_inputs`, the whole
-    length): a vocab-parallel lookup (each rank the rows it holds, zero
-    elsewhere, the partial sums reduce-scattered to the slices; the vlm's
-    patch embeddings enter on rank 0), or with a table used whole each
-    rank's slice of the lookup."""
-    from ..dist.sharding import scatter_seq, seq_slice
-    table = params["embed"]["tok"]
-    dev = table.device
-    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    extra = None
-    if cfg.vlm is not None and "embeds" in batch:
-        extra = torch.as_tensor(batch["embeds"], device=dev).to(compute_dtype)
-    if cfg.vocab_size % grp.size:
-        x = embed_tokens(cfg, params, tokens, compute_dtype)
-        if extra is not None:
-            x = torch.cat([extra, x], dim=1)
-        return seq_slice(x, grp), x.shape[1]
-    v0 = grp.rank * table.shape[0]
-    mine = (tokens >= v0) & (tokens < v0 + table.shape[0])
-    x = table[torch.where(mine, tokens - v0, 0)].to(compute_dtype) * \
-        mine[..., None].to(compute_dtype)
-    if cfg.family == "audio":
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    if extra is not None:
-        x = torch.cat([extra if grp.rank == 0 else torch.zeros_like(extra),
-                       x], dim=1)
-    return scatter_seq(x, grp), x.shape[1]
-
-
-def _txf_layer_tp(cfg, x, lp: Params, positions, enc_full, grp):
-    """:func:`_txf_layer` (training) on this rank's slice of the residual,
-    ``constrain_residual`` after attention and after the FFN: (x, aux or
-    None)."""
-    n = positions.shape[0]
-    audio = cfg.family == "audio"
-    h = rmsnorm_train(x, lp["ln1"], cfg.norm_eps)
-    x = x + attention_tp(cfg, h, lp["attn"], positions, grp, causal=True,
-                         window=cfg.sliding_window, rope=not audio)
-    if enc_full is not None:
-        h = rmsnorm_train(x, lp["ln2"], cfg.norm_eps)
-        x = x + attention_tp(cfg, h, lp["xattn"], positions, grp,
-                             causal=False, rope=False, src=enc_full)
-    h = rmsnorm_train(x, lp["ln2"], cfg.norm_eps)
-    if "moe" in lp:
-        y, aux = moe_mlp_tp(h, lp["moe"], cfg, n, grp)
-    else:
-        y, aux = mlp_tp(cfg, h, lp["mlp"], n, grp), None
-    return x + y, aux
-
-
-def _encoder_forward_tp(cfg, params: Params, enc_embeds, compute_dtype, grp):
-    """Whisper's encoder on sequence slices: its output whole on every
-    rank (B, enc_seq, D), for the decoder's cross-attention."""
-    from ..dist.sharding import gather_seq, seq_slice
-    n = enc_embeds.shape[1]
-    positions = torch.arange(n, device=enc_embeds.device)
-    x = seq_slice(enc_embeds.to(compute_dtype), grp)
-    lps = params["encoder"]["layers"]
-    for i in range(lps["ln1"].shape[0]):
-        lp = _layer(lps, i)
-        h = rmsnorm_train(x, lp["ln1"], cfg.norm_eps)
-        x = x + attention_tp(cfg, h, lp["attn"], positions, grp,
-                             causal=False, rope=False)
-        h = rmsnorm_train(x, lp["ln2"], cfg.norm_eps)
-        x = x + mlp_tp(cfg, h, lp["mlp"], n, grp)
-    x = rmsnorm_train(x, params["encoder"]["final_norm"], cfg.norm_eps)
-    return gather_seq(x, n, grp)
-
-
-def _shared_block_tp(cfg, sp: Params, x, positions, grp):
-    h = rmsnorm_train(x, sp["ln1"], cfg.norm_eps)
-    x = x + attention_tp(cfg, h, sp["attn"], positions, grp, causal=True)
-    h = rmsnorm_train(x, sp["ln2"], cfg.norm_eps)
-    return x + mlp_tp(cfg, h, sp["mlp"], positions.shape[0], grp)
-
-
-def _forward_train_tp(cfg, params: Params, batch, compute_dtype, remat, grp):
-    """:func:`forward_train` over the 'model' group ``grp``."""
-    kind = _kind(cfg)
-    x, n = _build_inputs_tp(cfg, params, batch, compute_dtype, grp)
-    dev = x.device
-    targets = torch.as_tensor(batch["targets"], device=dev).long()
-    positions = torch.arange(n, device=dev)
-
-    def run(layer, *args):
-        return checkpointed(layer, *args) if remat else layer(*args)
-    aux = None
-    if kind == "rwkv":
-        lps = params["layers"]["rwkv"]
-        for i in range(lps["ln1"].shape[0]):
-            x = run(lambda x, lp: rwkv_mod.rwkv_block_tp(x, lp, cfg, n, grp),
-                    x, _layer(lps, i))
-    elif kind == "hybrid":
-        every, sp = cfg.shared_attn_every, params["shared"]
-        lps = params["layers"]["mamba"]
-
-        def hybrid(x, lp, shared):
-            x = mamba_mod.mamba_block_tp(x, lp, cfg, n, grp)
-            return _shared_block_tp(cfg, sp, x, positions, grp) \
-                if shared else x
-        for i in range(lps["ln"].shape[0]):
-            x = run(hybrid, x, _layer(lps, i), i % every == every - 1)
-    else:
-        enc_full = None
-        if cfg.encoder is not None:
-            enc = torch.as_tensor(batch["enc_embeds"], device=dev)
-            enc_full = _encoder_forward_tp(cfg, params, enc, compute_dtype,
-                                           grp)
-            s0, s1 = grp.bounds(n)
-            x = x + params["pos_emb"][s0:s1].to(compute_dtype)
-        aux = torch.zeros((), dtype=torch.promote_types(x.dtype,
-                                                        torch.float32),
-                          device=dev)
-        lps = params["layers"]
-        for i in range(lps["ln1"].shape[0]):
-            x, a = run(lambda x, lp: _txf_layer_tp(cfg, x, lp, positions,
-                                                   enc_full, grp),
-                       x, _layer(lps, i))
-            if a is not None:
-                aux = aux + a
-    x = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
-    loss, metrics = _cross_entropy_tp(cfg, params, x, targets, grp)
-    if cfg.moe is not None:
-        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
-        metrics["aux_loss"] = aux / cfg.n_layers
-    return loss, metrics
-
-
-def _ce_sums_vocab(logits: torch.Tensor, targets: torch.Tensor, v0: int,
-                   grp):
-    """:func:`_ce_sums` of logits split over the vocabulary (this rank's
-    columns start at ``v0``): the logsumexp and the target's logit summed
-    across the ranks, the argmax the lowest global index of the row's
-    largest logit, as ``torch.argmax`` over the whole row picks it."""
-    from ..dist.sharding import (logsumexp_vocab, max_model, min_model,
-                                 reduce_model)
-    mask = (targets >= 0).float()
-    tgt = targets.clamp(min=0)
-    lg = upcast(logits)
-    logz = logsumexp_vocab(lg, grp)
-    mine = (tgt >= v0) & (tgt < v0 + logits.shape[-1])
-    ll = upcast(torch.gather(logits, -1, torch.where(
-        mine, tgt - v0, 0)[..., None])[..., 0]) * mine
-    nll = torch.sum((logz - reduce_model(ll, grp)) * mask)
-    top = lg.detach().argmax(-1)
-    best = torch.gather(lg.detach(), -1, top[..., None])[..., 0]
-    cand = torch.where(best == max_model(best, grp), top + v0,
-                       torch.iinfo(top.dtype).max)
-    acc = torch.sum((min_model(cand, grp) == tgt).float() * mask)
-    return nll, acc, mask.sum()
-
-
-def _cross_entropy_tp(cfg, params: Params, x, targets, grp, chunk: int = 512):
-    """:func:`chunked_cross_entropy` of this rank's slice ``x`` of the
-    final residual: vocab-parallel over the gathered sequence where the
-    head splits, else on the slice with the whole head, the sums added
-    over 'model'; chunks of ``chunk`` positions (the last may be short),
-    each under :func:`checkpointed`, the head cast once."""
-    from ..dist.sharding import gather_seq, reduce_model
-    n = targets.shape[1]
-    head = params["embed"]["tok"].T if cfg.tie_embeddings \
-        else params["lm_head"]
-    head = head.to(x.dtype)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    nll, acc, cnt = zero, zero, zero
-    if cfg.vocab_size % grp.size == 0:
-        xf = gather_seq(x, n, grp)
-        v0 = grp.rank * head.shape[1]
-        for c0 in range(0, n, chunk):
-            c = checkpointed(lambda xb, tb, hd: _ce_sums_vocab(
-                xb @ hd, tb, v0, grp), xf[:, c0:c0 + chunk],
-                targets[:, c0:c0 + chunk], head)
-            nll, acc, cnt = nll + c[0], acc + c[1], cnt + c[2]
-    else:
-        s0, s1 = grp.bounds(n)
-        t = targets[:, s0:s1]
-        for c0 in range(0, s1 - s0, chunk):
-            c = checkpointed(_ce_chunk, x[:, c0:c0 + chunk],
-                             t[:, c0:c0 + chunk], head)
-            nll, acc, cnt = nll + c[0], acc + c[1], cnt + c[2]
-        nll, acc, cnt = (reduce_model(v, grp) for v in (nll, acc, cnt))
-    cnt = torch.clamp(cnt, min=1.0)
-    loss = nll / cnt
-    return loss, {"loss": loss, "acc": acc / cnt, "tokens": cnt}
-
-
 def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):
     """Process a full prompt, ``batch["tokens"]`` (B, S), with
     ``batch["embeds"]`` (vlm) or ``batch["enc_embeds"]`` (audio) where the
     config has them; returns (last-token logits (B, V), cache)."""
     kind = _kind(cfg)
-    x = _build_inputs(cfg, params, batch, compute_dtype)
-    B, S = x.shape[0], x.shape[1]
+    x, S = _build_inputs(cfg, params, batch, compute_dtype)
+    B = x.shape[0]
     dev = x.device
     positions = torch.arange(S, device=dev)
     if kind == "rwkv":
@@ -780,7 +663,7 @@ def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):
                                      collect_cache=True)
         cache = {"state": state, **kv}
     else:
-        enc_out, x = _encoder_inputs(cfg, params, batch, x, compute_dtype)
+        enc_out, x = _encoder_inputs(cfg, params, batch, x, S, compute_dtype)
         x, _, cache = _txf_stack(cfg, params, x, positions, enc_out,
                                  collect_cache=True)
     x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)

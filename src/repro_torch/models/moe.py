@@ -19,10 +19,10 @@ The expert products are plain batched matmuls, which the reference leaves
 to XLA outside any Pallas kernel; no kernel of the port runs here.
 
 On a mesh the training step computes expert-parallel over 'model', as
-the reference's dispatch constraint (``moe.py:103``) places the experts:
-each rank gathers the sequence, routes it whole (so capacity and drop
-order are the reference's, per sequence), fills the buffer slots of its
-own experts only, runs them on its slice of ``w13``/``w2`` and combines
+the reference's dispatch constraint (``moe.py:103``) places the experts
+(``moe_mlp`` given the 'model' group): each rank gathers the sequence,
+routes it whole (so capacity and drop order are the reference's, per
+sequence), fills the buffer slots of its own experts only, runs them on its slice of ``w13``/``w2`` and combines
 their share of every token; the partial sums leave through a
 reduce-scatter to its sequence slice. The load-balance statistics are
 means over the global batch, which the reference's SPMD step takes: each
@@ -140,13 +140,28 @@ def _experts(h: torch.Tensor, w13: torch.Tensor, w2: torch.Tensor, eq_in: str,
     return torch.einsum(eq_out, F.silu(g1) * g3, w2.to(h.dtype))
 
 
-def moe_mlp(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def experts_split(cfg, tp: int) -> bool:
+    """Whether the experts split over a 'model' of ``tp`` ranks (expert
+    parallel); else every rank runs them all."""
+    return cfg.moe.n_experts % tp == 0
+
+
+def moe_mlp(x: torch.Tensor, p, cfg, n: Optional[int] = None, grp=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (B, S, D), aux loss. ``p`` holds this layer's
-    slices (``router``, ``w13``, ``w2``)."""
+    slices (``router``, ``w13``, ``w2``). With ``grp`` (tensor-parallel)
+    ``x`` is this rank's sequence slice of a sequence ``n`` long and the
+    output its slice: the sequence is gathered and routed whole, the
+    rank's experts (its slice of ``w13``/``w2``, where
+    :func:`experts_split`) fill and run their slots, and the partial sums
+    leave through a reduce-scatter; the aux loss is alike on every
+    rank."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
     m = cfg.moe
+    x = gather_seq(x, n, grp)
     B, S, D = x.shape
     E = m.n_experts
-    sel, w, aux = _route(x, p["router"], m)
+    sel, w, aux = _route(x, p["router"], m, grp)
     if S == 1:
         # the dense mixture over experts (the reference's decode branch)
         gates = torch.sum(F.one_hot(sel, E).to(w.dtype) * w[..., None],
@@ -154,41 +169,16 @@ def moe_mlp(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         y = _experts(x, p["w13"], p["w2"], "bsd,edf->bsef", "bsef,efd->bsed")
         return torch.einsum("bsed,bse->bsd", y, gates.to(x.dtype)), aux
     C = capacity(cfg, S)
-    buf, idx, keep = _dispatch_seq(x, sel, w, E, C)
-    y = _experts(buf.reshape(B, E, C, D), p["w13"], p["w2"],
-                 "becd,edf->becf", "becf,efd->becd").reshape(B, E * C, D)
+    mine, El = None, E
+    if grp is not None and experts_split(cfg, grp.size):
+        El = E // grp.size
+        mine = (grp.rank * El, (grp.rank + 1) * El)
+    buf, idx, keep = _dispatch_seq(x, sel, w, E, C, mine)
+    y = _experts(buf.reshape(B, El, C, D), p["w13"], p["w2"],
+                 "becd,edf->becf", "becf,efd->becd").reshape(B, El * C, D)
     # combine: each slot's output, weighted, summed over the k slots
     gathered = torch.gather(y, 1, idx.reshape(B, S * m.top_k, 1)
                             .expand(-1, -1, D)).reshape(B, S, m.top_k, D)
-    wk = (w * keep).to(x.dtype)
-    return torch.einsum("bskd,bsk->bsd", gathered, wk), aux
-
-
-def experts_split(cfg, tp: int) -> bool:
-    """Whether the experts split over a 'model' of ``tp`` ranks (expert
-    parallel); else every rank runs them all."""
-    return cfg.moe.n_experts % tp == 0
-
-
-def moe_mlp_tp(x: torch.Tensor, p, cfg, n: int, grp):
-    """Expert-parallel :func:`moe_mlp` of this rank's sequence slice ``x``
-    (B, s, D) (the whole sequence is ``n`` long): (this rank's slice of the
-    output, the aux loss, alike on every rank)."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
-    m = cfg.moe
-    B, D, E = x.shape[0], x.shape[-1], m.n_experts
-    xf = gather_seq(x, n, grp)
-    sel, w, aux = _route(xf, p["router"], m, grp)
-    C = capacity(cfg, n)
-    mine, El = None, E
-    if experts_split(cfg, grp.size):
-        El = E // grp.size
-        mine = (grp.rank * El, (grp.rank + 1) * El)
-    buf, idx, keep = _dispatch_seq(xf, sel, w, E, C, mine)
-    y = _experts(buf.reshape(B, El, C, D), p["w13"], p["w2"],
-                 "becd,edf->becf", "becf,efd->becd").reshape(B, El * C, D)
-    gathered = torch.gather(y, 1, idx.reshape(B, n * m.top_k, 1)
-                            .expand(-1, -1, D)).reshape(B, n, m.top_k, D)
     out = torch.einsum("bskd,bsk->bsd", gathered, (w * keep).to(x.dtype))
     return (seq_slice(out, grp) if mine is None
             else scatter_seq(out, grp)), aux

@@ -14,8 +14,8 @@ Parameters keep the reference's names and ``(L, ...)``-stacked layout.
 
 On a mesh the training step splits the heads over 'model', as the
 reference's constraint on r, k, v and logw (``rwkv6.py:73``) does
-(:func:`rwkv_block_tp`): each rank gathers the sequence, token-shifts it
-whole, projects its heads' columns (``wr``, ``wk``, ``wv``, ``wg``, the
+(``rwkv_block`` given the 'model' group): each rank gathers the sequence,
+token-shifts it whole, projects its heads' columns (``wr``, ``wk``, ``wv``, ``wg``, the
 decay LoRA's ``wb``), scans and group-norms them and leaves through the
 row-parallel ``wo``; the channel mix is column-parallel in ``wck`` and
 row-parallel in ``wcv``, its receptance taken on the rank's sequence
@@ -24,6 +24,7 @@ slice with the whole ``wcr``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -151,49 +152,89 @@ def wkv_step(r, k, v, logw, u, state):
     return out[:, None], state
 
 
-def time_mix(x, p, cfg, state, train: bool = False):
-    """state: dict(shift (B,1,D), wkv (B,H,dh,dh)). Returns (y, new_state).
-    ``train``: the differentiable scan in place of K7."""
-    H, dh = cfg.n_heads, cfg.rwkv.head_size
+def time_mix(x, p, cfg, state, train: bool = False, n: Optional[int] = None,
+             grp=None):
+    """state: dict(shift (B,1,D), wkv (B,H,dh,dh)), or None for a zero
+    state. Returns (y, new_state). ``train``: the differentiable scan in
+    place of K7.
+
+    With ``grp`` (training, tensor-parallel) ``x`` is this rank's sequence
+    slice of a sequence ``n`` long: the mix runs on the gathered sequence,
+    token-shifted whole, its heads split over the group where
+    :func:`rwkv_heads_split` (the rank's columns of ``wr``, ``wk``,
+    ``wv``, ``wg`` and the decay LoRA's ``wb``; ``wo`` row-parallel), else
+    whole on every rank, and ``y`` is this rank's slice."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    if grp is not None and not rwkv_heads_split(cfg, grp.size):
+        y, st = time_mix(gather_seq(x, n, grp), p, cfg, state, train)
+        return seq_slice(y, grp), st
+    x = gather_seq(x, n, grp)
+    tp, rank = (1, 0) if grp is None else (grp.size, grp.rank)
+    H, dh = cfg.n_heads // tp, cfg.rwkv.head_size
     B, S, D = x.shape
-    xprev = _shift(x, state["shift"]) if S > 1 else state["shift"]
-    r, k, v, g, logw = _projections(x, xprev, p, H, dh)
+    hs = slice(rank * H, (rank + 1) * H)
+    if state is None:
+        shift = x.new_zeros((B, 1, D))
+        wkv0 = torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                           device=x.device)
+    else:
+        shift, wkv0 = state["shift"], state["wkv"][:, hs]
+    xprev = _shift(x, shift) if S > 1 else shift
+    r, k, v, g, logw = _projections(x, xprev, {**p, "w0": p["w0"][hs]}, H,
+                                    dh)
     if S == 1:
-        out, wkv = wkv_step(r, k, v, logw, p["u"], state["wkv"])
+        out, wkv = wkv_step(r, k, v, logw, p["u"][hs], wkv0)
     else:
         scan = wkv_chunked_train if train else wkv_chunked
-        out, wkv = scan(r, k, v, logw, p["u"], state["wkv"], cfg.rwkv.chunk)
+        out, wkv = scan(r, k, v, logw, p["u"][hs], wkv0, cfg.rwkv.chunk)
     out = out.reshape(B, S, H, dh).to(x.dtype)
     # per-head group norm, as the reference writes it (not rmsnorm: no
     # scale, eps 1e-5 inside an f32 rsqrt, then cast to x's dtype)
     out = out * torch.rsqrt(torch.mean(torch.square(upcast(out)), -1,
                                        keepdim=True) + 1e-5).to(x.dtype)
-    out = out.reshape(B, S, H * dh) * p["gn"].to(x.dtype)
+    gn = p["gn"][hs.start * dh:hs.stop * dh]
+    out = out.reshape(B, S, H * dh) * gn.to(x.dtype)
     out = out * F.silu(g)
-    y = out @ p["wo"].to(x.dtype)
+    y = scatter_seq(out @ p["wo"].to(x.dtype), grp)
     return y, {"shift": x[:, -1:].clone(), "wkv": wkv}
 
 
-def channel_mix(x, p, state_shift):
+def channel_mix(x, p, cfg, state_shift, n: Optional[int] = None, grp=None):
+    """The channel mix; ``state_shift`` (B,1,D), or None for zeros.
+    Returns (y, the new shift). With ``grp`` (as :func:`time_mix`) ``wck``
+    column-parallel and ``wcv`` row-parallel where :func:`channel_split`,
+    the receptance taken on this rank's slice with the whole ``wcr``, else
+    whole on every rank; ``y`` is this rank's slice."""
+    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    if grp is not None and not channel_split(cfg, grp.size):
+        y, st = channel_mix(gather_seq(x, n, grp), p, cfg, state_shift)
+        return seq_slice(y, grp), st
+    x = gather_seq(x, n, grp)
+    if state_shift is None:
+        state_shift = torch.zeros_like(x[:, :1])
     xprev = _shift(x, state_shift) if x.shape[1] > 1 else state_shift
     mu = p["mu_c"].to(x.dtype)
     xk = x + (xprev - x) * mu[0]
-    xr = x + (xprev - x) * mu[1]
+    xr = seq_slice(x + (xprev - x) * mu[1], grp)
     kk = torch.square(torch.relu(xk @ p["wck"].to(x.dtype)))
     rr = torch.sigmoid(xr @ p["wcr"].to(x.dtype))
-    return rr * (kk @ p["wcv"].to(x.dtype)), x[:, -1:].clone()
+    return rr * scatter_seq(kk @ p["wcv"].to(x.dtype), grp), \
+        x[:, -1:].clone()
 
 
-def rwkv_block(x, p, cfg, state, train: bool = False):
-    """One RWKV layer. state: {shift, wkv, cshift}. ``train``: the
-    differentiable ops in place of K4 and K7."""
+def rwkv_block(x, p, cfg, state, train: bool = False, n: Optional[int] = None,
+               grp=None):
+    """One RWKV layer. state: {shift, wkv, cshift}, or None for a zero
+    state. ``train``: the differentiable ops in place of K4 and K7;
+    ``n`` and ``grp`` as for :func:`time_mix`."""
     norm = rmsnorm_train if train else rmsnorm
-    h, tm_state = time_mix(norm(x, p["ln1"], cfg.norm_eps), p, cfg,
-                           {"shift": state["shift"], "wkv": state["wkv"]},
-                           train)
+    st = state or {}
+    tm = None if state is None else {"shift": st["shift"], "wkv": st["wkv"]}
+    h, tm_state = time_mix(norm(x, p["ln1"], cfg.norm_eps), p, cfg, tm,
+                           train, n, grp)
     x = x + h
-    h, cshift = channel_mix(norm(x, p["ln2"], cfg.norm_eps), p,
-                            state["cshift"])
+    h, cshift = channel_mix(norm(x, p["ln2"], cfg.norm_eps), p, cfg,
+                            st.get("cshift"), n, grp)
     x = x + h
     return x, {"shift": tm_state["shift"], "wkv": tm_state["wkv"],
                "cshift": cshift}
@@ -220,60 +261,3 @@ def rwkv_heads_split(cfg, tp: int) -> bool:
 def channel_split(cfg, tp: int) -> bool:
     """Whether the channel mix splits ``d_ff`` over ``tp`` ranks."""
     return cfg.d_ff % tp == 0
-
-
-def _time_mix_tp(h, p, cfg, n: int, grp):
-    """The time mix of this rank's slice ``h`` of the normed residual:
-    this rank's slice of its output."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
-    H, dh = cfg.n_heads, cfg.rwkv.head_size
-    B, _, D = h.shape
-    hf = gather_seq(h, n, grp)
-    zero = {"shift": torch.zeros((B, 1, D), dtype=h.dtype, device=h.device),
-            "wkv": torch.zeros((B, H, dh, dh), dtype=torch.float32,
-                               device=h.device)}
-    if not rwkv_heads_split(cfg, grp.size):
-        return seq_slice(time_mix(hf, p, cfg, zero, True)[0], grp)
-    Hl = H // grp.size
-    hs = slice(grp.rank * Hl, (grp.rank + 1) * Hl)
-    cs = slice(hs.start * dh, hs.stop * dh)
-    r, k, v, g, logw = _projections(hf, _shift(hf, zero["shift"]),
-                                    {**p, "w0": p["w0"][hs]}, Hl, dh)
-    out, _ = wkv_chunked_train(r, k, v, logw, p["u"][hs], zero["wkv"][:, hs],
-                               cfg.rwkv.chunk)
-    out = out.reshape(B, n, Hl, dh).to(h.dtype)
-    out = out * torch.rsqrt(torch.mean(torch.square(upcast(out)), -1,
-                                       keepdim=True) + 1e-5).to(h.dtype)
-    out = out.reshape(B, n, Hl * dh) * p["gn"][cs].to(h.dtype)
-    out = out * F.silu(g)
-    return scatter_seq(out @ p["wo"].to(h.dtype), grp)
-
-
-def _channel_mix_tp(h, p, n: int, grp):
-    """The channel mix of this rank's slice ``h`` of the normed residual:
-    this rank's slice of its output."""
-    from ..dist.sharding import gather_seq, scatter_seq
-    hf = gather_seq(h, n, grp)
-    xprev = _shift(hf, torch.zeros_like(hf[:, :1]))
-    mu = p["mu_c"].to(h.dtype)
-    s0, s1 = grp.bounds(n)
-    xk = hf + (xprev - hf) * mu[0]
-    xr = (hf + (xprev - hf) * mu[1])[:, s0:s1]
-    kk = torch.square(torch.relu(xk @ p["wck"].to(h.dtype)))
-    rr = torch.sigmoid(xr @ p["wcr"].to(h.dtype))
-    return rr * scatter_seq(kk @ p["wcv"].to(h.dtype), grp)
-
-
-def rwkv_block_tp(x, p, cfg, n: int, grp):
-    """Head-parallel :func:`rwkv_block` (training, zero state) of this
-    rank's sequence slice ``x`` (B, s, D), the whole sequence ``n`` long:
-    the new slice."""
-    from ..dist.sharding import gather_seq, seq_slice
-    x = x + _time_mix_tp(rmsnorm_train(x, p["ln1"], cfg.norm_eps), p, cfg,
-                         n, grp)
-    h = rmsnorm_train(x, p["ln2"], cfg.norm_eps)
-    if channel_split(cfg, grp.size):
-        return x + _channel_mix_tp(h, p, n, grp)
-    hf = gather_seq(h, n, grp)
-    return x + seq_slice(channel_mix(hf, p, torch.zeros_like(hf[:, :1]))[0],
-                         grp)

@@ -65,7 +65,10 @@ def make_train_step(cfg, opt: OptConfig, compute_dtype=torch.bfloat16,
     :func:`shard_train_state` places, and every rank passes the global
     batch (see the module docstring); the step also has ``step.grads(
     params, batch)`` -> (metrics, the reduced gradient tree, placed as the
-    params), the gradient the optimizer would be given. A mesh step counts
+    params), the gradient the optimizer would be given, and
+    ``step.tp_compute``, the size of the 'model' group its last call's
+    compute was split over (1: not split; None before a call). A mesh step
+    counts
     the unmasked targets of the global batch and of its rows to weight its
     loss; ``count_targets`` (targets -> that count) replaces the count, for
     a dry-run's fake tensors, which hold no values to count (every target
@@ -286,6 +289,9 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
         B = len(batch["tokens"])
         n = B // max(accum_steps, 1)
         rules = sharding.Rules(mesh, "train", global_batch=n)
+        with sharding.use_rules(rules):
+            grp = sharding.tp_group()
+        step.tp_compute = 1 if grp is None else grp.size
         pc = gathered(params, rules)
         flat = [t.requires_grad_(True) for t in tree_util.leaves(pc)]
         pc = tree_util.unflatten_like(params, flat)
@@ -328,5 +334,6 @@ def _make_mesh_step(cfg, opt, compute_dtype, remat, accum_steps, mesh,
         return params, opt_state, metrics
 
     step.grads = grads
+    step.tp_compute = None
     return step
 

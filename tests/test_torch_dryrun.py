@@ -17,7 +17,8 @@ a test process that may hold a gloo group.
     and over 'model' for a leaf used whole), and the global norm's
     all-reduces; between them the tensor-parallel forward's and
     backward's collectives (the sequence gathers and scatters, the loss's
-    reductions, moe's batch means), each over a group of 2.
+    reductions, moe's router sums and batch means, Mamba-2's norm moments:
+    ``_expected_middle``), each over a group of 2.
   * The committed llama3.2-1b x train_4k record, regenerated through the
     CLI, equals the committed one in every count, its counted flops
     within 2 %.
@@ -124,6 +125,45 @@ def _expected(cfg):
     return first, last
 
 
+def _expected_middle(cfg):
+    """The (op, bytes) multiset of the tensor-parallel forward and
+    backward on (2, 2): a rank's rows, with the vocabulary and every block
+    split over 'model'.
+
+    * Each block (attention, the MLP or MoE, a Mamba-2 layer) all-gathers
+      the sequence in and reduce-scatters it out, (B, S, D) in bf16: in
+      the forward, again in remat's recompute of its layer (which stops
+      before the layer's last reduce-scatter: nothing after it is saved)
+      and, reversed, in the backward. The embedding's reduce-scatter and
+      the loss's all-gather add one of each, and their backward one more.
+    * The vocab-parallel loss all-reduces (B, S) rows: the logsumexp's max
+      and sum, the target's logit and the argmax's max in f32, its min of
+      int64 candidates; the first three again in the chunk's recompute.
+    * Per moe layer, the router's two sums over 'model' and two batch
+      means over 'data', (E,) f32, in the forward and the recompute.
+    * Per Mamba-2 layer, the gated norm's moment, (B, S) f32, in the
+      forward, the recompute and the backward."""
+    rows = BATCH // 2
+    seq = rows * SEQ * cfg.d_model * 2
+    f32 = rows * SEQ * 4
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        blocks = [1 + 2 * (i % every == every - 1)
+                  for i in range(cfg.n_layers)]
+    else:
+        blocks = [2] * cfg.n_layers
+    mid = Counter()
+    mid["all-gather", seq] += sum(3 * b for b in blocks) + 2
+    mid["reduce-scatter", seq] += sum(3 * b - 1 for b in blocks) + 2
+    mid["all-reduce", f32] += 7
+    mid["all-reduce", 2 * f32] += 1
+    if cfg.moe is not None:
+        mid["all-reduce", cfg.moe.n_experts * 4] += 8 * cfg.n_layers
+    if cfg.family == "hybrid":
+        mid["all-reduce", f32] += 3 * cfg.n_layers
+    return mid
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_collectives_are_the_ones_the_specs_imply(small, arch):
     cfg = get_config(arch).reduced(n_layers=2, vocab_size=128)
@@ -133,11 +173,8 @@ def test_collectives_are_the_ones_the_specs_imply(small, arch):
     k, m = sum(first.values()), sum(last.values())
     assert Counter(ops[:k]) == first
     assert Counter(ops[-m:]) == last
-    middle = ops[k:-m]
-    seq = BATCH // 2 * SEQ * cfg.d_model * 2        # a rank's (B, S, D)
-    assert {op for op, _ in middle} <= {"all-gather", "reduce-scatter",
-                                        "all-reduce"}
-    assert Counter(middle)["all-gather", seq] >= 2 * cfg.n_layers
+    assert Counter(ops[k:-m]) == _expected_middle(cfg)
+    assert rec["tp_compute"] == 2
     assert all(o["group"] == 2 for o in rec["collectives"]["ops"])
     c = rec["collectives"]
     assert c["weighted_bytes"] == c["raw_bytes"] + c["per_op"]["all-reduce"]

@@ -179,3 +179,39 @@ def test_one_rank_path_is_the_one_process_step_bit_for_bit(one, arch):
     losses of the step without a mesh exactly."""
     plain, mesh = one[arch]
     assert mesh == plain
+
+
+class GroupMesh:
+    """A mesh with process groups, as ``tp_group`` reads one: axis names,
+    sizes and a group per axis (none needed here)."""
+    def __init__(self, shape, axes):
+        self.shape, self.mesh_dim_names = shape, axes
+
+    def get_group(self, i):
+        return None
+
+    def get_local_rank(self, i):
+        return 0
+
+    def size(self, i):
+        return self.shape[i]
+
+
+@pytest.mark.parametrize("shape,axes,want", [
+    ((1, 4), ("data", "model"), 4),
+    ((2, 1), ("data", "model"), 1),
+    ((1, 4, 1), ("data", "model", "model2"), 4),
+    ((1, 2, 2), ("data", "model", "model2"), NotImplementedError),
+])
+def test_tensor_parallel_group_of_the_rules(shape, axes, want):
+    """``tp_group`` under train rules: 'model' of each size (one rank
+    included: the path runs its collectives there too); a 'model2' of
+    one adds nothing; tp2d, a 'model2' larger than one, raises rather than
+    falling back to a whole copy on every rank."""
+    from repro_torch.dist.sharding import Rules, tp_group, use_rules
+    with use_rules(Rules(GroupMesh(shape, axes), "train")):
+        if want is NotImplementedError:
+            with pytest.raises(NotImplementedError):
+                tp_group()
+        else:
+            assert tp_group().size == want
