@@ -178,6 +178,23 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               the check. One log line with the counted flops, the peak
               and the collectives by kind, beside the card's name and
               power limit.
+ 5h. mesh serve - phase 5b's serving through the mesh steps on one NCCL
+              rank (``make_local_mesh()``, 1 x 1): 5b's bf16 weights (its
+              host copy) placed by ``shard_serve_state``, the caches by
+              ``cache_specs``, ``serve_batch(mesh=)`` on 5b's prompts
+              (once to warm, once timed). Tokens equal to 5b's, bit for
+              bit (both decode with one arithmetic, and a group of one's
+              collectives copy); where a row differs the failure names
+              its first step and 5b's top-2 logit gap there; K5-K7's
+              prefill launches and K4's in prefill and decode equal to
+              5b's, K5-K7 0 in decode. f32 at 5b's cut depth (300
+              tokens, one decode step) for llama3.2-1b and zamba2-1.2b:
+              the mesh decode's logits within 1e-4 of the largest |logit|
+              of the one-process decode's; the broken control grafts the
+              prefill cache one position off (a wrong slice bound) and
+              must fail that check against the unbroken mesh decode. One
+              log line an arch: prefill s, decode ms a token and peak GB
+              beside 5b's, with the card's name and power limit.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -327,6 +344,8 @@ DRYRUN_PEAK_TOL = 0.05
 EPOCH_TOKENS = 9e12
 # phase 5g: a rank's counted flops against the analytic count a chip
 TP_FLOPS_RATIO = 2.0
+# phase 5h: the f32 cut-depth decode bound
+MESH_CUT_TOL = 1e-4
 PARITY_BATCH, PARITY_SEQ = 2, 512
 # training on the card against the port's own CPU run, f32: loss and grad
 # norm relative, each gradient leaf relative to its largest |value|
@@ -737,6 +756,11 @@ def run(args, work: Path, card: str):
     t0 = time.perf_counter()
     tp_dryrun_phase(card)
     log(f"tp dryrun phase: {time.perf_counter() - t0} s in all")
+
+    # -- 5h. serving on a mesh: one NCCL rank, 5b's runs through the mesh --
+    t0 = time.perf_counter()
+    mesh_serve_phase(args.seed, work, card, serve)
+    log(f"mesh serve phase: {time.perf_counter() - t0} s in all")
 
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -1407,7 +1431,8 @@ def _k4_serving_shapes(serve):
     return sorted({(r, d) for v in serve.values() for r, d, _ in v["k4_shapes"]})
 
 
-def _probed_serve_batch(cfg, prompts, params, profile=False):
+def _probed_serve_batch(cfg, prompts, params, profile=False, mesh=None,
+                        new=None, dtype=None):
     """One ``serve_batch`` run of ``cfg``'s arch, probed from the inside:
     ``launch.serve`` reads ``cfg`` for the arch's name (the published
     config, or one cut from it), and its step factories are wrapped so that
@@ -1416,14 +1441,24 @@ def _probed_serve_batch(cfg, prompts, params, profile=False):
     first decode step to the end of the run, and K4-K7's launches counted
     in each part; with ``profile`` each part also runs under
     torch.profiler, and K4's launches in the run are also counted by
-    (rows, d, the scale's dtype), under "k4_shapes". The counts are zeroed
-    just before the run. Returns the tokens and, per part, its seconds,
-    launches, last logits and device time by kernel (us)."""
+    (rows, d, the scale's dtype), under "k4_shapes", and each step's gap
+    between its two largest logits, relative to the larger, per row, under
+    "gaps". ``mesh`` serves through the mesh steps, ``new`` tokens
+    (SERVE_NEW) in ``dtype`` (bf16). The counts are zeroed just before the
+    run. Returns the tokens and, per part, its seconds, launches, last
+    logits (decode: also the first step's) and device time by kernel
+    (us)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as Profile
     from repro_torch.launch import serve as serve_mod
-    parts = {"k4_shapes": {}}
+    parts = {"k4_shapes": {}, "gaps": []}
+
+    def gap(logits):
+        if profile:     # on the card, read after the run
+            top = torch.topk(logits.float(), 2, dim=-1).values
+            parts["gaps"].append((top[..., 0] - top[..., 1])
+                                 / top[..., 0].abs())
 
     def begin(part):
         torch.cuda.synchronize()
@@ -1447,25 +1482,28 @@ def _probed_serve_batch(cfg, prompts, params, profile=False):
 
     real = serve_mod.make_prefill_step, serve_mod.make_decode_step
 
-    def prefill_factory(cfg):
-        step = real[0](cfg)
+    def prefill_factory(cfg, *a, **kw):
+        step = real[0](cfg, *a, **kw)
 
         def prefill(params, batch):
             begin("prefill")
             logits, cache = step(params, batch)
             end("prefill")
             parts["prefill"]["logits"] = logits
+            gap(logits)
             return logits, cache
         return prefill
 
-    def decode_factory(cfg):
-        step = real[1](cfg)
+    def decode_factory(cfg, *a, **kw):
+        step = real[1](cfg, *a, **kw)
 
         def decode(params, cache, token, pos):
             if "decode" not in parts:
                 begin("decode")
             logits, cache = step(params, cache, token, pos)
+            parts["decode"].setdefault("first", logits)
             parts["decode"]["logits"] = logits
+            gap(logits[:, 0])
             return logits, cache
         return decode
 
@@ -1477,13 +1515,15 @@ def _probed_serve_batch(cfg, prompts, params, profile=False):
     try:
         with (_k4_shapes_tallied(parts["k4_shapes"]) if profile
               else contextlib.nullcontext()):
-            toks = serve_mod.serve_batch(cfg.name, prompts, SERVE_NEW,
-                                         reduced=False, params=params,
-                                         device="cuda")
+            toks = serve_mod.serve_batch(
+                cfg.name, prompts, new or SERVE_NEW, reduced=False,
+                params=params, device="cuda", mesh=mesh,
+                compute_dtype=dtype or torch.bfloat16)
     finally:
         serve_mod.make_prefill_step, serve_mod.make_decode_step = real
         serve_mod.get_config = real_cfg
     end("decode")
+    parts["gaps"] = [g.cpu().numpy() for g in parts["gaps"]]
     return toks, parts
 
 
@@ -1492,17 +1532,21 @@ def serve_phase(seed: int):
     under torch.profiler, then timed and counted. Returns per arch the
     launches of the timed run and its measurements."""
     from repro_torch.configs import get_config
-    return {arch: _serve_arch(get_config(arch), SERVE_PROMPT, seed)
+    return {arch: _serve_arch(get_config(arch), SERVE_PROMPT, seed,
+                              keep=True)
             for arch in SERVE_ARCHS}
 
 
-def _serve_arch(cfg, prompt_len: int, seed: int, k4_want=None):
+def _serve_arch(cfg, prompt_len: int, seed: int, k4_want=None,
+                keep=False):
     """``serve_batch`` of ``cfg`` (its name's published config, or one cut
     from it) on SERVE_BATCH prompts of ``prompt_len`` tokens in bf16, with
     weights from a seeded CPU generator: once under torch.profiler, then
     timed and counted. Checks the tokens, the logits, K5-K7's launches
     (``_want_launches``) and, given ``k4_want`` (prefill, decode a token),
-    K4's. Returns the timed run's launches and measurements."""
+    K4's. Returns the timed run's launches and measurements; with
+    ``keep`` also its tokens, the profiled run's top-2 logit gaps a step
+    (the same tokens) and a host copy of the weights, for phase 5h."""
     import numpy as np
     import torch
     from repro_torch.models import init_params
@@ -1571,6 +1615,7 @@ def _serve_arch(cfg, prompt_len: int, seed: int, k4_want=None):
         sorted(us.items(), key=lambda kv: -kv[1])[:6]]
     out = {"launches": path, "k4_shapes": k4_shapes, "prefill_s": pre["s"],
            "prefill_launches": pre["launches"],
+           "decode_launches": dec["launches"],
            "decode_ms_per_token": 1e3 * dec["s"] / (SERVE_NEW - 1),
            "wall_s": wall, "init_s": init_s, "peak_gb": peak}
     ahead = f"{cfg.vlm.n_patches} patches + " if cfg.vlm is not None else ""
@@ -1584,6 +1629,9 @@ def _serve_arch(cfg, prompt_len: int, seed: int, k4_want=None):
         f"per token), launches {dec['launches']}; the profiled run gave "
         f"the same tokens {bool(np.array_equal(again, toks))}; prefill "
         f"device time by kernel (ms, % of device time) {share}")
+    if keep:
+        out.update(tokens=toks, gaps=prof["gaps"],
+                   host_params=_tree_to(params, "cpu"))
     del params, pre, dec, prof
     torch.cuda.empty_cache()
     return out
@@ -2492,6 +2540,128 @@ def tp_dryrun_phase(card: str):
     check(not verdict(broken), f"tp dryrun: the broken control passed: "
           f"{broken['counted_to_analytic']} of the analytic flops, peak "
           f"{broken['peak_est_bytes'] / 1e9} GB")
+
+
+def mesh_serve_phase(seed: int, work: Path, card: str, serve):
+    """Phase 5h: phase 5b's serving again through the mesh steps, on a
+    DeviceMesh of one NCCL rank (``make_local_mesh()``, 1 x 1): 5b's bf16
+    weights (its host copy) placed by ``shard_serve_state``, the caches as
+    ``cache_specs`` places them, ``serve_batch(mesh=)`` on 5b's prompts,
+    once to start NCCL's communicators and once timed. The tokens must
+    equal 5b's bit for bit: the decode's softmax has one arithmetic with
+    and without a group, and a group of one's collectives copy (where a
+    row differs, the failure gives its first step and 5b's two largest
+    logits' gap there, relative to the larger). K5-K7's launches in
+    prefill and K4's in prefill and in decode equal 5b's, K5-K7 0 in
+    decode. Then f32 at 5b's cut depth (CUT_PROMPT tokens, one decode
+    step) for the archs with a KV cache: the mesh decode's logits within
+    MESH_CUT_TOL of the largest |logit| of the one-process decode's, and
+    the broken control (the prefill cache grafted one position off, what
+    a wrong slice bound gives) must fail that check against the unbroken
+    mesh decode."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import init_params
+    from repro_torch.serve import shard_serve_state
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"file://{work}/nccl_serve_store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_local_mesh()
+        rules = sharding.Rules(mesh, "decode", global_batch=SERVE_BATCH)
+        for arch in SERVE_ARCHS:
+            cfg, ref = get_config(arch), serve[arch]
+            params = shard_serve_state(ref.pop("host_params"), mesh, rules,
+                                       cfg)
+            prompts = np.random.default_rng(seed + 7).integers(
+                0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                dtype=np.int32)
+            _probed_serve_batch(cfg, prompts, params, mesh=mesh)
+            torch.cuda.reset_peak_memory_stats()
+            toks, parts = _probed_serve_batch(cfg, prompts, params,
+                                              mesh=mesh)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            pre, dec = parts["prefill"], parts["decode"]
+            ties = []
+            for b in range(SERVE_BATCH):
+                at = np.nonzero(toks[b] != ref["tokens"][b])[0]
+                if len(at):
+                    ties.append((b, int(at[0]),
+                                 float(ref["gaps"][at[0]][b])))
+            ms = 1e3 * dec["s"] / (SERVE_NEW - 1)
+            log(f"mesh serve {arch} bf16 on a (1, 1) NCCL mesh, "
+                f"{SERVE_BATCH} x {SERVE_PROMPT} tokens + {SERVE_NEW} new: "
+                f"prefill {pre['s']} s (5b {ref['prefill_s']} s), decode "
+                f"{ms} ms a token (5b {ref['decode_ms_per_token']}), peak "
+                f"{peak} GB (5b {ref['peak_gb']}); launches prefill "
+                f"{pre['launches']} (5b {ref['prefill_launches']}), decode "
+                f"{dec['launches']} (5b {ref['decode_launches']}); tokens "
+                f"equal to 5b's: {bool(np.array_equal(toks, ref['tokens']))}"
+                f", first differing (row, step, 5b's top-2 gap) {ties}; on "
+                f"{card}")
+            check(not ties, f"mesh serve {arch}: tokens differ from 5b's "
+                  f"at (row, first step, 5b's top-2 gap) {ties}")
+            check(pre["launches"] == ref["prefill_launches"],
+                  f"mesh serve {arch}: prefill launches {pre['launches']}, "
+                  f"5b's {ref['prefill_launches']}")
+            check(dec["launches"]["rmsnorm"] ==
+                  ref["decode_launches"]["rmsnorm"]
+                  and dec["launches"]["flash_attention"]
+                  == dec["launches"]["ssd_chunked"]
+                  == dec["launches"]["wkv6_chunked"] == 0,
+                  f"mesh serve {arch}: decode launches {dec['launches']}, "
+                  f"5b's {ref['decode_launches']}")
+            del params, pre, dec, parts
+            torch.cuda.empty_cache()
+
+        def shifted(real):
+            def reslice(x, dim, *a):
+                return torch.roll(real(x, dim, *a), 1, dim)
+            return reslice
+        for arch in ("llama3.2-1b", "zamba2-1.2b"):
+            cfg = dataclasses.replace(get_config(arch),
+                                      n_layers=CUT_LAYERS[arch])
+            params = init_params(cfg, torch.Generator().manual_seed(seed + 1),
+                                 torch.float32, "cuda")
+            prompts = np.random.default_rng(seed + 8).integers(
+                0, cfg.vocab_size, (2, CUT_PROMPT), dtype=np.int32)
+            kw = dict(new=2, dtype=torch.float32)
+            one = _probed_serve_batch(cfg, prompts, params, **kw)[1]
+            placed = shard_serve_state(params, mesh, rules, cfg)
+            got = _probed_serve_batch(cfg, prompts, placed, mesh=mesh, **kw)
+            real = sharding.reslice_seq
+            sharding.reslice_seq = shifted(real)
+            try:
+                bad = _probed_serve_batch(cfg, prompts, placed, mesh=mesh,
+                                          **kw)
+            finally:
+                sharding.reslice_seq = real
+            want = one["decode"]["first"].float()
+            first = got[1]["decode"]["first"].full_tensor().float()
+            scale = float(want.abs().max())
+            err = float((first - want).abs().max()) / scale
+            err_ctl = float((bad[1]["decode"]["first"].full_tensor().float()
+                             - first).abs().max()) / scale
+            log(f"mesh serve cut {arch} L{cfg.n_layers} f32, {CUT_PROMPT} "
+                f"tokens, (1, 1) mesh: first decode step's logits against "
+                f"the one-process decode's {err} of the largest |logit| "
+                f"{scale} (bound {MESH_CUT_TOL}); the prefill cache grafted "
+                f"one position off: {err_ctl} from the unbroken mesh "
+                f"decode's")
+            check(err <= MESH_CUT_TOL, f"mesh serve cut {arch}: {err}")
+            check(err_ctl > MESH_CUT_TOL, f"mesh serve cut {arch}: the "
+                  f"cache grafted one position off passed ({err_ctl})")
+            del params, placed, one, got, bad
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
 
 
 def _train_template(cfg):

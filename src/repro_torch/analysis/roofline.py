@@ -64,19 +64,23 @@ def roofline_terms(flops_per_chip: float, bytes_per_chip: float,
             "bound": dom, "step_s_lower_bound": max(t_c, t_m, t_x)}
 
 
-def rank_hbm_bytes(cfg, shape, kind: str, n_chips: int, rows: int) -> float:
+def rank_hbm_bytes(cfg, shape, kind: str, n_chips: int, rows: int,
+                   tp: int = 1) -> float:
     """HBM bytes one rank of the port moves in a step, by
     :func:`~repro_torch.analysis.flops.step_hbm_bytes`'s terms for the
-    port's layout: whole weights (the compute is not tensor-parallel, so
-    tp is 1), the optimizer state over all ``n_chips`` ranks (train), and
-    the activations or cache of the rank's own ``rows`` rows."""
+    port's layout. Train: the whole bf16 copy read three times and an f32
+    gradient, the optimizer state over all ``n_chips`` ranks, and the
+    activations of the rank's own ``rows`` rows. Serving (the mesh steps):
+    the rank's shard of the weights (1 / ``tp``, the 'model' ranks) and of
+    the cache or activations (1 / ``n_chips``: rows over 'data' and the
+    sequence or heads over 'model', or the sequence over every rank under
+    "long"), the reference's own per-chip count."""
     if kind == "train":
         P = cfg.n_params()
         T = rows * shape.seq_len
         return (3 * P * 2 + P * 4) + 3 * P * 4 * 2 / n_chips \
             + 2 * cfg.n_layers * T * cfg.d_model * 2 * 2
-    return step_hbm_bytes(cfg, dataclasses.replace(shape, global_batch=rows),
-                          kind, 1, 1)
+    return step_hbm_bytes(cfg, shape, kind, n_chips, tp)
 
 
 _KINDS = {"Parameter": "parameters", "Buffer": "buffers",

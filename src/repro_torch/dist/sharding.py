@@ -44,6 +44,19 @@ constrains, each an ``autograd.Function`` with its backward, over the
     :func:`reduce_model_shared` what each rank uses on its own share (a
     norm over a split dim: backward an all-reduce).
 
+Serving (no backward) adds the ``cache_seq`` collectives, over the group
+:func:`cache_seq_group` gives ('model' under the prefill and decode
+rules, the whole mesh under ``long``): :func:`kv_heads_to_seq` moves a
+prefill's keys and values from the rank's heads to its sequence slice of
+every KV head, :func:`combine` joins a decode's partial softmax over
+the ranks' cache slices (its max, then its sum and its P.V, all-reduced
+in f32), :func:`reslice_seq` moves a
+cache's sequence slices to another length's (the prefill cache into the
+longer decode cache), and :func:`leave_block` ends a row-parallel block:
+a reduce-scatter to the sequence slice where the residual is
+sequence-parallel, an all-reduce where it is whole (a decode step: one
+token has no sequence to split).
+
 ``constrain_params_gathered(params, cfg)`` is the compute copy's layout
 (:func:`compute_model_dims`): gathered over the data axes, and over 'model'
 split column-parallel (the in-projections' output dim), row-parallel (the
@@ -553,7 +566,7 @@ def _all_gather(x: torch.Tensor, dim: int, grp: TPGroup,
     """Every rank's slice of a dim of ``n`` split as :meth:`TPGroup.bounds`
     gives, along ``dim``: the whole dim, in rank order. The slices arrive
     stacked on a new leading dim and merge into ``dim``: a copy unless
-    ``dim`` leads or the group is one rank."""
+    ``dim`` leads."""
     import torch.distributed as dist
     c = -(-n // grp.size)
     xs = _pad_to(x, dim, c).contiguous()     # a short (last) slice padded
@@ -581,6 +594,8 @@ def _reduce_scatter(x: torch.Tensor, dim: int,
 
 
 def _all_reduce(x: torch.Tensor, grp: TPGroup, op=None) -> torch.Tensor:
+    """The reduction (``op``, a sum by default) over the group of ``x``, in
+    a new tensor."""
     import torch.distributed as dist
     out = x.clone(memory_format=torch.contiguous_format)
     dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=grp.group)
@@ -646,21 +661,42 @@ class _Reduce(torch.autograd.Function):
 
 # The constraint sites. Each takes the group of :func:`tp_group` and is the
 # identity (or the plain op) when it is None, so the model's blocks run one
-# code path with and without tensor-parallel compute.
+# code path with and without tensor-parallel compute. Where autograd records
+# nothing (serving) the collective is called without its Function.
+
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
 
 def gather_seq(x: torch.Tensor, n: Optional[int], grp: Optional[TPGroup],
                dim: int = 1) -> torch.Tensor:
     """The whole sequence (``n`` long) of a ``res_seq`` residual, from
     this rank's slice: the entry of a column-parallel block. Its backward
-    sums every rank's gradient and keeps this rank's slice."""
-    return x if grp is None else _GatherSeq.apply(x, dim, grp, n)
+    sums every rank's gradient and keeps this rank's slice. ``n`` None: the
+    residual is whole on every rank (a decode step), and ``x`` is
+    returned."""
+    if grp is None or n is None:
+        return x
+    return _GatherSeq.apply(x, dim, grp, n) if _tracked(x) else \
+        _all_gather(x, dim, grp, n)
 
 
 def scatter_seq(x: torch.Tensor, grp: Optional[TPGroup],
                 dim: int = 1) -> torch.Tensor:
     """This rank's sequence slice of the sum over the group of ``x``, the
     partial sums of a row-parallel block: its exit to the residual."""
-    return x if grp is None else _ScatterSeq.apply(x, dim, grp)
+    if grp is None:
+        return x
+    return _ScatterSeq.apply(x, dim, grp) if _tracked(x) else \
+        _reduce_scatter(x, dim, grp)
+
+
+def leave_block(x: torch.Tensor, n: Optional[int],
+                grp: Optional[TPGroup]) -> torch.Tensor:
+    """The exit of a row-parallel block: :func:`scatter_seq` where the
+    residual is sequence-parallel (``n`` given), else the sum over the
+    group whole on every rank (:func:`reduce_model`; a decode step)."""
+    return scatter_seq(x, grp) if n is not None else reduce_model(x, grp)
 
 
 def seq_slice(x: torch.Tensor, grp: Optional[TPGroup],
@@ -680,14 +716,30 @@ def gather_model(x: torch.Tensor, grp: Optional[TPGroup],
     if grp is None:
         return x
     dim = dim % x.dim()
-    return _GatherSeq.apply(x, dim, grp, x.shape[dim] * grp.size)
+    n = x.shape[dim] * grp.size
+    return _GatherSeq.apply(x, dim, grp, n) if _tracked(x) else \
+        _all_gather(x, dim, grp, n)
+
+
+def gather_parts(parts, grp: TPGroup):
+    """Each tensor of ``parts``, split evenly over the group on its last
+    dim (a column-parallel projection's q, k and v), whole, in rank order:
+    one all-gather of their concatenation (no gradient)."""
+    widths = [t.shape[-1] for t in parts]
+    cat = torch.cat(parts, -1)
+    whole = _all_gather(cat, cat.dim() - 1, grp, cat.shape[-1] * grp.size)
+    whole = whole.unflatten(-1, (grp.size, sum(widths)))
+    return [t.flatten(-2) for t in torch.split(whole, widths, -1)]
 
 
 def reduce_model(x: torch.Tensor, grp: Optional[TPGroup]) -> torch.Tensor:
     """The sum over the group of the ranks' ``x``, which every rank then
     uses alike (the loss's sums): backward the identity, so each rank's
     ``x`` gets the gradient of its own share."""
-    return x if grp is None else _Reduce.apply(x, grp, False)
+    if grp is None:
+        return x
+    return _Reduce.apply(x, grp, False) if _tracked(x) else \
+        _all_reduce(x, grp)
 
 
 def reduce_model_shared(x: torch.Tensor,
@@ -695,7 +747,10 @@ def reduce_model_shared(x: torch.Tensor,
     """The sum over the group of the ranks' ``x``, which each rank then
     uses on its own share of a split dim (a norm's moment): backward an
     all-reduce."""
-    return x if grp is None else _Reduce.apply(x, grp, True)
+    if grp is None:
+        return x
+    return _Reduce.apply(x, grp, True) if _tracked(x) else \
+        _all_reduce(x, grp)
 
 
 class _LogsumexpVocab(torch.autograd.Function):
@@ -855,3 +910,144 @@ def _to_shard(g, p, axes, held=()):
             dist.reduce_scatter_tensor(out, src, group=mesh.get_group(i))
             g = out.movedim(0, pl.dim).contiguous()
     return g
+
+
+# ---------------------------------------------------------------------------
+# serving: the cache's sequence over cache_seq
+# ---------------------------------------------------------------------------
+
+def cache_leaf_spec(name: str, shape, rules: Rules) -> P:
+    """The guarded spec of one decode-cache leaf, as the reference's
+    ``cache_specs`` places it: ``k``, ``v``, ``ck`` and ``cv`` over
+    (batch, cache_seq), ``wkv`` and ``ssm`` over (batch, act_model),
+    anything else over batch alone (stacked over layers first)."""
+    nd = len(shape)
+    if name in ("k", "v", "ck", "cv"):
+        s = rules.spec(*([None, "batch", "cache_seq"] + [None] * (nd - 3)))
+    elif name in ("wkv", "ssm"):
+        s = rules.spec(*([None, "batch", "act_model"] + [None] * (nd - 3)))
+    else:
+        s = rules.spec(*([None, "batch"] + [None] * (nd - 2)))
+    return _guard(s, tuple(shape), rules.mesh)
+
+
+def _mesh_group(mesh) -> TPGroup:
+    """Every rank of ``mesh`` as one group, in the mesh's row-major order
+    (JAX's order for a spec entry naming every axis): the process group's
+    world, which must hold the mesh's ranks in that order (as
+    ``init_device_mesh`` and ``placeholder_mesh`` lay them out)."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():          # the ranks are data
+        ranks = mesh.mesh.flatten().tolist()
+    if ranks != list(range(dist.get_world_size())):
+        raise NotImplementedError("cache_seq over every axis of a mesh that "
+                                  "is not the whole process group in rank "
+                                  "order")
+    return TPGroup(dist.group.WORLD, dist.get_rank(), len(ranks))
+
+
+def cache_seq_group(n: int) -> Optional[TPGroup]:
+    """The group a cache's sequence of ``n`` positions is split over under
+    the active rules' ``cache_seq`` ('model', or under ``long`` every axis
+    of the mesh, 'model' the minor one), with this rank's place in it
+    (:meth:`TPGroup.bounds` gives its slice); None outside rules, on a
+    shape-only mesh, and where the guard keeps the sequence whole (the
+    group's size does not divide ``n``)."""
+    r = current_rules()
+    if r is None or not hasattr(r.mesh, "get_group"):
+        return None
+    axes = _axes(r.map.get("cache_seq"))
+    if not axes or n % _axis_n(_mesh_sizes(r.mesh), axes):
+        return None
+    names = axis_names(r.mesh)
+    if len(axes) == 1:
+        return _axis_group(r.mesh, names.index(axes[0]))
+    if tuple(axes) != names or names[-1] != "model":
+        raise NotImplementedError(f"cache_seq over {axes} of {names}")
+    return _mesh_group(r.mesh)
+
+
+def kv_heads_to_seq(k: torch.Tensor, grp: TPGroup, cgrp: Optional[TPGroup],
+                    rep: int = 1) -> torch.Tensor:
+    """A prefill's keys or values (B, S, h, Dh) from the rank's KV heads
+    over the whole sequence (the "heads" layout of ``attention_block``,
+    split over the 'model' group ``grp``) to the cache's layout: this
+    rank's slice of the sequence by ``cgrp`` (:func:`cache_seq_group`;
+    None: the whole sequence) of every KV head, (B, S_c, KV, Dh). One
+    all-to-all over 'model' (an all-gather of the heads where the cache is
+    whole); under ``long`` each rank first keeps the block of the sequence
+    its outer (data) coordinate holds. Where one KV head is rebuilt on
+    ``rep`` ranks (more ranks than KV heads) each arrives ``rep`` times,
+    and one copy is kept."""
+    if cgrp is None:
+        out = _all_gather(k, 2, grp, k.shape[2] * grp.size)
+    else:
+        outer = cgrp.size // grp.size
+        blk = k.shape[1] // outer
+        out = _all_to_all(k.narrow(1, (cgrp.rank // grp.size) * blk, blk),
+                          2, 1, grp)
+    return out if rep == 1 else out[:, :, ::rep]
+
+
+def combine(x: torch.Tensor, grp: Optional[TPGroup],
+            op: str = "sum") -> torch.Tensor:
+    """The decode combine over a cache's sequence slices: the sum (or,
+    with ``op="max"``, the largest) over ``grp`` of each rank's partial,
+    whole on every rank; ``x`` without a group."""
+    if grp is None:
+        return x
+    import torch.distributed as dist
+    return _all_reduce(x, grp, dist.ReduceOp.MAX if op == "max" else None)
+
+
+def last_position(x: torch.Tensor, n: int,
+                  grp: Optional[TPGroup]) -> torch.Tensor:
+    """(B, 1, ...): the last of ``n`` positions of a sequence whose slice
+    ``x`` (dim 1) this rank holds, alike on every rank: the rank holding it
+    adds its row to zeros from the others (exact)."""
+    if grp is None:
+        return x[:, -1:]
+    row = x[:, -1:]
+    if grp.bounds(n)[1] != n:
+        row = torch.zeros_like(row)
+    return reduce_model(row, grp)
+
+
+def reslice_seq(x: torch.Tensor, dim: int, n_src: int, n_dst: int,
+                src: Optional[TPGroup],
+                dst: Optional[TPGroup]) -> torch.Tensor:
+    """``x``, this rank's slice of a dim of ``n_src`` positions split over
+    ``src`` (:meth:`TPGroup.bounds`; None: whole), as this rank's slice of
+    a dim of ``n_dst`` >= ``n_src`` positions split over ``dst`` (None:
+    whole), zero past ``n_src``: the prefill cache moved into the longer
+    decode cache. ``src`` and ``dst``, where both are given, are one group
+    (the cache_seq group of the active rules). One all-to-all with each
+    pair's overlap where ``src`` splits the dim; a slice where it does
+    not."""
+    def rng(g, n, j):
+        return (0, n) if g is None else dataclasses.replace(g, rank=j) \
+            .bounds(n)
+    me = 0 if dst is None else dst.rank
+    b0, b1 = rng(dst, n_dst, me)
+    if src is None:
+        part = x.narrow(dim, min(b0, n_src), max(0, min(b1, n_src) - b0))
+    else:
+        import torch.distributed as dist
+        a0, a1 = src.bounds(n_src)
+        pieces, recv = [], []
+        for j in range(src.size):
+            c0, c1 = rng(dst, n_dst, j)
+            s0, s1 = max(a0, c0), min(a1, c1)
+            pieces.append(x.narrow(dim, s0 - a0, s1 - s0) if s1 > s0
+                          else x.narrow(dim, 0, 0))
+            r0, r1 = rng(src, n_src, j)
+            recv.append(max(0, min(r1, b1) - max(r0, b0)))
+        inp = torch.cat(pieces, dim).movedim(dim, 0).contiguous()
+        out = inp.new_empty((sum(recv),) + inp.shape[1:])
+        dist.all_to_all_single(out, inp, output_split_sizes=recv,
+                               input_split_sizes=[p.shape[dim]
+                                                  for p in pieces],
+                               group=src.group)
+        part = out.movedim(0, dim)
+    return _pad_to(part, dim, b1 - b0)

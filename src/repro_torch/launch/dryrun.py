@@ -19,11 +19,16 @@ under ``experiments/dryrun_torch/`` (the reference's records stay in
     or experts), the gradients reduced leaf by leaf, AdamW on the shards;
     ``"tp_compute"`` is the size of the 'model' group the traced step's
     compute was split over (``step.tp_compute``; 1 where it was not);
-  * prefill and decode cells trace ``make_prefill_step`` /
-    ``make_decode_step`` on one rank's rows (``global_batch / n_chips``,
-    at least 1) with whole bf16 weights and a whole cache, since the
-    port's serving runs unsharded on one card (``"sharded_compute":
-    false``);
+  * prefill, decode and long cells trace the mesh steps,
+    ``make_prefill_step(cfg, mesh=)`` / ``make_decode_step(cfg, mesh=)``
+    (``long=`` for the long cells), on ``shard_serve_state`` of fake bf16
+    weights and, for decode, a fake ``zero_cache`` placed as
+    ``cache_specs`` says: the rank's rows (over 'data'; all of them under
+    "long"), the compute copy gathered and laid out over 'model', the
+    prefill tensor-parallel on its sequence slice, its heads (K5-K7's
+    plain versions), columns, rows, vocab or experts and the cache moved
+    to its sequence slice, a decode step on its cache slice with the
+    softmax joined over ``cache_seq`` (``"sharded_compute": true``);
   * ``counted_flops_per_rank`` (``FlopCounterMode``) beside the reference's
     analytic count (``flops_per_chip``, ``analysis/flops.py``),
     ``peak_bytes_by_kind`` (``MemTracker``, the state passed to it with
@@ -39,7 +44,6 @@ train cells lose nothing.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import math
 import time
@@ -112,8 +116,9 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils.flop_counter import FlopCounterMode
     from ..dist.sharding import NamedSharding, Rules
-    from ..models import init_cache, init_params
-    from ..serve.serve_step import make_decode_step, make_prefill_step
+    from ..models import init_params
+    from ..serve.serve_step import (make_decode_step, make_prefill_step,
+                                    shard_serve_state, zero_cache)
     from ..train.optimizer import OptConfig
     from ..train.train_step import make_train_step, shard_train_state
     from .specs import batch_specs
@@ -125,10 +130,10 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
         rules = Rules(mesh, rules_kind(shape), policy,
                       global_batch=shape.global_batch)
         batch = {}
+        B = shape.global_batch
+        rows = NamedSharding(mesh, rules.spec("batch")).local_slices((B,))[0]
+        rows = rows.stop - rows.start
         if shape.kind == "train":
-            rows = NamedSharding(mesh, rules.spec("batch")).local_slices(
-                (shape.global_batch,))[0]
-            rows = rows.stop - rows.start
             state = shard_train_state(_fake_like(init_params(
                 cfg, None, torch.float32, device="meta")), None, mesh)
             batch = _fake_like(batch_specs(cfg, shape, rules, "train")[0])
@@ -139,25 +144,23 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
             def run(state):
                 return step(*state, batch)[:2]
         else:
-            rows = max(1, shape.global_batch // n_chips)
-            local = dataclasses.replace(shape, global_batch=rows)
-            params = _fake_like(init_params(cfg, None, torch.bfloat16,
-                                            device="meta"))
+            long = rules.kind == "long"
+            params = shard_serve_state(_fake_like(init_params(
+                cfg, None, torch.bfloat16, device="meta")), mesh, rules, cfg)
             if shape.kind == "prefill":
-                batch = _fake_like(
-                    batch_specs(cfg, local, rules, "prefill")[0])
-                prefill = make_prefill_step(cfg)
-                state = (params, batch)
+                batch = _fake_like(batch_specs(cfg, shape, rules,
+                                               "prefill")[0])
+                prefill = make_prefill_step(cfg, mesh=mesh, long=long)
+                state = params
 
-                def run(state):
+                def run(params):
                     with torch.no_grad():
-                        prefill(*state)
-                    return state
+                        prefill(params, batch)
+                    return params
             else:
-                cache = _fake_like(init_cache(cfg, rows, shape.seq_len,
-                                              torch.bfloat16, device="meta"))
-                token = torch.empty((rows, 1), dtype=torch.int32)
-                decode = make_decode_step(cfg)
+                cache = zero_cache(cfg, B, shape.seq_len, rules)
+                token = torch.empty((B, 1), dtype=torch.int32)
+                decode = make_decode_step(cfg, mesh=mesh, long=long)
                 state = (params, cache, token)
 
                 def run(state):
@@ -192,7 +195,8 @@ def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
     flops_per_chip = fl["total"] / n_chips
     mem = summarize_memory(t["peak"])
     peak = mem.pop("peak_est_bytes")
-    rank_bytes = rank_hbm_bytes(cfg, shape, shape.kind, n_chips, t["rows"])
+    rank_bytes = rank_hbm_bytes(cfg, shape, shape.kind, n_chips, t["rows"],
+                                tp)
     terms = roofline_terms(t["flops"], rank_bytes,
                            t["collectives"]["weighted_bytes"])
     terms.update(hardware=H100.name, link_bw=H100.link_bw)
@@ -201,7 +205,7 @@ def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "mesh": "x".join(map(str, mesh_shape)), "mesh_axes": list(axes),
         "n_chips": n_chips, "tag": extra_tag, "policy": policy,
-        "kernels": "plain", "sharded_compute": shape.kind == "train",
+        "kernels": "plain", "sharded_compute": True,
         **({"tp_compute": t["tp_compute"]} if shape.kind == "train"
            else {}),
         "rows_per_rank": t["rows"], "trace_s": round(t["trace_s"], 1),

@@ -18,7 +18,8 @@ import torch
 from .. import tree as tree_util
 from ..configs import ModelConfig, ShapeConfig
 from ..dist.sharding import (NamedSharding, P, Rules, _guard, _mesh_sizes,
-                             map_specs, param_specs, shardings_for)
+                             cache_leaf_spec, map_specs, param_specs,
+                             shardings_for)
 from ..models import init_cache, init_params
 from ..train.optimizer import adamw_init
 
@@ -69,19 +70,10 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, rules: Rules):
     cache = init_cache(cfg, shape.global_batch, shape.seq_len,
                        torch.bfloat16, device="meta")
 
-    def spec_for(path, leaf):
-        name = str(path[-1])
-        nd = leaf.dim()
-        if name in ("k", "v", "ck", "cv"):
-            s = rules.spec(*([None, "batch", "cache_seq"] + [None] * (nd - 3)))
-        elif name in ("wkv", "ssm"):
-            s = rules.spec(*([None, "batch", "act_model"] + [None] * (nd - 3)))
-        else:
-            s = rules.spec(*([None, "batch"] + [None] * (nd - 2)))
-        # divisibility guard (e.g. whisper's 1500-frame cross-attn cache)
-        return _guard(s, leaf.shape, mesh)
-
-    specs = tree_util.map_with_paths(spec_for, cache)
+    # divisibility-guarded (e.g. whisper's 1500-frame cross-attn cache)
+    specs = tree_util.map_with_paths(
+        lambda path, leaf: cache_leaf_spec(str(path[-1]), leaf.shape, rules),
+        cache)
     return cache, shardings_for(mesh, specs)
 
 

@@ -22,6 +22,11 @@ with no collective; row-parallel ``wo``) where :func:`attn_layout` allows,
 and otherwise (the reference's "q" choice) attends from the rank's query
 positions with whole weights; the MLP is column- then row-parallel where
 its fused ``w13`` splits, else whole on the sequence slice.
+
+Serving on a mesh adds :func:`cache_kv` (a prefill's keys and values to
+the cache's sequence slice of every KV head) and
+:func:`decode_attention_block` (one token against the rank's slice of the
+cache, the softmax joined over the ranks that hold the cache).
 """
 from __future__ import annotations
 
@@ -48,7 +53,8 @@ from ..kernels.rmsnorm import rmsnorm
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
            "rmsnorm_train", "attention_train", "checkpointed", "upcast",
-           "decode_attention", "split_fused", "qkv_fusable", "attn_qkv",
+           "decode_attention", "decode_attention_block", "cache_kv",
+           "split_fused", "qkv_fusable", "attn_qkv",
            "attn_out", "mlp", "normal_init", "draws_through", "init_attn",
            "init_mlp", "attn_layout", "attention_block", "mlp_split",
            "mlp_block"]
@@ -188,7 +194,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None, grp=None, offset: int = 0,
+                     n: Optional[int] = None) -> torch.Tensor:
     """Single-token attention against a (possibly longer-than-pos) cache.
 
     q: (B, 1, H, Dh); caches: (B, Smax, KV, Dh); pos: the position of the
@@ -197,22 +204,115 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Smax) every slot is valid. Plain torch, as the reference computes it in
     XLA (no Pallas kernel): scores in f32, masked to -1e30, the
     probabilities rounded to the cache's dtype before P.V.
+
+    The softmax is taken in the form that joins across ranks: the largest
+    score, the sum of exp(score - largest), then P.V of the probabilities
+    rounded to the cache's dtype, in f32. With ``grp`` (the cache_seq
+    group, ``dist.sharding.cache_seq_group``) the caches are this rank's
+    slice, from position ``offset``, of a cache ``n`` long: each of the
+    three is joined over the ranks (``dist.sharding.combine``); without
+    one the combine is the identity, so one device and any mesh run the
+    same arithmetic.
     """
     B, _, H, Dh = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
+    n = Smax if n is None else n
     G = H // KV
     scale = 1.0 / math.sqrt(Dh)
     qg = q.reshape(B, 1, KV, G, Dh)
-    k_pos = torch.arange(Smax, device=q.device)
+    k_pos = torch.arange(Smax, device=q.device) + offset
     valid = k_pos <= pos
-    if window is not None and pos >= Smax:
+    if window is not None and pos >= n:
         valid = torch.ones_like(valid)
     scores = torch.einsum("biegd,bjed->begij", qg.float(),
                           k_cache.float()) * scale
     scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
-    out = torch.einsum("begij,bjed->biegd", probs, v_cache)
-    return out.reshape(B, 1, H, Dh)
+    from ..dist.sharding import combine
+    p = torch.exp(scores - combine(scores.amax(-1, keepdim=True), grp,
+                                   "max"))
+    probs = (p / combine(p.sum(-1, keepdim=True), grp)).to(v_cache.dtype)
+    out = combine(torch.einsum("begij,bjed->biegd", probs.float(),
+                               v_cache.float()), grp)
+    return out.to(v_cache.dtype).reshape(B, 1, H, Dh)
+
+
+def decode_attention_block(cfg, h: torch.Tensor, p, kc: torch.Tensor,
+                           vc: torch.Tensor, pos: int, grp=None, *,
+                           cgrp=None, window: Optional[int] = None,
+                           rope_pos: Optional[torch.Tensor] = None,
+                           n: Optional[int] = None,
+                           write: bool = True) -> torch.Tensor:
+    """One token's attention (the normed residual ``h`` (B, 1, D)) against
+    its layer's cache ``kc``, ``vc`` (B, S_c, KV, Dh) of a cache ``n``
+    positions long (None: ``kc``'s own length): projections, RoPE at
+    ``rope_pos`` ((1,), ``pos`` on the device, made once a step; None: no
+    RoPE), the new key and value written into the cache in
+    place at ``pos`` (a ring's ``pos % n`` with ``window``; without
+    ``write``, a cross-attention's cache, only q is projected and nothing
+    written), :func:`decode_attention` and ``wo``. Returns the block's
+    output (B, 1, D).
+
+    With ``grp`` (the 'model' group; the residual whole on every rank)
+    and the heads split (:func:`attn_layout`), the rank's columns of
+    ``wqkv`` (or ``wq``/``wk``/``wv``) are gathered to every head in one
+    all-gather, since every rank scores every head against its slice of
+    the cache, and ``wo`` is row-parallel on the rank's heads, its partial
+    sums all-reduced; otherwise the weights are whole. ``cgrp`` is the
+    cache's group under the active rules' ``cache_seq``
+    (``dist.sharding.cache_seq_group(n)``, worked out once a step; None:
+    the cache whole on this rank): the cache is this rank's slice of it,
+    written only by the rank that holds the position."""
+    from ..dist.sharding import gather_parts, reduce_model
+    n = kc.shape[1] if n is None else n
+    B = h.shape[0]
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    heads = grp is not None and attn_heads_split(cfg, grp.size)
+    tp = grp.size if heads else 1
+    names = ("wq", "wk", "wv") if write else ("wq",)
+    if "wqkv" in p:
+        parts = split_fused(_proj(h, p["wqkv"]),
+                            [H * Dh // tp, KV * Dh // tp, KV * Dh // tp],
+                            max(cfg.tp_fuse // tp, 1))[:len(names)]
+    else:
+        parts = [_proj(h, p[w]) for w in names]
+    if heads:
+        parts = gather_parts(parts, grp)
+    q, *kv = (t.reshape(B, 1, -1, Dh) for t in parts)
+    if rope_pos is not None:
+        q = apply_rope(q, rope_pos, cfg.rope_theta)
+    s0 = 0 if cgrp is None else cgrp.bounds(n)[0]
+    at = pos % n if window is not None else pos
+    if write and s0 <= at < s0 + kc.shape[1]:
+        k, v = kv
+        if rope_pos is not None:
+            k = apply_rope(k, rope_pos, cfg.rope_theta)
+        kc[:, at - s0] = k[:, 0].to(kc.dtype)
+        vc[:, at - s0] = v[:, 0].to(vc.dtype)
+    o = decode_attention(q, kc, vc, pos, window=window, grp=cgrp,
+                         offset=s0, n=n)
+    if not heads:
+        return attn_out(o, p)
+    Hl = H // tp
+    o = o[:, :, grp.rank * Hl:(grp.rank + 1) * Hl].reshape(B, 1, Hl * Dh)
+    return reduce_model(_proj(o, p["wo"]), grp)
+
+
+def cache_kv(cfg, kv, n_q: int, grp):
+    """The (k, v) :func:`attention_block` returned with ``grp`` for a
+    sequence of ``n_q`` queries, laid out as the cache holds them under
+    the active rules: this rank's slice of the key sequence by
+    ``cache_seq`` (``dist.sharding.cache_seq_group``; whole where the
+    guard keeps it whole) of every KV head. From the "heads" layout (the
+    rank's KV heads, a KV head rebuilt on tp / KV ranks kept once) one
+    all-to-all over 'model'; from "seq" (whole keys and values on every
+    rank) a slice."""
+    from ..dist.sharding import cache_seq_group, kv_heads_to_seq, seq_slice
+    tp = grp.size
+    heads = attn_layout(cfg, tp, attn_choice(cfg, tp, n_q)) == "heads"
+    rep = 1 if cfg.n_kv_heads % tp == 0 else tp // cfg.n_kv_heads
+    return tuple(kv_heads_to_seq(t, grp, cache_seq_group(t.shape[1]), rep)
+                 if heads else seq_slice(t, cache_seq_group(t.shape[1]))
+                 for t in kv)
 
 
 # ---------------------------------------------------------------------------
@@ -299,8 +399,9 @@ def mlp(x: torch.Tensor, p, kind: str = "swiglu", fuse: int = 1, grp=None,
     """The MLP. With ``grp`` (its weights column- then row-parallel,
     :func:`mlp_split`) ``x`` is this rank's sequence slice of a sequence
     ``n`` long, gathered in, and the result its slice of the output, the
-    partial sums reduce-scattered out."""
-    from ..dist.sharding import gather_seq, scatter_seq
+    partial sums reduce-scattered out; with ``n`` None (a decode step)
+    ``x`` is whole on every rank and the partial sums are all-reduced."""
+    from ..dist.sharding import gather_seq, leave_block
     x = gather_seq(x, n, grp)
     if kind == "swiglu":
         gu = _proj(x, p["w13"])
@@ -309,7 +410,7 @@ def mlp(x: torch.Tensor, p, kind: str = "swiglu", fuse: int = 1, grp=None,
         h = F.silu(gate) * up
     else:  # gelu: jax.nn.gelu's default is the tanh approximation
         h = F.gelu(_proj(x, p["w1"]), approximate="tanh")
-    return scatter_seq(_proj(h, p["w2"]), grp)
+    return leave_block(_proj(h, p["w2"]), n, grp)
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +436,13 @@ def attn_layout(cfg, tp: int, choice: Optional[str]) -> str:
         ok = ok and fused_split_ok([H * Dh, KV * Dh, KV * Dh], cfg.tp_fuse,
                                    tp)
     return "heads" if ok else "seq"
+
+
+def attn_heads_split(cfg, tp: int) -> bool:
+    """Whether attention splits its heads over a 'model' of ``tp`` ranks
+    (the compute copy's layout; :func:`attn_layout` does not depend on the
+    query length)."""
+    return attn_layout(cfg, tp, attn_choice(cfg, tp, ATTN_CHUNK)) == "heads"
 
 
 def attn_choice(cfg, tp: int, q_len: int) -> Optional[str]:

@@ -156,16 +156,21 @@ def mamba_block(x, p, cfg, state, train: bool = False,
     or None for a zero state. ``train``: the differentiable ops in place
     of K4 and K6. Returns (x plus the layer's output, the new state).
 
-    With ``grp`` (training, tensor-parallel) ``x`` is this rank's sequence
-    slice of a sequence ``n`` long, the layer runs on the gathered
-    sequence and adds this rank's slice of its output: its SSD heads split
-    over the group where :func:`ssd_heads_split` (:func:`_head_share`; the
-    gated norm's moment summed over the ranks, ``out_proj``
-    row-parallel), else every rank runs the whole layer."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    With ``grp`` (tensor-parallel) ``x`` is this rank's sequence slice of
+    a sequence ``n`` long, the layer runs on the gathered sequence and
+    adds this rank's slice of its output: its SSD heads split over the
+    group where :func:`ssd_heads_split` (:func:`_head_share`; the gated
+    norm's moment summed over the ranks, ``out_proj`` row-parallel), else
+    every rank runs the whole layer. With ``n`` None (a decode step) ``x``
+    is whole on every rank and ``out_proj``'s partial sums are
+    all-reduced. A split state holds the rank's heads of ``ssm`` (as
+    ``init_mamba_state(tp=)`` and the cache place it) and the whole
+    ``conv``; serving (not ``train``) returns the conv state whole."""
+    from ..dist.sharding import gather_model, gather_seq, leave_block, \
+        seq_slice
     if grp is not None and not ssd_heads_split(cfg, grp.size):
         full, st = mamba_block(gather_seq(x, n, grp), p, cfg, state, train)
-        return seq_slice(full, grp), st
+        return seq_slice(full, None if n is None else grp), st
     s = cfg.ssm
     di = s.expand * cfg.d_model
     tp = 1 if grp is None else grp.size
@@ -196,17 +201,25 @@ def mamba_block(x, p, cfg, state, train: bool = False,
         y, ssm = scan(xh, dt, p["A_log"], Bm, Cm, state["ssm"], s.chunk)
     y = y + upcast(p["D"])[None, None, :, None] * upcast(xh)
     y = y.reshape(B, S, di // tp).to(x.dtype) * F.silu(z)
-    y = norm(y, p["norm"], cfg.norm_eps) if grp is None else \
+    # a group of one holds the whole d_inner: K4 (serving) as without one
+    whole = grp is None or (grp.size == 1 and not train)
+    y = norm(y, p["norm"], cfg.norm_eps) if whole else \
         _rmsnorm_split(y, p["norm"], cfg.norm_eps, di, grp)
-    out = scatter_seq(y @ p["out_proj"].to(x.dtype), grp)
+    out = leave_block(y @ p["out_proj"].to(x.dtype), n, grp)
+    if grp is not None and not train:       # the cache's conv state: whole
+        conv_state = torch.cat([gather_model(conv_state[..., :di // tp],
+                                             grp),
+                                conv_state[..., di // tp:]], -1)
     return x + out, {"ssm": ssm, "conv": conv_state}
 
 
 def init_mamba_state(cfg, n_layers: int, batch: int, dtype=torch.float32,
-                     device=None):
+                     device=None, tp: int = 1):
+    """Zero states; ``tp``: the 'model' ranks the SSD heads split over
+    (``ssm`` then holds a rank's heads)."""
     s = cfg.ssm
     di = s.expand * cfg.d_model
-    H, dh, N = di // s.d_head, s.d_head, s.d_state
+    H, dh, N = di // s.d_head // tp, s.d_head, s.d_state
     dev = resolve_init_device(device)
     return {
         "ssm": torch.zeros((n_layers, batch, H, dh, N), dtype=torch.float32,
@@ -223,35 +236,52 @@ def ssd_heads_split(cfg, tp: int) -> bool:
     return (s.expand * cfg.d_model // s.d_head) % tp == 0
 
 
-def _head_share(p, state, cfg, grp):
-    """(this rank's share of the layer's weights, of its state) when its
-    SSD heads split over ``grp``: the columns of ``in_proj`` for its z, x
-    and dt (B and C whole), its channels of the conv and the gated norm,
-    its heads' ``dt_bias``, ``A_log``, ``D`` and state (None stays None);
-    all of them when ``grp`` is None."""
-    if grp is None:
-        return p, state
+def _spans(x: torch.Tensor, spans) -> torch.Tensor:
+    """The (start, width) ``spans`` of ``x``'s last dim, joined."""
+    return torch.cat([x.narrow(-1, a, w) for a, w in spans], -1)
+
+
+def share_weights(p, cfg, grp):
+    """This rank's share of a Mamba-2 layer's weights (one layer's or the
+    stacked layers'; other leaves pass through) when its SSD heads split
+    over ``grp``: the columns of ``in_proj`` for its z, x and dt (B and C
+    whole), its channels of the conv and the gated norm, its heads'
+    ``dt_bias``, ``A_log`` and ``D``. A group of one's share is the
+    whole."""
     s = cfg.ssm
     di = s.expand * cfg.d_model
     H, N = di // s.d_head, s.d_state
     Hl, dl = H // grp.size, di // grp.size
-    dev = p["in_proj"].device
-    hs = slice(grp.rank * Hl, (grp.rank + 1) * Hl)
-    ds = torch.arange(grp.rank * dl, (grp.rank + 1) * dl, device=dev)
-    bc = torch.arange(di, di + 2 * N, device=dev)
-    cols = torch.cat([ds, di + ds, di + bc,                 # z, x, B, C
-                      2 * di + 2 * N + torch.arange(hs.start, hs.stop,
-                                                    device=dev)])
-    chans = torch.cat([ds, bc])
-    share = {"in_proj": p["in_proj"][:, cols],
-             "conv_w": p["conv_w"][:, chans], "conv_b": p["conv_b"][chans],
-             "dt_bias": p["dt_bias"][hs], "A_log": p["A_log"][hs],
-             "D": p["D"][hs], "norm": p["norm"][ds]}
-    if state is not None:
-        conv = state["conv"]
-        state = {"ssm": state["ssm"][:, hs],
-                 "conv": None if conv is None else conv[..., chans]}
-    return {**p, **share}, state
+    d0, h0 = grp.rank * dl, grp.rank * Hl
+    chans = ((d0, dl), (di, 2 * N))                 # x, B, C of the conv
+    return {**p,
+            "in_proj": _spans(p["in_proj"], ((d0, dl), (di + d0, dl),
+                                             (2 * di, 2 * N),
+                                             (2 * di + 2 * N + h0, Hl))),
+            "conv_w": _spans(p["conv_w"], chans),
+            "conv_b": _spans(p["conv_b"], chans),
+            **{k: p[k].narrow(-1, h0, Hl) for k in ("dt_bias", "A_log", "D")},
+            "norm": p["norm"].narrow(-1, d0, dl)}
+
+
+def _head_share(p, state, cfg, grp):
+    """(this rank's share of the layer's weights, of its state) when its
+    SSD heads split over ``grp``: :func:`share_weights`, unless ``p`` is
+    a share already (a serving step's compute copy holds the shares; its
+    gated norm is 1/tp wide), and its channels of the conv state (``ssm``
+    holds its heads already; None stays None); all of them when ``grp`` is
+    None."""
+    if grp is None:
+        return p, state
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    dl = di // grp.size
+    if p["norm"].shape[-1] != dl:
+        p = share_weights(p, cfg, grp)
+    if state is not None and state["conv"] is not None:
+        state = {"ssm": state["ssm"], "conv": _spans(
+            state["conv"], ((grp.rank * dl, dl), (di, 2 * s.d_state)))}
+    return p, state
 
 
 def _rmsnorm_split(x, scale, eps: float, d: int, grp):

@@ -36,7 +36,13 @@ tokens of its vocabulary slice, runs the blocks of ``layers.py``,
 expert-parallel, and takes the loss vocab-parallel (logsumexp, the
 target's logit and the argmax across the ranks). It is one code path:
 every block takes the 'model' group (``grp``), and without one (no
-mesh, prefill, decode) its collectives are the identity.
+mesh) its collectives are the identity. Serving on a mesh
+(``serve.make_prefill_step(mesh=)``, ``make_decode_step(mesh=)``) runs
+the same blocks with the kernels: prefill on the sequence slice as
+training does, the cache returned in ``cache_specs``' layout; decode on
+a residual whole on every rank (``n`` None: the row-parallel exits
+all-reduce), each rank's slice of the KV cache and its heads of the
+recurrent states.
 
 Caches:
   * transformer: ``{"k","v": (L, B, Smax, KV, Dh)}``; sliding-window
@@ -59,11 +65,10 @@ import torch
 from ..device import resolve_init_device
 from . import mamba2 as mamba_mod
 from . import rwkv6 as rwkv_mod
-from .layers import (ATTN_CHUNK, apply_rope, attention, attention_block,
-                     attention_train, attn_choice, attn_layout, attn_out,
-                     attn_qkv, checkpointed, decode_attention, init_attn,
-                     init_mlp, mlp, mlp_block, mlp_split, normal_init,
-                     rmsnorm, rmsnorm_train, upcast)
+from .layers import (attn_heads_split, attention, attention_block,
+                     attention_train, cache_kv, checkpointed,
+                     decode_attention_block, init_attn, init_mlp, mlp_block,
+                     mlp_split, normal_init, rmsnorm, rmsnorm_train, upcast)
 from .moe import experts_split, init_moe, moe_mlp
 
 Params = Dict[str, Any]
@@ -235,7 +240,7 @@ def _txf_layer(cfg, x: torch.Tensor, lp: Params, positions: torch.Tensor,
                grp=None):
     """One decoder layer (``model.py:140``). Returns (x, the layer's aux
     loss or None, its cache entries: (k, v), and with ``enc_out`` also the
-    cross-attention's (kx, vx)). With ``grp`` (training, tensor-parallel)
+    cross-attention's (kx, vx)). With ``grp`` (tensor-parallel)
     ``x`` is this rank's sequence slice of the residual, whose whole
     sequence has ``positions``: the reference's ``constrain_residual``
     after attention and after the FFN."""
@@ -306,6 +311,8 @@ def _txf_stack(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
 
     def layer(x, lp):
         x, a, kv = _txf_layer(cfg, x, lp, positions, enc_out, train, grp)
+        if collect_cache and grp is not None:   # the cache's layout
+            kv = cache_kv(cfg, kv, positions.shape[0], grp)
         return x, a, (kv if collect_cache else None)
     for i in range(params["layers"]["ln1"].shape[0]):
         lp = _layer(params["layers"], i)
@@ -321,33 +328,38 @@ def _txf_stack(cfg, params: Params, x: torch.Tensor, positions: torch.Tensor,
     return x, aux, cache
 
 
-def _txf_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int):
+def _txf_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int,
+                grp=None, seq_lens=None):
     """Single-token decode through the stack, writing the KV cache; with
     the encoder's ``ck``/``cv`` in the cache, each layer also
-    cross-attends to all of it."""
-    window = cfg.sliding_window
-    Smax = cache["k"].shape[2]
-    write_pos = pos % Smax if window is not None else pos
-    rope_pos = torch.tensor([pos], device=x.device)
+    cross-attends to all of it. With ``grp`` (the 'model' group of a
+    mesh's rules) ``x`` is whole on every rank, the cache this rank's
+    slices of caches ``seq_lens["k"]`` and ``seq_lens["ck"]`` long
+    (``layers.decode_attention_block``)."""
+    from ..dist.sharding import cache_seq_group
+    seq_lens = seq_lens or {}
+    n = seq_lens.get("k", cache["k"].shape[2])
+    cgrp = cache_seq_group(n)
+    if "ck" in cache:
+        ne = seq_lens.get("ck", cache["ck"].shape[2])
+        cgrp_x = cache_seq_group(ne)
+    # audio: learned positions, no RoPE
+    rope_pos = None if cfg.family == "audio" else \
+        torch.tensor([pos], device=x.device)
     for i in range(params["layers"]["ln1"].shape[0]):
         lp = _layer(params["layers"], i)
-        kc, vc = cache["k"][i], cache["v"][i]
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = attn_qkv(h, lp["attn"], cfg)
-        if cfg.family != "audio":
-            q = apply_rope(q, rope_pos, cfg.rope_theta)
-            k = apply_rope(k, rope_pos, cfg.rope_theta)
-        kc[:, write_pos] = k[:, 0].to(kc.dtype)
-        vc[:, write_pos] = v[:, 0].to(vc.dtype)
-        o = decode_attention(q, kc, vc, pos, window=window)
-        x = x + attn_out(o, lp["attn"])
+        x = x + decode_attention_block(cfg, h, lp["attn"], cache["k"][i],
+                                       cache["v"][i], pos, grp, cgrp=cgrp,
+                                       window=cfg.sliding_window,
+                                       rope_pos=rope_pos, n=n)
         if "ck" in cache:
-            ck, cv = cache["ck"][i], cache["cv"][i]
             h = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-            qx = attn_qkv(h, lp["xattn"], cfg)[0]
-            x = x + attn_out(decode_attention(qx, ck, cv, ck.shape[1] - 1),
-                             lp["xattn"])
-        y, _ = _ffn(cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps), lp)
+            x = x + decode_attention_block(cfg, h, lp["xattn"],
+                                           cache["ck"][i], cache["cv"][i],
+                                           ne - 1, grp, cgrp=cgrp_x, n=ne,
+                                           write=False)
+        y, _ = _ffn(cfg, rmsnorm(x, lp["ln2"], cfg.norm_eps), lp, None, grp)
         x = x + y
     return x, cache
 
@@ -431,6 +443,8 @@ def _hybrid_stack(cfg, params: Params, x: torch.Tensor, state,
     def layer(x, lp, st, shared):
         x, st, kv = _hybrid_layer(cfg, x, lp, st, sp, positions, shared,
                                   train, grp)
+        if collect_cache and kv is not None and grp is not None:
+            kv = cache_kv(cfg, kv, positions.shape[0], grp)
         return (x, None if state is None else st,
                 kv if collect_cache else None)
     for i in range(params["layers"]["mamba"]["ln"].shape[0]):
@@ -449,28 +463,33 @@ def _hybrid_stack(cfg, params: Params, x: torch.Tensor, state,
     return x, None if state is None else _stack(new), cache
 
 
-def _hybrid_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int):
+def _hybrid_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int,
+                   grp=None, seq_lens=None):
+    """Single-token decode: the Mamba2 layers on their states, the shared
+    block against its slots' KV cache; ``grp`` and ``seq_lens`` as for
+    :func:`_txf_decode`."""
+    from ..dist.sharding import cache_seq_group
     every = cfg.shared_attn_every
     sp = params["shared"]
-    rope_pos = torch.tensor([pos], device=x.device)
     kc_all, vc_all = cache["k"], cache["v"]          # (n_slots, B, Smax, ..)
+    n = (seq_lens or {}).get("k", kc_all.shape[2])
+    cgrp = cache_seq_group(n)
+    rope_pos = torch.tensor([pos], device=x.device)
     new = []
     for i in range(params["layers"]["mamba"]["ln"].shape[0]):
         x, st = mamba_mod.mamba_block(x, _layer(params["layers"]["mamba"], i),
-                                      cfg, _layer(cache["state"], i))
+                                      cfg, _layer(cache["state"], i),
+                                      grp=grp)
         new.append(st)
         if i % every == every - 1:
-            kc, vc = kc_all[i // every], vc_all[i // every]
             h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-            q, k, v = attn_qkv(h, sp["attn"], cfg)
-            q = apply_rope(q, rope_pos, cfg.rope_theta)
-            k = apply_rope(k, rope_pos, cfg.rope_theta)
-            kc[:, pos] = k[:, 0].to(kc.dtype)
-            vc[:, pos] = v[:, 0].to(vc.dtype)
-            o = decode_attention(q, kc, vc, pos)
-            x = x + attn_out(o, sp["attn"])
+            x = x + decode_attention_block(cfg, h, sp["attn"],
+                                           kc_all[i // every],
+                                           vc_all[i // every], pos, grp,
+                                           cgrp=cgrp, rope_pos=rope_pos,
+                                           n=n)
             h = rmsnorm(x, sp["ln2"], cfg.norm_eps)
-            x = x + mlp(h, sp["mlp"], cfg.mlp, cfg.tp_fuse)
+            x = x + mlp_block(cfg, h, sp["mlp"], None, grp)
     return x, {"k": kc_all, "v": vc_all, "state": _stack(new)}
 
 
@@ -609,7 +628,7 @@ def compute_model_dims(cfg, params, tp: int):
     expert dim; Mamba-2's ``out_proj`` and rwkv's head projections,
     ``wo``, ``wck`` and ``wcv`` where their heads or ``d_ff`` split."""
     from . import mamba2, rwkv6
-    heads = attn_layout(cfg, tp, attn_choice(cfg, tp, ATTN_CHUNK)) == "heads"
+    heads = attn_heads_split(cfg, tp)
     mlp_ok = mlp_split(cfg.mlp, cfg.d_ff, cfg.tp_fuse, tp)
 
     def dim(path, w):
@@ -644,49 +663,84 @@ def compute_model_dims(cfg, params, tp: int):
     return tree_util.map_with_paths(dim, params)
 
 
+def _state_tp(cfg, grp, split) -> int:
+    """The 'model' ranks a recurrent state's heads split over (1: whole)."""
+    return grp.size if grp is not None and split(cfg, grp.size) else 1
+
+
 def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):
     """Process a full prompt, ``batch["tokens"]`` (B, S), with
     ``batch["embeds"]`` (vlm) or ``batch["enc_embeds"]`` (audio) where the
-    config has them; returns (last-token logits (B, V), cache)."""
+    config has them; returns (last-token logits (B, V), cache).
+
+    Under the rules of a mesh (``serve.make_prefill_step(mesh=)``) it
+    computes tensor-parallel over their 'model' group
+    (``dist.sharding.tp_group``) on the compute copy, as
+    :func:`forward_train` does, with the kernels: each rank a sequence
+    slice of the residual, its heads (K5, K6, K7), columns, rows, vocab or
+    experts. It returns this rank's share: the logits of its vocabulary
+    slice (the last position's row taken to every rank first) and the
+    cache laid out as ``launch.specs.cache_specs`` places it (its
+    sequence slice of every KV head, its heads of ``wkv`` and ``ssm``)."""
+    from ..dist.sharding import last_position, tp_group
+    grp = tp_group()
     kind = _kind(cfg)
-    x, S = _build_inputs(cfg, params, batch, compute_dtype)
+    x, S = _build_inputs(cfg, params, batch, compute_dtype, grp)
     B = x.shape[0]
     dev = x.device
     positions = torch.arange(S, device=dev)
     if kind == "rwkv":
-        state = rwkv_mod.init_rwkv_state(cfg, B, compute_dtype, dev)
-        x, cache = _rwkv_stack(cfg, params, x, state)
+        state = rwkv_mod.init_rwkv_state(
+            cfg, B, compute_dtype, dev,
+            _state_tp(cfg, grp, rwkv_mod.rwkv_heads_split))
+        x, cache = _rwkv_stack(cfg, params, x, state, n=S, grp=grp)
     elif kind == "hybrid":
-        state = mamba_mod.init_mamba_state(cfg, cfg.n_layers, B,
-                                           compute_dtype, dev)
+        state = mamba_mod.init_mamba_state(
+            cfg, cfg.n_layers, B, compute_dtype, dev,
+            _state_tp(cfg, grp, mamba_mod.ssd_heads_split))
         x, state, kv = _hybrid_stack(cfg, params, x, state, positions,
-                                     collect_cache=True)
+                                     collect_cache=True, grp=grp)
         cache = {"state": state, **kv}
     else:
-        enc_out, x = _encoder_inputs(cfg, params, batch, x, S, compute_dtype)
+        enc_out, x = _encoder_inputs(cfg, params, batch, x, S, compute_dtype,
+                                     grp=grp)
         x, _, cache = _txf_stack(cfg, params, x, positions, enc_out,
-                                 collect_cache=True)
-    x = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+                                 collect_cache=True, grp=grp)
+    x = rmsnorm(last_position(x, S, grp), params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x)[:, 0], cache
 
 
 def forward_decode(cfg, params: Params, cache, token: torch.Tensor, pos: int,
-                   compute_dtype=torch.bfloat16):
+                   compute_dtype=torch.bfloat16, seq_lens=None):
     """One decode step. token: (B, 1); pos: the position being written
-    (vlm: patches included). Returns (logits (B, 1, V), new cache)."""
+    (vlm: patches included). Returns (logits (B, 1, V), new cache).
+
+    Under the rules of a mesh (``serve.make_decode_step(mesh=)``) the
+    residual is whole on every rank (one token has no sequence to split):
+    column-parallel projections, row-parallel ones all-reduced, the rank's
+    heads of the recurrent states, the rank's slice of the KV caches
+    (``seq_lens``: their whole lengths, by ``"k"`` and ``"ck"``) joined
+    over the cache_seq group, and the logits of its vocabulary slice."""
+    from ..dist.sharding import reduce_model, tp_group
+    grp = tp_group()
     kind = _kind(cfg)
-    x = embed_tokens(cfg, params, token, compute_dtype)
+    split = grp is not None and cfg.vocab_size % grp.size == 0
+    x = embed_tokens(cfg, params, token, compute_dtype,
+                     grp if split else None)
+    if split:
+        x = reduce_model(x, grp)
     pos = int(pos)
     if cfg.family == "audio":
         # the reference's dynamic_slice clamps the start into the table
         row = min(max(pos, 0), params["pos_emb"].shape[0] - 1)
         x = x + params["pos_emb"][row:row + 1].to(compute_dtype)[None]
     if kind == "rwkv":
-        x, new_cache = _rwkv_stack(cfg, params, x, cache)
+        x, new_cache = _rwkv_stack(cfg, params, x, cache, grp=grp)
     elif kind == "hybrid":
-        x, new_cache = _hybrid_decode(cfg, params, x, cache, pos)
+        x, new_cache = _hybrid_decode(cfg, params, x, cache, pos, grp,
+                                      seq_lens)
     else:
-        x, new_cache = _txf_decode(cfg, params, x, cache, pos)
+        x, new_cache = _txf_decode(cfg, params, x, cache, pos, grp, seq_lens)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return lm_logits(cfg, params, x), new_cache
 

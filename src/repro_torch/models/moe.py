@@ -155,24 +155,32 @@ def moe_mlp(x: torch.Tensor, p, cfg, n: Optional[int] = None, grp=None
     rank's experts (its slice of ``w13``/``w2``, where
     :func:`experts_split`) fill and run their slots, and the partial sums
     leave through a reduce-scatter; the aux loss is alike on every
-    rank."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    rank. With ``n`` None (a decode step: one token, the residual whole on
+    every rank) the rank's experts' share of the dense mixture is
+    all-reduced."""
+    from ..dist.sharding import gather_seq, leave_block, seq_slice
     m = cfg.moe
     x = gather_seq(x, n, grp)
     B, S, D = x.shape
     E = m.n_experts
-    sel, w, aux = _route(x, p["router"], m, grp)
-    if S == 1:
-        # the dense mixture over experts (the reference's decode branch)
-        gates = torch.sum(F.one_hot(sel, E).to(w.dtype) * w[..., None],
-                          dim=2)                           # (B, 1, E)
-        y = _experts(x, p["w13"], p["w2"], "bsd,edf->bsef", "bsef,efd->bsed")
-        return torch.einsum("bsed,bse->bsd", y, gates.to(x.dtype)), aux
-    C = capacity(cfg, S)
+    # decode (n None): one token's statistics, taken on every rank
+    sel, w, aux = _route(x, p["router"], m, None if n is None else grp)
     mine, El = None, E
     if grp is not None and experts_split(cfg, grp.size):
         El = E // grp.size
         mine = (grp.rank * El, (grp.rank + 1) * El)
+    if S == 1:
+        # the dense mixture over experts (the reference's decode branch),
+        # expert-parallel: each rank its experts' share, summed
+        gates = torch.sum(F.one_hot(sel, E).to(w.dtype) * w[..., None],
+                          dim=2)                           # (B, 1, E)
+        if mine is not None:
+            gates = gates[..., mine[0]:mine[1]]
+        y = _experts(x, p["w13"], p["w2"], "bsd,edf->bsef", "bsef,efd->bsed")
+        out = torch.einsum("bsed,bse->bsd", y, gates.to(x.dtype))
+        return (seq_slice(out, None if n is None else grp) if mine is None
+                else leave_block(out, n, grp)), aux
+    C = capacity(cfg, S)
     buf, idx, keep = _dispatch_seq(x, sel, w, E, C, mine)
     y = _experts(buf.reshape(B, El, C, D), p["w13"], p["w2"],
                  "becd,edf->becf", "becf,efd->becd").reshape(B, El * C, D)
@@ -181,4 +189,4 @@ def moe_mlp(x: torch.Tensor, p, cfg, n: Optional[int] = None, grp=None
                             .expand(-1, -1, D)).reshape(B, S, m.top_k, D)
     out = torch.einsum("bskd,bsk->bsd", gathered, (w * keep).to(x.dtype))
     return (seq_slice(out, grp) if mine is None
-            else scatter_seq(out, grp)), aux
+            else leave_block(out, n, grp)), aux

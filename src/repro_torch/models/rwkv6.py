@@ -158,16 +158,19 @@ def time_mix(x, p, cfg, state, train: bool = False, n: Optional[int] = None,
     state. Returns (y, new_state). ``train``: the differentiable scan in
     place of K7.
 
-    With ``grp`` (training, tensor-parallel) ``x`` is this rank's sequence
+    With ``grp`` (tensor-parallel) ``x`` is this rank's sequence
     slice of a sequence ``n`` long: the mix runs on the gathered sequence,
     token-shifted whole, its heads split over the group where
     :func:`rwkv_heads_split` (the rank's columns of ``wr``, ``wk``,
     ``wv``, ``wg`` and the decay LoRA's ``wb``; ``wo`` row-parallel), else
-    whole on every rank, and ``y`` is this rank's slice."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    whole on every rank, and ``y`` is this rank's slice. A split state's
+    ``wkv`` holds the rank's heads (as ``init_rwkv_state(tp=)`` and the
+    cache place it). With ``n`` None (a decode step) ``x`` is whole on
+    every rank and ``wo``'s partial sums are all-reduced."""
+    from ..dist.sharding import gather_seq, leave_block, seq_slice
     if grp is not None and not rwkv_heads_split(cfg, grp.size):
         y, st = time_mix(gather_seq(x, n, grp), p, cfg, state, train)
-        return seq_slice(y, grp), st
+        return seq_slice(y, None if n is None else grp), st
     x = gather_seq(x, n, grp)
     tp, rank = (1, 0) if grp is None else (grp.size, grp.rank)
     H, dh = cfg.n_heads // tp, cfg.rwkv.head_size
@@ -178,7 +181,7 @@ def time_mix(x, p, cfg, state, train: bool = False, n: Optional[int] = None,
         wkv0 = torch.zeros((B, H, dh, dh), dtype=torch.float32,
                            device=x.device)
     else:
-        shift, wkv0 = state["shift"], state["wkv"][:, hs]
+        shift, wkv0 = state["shift"], state["wkv"]
     xprev = _shift(x, shift) if S > 1 else shift
     r, k, v, g, logw = _projections(x, xprev, {**p, "w0": p["w0"][hs]}, H,
                                     dh)
@@ -195,7 +198,7 @@ def time_mix(x, p, cfg, state, train: bool = False, n: Optional[int] = None,
     gn = p["gn"][hs.start * dh:hs.stop * dh]
     out = out.reshape(B, S, H * dh) * gn.to(x.dtype)
     out = out * F.silu(g)
-    y = scatter_seq(out @ p["wo"].to(x.dtype), grp)
+    y = leave_block(out @ p["wo"].to(x.dtype), n, grp)
     return y, {"shift": x[:, -1:].clone(), "wkv": wkv}
 
 
@@ -205,20 +208,21 @@ def channel_mix(x, p, cfg, state_shift, n: Optional[int] = None, grp=None):
     column-parallel and ``wcv`` row-parallel where :func:`channel_split`,
     the receptance taken on this rank's slice with the whole ``wcr``, else
     whole on every rank; ``y`` is this rank's slice."""
-    from ..dist.sharding import gather_seq, scatter_seq, seq_slice
+    from ..dist.sharding import gather_seq, leave_block, seq_slice
+    sgrp = None if n is None else grp       # decode: the residual whole
     if grp is not None and not channel_split(cfg, grp.size):
         y, st = channel_mix(gather_seq(x, n, grp), p, cfg, state_shift)
-        return seq_slice(y, grp), st
+        return seq_slice(y, sgrp), st
     x = gather_seq(x, n, grp)
     if state_shift is None:
         state_shift = torch.zeros_like(x[:, :1])
     xprev = _shift(x, state_shift) if x.shape[1] > 1 else state_shift
     mu = p["mu_c"].to(x.dtype)
     xk = x + (xprev - x) * mu[0]
-    xr = seq_slice(x + (xprev - x) * mu[1], grp)
+    xr = seq_slice(x + (xprev - x) * mu[1], sgrp)
     kk = torch.square(torch.relu(xk @ p["wck"].to(x.dtype)))
     rr = torch.sigmoid(xr @ p["wcr"].to(x.dtype))
-    return rr * scatter_seq(kk @ p["wcv"].to(x.dtype), grp), \
+    return rr * leave_block(kk @ p["wcv"].to(x.dtype), n, grp), \
         x[:, -1:].clone()
 
 
@@ -240,8 +244,11 @@ def rwkv_block(x, p, cfg, state, train: bool = False, n: Optional[int] = None,
                "cshift": cshift}
 
 
-def init_rwkv_state(cfg, batch: int, dtype=torch.float32, device=None):
-    H, dh, D = cfg.n_heads, cfg.rwkv.head_size, cfg.d_model
+def init_rwkv_state(cfg, batch: int, dtype=torch.float32, device=None,
+                    tp: int = 1):
+    """Zero states; ``tp``: the 'model' ranks the heads split over
+    (``wkv`` then holds a rank's heads)."""
+    H, dh, D = cfg.n_heads // tp, cfg.rwkv.head_size, cfg.d_model
     L = cfg.n_layers
     dev = resolve_init_device(device)
     return {

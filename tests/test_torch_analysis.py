@@ -95,14 +95,19 @@ def test_summarize_memory_reads_a_mem_tracker_snapshot():
 
 
 def test_rank_hbm_bytes_is_the_reference_count_at_tp_1():
-    """A serve rank's bytes are ``step_hbm_bytes`` of its own rows at one
-    chip and tp 1 (whole weights); a train rank reads the whole copy."""
-    import dataclasses
+    """A serve rank's bytes are the reference's per-chip count,
+    ``step_hbm_bytes`` at the mesh's chips and 'model' size (its shard of
+    the weights and of the cache: the mesh steps); at tp 1 its weights are
+    whole. A train rank reads the whole copy."""
     cfg = get_config("llama3.2-1b")
-    s = next(x for x in SHAPES if x.name == "prefill_32k")
-    assert roofline.rank_hbm_bytes(cfg, s, "prefill", 256, 1) == \
-        flops.step_hbm_bytes(cfg, dataclasses.replace(s, global_batch=1),
-                             "prefill", 1, 1)
+    for name in ("prefill_32k", "decode_32k"):
+        s = next(x for x in SHAPES if x.name == name)
+        for tp in (1, 16):
+            assert roofline.rank_hbm_bytes(cfg, s, s.kind, 256, 1, tp) == \
+                flops.step_hbm_bytes(cfg, s, s.kind, 256, tp)
+        assert roofline.rank_hbm_bytes(cfg, s, s.kind, 256, 1, 1) > \
+            cfg.n_params() * 2 > roofline.rank_hbm_bytes(cfg, s, s.kind,
+                                                          256, 1, 16)
     t = next(x for x in SHAPES if x.name == "train_4k")
     P = cfg.n_params()
     got = roofline.rank_hbm_bytes(cfg, t, "train", 256, 16)

@@ -19,6 +19,10 @@ a test process that may hold a gloo group.
     backward's collectives (the sequence gathers and scatters, the loss's
     reductions, moe's router sums and batch means, Mamba-2's norm moments:
     ``_expected_middle``), each over a group of 2.
+  * A reduced config's prefill and decode cells, traced on a (2, 2)
+    placeholder mesh through the mesh steps: a rank's rows, its quarter of
+    the decode cache (half the rows, half the sequence), and the
+    collectives the sharded serving implies.
   * The committed llama3.2-1b x train_4k record, regenerated through the
     CLI, equals the committed one in every count, its counted flops
     within 2 %.
@@ -71,6 +75,58 @@ def _run(args, timeout=300):
 @pytest.fixture(scope="module")
 def small():
     return json.loads(_run(["-c", _TRACE, *ARCHS]).splitlines()[-1])
+
+
+_SERVE = """
+import json
+import torch
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.dist.sharding import Rules
+from repro_torch.launch.dryrun import lower_cell
+from repro_torch.launch.mesh import placeholder_mesh
+from repro_torch.serve import zero_cache
+cfg = get_config("llama3.2-1b").reduced(n_layers=2, vocab_size=128)
+out = {k: lower_cell(cfg, ShapeConfig("tiny_" + k, %d, %d, k), (2, 2),
+                     ("data", "model")) for k in ("prefill", "decode")}
+rules = Rules(placeholder_mesh((2, 2), ("data", "model")), "decode",
+              global_batch=%d)
+cache = zero_cache(cfg, %d, %d, rules)
+out["cache"] = [(x._local_tensor.nbytes, x.numel() * x.element_size())
+                for x in cache.values()]
+print(json.dumps(out))
+""" % (SEQ, BATCH, BATCH, BATCH, SEQ)
+
+
+@pytest.fixture(scope="module")
+def serve_small():
+    return json.loads(_run(["-c", _SERVE]).splitlines()[-1])
+
+
+def test_serve_cells_trace_sharded(serve_small):
+    """llama3.2-1b at 2 layers, prefill and decode of 4 x 32 on (2, 2):
+    each rank 2 rows; its decode cache a quarter of the whole (rows over
+    'data', the sequence over 'model'), which the trace's peak holds; the
+    prefill's collectives (per layer the sequence gathers into attention
+    and the MLP, the row-parallel exits' reduce-scatters, the keys' and
+    values' all-to-all to the cache's sequence slices; the embedding's
+    reduce-scatter, the last position's all-reduce, the compute copy's
+    all-to-alls of ``wo`` and ``w2``) and the decode's (per layer the q, k,
+    v columns' all-gather, the combine's three all-reduces and the two
+    row-parallel exits'; the embedding's all-reduce)."""
+    pre, dec = serve_small["prefill"], serve_small["decode"]
+    for rec in (pre, dec):
+        assert rec["sharded_compute"] is True and rec["rows_per_rank"] == 2
+        assert rec["collectives"]["counts"]["broadcast"] == 0
+    for local, whole in serve_small["cache"]:
+        assert local * 4 == whole
+    cache = sum(local for local, _ in serve_small["cache"])
+    assert dec["peak_bytes_by_kind"]["other"] >= cache
+    L = 2
+    assert {k: v for k, v in pre["collectives"]["counts"].items() if v} == \
+        {"all-gather": 2 * L, "reduce-scatter": 2 * L + 1,
+         "all-to-all": 2 * L + 2, "all-reduce": 1}
+    assert {k: v for k, v in dec["collectives"]["counts"].items() if v} == \
+        {"all-gather": L, "all-reduce": 5 * L + 1, "all-to-all": 2}
 
 
 def _expected(cfg):
@@ -246,7 +302,7 @@ def test_committed_records_cover_every_cell():
                         "fits_80gb", "trace_s", "collectives", "roofline"):
                 assert key in r, (arch, s.name, key)
             assert r["kernels"] == "plain"
-            assert r["sharded_compute"] is (s.kind == "train")
+            assert r["sharded_compute"] is True
             assert r["counted_flops_per_rank"] > 0
             assert r["fits_80gb"] is (r["peak_est_bytes"] <= 80e9)
 
