@@ -195,6 +195,21 @@ JAX, never the JAX package ``repro``) and builds the kernels from
               must fail that check against the unbroken mesh decode. One
               log line an arch: prefill s, decode ms a token and peak GB
               beside 5b's, with the card's name and power limit.
+ 5i. tp2d   - phase 5e's training and phase 5h's llama3.2-1b serving
+              again through a (1, 1, 1) ('data', 'model', 'model2') NCCL
+              mesh built by ``make_tp2d_mesh(shape=)``, the code that
+              builds the production (16, 8, 2) tp2d mesh (one card is one
+              rank: a 'model2' of one adds nothing). The five losses
+              bit-equal to 5e's, K4-K7 launched 0 times in training; the
+              tokens bit-equal to 5h's and K4's and K5's launches in
+              prefill and decode equal to 5h's. One log line with s a
+              step and ms a decoded token, beside 5e's and 5h's and the
+              card's name and power limit.
+ 5j. examples - the six ``examples/torch_*.py`` with no arguments (the
+              card, the port's default device), each its own process, all
+              six started together: each must exit 0 (the training
+              example's own assert: its loss fell over 200 steps). One
+              log line an example with its seconds and last line.
  6. kernels - K1, K2, K3 against their plain versions on the card: on the
               ingested volumes, on every dtype, and the streaming
               accumulator at 64 KiB, 4 MiB and 1,000,003-byte chunks; K3
@@ -346,6 +361,10 @@ EPOCH_TOKENS = 9e12
 TP_FLOPS_RATIO = 2.0
 # phase 5h: the f32 cut-depth decode bound
 MESH_CUT_TOL = 1e-4
+# phase 5i: the arch served again on the tp2d mesh; phase 5j: each
+# example's time limit (all six run at once)
+TP2D_SERVE_ARCH = "llama3.2-1b"
+EXAMPLES_TIMEOUT = 240
 PARITY_BATCH, PARITY_SEQ = 2, 512
 # training on the card against the port's own CPU run, f32: loss and grad
 # norm relative, each gradient leaf relative to its largest |value|
@@ -749,7 +768,7 @@ def run(args, work: Path, card: str):
 
     # -- 5f. the dry-run of 5e's configuration against 5e's measurements ---
     t0 = time.perf_counter()
-    dryrun_phase(card, **mesh_measured)
+    dryrun_phase(card, mesh_measured["peak_gb"], mesh_measured["step_s"])
     log(f"dryrun phase: {time.perf_counter() - t0} s in all")
 
     # -- 5g. the tensor-parallel step at 16 x 16, dry-run on the host ------
@@ -759,8 +778,19 @@ def run(args, work: Path, card: str):
 
     # -- 5h. serving on a mesh: one NCCL rank, 5b's runs through the mesh --
     t0 = time.perf_counter()
-    mesh_serve_phase(args.seed, work, card, serve)
+    mesh_served = mesh_serve_phase(args.seed, work, card, serve)
     log(f"mesh serve phase: {time.perf_counter() - t0} s in all")
+
+    # -- 5i. the tp2d mesh's code at one rank: 5e's training, 5h's serving -
+    t0 = time.perf_counter()
+    tp2d_phase(args.seed, work, card, mesh_measured, mesh_served)
+    del mesh_served
+    log(f"tp2d phase: {time.perf_counter() - t0} s in all")
+
+    # -- 5j. the six examples, each a process of its own on the card -------
+    t0 = time.perf_counter()
+    examples_phase(work, card)
+    log(f"examples phase: {time.perf_counter() - t0} s in all")
 
     # -- 6. kernels against their plain versions ---------------------------------
     errs = dict.fromkeys(KERNELS, 0.0)
@@ -2438,7 +2468,7 @@ def mesh_train_phase(seed: int, work: Path, card: str, trained):
     check(abs(broken5 - ref[4]) > MESH_LOSS_TOL * abs(ref[4]),
           f"mesh train: the broken control passed the loss check: "
           f"{broken5} against {ref[4]}")
-    return {"peak_gb": peak, "step_s": med}
+    return {"peak_gb": peak, "step_s": med, "losses": losses}
 
 
 def dryrun_phase(card: str, peak_gb: float, step_s: float):
@@ -2576,10 +2606,14 @@ def mesh_serve_phase(seed: int, work: Path, card: str, serve):
     try:
         mesh = make_local_mesh()
         rules = sharding.Rules(mesh, "decode", global_batch=SERVE_BATCH)
+        out = {}
         for arch in SERVE_ARCHS:
             cfg, ref = get_config(arch), serve[arch]
-            params = shard_serve_state(ref.pop("host_params"), mesh, rules,
-                                       cfg)
+            host = ref.pop("host_params")
+            params = shard_serve_state(host, mesh, rules, cfg)
+            if arch == TP2D_SERVE_ARCH:     # phase 5i serves it again
+                out[arch] = {"host_params": host, "tokens": None}
+            del host
             prompts = np.random.default_rng(seed + 7).integers(
                 0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                 dtype=np.int32)
@@ -2618,6 +2652,11 @@ def mesh_serve_phase(seed: int, work: Path, card: str, serve):
                   == dec["launches"]["wkv6_chunked"] == 0,
                   f"mesh serve {arch}: decode launches {dec['launches']}, "
                   f"5b's {ref['decode_launches']}")
+            if arch in out:
+                out[arch].update(tokens=toks, prefill_s=pre["s"],
+                                 decode_ms=ms, prefill_launches=pre[
+                                     "launches"],
+                                 decode_launches=dec["launches"])
             del params, pre, dec, parts
             torch.cuda.empty_cache()
 
@@ -2662,6 +2701,145 @@ def mesh_serve_phase(seed: int, work: Path, card: str, serve):
             torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
+    return out
+
+
+def tp2d_phase(seed: int, work: Path, card: str, trained, served):
+    """Phase 5i: phase 5e's training and phase 5h's serving of
+    TP2D_SERVE_ARCH again, on a (1, 1, 1) ('data', 'model', 'model2')
+    DeviceMesh of one NCCL rank built by ``make_tp2d_mesh(shape=)``, the
+    code that builds the production tp2d mesh. A 'model2' of one adds
+    nothing, so the step runs as 5e's and the serving as 5h's: the five
+    losses bit-equal to 5e's, the tokens bit-equal to 5h's, K4's and K5's
+    launches in prefill and in decode equal to 5h's, K4-K7 0 in training.
+    One log line with s a step and ms a decoded token, beside 5e's and
+    5h's and the card's name and power limit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline, ShardedTokenSource
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_tp2d_mesh
+    from repro_torch.serve import shard_serve_state
+    from repro_torch.train import (OptConfig, draw_sharded_state,
+                                   make_train_step)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl",
+                            init_method=f"file://{work}/nccl_tp2d_store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_tp2d_mesh(shape=(1, 1, 1))
+        cfg = get_config(TRAIN_ARCH)
+        params, opt_state = draw_sharded_state(
+            cfg, torch.Generator().manual_seed(seed), mesh)
+        pipe = DataPipeline(ShardedTokenSource(work / "tokens"),
+                            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+        opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=100)
+        step_fn = make_train_step(cfg, opt, torch.bfloat16, remat=True,
+                                  mesh=mesh)
+        losses, times = [], []
+        _reset_counts()
+        for s in range(TRAIN_STEPS):
+            batch = pipe.batch_at(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        train_path = _counts()
+        del params, opt_state, m
+        torch.cuda.empty_cache()
+
+        arch, ref = TP2D_SERVE_ARCH, served[TP2D_SERVE_ARCH]
+        cfg = get_config(arch)
+        rules = sharding.Rules(mesh, "decode", global_batch=SERVE_BATCH)
+        params = shard_serve_state(ref.pop("host_params"), mesh, rules, cfg)
+        prompts = np.random.default_rng(seed + 7).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+        _probed_serve_batch(cfg, prompts, params, mesh=mesh)
+        toks, parts = _probed_serve_batch(cfg, prompts, params, mesh=mesh)
+        pre, dec = parts["prefill"], parts["decode"]
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    med = statistics.median(times)
+    ms = 1e3 * dec["s"] / (SERVE_NEW - 1)
+    k45 = ("rmsnorm", "flash_attention")
+    same = {part: {k: got["launches"][k] == ref[f"{part}_launches"][k]
+                   for k in k45}
+            for part, got in (("prefill", pre), ("decode", dec))}
+    log(f"tp2d mesh (1, 1, 1) over data, model, model2, one NCCL rank: "
+        f"train {TRAIN_ARCH} {TRAIN_BATCH} x {TRAIN_SEQ} tokens, step s "
+        f"{times}, median {med} s (5e {trained['step_s']} s), losses "
+        f"{losses} (5e {trained['losses']}), K4-K7 {train_path}; serve "
+        f"{arch} {SERVE_BATCH} x {SERVE_PROMPT} tokens + {SERVE_NEW} new: "
+        f"prefill {pre['s']} s (5h {ref['prefill_s']} s), decode {ms} ms "
+        f"a token (5h {ref['decode_ms']}), launches prefill "
+        f"{pre['launches']} decode {dec['launches']} (5h's equal: {same}),"
+        f" tokens equal to 5h's: {bool(np.array_equal(toks, ref['tokens']))}"
+        f"; on {card}")
+    check(losses == trained["losses"], f"tp2d train: losses {losses}, "
+          f"5e's {trained['losses']}")
+    check(all(v == 0 for v in train_path.values()),
+          f"tp2d train: the steps launched kernels {train_path}")
+    check(np.array_equal(toks, ref["tokens"]),
+          f"tp2d serve {arch}: tokens differ from 5h's")
+    check(all(all(v.values()) for v in same.values()),
+          f"tp2d serve {arch}: K4/K5 launches {pre['launches']} / "
+          f"{dec['launches']}, 5h's {ref['prefill_launches']} / "
+          f"{ref['decode_launches']}")
+
+
+EXAMPLES = ("torch_quickstart", "torch_process_dataset",
+            "torch_process_dataset_cluster", "torch_process_dataset_rpc",
+            "torch_serve_lm", "torch_train_lm")
+
+
+def examples_phase(work: Path, card: str):
+    """Phase 5j: the six ``examples/torch_*.py``, each run as its own
+    process with no arguments (so on the card: the port's default device),
+    all started together from the root of the checkout with ``src`` on
+    ``PYTHONPATH``; each must exit 0. One log line with each example's
+    seconds and its last line of output, beside the card's name and power
+    limit."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")])}
+    procs = {}
+    for name in EXAMPLES:
+        out = open(work / f"{name}.out", "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py")],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT),
+            out, time.perf_counter())
+    walls, failed = {}, []
+    try:
+        for name, (proc, out, t0) in procs.items():
+            try:
+                proc.wait(timeout=EXAMPLES_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            walls[name] = time.perf_counter() - t0
+            out.seek(0)
+            text = out.read()
+            last = text.strip().splitlines()[-1:] or [""]
+            log(f"example {name}: exit {proc.returncode}, {walls[name]} s "
+                f"(all six started together), last line: {last[0][:300]}")
+            if proc.returncode != 0:
+                failed.append((name, proc.returncode, text[-3000:]))
+    finally:
+        for proc, out, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    log(f"examples: {len(EXAMPLES) - len(failed)} of {len(EXAMPLES)} exited "
+        f"0, seconds {walls}; on {card}")
+    check(not failed, f"examples failed: {failed}")
 
 
 def _train_template(cfg):

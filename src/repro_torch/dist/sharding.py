@@ -44,13 +44,23 @@ constrains, each an ``autograd.Function`` with its backward, over the
     :func:`reduce_model_shared` what each rank uses on its own share (a
     norm over a split dim: backward an all-reduce).
 
+On a tp2d mesh ('model' and a 'model2' larger than one, the rules mapping
+``act_model``, ``vocab``, ``cache_seq`` and ``res_seq`` to the pair) the
+compute splits over the flattened ('model', 'model2') group, 'model'
+major, while the weights stay stored over 'model' alone
+(:func:`param_specs`): a rank's compute slice of a leaf split on the dim
+its storage splits is its 'model2' chunk of its 'model' shard, a narrow
+(:func:`gather_for_compute`), and its gradient goes back by an
+all-gather over 'model2' (:func:`grad_to_storage`). Everything else
+takes the flat group wherever it took 'model'.
+
 Serving (no backward) adds the ``cache_seq`` collectives, over the group
-:func:`cache_seq_group` gives ('model' under the prefill and decode
-rules, the whole mesh under ``long``): :func:`kv_heads_to_seq` moves a
-prefill's keys and values from the rank's heads to its sequence slice of
-every KV head, :func:`combine` joins a decode's partial softmax over
-the ranks' cache slices (its max, then its sum and its P.V, all-reduced
-in f32), :func:`reslice_seq` moves a
+:func:`cache_seq_group` gives ('model', or the flat group on a tp2d mesh,
+under the prefill and decode rules; the whole mesh under ``long``):
+:func:`kv_heads_to_seq` moves a prefill's keys and values from the
+rank's heads to its sequence slice of every KV head, :func:`combine`
+joins a decode's partial softmax over the ranks' cache slices (its max,
+then its sum and its P.V, all-reduced in f32), :func:`reslice_seq` moves a
 cache's sequence slices to another length's (the prefill cache into the
 longer decode cache), and :func:`leave_block` ends a row-parallel block:
 a reduce-scatter to the sequence slice where the residual is
@@ -488,9 +498,9 @@ def shardings_for(mesh, specs):
 
 @dataclasses.dataclass(frozen=True)
 class TPGroup:
-    """One mesh axis's group as this rank sees it: the process group, this
-    rank's index in it and its size. :func:`tp_group` gives the 'model'
-    axis's."""
+    """One mesh axis's group (or several axes' as one) as this rank sees
+    it: the process group, this rank's index in it and its size.
+    :func:`tp_group` gives the tensor-parallel one."""
     group: Any
     rank: int
     size: int
@@ -511,40 +521,76 @@ def _axis_group(mesh, i: int) -> TPGroup:
     return TPGroup(mesh.get_group(i), mesh.get_local_rank(i), mesh.size(i))
 
 
+def _flat_process_group(mesh, axes: Tuple[str, ...]):
+    """The process group of this rank's ranks over the mesh axes ``axes``
+    flattened, the first axis major (``DeviceMesh._flatten``). Built at
+    the first call, which every rank of the mesh makes at the same point
+    (a collective), and kept by the mesh."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily():          # the ranks are data
+        return mesh[axes]._flatten().get_group()
+
+
+def _flat_group(mesh, axes: Tuple[str, ...]) -> TPGroup:
+    """The ranks that share this rank's coordinate on every mesh axis but
+    ``axes`` (in mesh order), as one group ordered with the first of
+    ``axes`` major: JAX's order for a spec entry naming them. Axes of one
+    rank add nothing, and one axis gives its own group."""
+    names = axis_names(mesh)
+    axes = tuple(a for a in axes if mesh.size(names.index(a)) > 1) \
+        or tuple(axes[:1])
+    if len(axes) == 1:
+        return _axis_group(mesh, names.index(axes[0]))
+    coord = mesh.get_coordinate()
+    rank, size = 0, 1
+    for a in axes:
+        i = names.index(a)
+        rank, size = rank * mesh.size(i) + coord[i], size * mesh.size(i)
+    return TPGroup(_flat_process_group(mesh, tuple(axes)), rank, size)
+
+
+def _tp_axes(rules: Rules) -> Tuple[str, ...]:
+    """The mesh axes the rules' compute is tensor-parallel over: 'model',
+    or ('model', 'model2') on a tp2d mesh (a 'model2' larger than one),
+    where ``act_model``, ``vocab`` and ``res_seq`` all map there; none
+    where they map elsewhere."""
+    sizes = _mesh_sizes(rules.mesh)
+    maps = {tuple(a for a in _axes(rules.map.get(k))
+                  if a == "model" or sizes.get(a, 1) > 1)
+            for k in ("act_model", "vocab", "res_seq")}
+    if len(maps) != 1:
+        return ()
+    axes = maps.pop()
+    return axes if axes[:1] == ("model",) else ()
+
+
 def tp_group() -> Optional[TPGroup]:
-    """The 'model' group of the active rules' mesh, when the rules map
-    ``act_model``, ``vocab`` and ``res_seq`` onto 'model' (the compute is
-    tensor-parallel); None outside rules, on a shape-only mesh and when
-    they map elsewhere. Rules that map them over 'model' and a 'model2'
-    larger than 1 (``tp2d``) raise: the compute would split over both
-    axes, the storage over 'model' alone."""
+    """The tensor-parallel group of the active rules' mesh: its 'model'
+    axis's, or on a tp2d mesh the flattened ('model', 'model2') group
+    ('model' major), when the rules map ``act_model``, ``vocab`` and
+    ``res_seq`` there (:func:`_tp_axes`); None outside rules, on a
+    shape-only mesh and when they map elsewhere. A 'model2' of one adds
+    nothing: the group is 'model''s."""
     r = current_rules()
     if r is None or not hasattr(r.mesh, "get_group"):
         return None
-    names = axis_names(r.mesh)
-    sizes = _mesh_sizes(r.mesh)
-    maps = [tuple(a for a in _axes(r.map.get(k))
-                  if a == "model" or sizes.get(a, 1) > 1)
-            for k in ("act_model", "vocab", "res_seq")]
-    if any("model2" in m for m in maps):
-        raise NotImplementedError("tensor-parallel compute over 'model' "
-                                  "and 'model2' (tp2d)")
-    if any(m != ("model",) for m in maps):
-        return None
-    return _axis_group(r.mesh, names.index("model"))
+    axes = _tp_axes(r)
+    return _flat_group(r.mesh, axes) if axes else None
 
 
 def seq_axes(rules: Rules) -> Tuple[str, ...]:
     """The mesh axes the rules split the residual's sequence over when the
-    compute is tensor-parallel (:func:`tp_group`), else none."""
-    with use_rules(rules):
-        return ("model",) if tp_group() is not None else ()
+    compute is tensor-parallel (:func:`tp_group`'s), else none."""
+    if not hasattr(rules.mesh, "get_group"):
+        return ()
+    return _tp_axes(rules)
 
 
 def compute_layout(params, cfg):
     """The compute copy's layout under the active rules: per leaf the
-    tensor dim split over 'model' (``compute_model_dims`` at the group's
-    size), or None everywhere when the compute is not tensor-parallel."""
+    tensor dim split over the tensor-parallel group (``compute_model_dims``
+    at the group's size: 16 on the tp2d production mesh), or None
+    everywhere when the compute is not tensor-parallel."""
     from ..models import compute_model_dims
     tp = tp_group()
     if tp is None:
@@ -819,6 +865,15 @@ def _model_dim(p) -> Optional[int]:
     return pl.dim if isinstance(pl, Shard) else None
 
 
+def _model2_group(mesh) -> Optional[TPGroup]:
+    """The 'model2' axis's group of a tp2d mesh (larger than one), where
+    the compute splits each 'model' shard further; else None."""
+    names = tuple(mesh.mesh_dim_names)
+    if "model2" not in names or mesh.size(names.index("model2")) == 1:
+        return None
+    return _axis_group(mesh, names.index("model2"))
+
+
 def gather_for_compute(w, model_dim: Optional[int],
                        dtype=None) -> torch.Tensor:
     """This rank's compute copy of the DTensor ``w``: its shard (cast to
@@ -826,7 +881,12 @@ def gather_for_compute(w, model_dim: Optional[int],
     on, and over 'model' re-split on tensor dim ``model_dim`` (None:
     gathered whole): nothing where the storage splits that dim already, a
     slice where it keeps the leaf whole, one all-to-all where it splits
-    another dim (a row-parallel weight, the experts). A plain tensor."""
+    another dim (a row-parallel weight, the experts). On a tp2d mesh the
+    compute splits ``model_dim`` over ('model', 'model2'): the rank's
+    'model2' chunk of what that gives, a slice, taken before the
+    all-to-all where there is one (each rank sends a 'model' rank only
+    the chunk that rank's 'model2' partner of this rank keeps). A plain
+    tensor."""
     from torch.distributed.tensor import Shard
     mesh = w.device_mesh
     x = w.to_local()
@@ -840,14 +900,33 @@ def gather_for_compute(w, model_dim: Optional[int],
         return x
     grp = _axis_group(mesh, mesh.mesh_dim_names.index("model"))
     src, dst = _model_dim(w), model_dim
-    if src == dst:
-        return x
     if dst is None:
-        return _all_gather(x, src, grp, x.shape[src] * grp.size)
+        return x if src is None else \
+            _all_gather(x, src, grp, x.shape[src] * grp.size)
+    sub = _model2_group(mesh)
     if src is None:
-        c = x.shape[dst] // grp.size
-        return x.narrow(dst, grp.rank * c, c).contiguous()
-    return _all_to_all(x, src, dst, grp)
+        x = _chunk(x, dst, grp)
+    elif src != dst:
+        if sub is not None:         # chunk m2 of each 'model' rank's chunk
+            c = x.shape[dst] // (grp.size * sub.size)
+            x = x.unflatten(dst, (grp.size, sub.size, c)).select(
+                dst + 1, sub.rank).flatten(dst, dst + 1)
+        return _all_to_all(x, src, dst, grp)
+    return x if sub is None else _chunk(x, dst, sub)
+
+
+def _chunk(x: torch.Tensor, dim: int, grp: TPGroup) -> torch.Tensor:
+    """This rank's even chunk of ``x``'s ``dim`` over the group: a copy
+    (a view, contiguous where ``dim`` leads, would keep all of ``x``)."""
+    c = x.shape[dim] // grp.size
+    return x.narrow(dim, grp.rank * c, c).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _gather_model2(g: torch.Tensor, dim: int, sub: TPGroup) -> torch.Tensor:
+    """A tp2d compute slice's gradient, split on ``dim`` over 'model2'
+    (``sub``), as the 'model' rank's whole chunk: an all-gather."""
+    return _all_gather(g, dim, sub, g.shape[dim] * sub.size)
 
 
 def grad_to_storage(g: torch.Tensor, p, model_dim: Optional[int],
@@ -856,13 +935,17 @@ def grad_to_storage(g: torch.Tensor, p, model_dim: Optional[int],
     is, ``model_dim``), returned as this rank's shard of ``p`` (f32),
     summed over the mesh axes ``summed``: the data axes that split the
     batch and, for a leaf used whole (computed on each rank's sequence
-    slice), 'model'. A split leaf's gradient is whole for its split: it is
-    moved back to the storage's split, and 'model' in ``summed`` is not
-    read for it."""
+    slice), the tensor-parallel axes. A split leaf's gradient is whole for
+    its split: it is moved back to the storage's split (on a tp2d mesh
+    gathered over 'model2' first), and the tensor-parallel axes in
+    ``summed`` are not read for it."""
     mesh = p.device_mesh
     names = tuple(mesh.mesh_dim_names)
     if "model" not in names or model_dim is None:
         return _to_shard(g, p, summed)
+    sub = _model2_group(mesh)
+    if sub is not None:
+        g = _gather_model2(g, model_dim, sub)
     grp = _axis_group(mesh, names.index("model"))
     src = _model_dim(p)
     if src is None:
@@ -949,8 +1032,9 @@ def _mesh_group(mesh) -> TPGroup:
 
 def cache_seq_group(n: int) -> Optional[TPGroup]:
     """The group a cache's sequence of ``n`` positions is split over under
-    the active rules' ``cache_seq`` ('model', or under ``long`` every axis
-    of the mesh, 'model' the minor one), with this rank's place in it
+    the active rules' ``cache_seq`` ('model', ('model', 'model2') flattened
+    on a tp2d mesh, or under ``long`` every axis of the mesh, the model
+    axes the minor ones), with this rank's place in it
     (:meth:`TPGroup.bounds` gives its slice); None outside rules, on a
     shape-only mesh, and where the guard keeps the sequence whole (the
     group's size does not divide ``n``)."""
@@ -961,9 +1045,10 @@ def cache_seq_group(n: int) -> Optional[TPGroup]:
     if not axes or n % _axis_n(_mesh_sizes(r.mesh), axes):
         return None
     names = axis_names(r.mesh)
-    if len(axes) == 1:
-        return _axis_group(r.mesh, names.index(axes[0]))
-    if tuple(axes) != names or names[-1] != "model":
+    if tuple(axes) != names or len(axes) == 1:
+        return _flat_group(r.mesh, axes)
+    model = tuple(a for a in names if a in MODEL_AXES)
+    if not model or names[-len(model):] != model:
         raise NotImplementedError(f"cache_seq over {axes} of {names}")
     return _mesh_group(r.mesh)
 

@@ -14,11 +14,12 @@ under ``experiments/dryrun_torch/`` (the reference's records stay in
   * train cells trace the port's real step, ``make_train_step(cfg,
     OptConfig(), mesh=)``, on ``shard_train_state`` of fake f32 weights:
     the DTensor state, the cast copy gathered over 'data' and laid out
-    over 'model', the rank's rows computed tensor-parallel over 'model'
-    (its sequence slice of the residual, its heads, columns, rows, vocab
-    or experts), the gradients reduced leaf by leaf, AdamW on the shards;
-    ``"tp_compute"`` is the size of the 'model' group the traced step's
-    compute was split over (``step.tp_compute``; 1 where it was not);
+    over the tensor-parallel group, the rank's rows computed
+    tensor-parallel over it (its sequence slice of the residual, its
+    heads, columns, rows, vocab or experts), the gradients reduced leaf by
+    leaf, AdamW on the shards; the group is 'model', or under ``--policy
+    tp2d`` (the (16, 8, 2) mesh) the flattened ('model', 'model2') group
+    of 16 while the weights are stored over 'model' (8) alone;
   * prefill, decode and long cells trace the mesh steps,
     ``make_prefill_step(cfg, mesh=)`` / ``make_decode_step(cfg, mesh=)``
     (``long=`` for the long cells), on ``shard_serve_state`` of fake bf16
@@ -29,6 +30,9 @@ under ``experiments/dryrun_torch/`` (the reference's records stay in
     plain versions), columns, rows, vocab or experts and the cache moved
     to its sequence slice, a decode step on its cache slice with the
     softmax joined over ``cache_seq`` (``"sharded_compute": true``);
+  * ``"tp_compute"``: the size of the group the traced step's compute was
+    split over (1 where it was not; the 40 records of the 16 x 16 mesh
+    carry it for train cells only);
   * ``counted_flops_per_rank`` (``FlopCounterMode``) beside the reference's
     analytic count (``flops_per_chip``, ``analysis/flops.py``),
     ``peak_bytes_by_kind`` (``MemTracker``, the state passed to it with
@@ -109,13 +113,13 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
     """Trace one step of the cell under fake tensors, as rank 0 of a
     placeholder mesh: the rows a rank computes, the counted flops,
     MemTracker's peak snapshot (the step's inputs and state included),
-    the collectives, the size of 'model' a train step's compute was split
-    over (None for serving) and the seconds the trace took."""
+    the collectives, the size of the group the step's compute was split
+    over and the seconds the trace took."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.utils.flop_counter import FlopCounterMode
-    from ..dist.sharding import NamedSharding, Rules
+    from ..dist.sharding import NamedSharding, Rules, tp_group, use_rules
     from ..models import init_params
     from ..serve.serve_step import (make_decode_step, make_prefill_step,
                                     shard_serve_state, zero_cache)
@@ -178,16 +182,20 @@ def trace(cfg, shape, mesh_shape, axes, policy: str = "tp") -> dict:
             raise RuntimeError(f"collectives seen {collectives['counts']}, "
                                f"CommDebugMode counted {counts}")
         peak = tracker.get_tracker_snapshot("peak")
+        with use_rules(rules):
+            grp = tp_group()
     return {"rows": rows, "flops": flops.get_total_flops(), "peak": peak,
             "collectives": collectives,
-            "tp_compute": step.tp_compute if shape.kind == "train" else None,
+            "tp_compute": 1 if grp is None else grp.size,
             "trace_s": time.perf_counter() - t0}
 
 
 def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
                extra_tag: str = "", policy: str = "tp") -> dict:
     """Trace one cell; returns its record. The collectives are priced at
-    the H100 row's link rate (NVLink 4 within a host)."""
+    the H100 row's link rate (NVLink 4 within a host). The analytic bytes
+    a chip are the reference's, which divide the weights by 'model' alone;
+    the port's own (``rank_hbm_bytes``) by the compute group."""
     t = trace(cfg, shape, mesh_shape, axes, policy)
     n_chips = math.prod(mesh_shape)
     tp = dict(zip(axes, mesh_shape)).get("model", 1)
@@ -196,7 +204,7 @@ def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
     mem = summarize_memory(t["peak"])
     peak = mem.pop("peak_est_bytes")
     rank_bytes = rank_hbm_bytes(cfg, shape, shape.kind, n_chips, t["rows"],
-                                tp)
+                                t["tp_compute"])
     terms = roofline_terms(t["flops"], rank_bytes,
                            t["collectives"]["weighted_bytes"])
     terms.update(hardware=H100.name, link_bw=H100.link_bw)
@@ -206,8 +214,7 @@ def lower_cell(cfg, shape, mesh_shape=(16, 16), axes=("data", "model"), *,
         "mesh": "x".join(map(str, mesh_shape)), "mesh_axes": list(axes),
         "n_chips": n_chips, "tag": extra_tag, "policy": policy,
         "kernels": "plain", "sharded_compute": True,
-        **({"tp_compute": t["tp_compute"]} if shape.kind == "train"
-           else {}),
+        "tp_compute": t["tp_compute"],
         "rows_per_rank": t["rows"], "trace_s": round(t["trace_s"], 1),
         "flops_per_chip": flops_per_chip,
         "flops_breakdown": fl,

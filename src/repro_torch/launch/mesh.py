@@ -41,15 +41,23 @@ def make_production_mesh(*, multi_pod: bool = False):
     return _mesh(shape, axes)
 
 
-def make_tp2d_mesh(*, multi_pod: bool = False):
-    """Same ranks, 'model' axis factored (8, 2): attention TP uses the
-    8-way sub-axis (KV=8 archs shard kv-heads exactly), expert/vocab TP
-    uses the full 16 via ('model', 'model2') (the reference's §Perf L3, for
-    archs whose head counts cannot carry a 16-way axis: llama4, H=40,
-    KV=8)."""
-    shape = (2, 16, 8, 2) if multi_pod else (16, 8, 2)
+def make_tp2d_mesh(*, multi_pod: bool = False,
+                   shape: Optional[Sequence[int]] = None):
+    """Same ranks, 'model' axis factored (8, 2) into ('model', 'model2'),
+    the reference's §Perf L3 layout for archs whose head counts cannot
+    carry a 16-way axis (llama4: H=40, KV=8). The weights are stored over
+    'model' alone (8-way), and the compute is tensor-parallel over the
+    flattened ('model', 'model2') group (16-way) everywhere, attention
+    included: every rule that names the model axes (``act_model``,
+    ``vocab``, ``cache_seq``, ``res_seq``) names both, so attention takes
+    its layout at 16 ranks (llama4: "q", its query positions split, where
+    the reference's docstring says 8-way heads). ``shape`` gives the same
+    axes at another size, (data, model, model2) or with 'pod' first (a
+    test's gloo ranks, one card)."""
     axes = (("pod", "data", "model", "model2") if multi_pod
             else ("data", "model", "model2"))
+    if shape is None:
+        shape = (2, 16, 8, 2) if multi_pod else (16, 8, 2)
     return _mesh(shape, axes)
 
 

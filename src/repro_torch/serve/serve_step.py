@@ -217,14 +217,14 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     if not isinstance(logits, DTensor):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     from torch.distributed.tensor import Replicate, Shard
-    from ..dist.sharding import _axis_group, argmax_vocab, from_local
+    from ..dist.sharding import _flat_group, argmax_vocab, from_local
     mesh, last = logits.device_mesh, logits.dim() - 1
     local = logits.to_local()
-    grp, v0 = None, 0
-    for i, pl in enumerate(logits.placements):
-        if isinstance(pl, Shard) and pl.dim == last:
-            grp = _axis_group(mesh, i)
-            v0 = grp.rank * local.shape[-1]
+    axes = tuple(name for name, pl in zip(mesh.mesh_dim_names,
+                                          logits.placements)
+                 if isinstance(pl, Shard) and pl.dim == last)
+    grp = _flat_group(mesh, axes) if axes else None
+    v0 = grp.rank * local.shape[-1] if axes else 0
     tok = argmax_vocab(local, v0, grp).to(torch.int32)
     placements = tuple(Replicate() if isinstance(pl, Shard) and pl.dim ==
                        last else pl for pl in logits.placements)

@@ -29,6 +29,10 @@ a test process that may hold a gloo group.
   * The 40 committed records parse, cover every (arch x shape) cell, skip
     what ``cell_is_runnable`` skips, and give the reference's analytic
     numbers where the reference's records have them.
+  * The three committed tp2d records of llama4-scout-17b-a16e (``--policy
+    tp2d --tag tp2d``: the (16, 8, 2) mesh, weights stored over 'model',
+    compute over the flattened ('model', 'model2') group of 16), traced
+    again through the CLI, equal the committed ones in every count.
   * The report renders.
 """
 import json
@@ -338,3 +342,67 @@ def test_report_renders(capsys):
     top = report.collective_breakdown(rec, top=3)
     assert [o["bytes"] for o in top] == sorted(
         (o["bytes"] for o in rec["collectives"]["ops"]), reverse=True)[:3]
+
+
+TP2D = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def _tp2d_name(shape):
+    return f"llama4-scout-17b-a16e_{shape}_single_tp2d.json"
+
+
+@pytest.fixture(scope="module")
+def tp2d_regenerated(tmp_path_factory):
+    """The three tp2d cells traced again, one process each, together."""
+    tmp = tmp_path_factory.mktemp("tp2d")
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "llama4-scout-17b-a16e", "--shape", shape, "--policy", "tp2d",
+         "--tag", "tp2d", "--out", str(tmp / _tp2d_name(shape))],
+        env={**os.environ, "PYTHONPATH": str(SRC)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for shape in TP2D}
+    try:
+        for shape, p in procs.items():
+            err = p.communicate(timeout=600)[1]
+            assert p.returncode == 0, (shape, err[-4000:])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {shape: json.loads((tmp / _tp2d_name(shape)).read_text())
+            for shape in TP2D}
+
+
+@pytest.mark.parametrize("shape", TP2D)
+def test_tp2d_records_are_committed(shape):
+    """Each record: the tp2d mesh and policy, the compute split over 16
+    ranks (the flattened group) while the weights are stored over 8, a
+    peak a rank and whether it fits 80 GB."""
+    r = json.loads((RECORDS / _tp2d_name(shape)).read_text())
+    assert (r["arch"], r["shape"], r["policy"], r["tag"]) == (
+        "llama4-scout-17b-a16e", shape, "tp2d", "tp2d")
+    assert (r["mesh"], r["mesh_axes"]) == ("16x8x2",
+                                           ["data", "model", "model2"])
+    assert r["tp_compute"] == 16 and r["sharded_compute"] is True
+    assert r["peak_est_bytes"] > 0
+    assert r["fits_80gb"] is (r["peak_est_bytes"] <= 80e9)
+    tp = json.loads((RECORDS / _tp2d_name(shape).replace("_tp2d", ""))
+                    .read_text())
+    # the f32 masters and moments over 128 storage ranks, not 256
+    assert r["peak_bytes_by_kind"]["other"] > tp["peak_bytes_by_kind"][
+        "other"]
+
+
+@pytest.mark.parametrize("shape", TP2D)
+def test_tp2d_record_regenerates(tp2d_regenerated, shape):
+    want = json.loads((RECORDS / _tp2d_name(shape)).read_text())
+    got = dict(tp2d_regenerated[shape])
+    for r in (got, want):
+        r.pop("trace_s")
+    assert got.pop("collectives") == want.pop("collectives")
+    assert abs(got["counted_flops_per_rank"] /
+               want["counted_flops_per_rank"] - 1) <= 0.02
+    for k in ("counted_flops_per_rank", "counted_to_analytic", "roofline"):
+        got.pop(k), want.pop(k)
+    assert got == want

@@ -183,35 +183,48 @@ def test_one_rank_path_is_the_one_process_step_bit_for_bit(one, arch):
 
 class GroupMesh:
     """A mesh with process groups, as ``tp_group`` reads one: axis names,
-    sizes and a group per axis (none needed here)."""
-    def __init__(self, shape, axes):
-        self.shape, self.mesh_dim_names = shape, axes
+    sizes, this rank's coordinate, and a group per axis or flattened set
+    of axes (none needed here)."""
+    def __init__(self, shape, axes, coord):
+        self.shape, self.mesh_dim_names, self.coord = shape, axes, coord
 
-    def get_group(self, i):
+    def get_group(self, i=0):
         return None
 
     def get_local_rank(self, i):
-        return 0
+        return self.coord[i]
+
+    def get_coordinate(self):
+        return list(self.coord)
 
     def size(self, i):
         return self.shape[i]
+
+    def __getitem__(self, axes):
+        return self
+
+    def _flatten(self):
+        return self
 
 
 @pytest.mark.parametrize("shape,axes,want", [
     ((1, 4), ("data", "model"), 4),
     ((2, 1), ("data", "model"), 1),
     ((1, 4, 1), ("data", "model", "model2"), 4),
-    ((1, 2, 2), ("data", "model", "model2"), NotImplementedError),
+    ((1, 2, 2), ("data", "model", "model2"), 4),
 ])
 def test_tensor_parallel_group_of_the_rules(shape, axes, want):
-    """``tp_group`` under train rules: 'model' of each size (one rank
-    included: the path runs its collectives there too); a 'model2' of
-    one adds nothing; tp2d, a 'model2' larger than one, raises rather than
-    falling back to a whole copy on every rank."""
+    """``tp_group`` under train rules, seen from every coordinate: 'model'
+    of each size (one rank included: the path runs its collectives there
+    too), the rank's place its 'model' coordinate; a 'model2' of one adds
+    nothing; tp2d, a 'model2' larger than one, gives the flattened
+    ('model', 'model2') group, 'model' major (JAX's order for the spec
+    entry ('model', 'model2'))."""
+    import itertools
     from repro_torch.dist.sharding import Rules, tp_group, use_rules
-    with use_rules(Rules(GroupMesh(shape, axes), "train")):
-        if want is NotImplementedError:
-            with pytest.raises(NotImplementedError):
-                tp_group()
-        else:
-            assert tp_group().size == want
+    for coord in itertools.product(*(range(n) for n in shape)):
+        with use_rules(Rules(GroupMesh(shape, axes, coord), "train")):
+            grp = tp_group()
+        place = coord[1] * shape[2] + coord[2] if len(shape) == 3 \
+            else coord[1]
+        assert (grp.size, grp.rank) == (want, place), coord

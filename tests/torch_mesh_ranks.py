@@ -128,14 +128,16 @@ def copy_layout(cfg, mesh):
     return counted, real, records
 
 
-def mesh_run(cfg, mesh, ref, *, save_to=None, bs=None, flops=False):
+def mesh_run(cfg, mesh, ref, *, save_to=None, bs=None, flops=False,
+             then=None):
     """Train STEPS steps on ``mesh``: (loss errors relative to the
     one-device run, first-step gradient errors, storage mismatches, the
     losses, the compute copy's layout of the first step: (split dim,
     leaf elements, local elements) a leaf; with ``flops`` the first
-    step's counted flops on this rank). With ``save_to`` the state after
-    step 2 is saved there, and its gathered values as a plain one-device
-    save beside it."""
+    step's counted flops on this rank; with ``then`` what it returns for
+    the params after the last step, under "then"). With ``save_to`` the
+    state after step 2 is saved there, and its gathered values as a plain
+    one-device save beside it."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.dist import sharding
     ref_losses, ref_grads = ref
@@ -167,7 +169,8 @@ def mesh_run(cfg, mesh, ref, *, save_to=None, bs=None, flops=False):
     lerr = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     return {"loss_err": lerr, "grad_err": gerr, "storage": bad,
             "losses": losses, "layout": layout,
-            "flops": fc.get_total_flops() if flops else None}
+            "flops": fc.get_total_flops() if flops else None,
+            "then": None if then is None else then(params)}
 
 
 def one_device_flops(cfg, bs=None):
