@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device
+from ... import obs
 from .. import _build
 from .ref import M_POS, qa_block_size, tree_sum_f32
 
@@ -48,15 +49,13 @@ _DTYPE_CODES: Dict[torch.dtype, int] = {
 }
 
 # kernel launches per wrapper; K1, K2 and K3 in that order
-LAUNCHES: Dict[str, int] = {"qa_checksum": 0, "qa_checksum_chunk": 0,
-                            "device_checksum": 0}
+LAUNCHES = obs.Counters("launches", "qa_checksum", "qa_checksum_chunk",
+                        "device_checksum")
 
 _MASK = 0xFFFFFFFF
 
 
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+reset_launches = LAUNCHES.reset
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +333,7 @@ def device_checksum(x: torch.Tensor) -> torch.Tensor:
     if _placement(x) == "cpu":
         return device_checksum_plain(x)
     out = run_device_checksum(_build.load("checksum"), x, stream=_stream(x))
-    LAUNCHES["device_checksum"] += 1
+    LAUNCHES.add("device_checksum")
     return out
 
 
@@ -365,7 +364,7 @@ def _qa_checksum_2d(vals: torch.Tensor, blk: int) -> Carry:
         return _empty_carry(0, vals.device)
     out = run_qa(_build.load("checksum"), vals, blk=blk,
                  stream=_stream(vals))
-    LAUNCHES["qa_checksum"] += 1
+    LAUNCHES.add("qa_checksum")
     return out
 
 
@@ -454,7 +453,7 @@ def qa_checksum_chunk(data: torch.Tensor, off: Tuple[int, int, int, int],
         raise ValueError("carry must be contiguous and on the chunk's device")
     out = run_chunk(_build.load("checksum"), data, off, carry, dtype=dtype,
                     blk_v=blk_v, nblocks=nblocks, stream=_stream(data))
-    LAUNCHES["qa_checksum_chunk"] += 1
+    LAUNCHES.add("qa_checksum_chunk")
     return out
 
 

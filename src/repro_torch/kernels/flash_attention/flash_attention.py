@@ -29,6 +29,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ... import obs
 from .. import _build
 from .._nograd import refuse_grad
 
@@ -39,15 +40,14 @@ HEAD_DIMS = (16, 32, 64, 128)  # the kernel's compiled head widths
 # value dtype -> code of csrc/flash_attention.cu's DType enum
 _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES = obs.Counters("launches", "flash_attention")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I] + [_I64] * 12 + \
     [ctypes.c_float, _I, _I, _I64, _P]
 
 
-def reset_launches():
-    LAUNCHES["flash_attention"] = 0
+reset_launches = LAUNCHES.reset
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,7 +143,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           "repro_flash_attention", _ARGTYPES),
         q, k, v, causal=causal, window=window, q_offset=q_offset,
         stream=torch.cuda.current_stream(q.device).cuda_stream)
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES.add("flash_attention")
     return out
 
 

@@ -27,17 +27,18 @@ show that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ... import obs
 from .. import _build
 from .._nograd import refuse_grad
 
 MAX_WIDTH = 64             # the kernel's largest dh and N
 
-LAUNCHES: Dict[str, int] = {"ssd_chunked": 0}
+LAUNCHES = obs.Counters("launches", "ssd_chunked")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P, _I64, _I64,
@@ -45,8 +46,7 @@ _ARGTYPES = [_P, _I64, _I64, _I64, _P, _I64, _I64, _I64, _P, _I64, _I64,
              _I, _I, _I, _I, _I, _I, _P, _P]
 
 
-def reset_launches():
-    LAUNCHES["ssd_chunked"] = 0
+reset_launches = LAUNCHES.reset
 
 
 def _check(x, lw, Bm, Cm, chunk, state):
@@ -180,5 +180,5 @@ def ssd_chunked(x: torch.Tensor, lw: torch.Tensor, Bm: torch.Tensor,
     out = run_kernel(_build.load("mamba2_ssd"), x, lw, Bm, Cm, chunk=chunk,
                      state=state,
                      stream=torch.cuda.current_stream(x.device).cuda_stream)
-    LAUNCHES["ssd_chunked"] += 1
+    LAUNCHES.add("ssd_chunked")
     return out

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ... import obs
 from .. import _build
 from .._nograd import refuse_grad
 
@@ -30,7 +31,7 @@ _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 # a row of at most this many 16-byte groups (csrc/rmsnorm.cu kMaxGroups)
 MAX_GROUPS = 8192
 
-LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
+LAUNCHES = obs.Counters("launches", "rmsnorm")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -42,8 +43,7 @@ _SIGNATURES = {
 }
 
 
-def reset_launches():
-    LAUNCHES["rmsnorm"] = 0
+reset_launches = LAUNCHES.reset
 
 
 def _padded_groups(d: int, itemsize: int) -> Tuple[int, int]:
@@ -175,5 +175,5 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         return torch.empty_like(xf)
     out = run_kernel(_build.load("rmsnorm"), xf, sc, eps,
                      stream=torch.cuda.current_stream(x.device).cuda_stream)
-    LAUNCHES["rmsnorm"] += 1
+    LAUNCHES.add("rmsnorm")
     return out

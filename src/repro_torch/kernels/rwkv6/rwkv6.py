@@ -33,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ... import obs
 from .. import _build
 from .._nograd import refuse_grad
 
@@ -41,15 +42,14 @@ MAX_WIDTH = 64             # the kernel's largest dh
 # r, k, v dtype -> code of csrc/rwkv6.cu's DType enum
 _DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {"wkv6_chunked": 0}
+LAUNCHES = obs.Counters("launches", "wkv6_chunked")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = [_P, _I64, _I64, _I64] * 4 + [_P, _P, _P, _I64, _I64, _I64, _P,
                                           _I, _I, _I, _I, _I, _I, _P, _P]
 
 
-def reset_launches():
-    LAUNCHES["wkv6_chunked"] = 0
+reset_launches = LAUNCHES.reset
 
 
 def _check(r, k, v, logw, u, chunk, state):
@@ -186,5 +186,5 @@ def wkv6_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = run_kernel(_build.load("rwkv6"), r, k, v, logw, u, chunk=chunk,
                      state=state,
                      stream=torch.cuda.current_stream(r.device).cuda_stream)
-    LAUNCHES["wkv6_chunked"] += 1
+    LAUNCHES.add("wkv6_chunked")
     return out

@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..device import resolve_init_device
 from ..kernels.mamba2_ssd import ssd_chunked_op
 from .layers import normal_init, rmsnorm, rmsnorm_train, upcast
@@ -80,12 +81,14 @@ def ssd_chunked(xh, dt, a_log, Bm, Cm, state, chunk: int):
     """Chunked SSD. xh: (B,S,H,dh); dt: (B,S,H) (post-softplus); a_log:
     (H,) = A_log; Bm, Cm: (B,S,N); state: (B,H,dh,N) fp32. Forms the
     dt-weighted inputs and log-decays in f32 as the reference does, and
-    scans them with K6. Returns y (B,S,H,dh) f32, new state."""
+    scans them with K6 (the span ``mamba2.scan``: K6 alone). Returns y
+    (B,S,H,dh) f32, new state."""
     A = -torch.exp(a_log.float())                       # (H,) negative
     lw = dt.float() * A                                 # (B,S,H)
     xs = xh.float() * dt.float()[..., None]             # (B,S,H,dh)
-    return ssd_chunked_op(xs, lw, Bm.float(), Cm.float(), chunk=chunk,
-                          state=state)
+    Bf, Cf = Bm.float(), Cm.float()
+    with obs.span("mamba2.scan", xs):
+        return ssd_chunked_op(xs, lw, Bf, Cf, chunk=chunk, state=state)
 
 
 def _segsum(lw):
@@ -165,12 +168,22 @@ def mamba_block(x, p, cfg, state, train: bool = False,
     is whole on every rank and ``out_proj``'s partial sums are
     all-reduced. A split state holds the rank's heads of ``ssm`` (as
     ``init_mamba_state(tp=)`` and the cache place it) and the whole
-    ``conv``; serving (not ``train``) returns the conv state whole."""
-    from ..dist.sharding import gather_model, gather_seq, leave_block, \
-        seq_slice
+    ``conv``; serving (not ``train``) returns the conv state whole.
+
+    Spans (``obs``): ``mamba2.layer`` from the pre-norm to the residual
+    add, and in it ``mamba2.in_proj`` and ``mamba2.out_proj``, the two
+    GEMMs alone."""
+    from ..dist.sharding import gather_seq, seq_slice
     if grp is not None and not ssd_heads_split(cfg, grp.size):
         full, st = mamba_block(gather_seq(x, n, grp), p, cfg, state, train)
         return seq_slice(full, None if n is None else grp), st
+    with obs.span("mamba2.layer", x):
+        return _mixer(x, p, cfg, state, train, n, grp)
+
+
+def _mixer(x, p, cfg, state, train: bool, n: Optional[int], grp):
+    """:func:`mamba_block` on the rank's share of the SSD heads."""
+    from ..dist.sharding import gather_model, gather_seq, leave_block
     s = cfg.ssm
     di = s.expand * cfg.d_model
     tp = 1 if grp is None else grp.size
@@ -182,7 +195,8 @@ def mamba_block(x, p, cfg, state, train: bool = False,
     if state is None:
         state = {"ssm": torch.zeros((B, H, dh, N), dtype=torch.float32,
                                     device=x.device), "conv": None}
-    proj = h @ p["in_proj"].to(x.dtype)
+    with obs.span("mamba2.in_proj", h):
+        proj = h @ p["in_proj"].to(x.dtype)
     z, conv_in, dt = torch.split(proj, [di // tp, di // tp + 2 * N, H],
                                  dim=-1)
     conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
@@ -205,7 +219,9 @@ def mamba_block(x, p, cfg, state, train: bool = False,
     whole = grp is None or (grp.size == 1 and not train)
     y = norm(y, p["norm"], cfg.norm_eps) if whole else \
         _rmsnorm_split(y, p["norm"], cfg.norm_eps, di, grp)
-    out = leave_block(y @ p["out_proj"].to(x.dtype), n, grp)
+    with obs.span("mamba2.out_proj", y):
+        out = y @ p["out_proj"].to(x.dtype)
+    out = leave_block(out, n, grp)
     if grp is not None and not train:       # the cache's conv state: whole
         conv_state = torch.cat([gather_model(conv_state[..., :di // tp],
                                              grp),

@@ -62,6 +62,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .. import obs
 from ..device import resolve_init_device
 from . import mamba2 as mamba_mod
 from . import rwkv6 as rwkv_mod
@@ -402,14 +403,16 @@ def _rwkv_stack(cfg, params: Params, x: torch.Tensor, state, *,
 def _shared_block(cfg, sp: Params, x: torch.Tensor, positions: torch.Tensor,
                   train: bool = False, grp=None):
     """The hybrid's shared attention block; ``grp`` as for
-    :func:`_txf_layer`. Returns (x, its (k, v))."""
+    :func:`_txf_layer`. Returns (x, its (k, v)). One ``shared.block``
+    span (``obs``) a call."""
     norm, attend = _ops(train)
-    h = norm(x, sp["ln1"], cfg.norm_eps)
-    y, kv = attention_block(cfg, h, sp["attn"], positions, grp,
-                            attend=attend, causal=True)
-    x = x + y
-    h = norm(x, sp["ln2"], cfg.norm_eps)
-    return x + mlp_block(cfg, h, sp["mlp"], positions.shape[0], grp), kv
+    with obs.span("shared.block", x):
+        h = norm(x, sp["ln1"], cfg.norm_eps)
+        y, kv = attention_block(cfg, h, sp["attn"], positions, grp,
+                                attend=attend, causal=True)
+        x = x + y
+        h = norm(x, sp["ln2"], cfg.norm_eps)
+        return x + mlp_block(cfg, h, sp["mlp"], positions.shape[0], grp), kv
 
 
 def _hybrid_layer(cfg, x, lp, st, sp, positions, shared: bool,

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from .. import tree as tree_util
 from ..models import forward_decode, forward_prefill
 
@@ -142,15 +143,21 @@ def make_prefill_step(cfg, compute_dtype=torch.bfloat16, mesh=None,
     ``mesh``: ``params`` from :func:`shard_serve_state`, the global
     ``batch`` on every rank, under ``Rules(mesh, "prefill")`` (``long``:
     "long"); the logits and the cache come back as DTensors (the module
-    docstring)."""
+    docstring). Each call is one ``serve.prefill_step`` span (``obs``),
+    the root of the model's spans."""
     if mesh is None:
         def prefill(params, batch):
-            return forward_prefill(cfg, params, batch, compute_dtype)
+            with obs.span("serve.prefill_step", batch["tokens"]):
+                return forward_prefill(cfg, params, batch, compute_dtype)
         return prefill
     from ..dist.sharding import Rules, use_rules
     copy = _ComputeCopy(cfg)
 
     def prefill(params, batch):
+        with obs.span("serve.prefill_step", batch["tokens"]):
+            return _mesh_prefill(params, batch)
+
+    def _mesh_prefill(params, batch):
         B = batch["tokens"].shape[0]
         rules = Rules(mesh, "long" if long else "prefill", global_batch=B)
         rows = _rows(rules, B)
