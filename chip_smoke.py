@@ -892,6 +892,7 @@ def run(args, work: Path, card: str):
     time_rmsnorm_serving(timer, args.seed, served)
     time_family_attention(timer, args.seed, fam)
     timing.update(time_scans(timer, args.seed))
+    check_and_time_mamba2_glue(timer, args.seed)
     dwi_ms = timer(lambda: qa_checksum_batched(dwi))
     b_dwi = qa_bound(dwi.numel(), 4, -(-dwi.numel() // BLK_V))
     log(f"time qa_checksum at DWI {DWI}: kernel {dwi_ms} ms, bound "
@@ -1380,18 +1381,20 @@ def model_phase(vol, seed: int) -> float:
 
 
 def _path_kernels():
-    """Wrapper name -> module of K4-K7, whose launches the serve phase
-    counts."""
+    """Wrapper name -> module of K4-K7 and the Mamba-2 glue, whose launches
+    the serve phase counts."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba2_glue as glue
     from repro_torch.kernels import mamba2_ssd as k6
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import rwkv6 as k7
     return {"rmsnorm": rn, "flash_attention": fa, "ssd_chunked": k6,
-            "wkv6_chunked": k7}
+            "wkv6_chunked": k7, "mamba2_conv_in": glue,
+            "mamba2_gate_norm": glue}
 
 
 def _counts():
-    """Launches of K4-K7 since their last reset."""
+    """Launches of K4-K7 and the Mamba-2 glue since their last reset."""
     return {name: mod.LAUNCHES[name] for name, mod in _path_kernels().items()}
 
 
@@ -1623,6 +1626,16 @@ def _serve_arch(cfg, prompt_len: int, seed: int, k4_want=None,
           == dec["launches"]["ssd_chunked"]
           == dec["launches"]["wkv6_chunked"] == 0,
           f"{arch}: decode launches {dec['launches']}")
+    # the Mamba-2 glue kernels: once each a Mamba-2 layer in a bf16 prefill,
+    # never in decode
+    glue_n = cfg.n_layers if cfg.family == "hybrid" else 0
+    check(pre["launches"]["mamba2_conv_in"] == glue_n
+          and pre["launches"]["mamba2_gate_norm"] == glue_n
+          and dec["launches"]["mamba2_conv_in"]
+          == dec["launches"]["mamba2_gate_norm"] == 0,
+          f"{arch}: the glue kernels' launches, prefill "
+          f"{pre['launches']}, decode {dec['launches']}, want {glue_n} "
+          f"and 0")
     if k4_want is not None:
         got4 = (pre["launches"]["rmsnorm"],
                 dec["launches"]["rmsnorm"] / (SERVE_NEW - 1))
@@ -2962,6 +2975,82 @@ def check_scans(seed: int):
     log(f"chunk scans: {len(controls)} broken outputs rejected, the closest "
         f"at {min(controls)} x the bound")
     return abs_err, rel_err, min(controls)
+
+
+def glue_bytes(B: int, S: int, di: int = 4096, N: int = 64, H: int = 64,
+               K: int = 4):
+    """(conv_in's, gate_norm's) bytes, each input read once and each output
+    written once, for a (B, S) bf16 batch of zamba2's Mamba-2 widths, bf16
+    parameters: conv_in reads the conv and dt columns, the conv state and
+    its parameters, and writes xs and B, C and lw in f32, xh and the new
+    state in bf16; gate_norm reads y (f32), xh and z and its parameters,
+    and writes the normed row (bf16)."""
+    C, T = di + 2 * N, B * S
+    conv = (T * (C + H) * 2 + B * (K - 1) * C * 2 + (K + 1) * C * 2
+            + 2 * H * 2 + T * (di * 4 + di * 2 + 2 * N * 4 + H * 4)
+            + B * (K - 1) * C * 2)
+    gate = T * di * (4 + 2 + 2) + (H + di) * 2 + T * di * 2
+    return conv, gate
+
+
+def check_and_time_mamba2_glue(timer, seed: int):
+    """The Mamba-2 glue kernels (``kernels/mamba2_glue``) at zamba2's
+    widths, at the serve phase's prefill (B 4 x S 2,000) and at the
+    benchmark's largest batch (16 x 4,096): each held bit-equal to its
+    plain version (the torch ops it replaces, on the card), then the
+    median time of the wrapper's call, the plain version's, the byte
+    bound, and the device time by CUDA kernel."""
+    import torch
+    from repro_torch.kernels import mamba2_glue as glue
+    di, N, H, K = 4096, 64, 64, 4
+    C = di + 2 * N
+    g = torch.Generator(device="cuda").manual_seed(seed + 15)
+    bf16 = dict(dtype=torch.bfloat16, device="cuda")
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=g)
+    p = {"conv_w": r(K, C, scale=0.5), "conv_b": r(C, scale=0.3),
+         "dt_bias": r(H, scale=0.5),
+         "A_log": torch.log(torch.linspace(1.0, 16.0, H, device="cuda")),
+         "D": 1 + r(H, scale=0.5), "norm": 1 + r(di, scale=0.2)}
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    for B, S in ((SERVE_BATCH, SERVE_PROMPT), (16, 4096)):
+        proj = r(B, S, 2 * di + 2 * N + H).to(**bf16)
+        z, conv, dt = torch.split(proj, [di, C, H], -1)
+        st = r(B, K - 1, C).to(**bf16)
+        args = (conv, dt, st, p["conv_w"], p["conv_b"], p["dt_bias"],
+                p["A_log"])
+        with torch.inference_mode():
+            got = glue.mamba2_conv_in(*args, d_state=N)
+            want = glue.mamba2_conv_in_plain(*args, d_state=N)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"mamba2_conv_in at ({B}, {S}) differs from its plain "
+                  f"version")
+            y = r(B, S, H, di // H, scale=3.0)
+            xh = got[4]
+            gate = (y, xh, z, p["D"], p["norm"])
+            check(torch.equal(glue.mamba2_gate_norm(*gate),
+                              glue.mamba2_gate_norm_plain(*gate)),
+                  f"mamba2_gate_norm at ({B}, {S}) differs from its plain "
+                  f"version")
+            conv_b, gate_b = glue_bytes(B, S, di, N, H, K)
+            for name, fn, plain, nbytes in (
+                    ("mamba2_conv_in",
+                     lambda: glue.mamba2_conv_in(*args, d_state=N),
+                     lambda: glue.mamba2_conv_in_plain(*args, d_state=N),
+                     conv_b),
+                    ("mamba2_gate_norm",
+                     lambda: glue.mamba2_gate_norm(*gate),
+                     lambda: glue.mamba2_gate_norm_plain(*gate), gate_b)):
+                ms, plain_ms = timer(fn), timer(plain, reps=5)
+                b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                log(f"time {name} at zamba2 prefill ({B} x {S}, d_inner "
+                    f"{di}) bf16: kernel {ms} ms, plain {plain_ms} ms, "
+                    f"bound {b_ms} ms (bytes, {nbytes} B); share of the "
+                    f"bound {b_ms / ms}; by CUDA kernel (us a call) "
+                    f"{profile_kernels(fn)}")
+        del proj, z, conv, dt, st, got, want, y, xh, gate
+        torch.cuda.empty_cache()
 
 
 def scan_bound(name: str, B: int, H: int, S: int, dh: int, N: int,

@@ -30,15 +30,17 @@ SOURCES: Dict[str, Path] = {
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
     "mamba2_ssd": _PKG / "mamba2_ssd" / "csrc" / "mamba2_ssd.cu",
     "rwkv6": _PKG / "rwkv6" / "csrc" / "rwkv6.cu",
+    "mamba2_glue": _PKG / "mamba2_glue" / "csrc" / "mamba2_glue.cu",
 }
 
 # no --use_fast_math and no -ftz: the checksum kernels keep subnormals, and
-# rmsnorm, the SSD scan and flash attention's f32 kernel keep accurate
-# sqrtf, division and expf. Flash attention's bf16 kernel and the WKV scan
-# ask for their one fast instruction themselves (ex2.approx of x log2(e):
-# last bits only, where flash attention rounds its weights to bf16 and the
-# WKV scan holds 1e-4). No -lcuda: it takes cuTensorMapEncodeTiled from
-# libcuda at run time.
+# rmsnorm, the SSD scan, the Mamba-2 glue and flash attention's f32 kernel
+# keep accurate sqrtf, division, expf and log1pf (the glue rounds as the
+# torch ops it replaces, bit for bit). Flash attention's bf16 kernel and the
+# WKV scan ask for their one fast instruction themselves (ex2.approx of x
+# log2(e): last bits only, where flash attention rounds its weights to bf16
+# and the WKV scan holds 1e-4). No -lcuda: it takes cuTensorMapEncodeTiled
+# from libcuda at run time.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -121,7 +123,12 @@ def launch(name: str, fn: str, argtypes: List, *args) -> None:
     launcher that returns its ``cudaError_t``. Raises ``RuntimeError`` when
     that is not 0, so a launch the card refused (too much shared memory,
     too many threads) never passes unseen."""
-    lib = load(name)
+    call(load(name), fn, argtypes, *args)
+
+
+def call(lib: ctypes.CDLL, fn: str, argtypes: List, *args) -> None:
+    """:func:`launch` on a loaded library ``lib`` (one built here, or a
+    CPU build of the same source for tests)."""
     f = getattr(lib, fn)
     if f.argtypes is None:
         f.argtypes = argtypes

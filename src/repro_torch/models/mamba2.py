@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from .. import obs
 from ..device import resolve_init_device
+from ..kernels import mamba2_glue as glue
 from ..kernels.mamba2_ssd import ssd_chunked_op
 from .layers import normal_init, rmsnorm, rmsnorm_train, upcast
 
@@ -170,6 +171,11 @@ def mamba_block(x, p, cfg, state, train: bool = False,
     ``init_mamba_state(tp=)`` and the cache place it) and the whole
     ``conv``; serving (not ``train``) returns the conv state whole.
 
+    A bf16 serving prefill on the card with the whole of d_inner
+    (:func:`_glue_kernels`) runs the glue between ``in_proj``, K6 and
+    ``out_proj`` as two kernels (``kernels/mamba2_glue``), bit for bit
+    the torch ops the other paths run.
+
     Spans (``obs``): ``mamba2.layer`` from the pre-norm to the residual
     add, and in it ``mamba2.in_proj`` and ``mamba2.out_proj``, the two
     GEMMs alone."""
@@ -199,26 +205,29 @@ def _mixer(x, p, cfg, state, train: bool, n: Optional[int], grp):
         proj = h @ p["in_proj"].to(x.dtype)
     z, conv_in, dt = torch.split(proj, [di // tp, di // tp + 2 * N, H],
                                  dim=-1)
-    conv_out, conv_state = _causal_conv(conv_in, p["conv_w"], p["conv_b"],
-                                        state["conv"])
-    conv_out = F.silu(conv_out)
-    xin, Bm, Cm = torch.split(conv_out, [di // tp, N, N], dim=-1)
-    # torch's softplus returns x itself above 20 and jax.nn.softplus
-    # x + log1p(exp(-x)); the difference, under 2.1e-9, is below f32's
-    # resolution there (one ulp of 20 is 1.9e-6)
-    dt = F.softplus(upcast(dt) + upcast(p["dt_bias"]))
-    xh = xin.reshape(B, S, H, dh)
-    if S == 1:
-        y, ssm = ssd_step(xh, dt, p["A_log"], Bm, Cm, state["ssm"])
+    if _glue_kernels(h, cfg, train, grp):
+        y, ssm, conv_state = _glue_prefill(z, conv_in, dt, p, cfg, state)
     else:
-        scan = ssd_chunked_train if train else ssd_chunked
-        y, ssm = scan(xh, dt, p["A_log"], Bm, Cm, state["ssm"], s.chunk)
-    y = y + upcast(p["D"])[None, None, :, None] * upcast(xh)
-    y = y.reshape(B, S, di // tp).to(x.dtype) * F.silu(z)
-    # a group of one holds the whole d_inner: K4 (serving) as without one
-    whole = grp is None or (grp.size == 1 and not train)
-    y = norm(y, p["norm"], cfg.norm_eps) if whole else \
-        _rmsnorm_split(y, p["norm"], cfg.norm_eps, di, grp)
+        conv_out, conv_state = _causal_conv(conv_in, p["conv_w"],
+                                            p["conv_b"], state["conv"])
+        conv_out = F.silu(conv_out)
+        xin, Bm, Cm = torch.split(conv_out, [di // tp, N, N], dim=-1)
+        # torch's softplus returns x itself above 20 and jax.nn.softplus
+        # x + log1p(exp(-x)); the difference, under 2.1e-9, is below f32's
+        # resolution there (one ulp of 20 is 1.9e-6)
+        dt = F.softplus(upcast(dt) + upcast(p["dt_bias"]))
+        xh = xin.reshape(B, S, H, dh)
+        if S == 1:
+            y, ssm = ssd_step(xh, dt, p["A_log"], Bm, Cm, state["ssm"])
+        else:
+            scan = ssd_chunked_train if train else ssd_chunked
+            y, ssm = scan(xh, dt, p["A_log"], Bm, Cm, state["ssm"], s.chunk)
+        y = y + upcast(p["D"])[None, None, :, None] * upcast(xh)
+        y = y.reshape(B, S, di // tp).to(x.dtype) * F.silu(z)
+        # a group of one holds the whole d_inner: K4 (serving), as alone
+        whole = grp is None or (grp.size == 1 and not train)
+        y = norm(y, p["norm"], cfg.norm_eps) if whole else \
+            _rmsnorm_split(y, p["norm"], cfg.norm_eps, di, grp)
     with obs.span("mamba2.out_proj", y):
         out = y @ p["out_proj"].to(x.dtype)
     out = leave_block(out, n, grp)
@@ -227,6 +236,32 @@ def _mixer(x, p, cfg, state, train: bool, n: Optional[int], grp):
                                              grp),
                                 conv_state[..., di // tp:]], -1)
     return x + out, {"ssm": ssm, "conv": conv_state}
+
+
+def _glue_kernels(h: torch.Tensor, cfg, train: bool, grp) -> bool:
+    """Whether the layer's glue runs as ``kernels/mamba2_glue``'s two
+    kernels: a bf16 serving prefill (not ``train``, more than one token)
+    on the card, with the whole of d_inner on this rank (no group, or one
+    of one rank), at widths the kernels take."""
+    s = cfg.ssm
+    di = s.expand * cfg.d_model
+    return (h.is_cuda and h.dtype == torch.bfloat16 and not train
+            and h.shape[1] > 1 and (grp is None or grp.size == 1)
+            and glue.takes(di, s.d_state, di // s.d_head, s.d_conv))
+
+
+def _glue_prefill(z, conv_in, dt, p, cfg, state):
+    """The glue of :func:`_mixer` between ``in_proj`` and ``out_proj``
+    through the two kernels: (the normed gate, the new SSM state, the new
+    conv state). Rounds where the torch ops of the other paths round."""
+    xs, lw, Bm, Cm, xh, conv_state = glue.mamba2_conv_in(
+        conv_in, dt, state["conv"], p["conv_w"], p["conv_b"], p["dt_bias"],
+        p["A_log"], d_state=cfg.ssm.d_state)
+    with obs.span("mamba2.scan", xs):
+        y, ssm = ssd_chunked_op(xs, lw, Bm, Cm, chunk=cfg.ssm.chunk,
+                                state=state["ssm"])
+    y = glue.mamba2_gate_norm(y, xh, z, p["D"], p["norm"], cfg.norm_eps)
+    return y, ssm, conv_state
 
 
 def init_mamba_state(cfg, n_layers: int, batch: int, dtype=torch.float32,

@@ -55,6 +55,7 @@ from repro_torch.kernels.checksum import (ACCUMULATOR_DTYPES, LAUNCHES,
                                           reset_launches)
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_glue as glue
 from repro_torch.kernels import mamba2_ssd as k6
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import rwkv6 as k7
@@ -76,7 +77,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     reset_launches()
-    for mod in (rn, fa, k6, k7):
+    for mod in (rn, fa, k6, k7, glue):
         mod.reset_launches()
     return torch.device("cuda")
 
@@ -737,6 +738,274 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 glue kernels (kernels/mamba2_glue) around K6
+# ---------------------------------------------------------------------------
+
+# zamba2-1.2b's Mamba-2 widths: d_inner, d_state, heads, conv taps
+GLUE_WIDTHS = (4096, 64, 64, 4)
+
+
+def _glue_inputs(cuda, B, S, seed, state=True, pdtype=torch.bfloat16,
+                 widths=GLUE_WIDTHS):
+    """in_proj's output (B, S, 2 di + 2 N + H) bf16 on the card, the
+    layer's parameters in ``pdtype`` and a conv state (or None)."""
+    di, N, H, K = widths
+    C = di + 2 * N
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(shape, device=cuda, generator=g)
+    proj = r(B, S, 2 * di + 2 * N + H)
+    proj[..., 2 * di + 2 * N:] *= 6               # dt across softplus's 20
+    p = {"conv_w": r(K, C, scale=0.5), "conv_b": r(C, scale=0.3),
+         "dt_bias": r(H, scale=0.5),
+         "A_log": torch.log(torch.linspace(1.0, 16.0, H, device=cuda)),
+         "D": 1 + r(H, scale=0.5), "norm": 1 + r(di, scale=0.2)}
+    p = {k: v.to(pdtype) for k, v in p.items()}
+    st = r(B, K - 1, C).to(torch.bfloat16) if state else None
+    return proj.to(torch.bfloat16), p, st
+
+
+def _glue_split(proj, widths=GLUE_WIDTHS):
+    di, N, H, _ = widths
+    return torch.split(proj, [di, di + 2 * N, H], -1)
+
+
+@pytest.mark.parametrize("B,S,state", [(16, 256, False), (1, 4096, False),
+                                       (2, 1020, True), (4, 256, True)])
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32])
+def test_glue_conv_in_matches_plain(cuda, B, S, state, pdtype):
+    """conv_in at zamba2's widths, reading in_proj's columns in place: xs,
+    lw, B, C, xh and the new conv state bit-equal to the torch ops (its
+    plain version on the card), from a zero and a given conv state, at a
+    length off the 64-token tile; one launch a call."""
+    proj, p, st = _glue_inputs(cuda, B, S, seed=S + B, state=state,
+                               pdtype=pdtype)
+    z, conv, dt = _glue_split(proj)
+    args = (conv, dt, st, p["conv_w"], p["conv_b"], p["dt_bias"],
+            p["A_log"])
+    got = glue.mamba2_conv_in(*args, d_state=GLUE_WIDTHS[1])
+    want = glue.mamba2_conv_in_plain(*args, d_state=GLUE_WIDTHS[1])
+    assert glue.LAUNCHES["mamba2_conv_in"] == 1
+    for name, a, b in zip(("xs", "lw", "Bm", "Cm", "xh", "state"), got,
+                          want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, _err(a, b))
+
+
+@pytest.mark.parametrize("B,S", [(16, 256), (1, 4096), (2, 1020), (4, 256)])
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32])
+def test_glue_gate_norm_matches_plain(cuda, B, S, pdtype):
+    """gate_norm at zamba2's widths, z read in place: the torch ops' gate
+    then K4's plain version (its order of the sum of squares), bit-equal;
+    one launch a call."""
+    proj, p, _ = _glue_inputs(cuda, B, S, seed=S - B, state=False,
+                              pdtype=pdtype)
+    z = _glue_split(proj)[0]
+    g = torch.Generator(device=cuda).manual_seed(B)
+    di, _, H, _ = GLUE_WIDTHS
+    y = 3 * torch.randn(B, S, H, di // H, device=cuda, generator=g)
+    xh = torch.randn(B, S, di, device=cuda, generator=g).to(torch.bfloat16)
+    args = (y, xh, z, p["D"], p["norm"])
+    got = glue.mamba2_gate_norm(*args)
+    assert glue.LAUNCHES["mamba2_gate_norm"] == 1
+    want = glue.mamba2_gate_norm_plain(*args)
+    assert torch.equal(got, want), _err(got, want)
+
+
+@pytest.mark.parametrize("widths", [(256, 16, 8, 4), (64, 8, 8, 2),
+                                    (2048, 64, 32, 3)])
+def test_glue_kernels_at_other_widths(cuda, widths):
+    """The reduced zamba2's widths, heads of 8 channels with a 2-tap conv,
+    d_inner 2,048 with a 3-tap conv: both kernels bit-equal to their plain
+    versions."""
+    proj, p, st = _glue_inputs(cuda, 3, 150, seed=widths[0], widths=widths)
+    z, conv, dt = _glue_split(proj, widths)
+    args = (conv, dt, st, p["conv_w"], p["conv_b"], p["dt_bias"],
+            p["A_log"])
+    got = glue.mamba2_conv_in(*args, d_state=widths[1])
+    want = glue.mamba2_conv_in_plain(*args, d_state=widths[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    di, _, H, _ = widths
+    y = torch.randn(3, 150, H, di // H, device=cuda)
+    gate = (y, got[4], z, p["D"], p["norm"])
+    assert torch.equal(glue.mamba2_gate_norm(*gate),
+                       glue.mamba2_gate_norm_plain(*gate))
+
+
+def test_glue_kernels_are_one_kernel_a_call(cuda):
+    """torch.profiler sees each wrapper's own kernel alone, once a call (no
+    copy of proj's columns, no fill); an empty session is repeated, as for
+    K4."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    proj, p, st = _glue_inputs(cuda, 4, 512, seed=3)
+    z, conv, dt = _glue_split(proj)
+    args = (conv, dt, st, p["conv_w"], p["conv_b"], p["dt_bias"],
+            p["A_log"])
+    xs, lw, Bm, Cm, xh, _ = glue.mamba2_conv_in(*args, d_state=64)
+    y = xs.clone()
+    for name, fn, kernel in (
+            ("mamba2_conv_in",
+             lambda: glue.mamba2_conv_in(*args, d_state=64),
+             "conv_in_kernel"),
+            ("mamba2_gate_norm",
+             lambda: glue.mamba2_gate_norm(y, xh, z, p["D"], p["norm"]),
+             "gate_norm_kernel")):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            before = glue.LAUNCHES[name]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    fn()
+                torch.cuda.synchronize()
+            assert glue.LAUNCHES[name] - before == 4
+            names = [e.name() for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA]
+            assert len(names) <= 4 and all(kernel in n for n in names), \
+                names
+            if names:
+                break
+        assert names, kernel
+
+
+@pytest.mark.parametrize("name", ["mamba2_conv_in", "mamba2_gate_norm"])
+def test_glue_kernels_refuse_inputs_that_require_grad(cuda, name):
+    """Under grad mode an input that requires grad is refused
+    (``kernels/_nograd.py``) before any launch; under no_grad the same call
+    runs and gives the same outputs."""
+    proj, p, st = _glue_inputs(cuda, 2, 64, seed=5)
+    z, conv, dt = _glue_split(proj)
+    w = p["conv_w"].clone().requires_grad_(True)
+    D = p["D"].float().requires_grad_(True)
+    y = torch.randn(2, 64, 64, 64, device=cuda)
+    xh = torch.randn(2, 64, 4096, device=cuda).to(torch.bfloat16)
+    call = {
+        "mamba2_conv_in": lambda w: glue.mamba2_conv_in(
+            conv, dt, st, w, p["conv_b"], p["dt_bias"], p["A_log"],
+            d_state=64),
+        "mamba2_gate_norm": lambda D: glue.mamba2_gate_norm(
+            y, xh, z, D, p["norm"])}[name]
+    arg = w if name == "mamba2_conv_in" else D
+    want = call(arg.detach())
+    with pytest.raises(RuntimeError, match=f"{name}: an input requires "
+                                           f"grad"):
+        call(arg)
+    with torch.no_grad():
+        got = call(arg)
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+    assert glue.LAUNCHES[name] == 2         # the refused call launched none
+
+
+def _zamba2_reduced_bf16(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("zamba2-1.2b").reduced()
+    p = init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16,
+                    device="cpu")
+    return cfg, _tree_to(p, cuda)
+
+
+def test_glue_zamba2_prefill_matches_the_unfused_path(cuda, monkeypatch):
+    """The reduced zamba2 served in bf16 on the card: prefill through the
+    two glue kernels (once each a Mamba-2 layer) gives the torch ops'
+    logits and cache bit for bit; a decode step after it (one token) and
+    the torch ops' own prefill launch neither."""
+    from repro_torch.launch.serve import graft
+    from repro_torch.models import (forward_decode, forward_prefill,
+                                    init_cache)
+    from repro_torch.models import mamba2 as TM
+    cfg, pc = _zamba2_reduced_bf16(cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 300))).to(cuda)
+    with torch.inference_mode():
+        got, cache = forward_prefill(cfg, pc, {"tokens": toks},
+                                     torch.bfloat16)
+        assert dict(glue.LAUNCHES) == {"mamba2_conv_in": cfg.n_layers,
+                                       "mamba2_gate_norm": cfg.n_layers}
+        full = graft(init_cache(cfg, 2, 301, torch.bfloat16, cuda), cache)
+        step, _ = forward_decode(cfg, pc, full, toks[:, :1], 300,
+                                 torch.bfloat16)
+        assert bool(torch.isfinite(step).all())
+        assert dict(glue.LAUNCHES) == {"mamba2_conv_in": cfg.n_layers,
+                                       "mamba2_gate_norm": cfg.n_layers}
+        glue.reset_launches()
+        monkeypatch.setattr(TM, "_glue_kernels", lambda *a: False)
+        want, wcache = forward_prefill(cfg, pc, {"tokens": toks},
+                                       torch.bfloat16)
+    assert dict(glue.LAUNCHES) == {"mamba2_conv_in": 0,
+                                   "mamba2_gate_norm": 0}
+    assert torch.equal(got, want)
+    for k in ("ssm", "conv"):
+        assert torch.equal(cache["state"][k], wcache["state"][k]), k
+
+
+def test_glue_training_and_split_heads_keep_the_torch_ops(cuda):
+    """Training (``train=True``, bf16 on the card) and a layer whose heads
+    split over a group of two ranks launch neither glue kernel: training
+    runs the torch ops under autograd, the group needs the gated norm's
+    moment summed over its ranks."""
+    import types
+    from repro_torch.models import forward_train
+    from repro_torch.models import mamba2 as TM
+    cfg, pc = _zamba2_reduced_bf16(cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 129))).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    loss, _ = forward_train(cfg, pc, batch, torch.bfloat16)
+    assert bool(torch.isfinite(loss))
+    h = torch.zeros(2, 64, cfg.d_model, device=cuda, dtype=torch.bfloat16)
+    assert TM._glue_kernels(h, cfg, False, None)
+    assert not TM._glue_kernels(h, cfg, True, None)
+    assert not TM._glue_kernels(h, cfg, False, types.SimpleNamespace(size=2))
+    assert not TM._glue_kernels(h[:, :1], cfg, False, None)
+    assert dict(glue.LAUNCHES) == {"mamba2_conv_in": 0,
+                                   "mamba2_gate_norm": 0}
+
+
+def test_glue_serving_mamba_block_is_at_most_12_kernels(cuda):
+    """One serving Mamba-2 layer at zamba2's widths (2 x 1,024 tokens, bf16,
+    a given state as prefill passes it) under torch.profiler: at most 12
+    device kernels (the pre-norm K4, in_proj, conv_in, K6's four,
+    gate_norm, out_proj, the residual add; the torch ops took ~37), one
+    launch of each glue kernel a call. Late in a long process a session
+    may miss some device events (K4's test above): a session that misses a
+    glue kernel is repeated, up to three."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2 as TM
+    cfg = get_config("zamba2-1.2b")
+    p = TM.init_mamba_layer(torch.Generator().manual_seed(0), cfg, 1,
+                            dtype=torch.bfloat16, device="cpu")
+    p = {k: v[0].to(cuda) for k, v in p.items()}
+    st = TM.init_mamba_state(cfg, 1, 2, torch.bfloat16, cuda)
+    st = {k: v[0] for k, v in st.items()}
+    x = torch.randn(2, 1024, cfg.d_model, device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        TM.mamba_block(x, p, cfg, st)
+        torch.cuda.synchronize()
+        for _ in range(3):
+            before = dict(glue.LAUNCHES)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                TM.mamba_block(x, p, cfg, st)
+                torch.cuda.synchronize()
+            assert {k: glue.LAUNCHES[k] - n for k, n in before.items()} == \
+                {"mamba2_conv_in": 1, "mamba2_gate_norm": 1}
+            names = [e.name() for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA]
+            assert len(names) <= 12, names
+            seen = [sum(k in n for n in names)
+                    for k in ("conv_in_kernel", "gate_norm_kernel")]
+            if seen == [1, 1]:
+                break
+    assert seen == [1, 1], names
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@
 // __fmul_rn), atomics on u32 (atomicAdd, atomicCAS), __threadfence,
 // __ldcg, the device's SM count (2 here), and the
 // inline PTX statements of checksum.cu, flash_attention.cu, mamba2_ssd.cu,
-// rwkv6.cu and rmsnorm.cu (the functions between their "ptx:begin" and "ptx:end"
+// rwkv6.cu, rmsnorm.cu and mamba2_glue.cu (the functions between their "ptx:begin" and "ptx:end"
 // lines, which build.py drops): streaming loads (alignment checked), an
 // acq_rel ticket, mbarriers
 // (arrivals and transaction bytes per phase), TMA box loads (bounds, zero
