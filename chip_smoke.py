@@ -892,6 +892,7 @@ def run(args, work: Path, card: str):
     time_rmsnorm_serving(timer, args.seed, served)
     time_family_attention(timer, args.seed, fam)
     timing.update(time_scans(timer, args.seed))
+    time_ssd_cells(timer, args.seed)
     check_and_time_mamba2_glue(timer, args.seed)
     dwi_ms = timer(lambda: qa_checksum_batched(dwi))
     b_dwi = qa_bound(dwi.numel(), 4, -(-dwi.numel() // BLK_V))
@@ -2980,7 +2981,7 @@ def check_scans(seed: int):
 def glue_bytes(B: int, S: int, di: int = 4096, N: int = 64, H: int = 64,
                K: int = 4):
     """(conv_in's, gate_norm's) bytes, each input read once and each output
-    written once, for a (B, S) bf16 batch of zamba2's Mamba-2 widths, bf16
+    written once, for a (B, S) bf16 batch of these Mamba-2 widths, bf16
     parameters: conv_in reads the conv and dt columns, the conv state and
     its parameters, and writes xs and B, C and lw in f32, xh and the new
     state in bf16; gate_norm reads y (f32), xh and z and its parameters,
@@ -2993,16 +2994,30 @@ def glue_bytes(B: int, S: int, di: int = 4096, N: int = 64, H: int = 64,
     return conv, gate
 
 
+# The Mamba-2 widths (d_inner, N, heads) of the benchmark cells and the
+# (B, S) batches the glue is checked and timed at: the serve phase's prefill
+# and each cell's largest batch
+GLUE_CELLS = {"zamba2-1.2b": ((4096, 64, 64),
+                              ((SERVE_BATCH, SERVE_PROMPT), (16, 4096))),
+              "granite-4.0-h-small": ((8192, 128, 128), ((16, 4096),))}
+
+
 def check_and_time_mamba2_glue(timer, seed: int):
-    """The Mamba-2 glue kernels (``kernels/mamba2_glue``) at zamba2's
-    widths, at the serve phase's prefill (B 4 x S 2,000) and at the
-    benchmark's largest batch (16 x 4,096): each held bit-equal to its
-    plain version (the torch ops it replaces, on the card), then the
-    median time of the wrapper's call, the plain version's, the byte
-    bound, and the device time by CUDA kernel."""
-    import torch
+    """The Mamba-2 glue kernels (``kernels/mamba2_glue``) at each cell's
+    widths (:data:`GLUE_CELLS`): each held bit-equal to its plain version
+    (the torch ops it replaces, on the card), then the median time of the
+    wrapper's call, the plain version's, the byte bound, and the device
+    time by CUDA kernel."""
     from repro_torch.kernels import mamba2_glue as glue
-    di, N, H, K = 4096, 64, 64, 4
+    for arch, ((di, N, H), shapes) in GLUE_CELLS.items():
+        _check_and_time_glue(timer, seed, glue, arch, di, N, H, shapes)
+
+
+def _check_and_time_glue(timer, seed, glue, arch, di, N, H, shapes, K=4):
+    """:func:`check_and_time_mamba2_glue` at one cell's widths."""
+    import torch
+    check(glue.takes(di, N, H, K), f"the glue kernels do not take {arch}'s "
+          f"widths")
     C = di + 2 * N
     g = torch.Generator(device="cuda").manual_seed(seed + 15)
     bf16 = dict(dtype=torch.bfloat16, device="cuda")
@@ -3014,7 +3029,7 @@ def check_and_time_mamba2_glue(timer, seed: int):
          "A_log": torch.log(torch.linspace(1.0, 16.0, H, device="cuda")),
          "D": 1 + r(H, scale=0.5), "norm": 1 + r(di, scale=0.2)}
     p = {k: v.to(torch.bfloat16) for k, v in p.items()}
-    for B, S in ((SERVE_BATCH, SERVE_PROMPT), (16, 4096)):
+    for B, S in shapes:
         proj = r(B, S, 2 * di + 2 * N + H).to(**bf16)
         z, conv, dt = torch.split(proj, [di, C, H], -1)
         st = r(B, K - 1, C).to(**bf16)
@@ -3024,15 +3039,15 @@ def check_and_time_mamba2_glue(timer, seed: int):
             got = glue.mamba2_conv_in(*args, d_state=N)
             want = glue.mamba2_conv_in_plain(*args, d_state=N)
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
-                  f"mamba2_conv_in at ({B}, {S}) differs from its plain "
-                  f"version")
+                  f"mamba2_conv_in at {arch}'s ({B}, {S}) differs from its "
+                  f"plain version")
             y = r(B, S, H, di // H, scale=3.0)
             xh = got[4]
             gate = (y, xh, z, p["D"], p["norm"])
             check(torch.equal(glue.mamba2_gate_norm(*gate),
                               glue.mamba2_gate_norm_plain(*gate)),
-                  f"mamba2_gate_norm at ({B}, {S}) differs from its plain "
-                  f"version")
+                  f"mamba2_gate_norm at {arch}'s ({B}, {S}) differs from "
+                  f"its plain version")
             conv_b, gate_b = glue_bytes(B, S, di, N, H, K)
             for name, fn, plain, nbytes in (
                     ("mamba2_conv_in",
@@ -3044,10 +3059,11 @@ def check_and_time_mamba2_glue(timer, seed: int):
                      lambda: glue.mamba2_gate_norm_plain(*gate), gate_b)):
                 ms, plain_ms = timer(fn), timer(plain, reps=5)
                 b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                log(f"time {name} at zamba2 prefill ({B} x {S}, d_inner "
-                    f"{di}) bf16: kernel {ms} ms, plain {plain_ms} ms, "
-                    f"bound {b_ms} ms (bytes, {nbytes} B); share of the "
-                    f"bound {b_ms / ms}; by CUDA kernel (us a call) "
+                log(f"time {name} at {arch} prefill ({B} x {S}, d_inner "
+                    f"{di}, N {N}, H {H}) bf16: kernel {ms} ms, plain "
+                    f"{plain_ms} ms, bound {b_ms} ms (bytes, {nbytes} B); "
+                    f"share of the bound {b_ms / ms}; by CUDA kernel (us a "
+                    f"call) "
                     f"{profile_kernels(fn)}")
         del proj, z, conv, dt, st, got, want, y, xh, gate
         torch.cuda.empty_cache()
@@ -3108,6 +3124,48 @@ def time_scans(timer, seed: int):
         log(f"profile {key} (us per launch; None: not in the trace): "
             f"{ {n: sum(v) if v else None for n, v in mine.items()} }, all "
             f"kernels {us}")
+    return out
+
+
+# K6 at the benchmark cells' prefill shapes (B, S, H, dh, N): zamba2_prefill's
+# and granite4h_prefill's largest batch (16 x 4,096 tokens)
+SSD_CELLS = {"zamba2-1.2b": (16, 4096, 64, 64, 64),
+             "granite-4.0-h-small": (16, 4096, 128, 64, 128)}
+
+
+def time_ssd_cells(timer, seed: int):
+    """K6 at each cell's largest prefill batch (model layout, B and C
+    slices of one projection, chunk 256, from a zero state): checked
+    against its plain version within SCAN_TOL, then its median time beside
+    :func:`scan_bound` and its device time by CUDA kernel. Returns
+    {arch: (ms, bound ms, what bounds it)}."""
+    import torch
+    from repro_torch.kernels import mamba2_ssd as k6
+    g = torch.Generator(device="cuda").manual_seed(seed + 13)
+    out = {}
+    for arch, (B, S, H, dh, N) in SSD_CELLS.items():
+        x = torch.randn(B, S, H, dh, generator=g, device="cuda")
+        lw = -torch.randn(B, S, H, generator=g, device="cuda").abs() * 0.1
+        bc = torch.randn(B, S, 2 * N, generator=g, device="cuda") * 0.3
+        args = (x.transpose(1, 2), lw.transpose(1, 2), bc[..., :N],
+                bc[..., N:])
+        y, st = k6.ssd_chunked(*args, chunk=256)
+        yp, sp = k6.ssd_chunked_plain(*args, chunk=256)
+        err = max(_scan_rel(y, yp), _scan_rel(st, sp))
+        check(err < SCAN_TOL, f"K6 at {arch}'s cell shape: {err} of the "
+              f"plain version's scale, over {SCAN_TOL}")
+        del y, st, yp, sp
+        torch.cuda.empty_cache()
+        ms = timer(lambda: k6.ssd_chunked(*args, chunk=256))
+        b_ms, b_by = scan_bound("ssd_chunked", B, H, S, dh, N)
+        out[arch] = (ms, b_ms, b_by)
+        log(f"time ssd_chunked at {arch} prefill ({B} x {S}, H {H}, dh "
+            f"{dh}, N {N}): kernel {ms} ms, bound {b_ms} ms ({b_by}); share "
+            f"of the bound {b_ms / ms}; rel err vs plain {err}; by CUDA "
+            f"kernel (us a call) "
+            f"{profile_kernels(lambda: k6.ssd_chunked(*args, chunk=256))}")
+        del x, lw, bc, args
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3233,11 +3291,12 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
               f"bound {k5_bound(want)}")
         controls.append(e / k5_bound(want))
 
-    def reject_broken(qt, kt, vt, r0, want, causal=True):
+    def reject_broken(qt, kt, vt, r0, want, causal=True, scale=None):
         """The controls for query rows r0 .. r0 + 63, whose plain output
-        is ``want``: zeros, and the keys these rows see cut to the first
-        key tile, to their first half, or to the last key tiles alone
-        (each cut that leaves some of those keys out)."""
+        is ``want`` (scores times ``scale``): zeros, and the keys these
+        rows see cut to the first key tile, to their first half, or to the
+        last key tiles alone (each cut that leaves some of those keys
+        out)."""
         qs, S = qt[:, :, r0:r0 + 64], kt.shape[2]
         seen = min(r0 + 64, S) if causal else S
         c = r0 // 64 * 64 if causal else (S - 1) // 128 * 128
@@ -3245,7 +3304,7 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
         def part(lo, hi):
             return fa.flash_attention_plain(
                 qs, kt[:, :, lo:hi], vt[:, :, lo:hi], causal=causal,
-                q_offset=r0 - lo)
+                q_offset=r0 - lo, scale=scale)
         reject(torch.zeros_like(want), want, "zeros")
         half = r0 // 2 if causal and r0 else seen // 2
         for (lo, hi), what in (((0, 64), "the first key tile alone"),
@@ -3282,6 +3341,23 @@ def check_attention(seed: int, device: str = "cuda", tokens: int = TOKENS):
             hold(o, want, f"{arch} prefill")
             for r0 in (S // 2 + 37, S - 64):        # a middle, the last
                 reject_broken(qt, kt, vt, r0, want[:, :, r0:r0 + 64])
+    # granite4h_prefill's attention layers at its largest batch: NoPE GQA,
+    # q, k and v from separate projections, scores times 1/128
+    B, S, H, KV, Dh, scale = 16, 4096, 32, 8, 128, 1 / 128
+    for q_scale in (1.0, 4.0):
+        q = randn(B, S, H, Dh, dtype=bf16, scale=q_scale)
+        k = randn(B, S, KV, Dh, dtype=bf16)
+        v = randn(B, S, KV, Dh, dtype=bf16, scale=1 / q_scale)
+        o = fa.flash_attention_op(q, k, v, causal=True,
+                                  scale=scale).transpose(1, 2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        want = fa.flash_attention_plain(qt, kt, vt, scale=scale)
+        hold(o, want, "granite-4.0-h-small prefill, scale 1/128")
+        for r0 in (S // 2 + 37, S - 64):
+            reject_broken(qt, kt, vt, r0, want[:, :, r0:r0 + 64],
+                          scale=scale)
+        del q, k, v, o, qt, kt, vt, want
+        torch.cuda.empty_cache()
     for what, (B, Sq, Sk, H, KV, Dh, causal) in FAMILY_K5.items():
         for q_scale in (1.0, 4.0):  # the families' prefill calls, bf16
             q = randn(B, Sq, H, Dh, dtype=bf16, scale=q_scale)

@@ -7,6 +7,8 @@ by hand in CUDA C++ for ``sm_90a``. Entry points run on ``cuda`` unless
 the caller passes ``device="cpu"``; there is no silent CPU fallback.
 """
 from .device import resolve_device
+# the port's own configs, which register themselves with ``configs``
+from .configs import granite_4_0_h_small  # noqa: F401
 
 __version__ = "1.0.0"
 

@@ -1,9 +1,11 @@
 """Flash attention, forward (K5), on the H100.
 
-``o = softmax(mask(q k^T / sqrt(Dh))) v`` per query row, with the masks of
-the reference's Pallas kernel (``repro/kernels/flash_attention/
-flash_attention.py:22``): key padding, causal ``row >= col`` and sliding
-window ``row - col < window``, a masked score set to -1e30; GQA with query
+``o = softmax(mask(q k^T * scale)) v`` per query row (``scale`` 1 / sqrt(Dh)
+unless given: granite-4.0-h-small's attention_multiplier is 1 / Dh), with
+the masks of the reference's Pallas kernel (``repro/kernels/
+flash_attention/flash_attention.py:22``): key padding, causal ``row >=
+col`` and sliding window ``row - col < window``, a masked score set to
+-1e30; GQA with query
 head ``h`` reading kv head ``h // G``; scores, softmax and the accumulator in
 f32; the output rounded once to the input dtype. The kernels are CUDA C++
 in ``csrc/flash_attention.cu`` (built by ``nvcc`` at first use,
@@ -88,10 +90,16 @@ def kernel_operand(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
+def softmax_scale(Dh: int, scale: Optional[float] = None) -> float:
+    """The scores' factor: ``scale``, or 1 / sqrt(Dh) where None."""
+    return 1.0 / math.sqrt(Dh) if scale is None else float(scale)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None, q_offset: int = 0,
-                          chunk: int = ATTN_CHUNK) -> torch.Tensor:
+                          chunk: int = ATTN_CHUNK,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of :func:`flash_attention`, on ``q``'s device. Queries
     go in chunks of ``chunk`` rows, as the reference's attention does, so the
     f32 scores are at most (B, KV, G, chunk, Sk), never S x S."""
@@ -99,7 +107,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, Sq, Dh = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
-    scale = 1.0 / math.sqrt(Dh)
+    scale = softmax_scale(Dh, scale)
     kf, vf = k.float(), v.float()
     cols = torch.arange(Sk, device=q.device)
     out = torch.empty_like(q)
@@ -122,16 +130,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, Dh); k, v: (B, KV, Sk, Dh), float32 or bfloat16, any
     strides with a dense last dim (e.g. transposed views of (B, S, H, Dh)).
-    Query row i sits at position ``q_offset + i``. Returns (B, H, Sq, Dh)
-    in q's dtype, laid out in memory like q."""
+    Query row i sits at position ``q_offset + i``; the scores are q k^T
+    times ``scale`` (None: 1 / sqrt(Dh)). Returns (B, H, Sq, Dh) in q's
+    dtype, laid out in memory like q."""
     refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset, scale=scale)
     B, H, Sq, Dh = q.shape
     Sk = k.shape[2]
     if Dh not in HEAD_DIMS:
@@ -142,29 +152,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         functools.partial(_build.launch, "flash_attention",
                           "repro_flash_attention", _ARGTYPES),
         q, k, v, causal=causal, window=window, q_offset=q_offset,
-        stream=torch.cuda.current_stream(q.device).cuda_stream)
+        scale=scale, stream=torch.cuda.current_stream(q.device).cuda_stream)
     LAUNCHES.add("flash_attention")
     return out
 
 
 def run_kernel(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: Optional[int] = None,
-               q_offset: int = 0, stream=None) -> torch.Tensor:
+               q_offset: int = 0, scale: Optional[float] = None,
+               stream=None) -> torch.Tensor:
     """Call ``fn`` with the arguments of the C function
     ``repro_flash_attention`` (``csrc/flash_attention.cu``) for q (B, H, Sq,
     Dh) and k, v (B, KV, Sk, Dh), each read in place where the kernel can
     (:func:`kernel_operand`), and return the output, laid out like q.
     ``fn`` is that C function of a built library (``_ARGTYPES`` set), or a
     function that calls it; a nonzero return raises. ``stream`` is a
-    ``cudaStream_t`` handle, None for the default stream. Counts no
-    launch."""
+    ``cudaStream_t`` handle, None for the default stream; ``scale`` as for
+    :func:`flash_attention`. Counts no launch."""
     q, k, v = (kernel_operand(t) for t in (q, k, v))
     B, H, Sq, Dh = q.shape
     out = torch.empty_like(q)        # q's layout where q is dense
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], B, H, k.shape[1], Sq, k.shape[2], Dh,
-            *strides, 1.0 / math.sqrt(Dh), int(causal),
+            *strides, softmax_scale(Dh, scale), int(causal),
             0 if window is None else int(window), int(q_offset), stream)
     if rc:
         raise RuntimeError(f"repro_flash_attention failed: error {rc}")

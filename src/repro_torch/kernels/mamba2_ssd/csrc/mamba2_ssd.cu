@@ -68,6 +68,16 @@
 // lines, for which tools/cuda_shim stands in). Tiles are copied with
 // cp.async (no registers held, zero fill past the edges, 16 bytes a copy
 // where the rows allow); step 2 double-buffers its key tiles.
+//
+// N up to 128 (granite-4.0-h-small's d_state, at dh 64): the three tiled
+// kernels are templates on kNT, the 64-wide tiles of N (1: N <= 64, the
+// code zamba2 runs; 2: N <= 128), chosen once a call. The state dimension
+// is a product's depth in steps 1 and 4 (C B^T, C R^T: tiles of 64 kNT
+// rows, K = N) and an output width in steps 2 and 4 (dS and the tile's
+// update, computed transposed as x^T diag(w) B, kNT output tiles side by
+// side sharing each x fragment); so x is read once and y written once
+// whatever N is, and the workspace's C^T tiles and states grow with N.
+// At kNT = 2 step 4 holds 8 tiles (146 KB), one block an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,7 +85,8 @@
 
 namespace {
 
-constexpr int kTile = 64;        // rows of a tile; also the largest dh and N
+constexpr int kTile = 64;        // rows of a tile; also the largest dh
+constexpr int kMaxNT = 2;        // 64-wide tiles of N: N at most 128
 constexpr int kLd = 72;          // row stride of a tile in shared memory
 constexpr int kThreads = 256;    // 8 warps, a 16 x 32 strip of a tile each
 constexpr int kTileFloats = kTile * kLd;
@@ -91,7 +102,7 @@ struct SsdArgs {
   float* y;        int64_t y_b, y_h, y_s;    // (B, H, S, dh), dense last dim
   float* state_out;                          // (B, H, dh, N)
   float* cb;       // (B, nc, n_tiles, 64, 64): diagonal C B^T tiles, [s][t]
-  float* ct;       // (B, nc, n_tiles, 64, 64): C^T tiles, [n][t]
+  float* ct;       // (B, nc, n_tiles, 64 kNT, 64): C^T tiles, [n][t]
   float* cum;      // (B, H, nc, T): cumsum of lw in each chunk
   float* st;       // (B, H, nc, N, dh): dS, then each chunk's entering state
   float* decay;    // (B, H, nc): exp(cum_T)
@@ -203,7 +214,9 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
 // stored k-major (A[k][m], B[k][n]); kScaled false: no kscale. The scale
 // goes on A's fragment, which has half as many values a lane as B's.
 // kLower: A is zero at k > m (a causal diagonal tile), so a warp stops
-// at k = its last row + 1.
+// at k = its last row + 1. kNB: B is kNB tiles kTileFloats apart, the
+// output kNB tiles side by side (acc[16 j + v]: tile j), each A fragment
+// split once for all of them.
 // Warp w owns rows 16 (w % 4) + [0, 16) and columns 32 (w / 4) + [0, 32):
 // four m16n8 tiles, value v of a thread is row acc_row(v), column
 // acc_col(v) (the mma's d fragment of tile v / 4).
@@ -215,9 +228,10 @@ __device__ __forceinline__ int acc_col(int v) {
   return 32 * (threadIdx.x >> 7) + 8 * (v >> 2) + 2 * (threadIdx.x & 3) +
          (v & 1);
 }
-template <bool kScaled = false, bool kLower = false>
-__device__ __forceinline__ void tile_product(float (&acc)[16], const float* A,
-                                             const float* B, int K,
+template <bool kScaled = false, bool kLower = false, int kNB = 1>
+__device__ __forceinline__ void tile_product(float (&acc)[16 * kNB],
+                                             const float* A, const float* B,
+                                             int K,
                                              const float* kscale = nullptr) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   if (kLower) K = min(K, 16 * (w & 3) + 16);
@@ -232,10 +246,11 @@ __device__ __forceinline__ void tile_product(float (&acc)[16], const float* A,
     split_tf32(a[(k + 4) * kLd] * s1, ah[2], al[2]);
     split_tf32(a[(k + 4) * kLd + 8] * s1, ah[3], al[3]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 4 * kNB; ++j) {
+      const float* bj = b + (j >> 2) * kTileFloats + 8 * (j & 3);
       uint32_t bh[2], bl[2];
-      split_tf32(b[k * kLd + 8 * j], bh[0], bl[0]);
-      split_tf32(b[(k + 4) * kLd + 8 * j], bh[1], bl[1]);
+      split_tf32(bj[k * kLd], bh[0], bl[0]);
+      split_tf32(bj[(k + 4) * kLd], bh[1], bl[1]);
       mma_tf32(acc + 4 * j, al, bh);     // the small terms first
       mma_tf32(acc + 4 * j, ah, bl);
       mma_tf32(acc + 4 * j, ah, bh);
@@ -273,10 +288,11 @@ __device__ void block_cumsum(float* v, int T, float* warp_tot) {
 
 // step 1: tile qt of chunk c: its diagonal block of C B^T, transposed,
 // out[s][t] = C_{q0+t} . B_{q0+s}, zero past the chunk's rows, and C^T
+template <int kNT>
 __global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
   extern __shared__ float smem[];
   float* Bt = smem;                // B^T of the tile's rows [n][s]
-  float* Ct = Bt + kTileFloats;    // C^T of the tile's rows [n][t]
+  float* Ct = Bt + kNT * kTileFloats;  // C^T of the tile's rows [n][t]
   const int qt = blockIdx.x % a.n_tiles, c = blockIdx.x / a.n_tiles;
   const int b = blockIdx.y;
   const int c0 = c * a.chunk, q0 = qt * kTile;
@@ -284,15 +300,24 @@ __global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
   if (q0 >= valid) return;         // rows past S: step 4 never reads them
   const int rows = min(kTile, valid - q0);
   const int64_t row0 = static_cast<int64_t>(c0 + q0);
-  copy_tile_t(Bt, a.bm + b * a.bm_b + row0 * a.bm_s, a.bm_s, rows, a.n);
-  copy_tile_t(Ct, a.cm + b * a.cm_b + row0 * a.cm_s, a.cm_s, rows, a.n);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {  // columns [64 j, 64 j + 64) of B and C
+    const int w = min(kTile, a.n - kTile * j);
+    copy_tile_t(Bt + j * kTileFloats,
+                a.bm + b * a.bm_b + row0 * a.bm_s + kTile * j, a.bm_s, rows,
+                w);
+    copy_tile_t(Ct + j * kTileFloats,
+                a.cm + b * a.cm_b + row0 * a.cm_s + kTile * j, a.cm_s, rows,
+                w);
+  }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   const int64_t tile = ((static_cast<int64_t>(b) * a.nc + c) * a.n_tiles + qt)
                        * kTileElems;
-  for (int e = threadIdx.x; e < kTileElems; e += kThreads)
-    a.ct[tile + e] = Ct[(e >> 6) * kLd + (e & 63)];
+  float* ct = a.ct + tile * kNT;
+  for (int e = threadIdx.x; e < kNT * kTileElems; e += kThreads)
+    ct[e] = Ct[(e >> 6) * kLd + (e & 63)];
   float acc[16] = {};
   tile_product(acc, Bt, Ct, a.n);
 #pragma unroll
@@ -301,11 +326,13 @@ __global__ void __launch_bounds__(kThreads) ssd_cb(SsdArgs a) {
 }
 
 // step 2: the chunk's cum, exp(cum_T) and own state, transposed: dS[n][d]
+template <int kNT>
 __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(SsdArgs a) {
   extern __shared__ float smem[];
   float* Xs = smem;                // x of the key rows, two stages [s][d]
-  float* Bs = Xs + 2 * kTileFloats;  // B of the key rows, two stages [s][n]
-  float* warp_tot = Bs + 2 * kTileFloats;
+  float* Bs = Xs + 2 * kTileFloats;  // B of the key rows, two stages of kNT
+                                     // tiles [s][n]
+  float* warp_tot = Bs + 2 * kNT * kTileFloats;
   float* cum = warp_tot + 32;      // [T]
   float* w = cum + a.chunk;        // exp(cum_T - cum_s), zero past T
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -317,7 +344,11 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(SsdArgs a) {
   auto issue = [&](int k0, int stage) {
     const int rows = min(kTile, valid - k0);
     copy_tile(Xs + stage * kTileFloats, x + k0 * a.x_s, a.x_s, rows, a.dh);
-    copy_tile(Bs + stage * kTileFloats, bm + k0 * a.bm_s, a.bm_s, rows, a.n);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      copy_tile(Bs + (stage * kNT + j) * kTileFloats,
+                bm + k0 * a.bm_s + kTile * j, a.bm_s, rows,
+                min(kTile, a.n - kTile * j));
     cp_async_commit();
   };
   issue(0, 0);                     // in flight during the scan
@@ -334,7 +365,7 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(SsdArgs a) {
     w[t] = t < T ? expf(cum_T - cum[t]) : 0.0f;
   }
   if (threadIdx.x == 0) a.decay[bhc] = expf(cum_T);
-  float acc[16] = {};
+  float acc[16 * kNT] = {};
   for (int k0 = 0, stage = 0; k0 < valid; k0 += kTile, stage ^= 1) {
     if (k0 + kTile < valid) {
       issue(k0 + kTile, stage ^ 1);
@@ -343,14 +374,15 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_state(SsdArgs a) {
       cp_async_wait<0>();
     }
     __syncthreads();               // this stage and w are in place
-    tile_product<true>(acc, Xs + stage * kTileFloats, Bs + stage * kTileFloats,
-                       min(kTile, valid - k0), w + k0);
+    tile_product<true, false, kNT>(acc, Xs + stage * kTileFloats,
+                                   Bs + stage * kNT * kTileFloats,
+                                   min(kTile, valid - k0), w + k0);
     __syncthreads();               // this stage is free again
   }
   float* out = a.st + bhc * a.n * a.dh;
 #pragma unroll
-  for (int v = 0; v < 16; ++v) {
-    const int d = acc_row(v), nn = acc_col(v);
+  for (int v = 0; v < 16 * kNT; ++v) {
+    const int d = acc_row(v & 15), nn = kTile * (v >> 4) + acc_col(v & 15);
     if (d < a.dh && nn < a.n) out[nn * a.dh + d] = acc[v];
   }
 }
@@ -384,14 +416,16 @@ __global__ void __launch_bounds__(kThreads) ssd_state_pass(SsdArgs a) {
 }
 
 // step 4: y of the chunk, a 64-row tile at a time, the state carried
+template <int kNT>
 __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_scan(SsdArgs a) {
   extern __shared__ float smem[];
   float* Ct = smem;                // C^T of the tile's rows         [n][t]
-  float* G = Ct + kTileFloats;     // (C B^T)^T of the diagonal       [s][t]
+  float* G = Ct + kNT * kTileFloats;  // (C B^T)^T of the diagonal    [s][t]
   float* Xs = G + kTileFloats;     // x of the tile's rows            [s][d]
-  float* Bs = Xs + kTileFloats;    // B of the tile's rows            [s][n]
-  float* R = Bs + kTileFloats;     // the state entering the tile, ^T [n][d]
-  float* rowf = R + kTileFloats;   // exp(cum_t - r)                  [64]
+  float* Bs = Xs + kTileFloats;    // B of the tile's rows, kNT tiles [s][n]
+  float* R = Bs + kNT * kTileFloats;  // the state entering the tile, ^T
+                                      // [n][d], 64 kNT rows
+  float* rowf = R + kNT * kTileFloats;  // exp(cum_t - r)             [64]
   float* wq = rowf + kTile;        // exp(cum_q1 - cum_s)             [64]
   float* cum = wq + kTile;         // [T]
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -404,17 +438,26 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_scan(SsdArgs a) {
   float* y = a.y + b * a.y_b + h * a.y_h + static_cast<int64_t>(c0) * a.y_s;
   const int64_t tiles = (static_cast<int64_t>(b) * a.nc + c) * a.n_tiles;
   auto issue_c = [&](int qt) {     // C^T and the diagonal's C B^T
-    copy_dense_tile(Ct, a.ct + (tiles + qt) * kTileElems);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      copy_dense_tile(Ct + j * kTileFloats,
+                      a.ct + ((tiles + qt) * kNT + j) * kTileElems);
     copy_dense_tile(G, a.cb + (tiles + qt) * kTileElems);
     cp_async_commit();
   };
   auto issue_xb = [&](int qt) {    // x and B of the tile's rows
     const int rows = min(kTile, valid - qt * kTile);
     copy_tile(Xs, x + qt * kTile * a.x_s, a.x_s, rows, a.dh);
-    copy_tile(Bs, bm + qt * kTile * a.bm_s, a.bm_s, rows, a.n);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      copy_tile(Bs + j * kTileFloats, bm + qt * kTile * a.bm_s + kTile * j,
+                a.bm_s, rows, min(kTile, a.n - kTile * j));
     cp_async_commit();
   };
-  copy_tile(R, a.st + bhc * a.n * a.dh, a.dh, a.n, a.dh);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+    copy_tile(R + j * kTileFloats, a.st + (bhc * a.n + kTile * j) * a.dh,
+              a.dh, min(kTile, a.n - kTile * j), a.dh);
   issue_c(0);
   issue_xb(0);
   for (int t = threadIdx.x; t < T; t += kThreads) cum[t] = a.cum[bhc * T + t];
@@ -452,13 +495,24 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_chunk_scan(SsdArgs a) {
     if (qt + 1 == n_q) break;
     __syncthreads();               // Ct, G and R are read
     issue_c(qt + 1);
-    float upd[16] = {};            // B^T diag(exp(cum_q1 - cum_s)) x
-    tile_product<true>(upd, Bs, Xs, q_valid, wq);
     const float decay = expf(cum[q1] - r);
+    if constexpr (kNT == 1) {
+      float upd[16] = {};          // B^T diag(exp(cum_q1 - cum_s)) x
+      tile_product<true>(upd, Bs, Xs, q_valid, wq);
 #pragma unroll
-    for (int v = 0; v < 16; ++v) {
-      float* rv = R + acc_row(v) * kLd + acc_col(v);
-      *rv = decay * *rv + upd[v];
+      for (int v = 0; v < 16; ++v) {
+        float* rv = R + acc_row(v) * kLd + acc_col(v);
+        *rv = decay * *rv + upd[v];
+      }
+    } else {
+      float upd[16 * kNT] = {};    // its transpose, x^T diag(...) B: [d][n]
+      tile_product<true, false, kNT>(upd, Xs, Bs, q_valid, wq);
+#pragma unroll
+      for (int v = 0; v < 16 * kNT; ++v) {
+        float* rv = R + (kTile * (v >> 4) + acc_col(v & 15)) * kLd +
+                    acc_row(v & 15);
+        *rv = decay * *rv + upd[v];
+      }
     }
     __syncthreads();               // Bs and Xs are read
     issue_xb(qt + 1);
@@ -470,12 +524,15 @@ struct Workspace {
   int64_t cb, ct, cum, st, decay;
 };
 
+// 64-wide tiles of N
+int n_tiles_of(int n) { return (n + kTile - 1) / kTile; }
+
 Workspace workspace(int B, int H, int S, int dh, int n, int chunk) {
   const int64_t nc = (static_cast<int64_t>(S) + chunk - 1) / chunk;
   const int64_t tiles = (chunk + kTile - 1) / kTile;
   auto up = [](int64_t v) { return (v + 63) / 64 * 64; };
   return {up(B * nc * tiles * kTileElems),
-          up(B * nc * tiles * kTileElems),
+          up(B * nc * tiles * n_tiles_of(n) * kTileElems),
           up(static_cast<int64_t>(B) * H * nc * chunk),
           up(static_cast<int64_t>(B) * H * nc * n * dh),
           up(static_cast<int64_t>(B) * H * nc)};
@@ -486,6 +543,45 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// shared memory of the three tiled kernels at kNT tiles of N
+struct Smem {
+  size_t cb, state, scan;
+};
+
+Smem smem_bytes(int kNT, int chunk) {
+  const size_t T64 = (static_cast<size_t>(chunk) + kTile - 1) / kTile * kTile;
+  return {2 * kNT * kTileFloats * sizeof(float),
+          (2 * (1 + kNT) * kTileFloats + 32 + chunk + T64) * sizeof(float),
+          ((2 + 3 * kNT) * kTileFloats + 2 * kTile +
+           static_cast<size_t>(chunk)) * sizeof(float)};
+}
+
+// the four kernels in order on stream s (a.nc > 0: steps 1, 2 and 4 too)
+template <int kNT>
+cudaError_t launch(const SsdArgs& a, int B, int H, int chunk,
+                   cudaStream_t s) {
+  const Smem m = smem_bytes(kNT, chunk);
+  cudaError_t err;
+  if (a.nc > 0) {
+    if ((err = allow_smem(ssd_cb<kNT>, m.cb)) != cudaSuccess ||
+        (err = allow_smem(ssd_chunk_state<kNT>, m.state)) != cudaSuccess ||
+        (err = allow_smem(ssd_chunk_scan<kNT>, m.scan)) != cudaSuccess)
+      return err;
+    ssd_cb<kNT><<<dim3(a.n_tiles * a.nc, B), kThreads, m.cb, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    ssd_chunk_state<kNT><<<dim3(a.nc, H, B), kThreads, m.state, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  ssd_state_pass<<<dim3((a.n * a.dh + kThreads - 1) / kThreads, H, B),
+                   kThreads, 0, s>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (a.nc > 0) {
+    ssd_chunk_scan<kNT><<<dim3(a.nc, H, B), kThreads, m.scan, s>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -509,8 +605,9 @@ size_t repro_ssd_workspace_bytes(int B, int H, int S, int dh, int n,
 // dim; lw: (B, H, S) f32, strides (b, h, s); bm, cm: (B, S, N) f32, strides
 // (b, s) and a dense last dim; state_in (or null) and state_out: (B, H, dh,
 // N) f32 contiguous; workspace: repro_ssd_workspace_bytes(...) bytes of
-// device memory, 16-byte aligned. dh and N at most 64. Launches the four
-// kernels on `stream`; returns the first cudaError_t (0 on success).
+// device memory, 16-byte aligned. dh at most 64, N at most 128. Launches
+// the four kernels on `stream`; returns the first cudaError_t (0 on
+// success).
 int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
                       const void* lw, int64_t lw_b, int64_t lw_h,
                       int64_t lw_s, const void* bm, int64_t bm_b,
@@ -519,16 +616,13 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
                       int64_t y_b, int64_t y_h, int64_t y_s, void* state_out,
                       int B, int H, int S, int dh, int n, int chunk,
                       void* workspace_ptr, void* stream) {
-  if (dh < 1 || dh > kTile || n < 1 || n > kTile || chunk < 1 || B < 0 ||
-      H < 0 || S < 0 || B > 65535 || H > 65535)
+  if (dh < 1 || dh > kTile || n < 1 || n > kMaxNT * kTile || chunk < 1 ||
+      B < 0 || H < 0 || S < 0 || B > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem_cb = 2 * kTileFloats * sizeof(float);
-  const size_t T64 = (static_cast<size_t>(chunk) + kTile - 1) / kTile * kTile;
-  const size_t smem_state = (4 * kTileFloats + 32 + chunk + T64) * sizeof(float);
-  const size_t smem_scan = (5 * kTileFloats + 2 * kTile + static_cast<size_t>(chunk))
-                           * sizeof(float);
-  if (smem_state > static_cast<size_t>(kMaxSmem) ||
-      smem_scan > static_cast<size_t>(kMaxSmem))
+  const int nt = n_tiles_of(n);
+  const Smem m = smem_bytes(nt, chunk);
+  if (m.state > static_cast<size_t>(kMaxSmem) ||
+      m.scan > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   const int tiles = (chunk + kTile - 1) / kTile;
@@ -550,28 +644,11 @@ int repro_ssd_chunked(const void* x, int64_t x_b, int64_t x_h, int64_t x_s,
   a.cum = a.ct + w.ct;
   a.st = a.cum + w.cum;
   a.decay = a.st + w.st;
+  if (a.nc > 0 && workspace_ptr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (a.nc > 0) {
-    if (workspace_ptr == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
-    if ((err = allow_smem(ssd_cb, smem_cb)) != cudaSuccess ||
-        (err = allow_smem(ssd_chunk_state, smem_state)) != cudaSuccess ||
-        (err = allow_smem(ssd_chunk_scan, smem_scan)) != cudaSuccess)
-      return static_cast<int>(err);
-    ssd_cb<<<dim3(a.n_tiles * a.nc, B), kThreads, smem_cb, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    ssd_chunk_state<<<dim3(a.nc, H, B), kThreads, smem_state, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  ssd_state_pass<<<dim3((n * dh + kThreads - 1) / kThreads, H, B), kThreads,
-                   0, s>>>(a);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (a.nc > 0) {
-    ssd_chunk_scan<<<dim3(a.nc, H, B), kThreads, smem_scan, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return static_cast<int>(nt == 1 ? launch<1>(a, B, H, chunk, s)
+                                  : launch<2>(a, B, H, chunk, s));
 }
 
 }  // extern "C"

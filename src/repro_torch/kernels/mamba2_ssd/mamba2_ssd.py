@@ -12,7 +12,8 @@ mamba2_ssd.py:23``, ``_ssd_kernel``)::
 padded with identity steps (x = 0, lw = 0), as the Pallas kernel pads. The
 kernel is CUDA C++ in ``csrc/mamba2_ssd.cu`` (built by ``nvcc`` at first
 use, ``kernels/_build.py``): four launches, the chunks in parallel, with
-their intermediates in a workspace allocated here. :func:`ssd_chunked`
+their intermediates in a workspace allocated here; dh up to 64 and N up to
+128 (zamba2's 64 and granite-4.0-h-small's 128 in one call). :func:`ssd_chunked`
 launches it for CUDA tensors and runs :func:`ssd_chunked_plain` only for
 CPU tensors; under grad mode it refuses, on either device, an input that
 requires grad (the kernel has no backward; ``kernels/_nograd.py``). Unlike the
@@ -36,7 +37,7 @@ from ... import obs
 from .. import _build
 from .._nograd import refuse_grad
 
-MAX_WIDTH = 64             # the kernel's largest dh and N
+MAX_DH, MAX_N = 64, 128    # the kernel's largest dh and N
 
 LAUNCHES = obs.Counters("launches", "ssd_chunked")
 
@@ -173,8 +174,9 @@ def ssd_chunked(x: torch.Tensor, lw: torch.Tensor, Bm: torch.Tensor,
         return ssd_chunked_plain(x, lw, Bm, Cm, chunk=chunk, state=state)
     B, H, S, dh = x.shape
     N = Bm.shape[-1]
-    if dh > MAX_WIDTH or N > MAX_WIDTH:
-        raise ValueError(f"dh {dh} and N {N} must be at most {MAX_WIDTH}")
+    if dh > MAX_DH or N > MAX_N:
+        raise ValueError(f"dh {dh} must be at most {MAX_DH} and N {N} at "
+                         f"most {MAX_N}")
     if max(B * H * S * dh, B * S * N) >= 2 ** 31 or max(B, H) > 65535:
         raise ValueError(f"too large: {tuple(x.shape)}, N {N}")
     out = run_kernel(_build.load("mamba2_ssd"), x, lw, Bm, Cm, chunk=chunk,

@@ -49,6 +49,7 @@ from torch.utils.checkpoint import checkpoint
 # Sq % 2048 == 0 above 2048 query rows.
 from ..device import resolve_init_device
 from ..kernels.flash_attention import flash_attention_op as attention
+from ..kernels.flash_attention.flash_attention import softmax_scale
 from ..kernels.rmsnorm import rmsnorm
 
 __all__ = ["rmsnorm", "rope_freqs", "apply_rope", "attention",
@@ -125,19 +126,20 @@ def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 def attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, chunk: int = ATTN_CHUNK
-                    ) -> torch.Tensor:
+                    q_offset: int = 0, chunk: int = ATTN_CHUNK,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """The reference's ``attention`` (``layers.py:126-170``) for training.
     q: (B, Sq, H, Dh); k, v: (B, Sk, KV, Dh); GQA as a group dim (k and v
     are never repeated). The queries go in blocks of ``chunk`` rows, each
     block under :func:`checkpointed`, so backward recomputes its scores and
     probabilities rather than keeping the (chunk, Sk) probabilities. Unlike
     the reference, which asserts ``Sq % chunk == 0`` above ``chunk`` rows,
-    the last block may be short."""
+    the last block may be short. ``scale``: the scores' factor (None: 1 /
+    sqrt(Dh))."""
     B, Sq, H, Dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
-    scale = 1.0 / math.sqrt(Dh)
+    scale = softmax_scale(Dh, scale)
     qg = q.reshape(B, Sq, KV, G, Dh)
     k_pos = torch.arange(Sk, device=q.device)
     out = []
@@ -195,7 +197,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
                      window: Optional[int] = None, grp=None, offset: int = 0,
-                     n: Optional[int] = None) -> torch.Tensor:
+                     n: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """Single-token attention against a (possibly longer-than-pos) cache.
 
     q: (B, 1, H, Dh); caches: (B, Smax, KV, Dh); pos: the position of the
@@ -212,13 +215,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     slice, from position ``offset``, of a cache ``n`` long: each of the
     three is joined over the ranks (``dist.sharding.combine``); without
     one the combine is the identity, so one device and any mesh run the
-    same arithmetic.
+    same arithmetic. ``scale``: the scores' factor (None: 1 / sqrt(Dh)).
     """
     B, _, H, Dh = q.shape
     Smax, KV = k_cache.shape[1], k_cache.shape[2]
     n = Smax if n is None else n
     G = H // KV
-    scale = 1.0 / math.sqrt(Dh)
+    scale = softmax_scale(Dh, scale)
     qg = q.reshape(B, 1, KV, G, Dh)
     k_pos = torch.arange(Smax, device=q.device) + offset
     valid = k_pos <= pos
@@ -241,7 +244,8 @@ def decode_attention_block(cfg, h: torch.Tensor, p, kc: torch.Tensor,
                            cgrp=None, window: Optional[int] = None,
                            rope_pos: Optional[torch.Tensor] = None,
                            n: Optional[int] = None,
-                           write: bool = True) -> torch.Tensor:
+                           write: bool = True,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """One token's attention (the normed residual ``h`` (B, 1, D)) against
     its layer's cache ``kc``, ``vc`` (B, S_c, KV, Dh) of a cache ``n``
     positions long (None: ``kc``'s own length): projections, RoPE at
@@ -249,8 +253,8 @@ def decode_attention_block(cfg, h: torch.Tensor, p, kc: torch.Tensor,
     RoPE), the new key and value written into the cache in
     place at ``pos`` (a ring's ``pos % n`` with ``window``; without
     ``write``, a cross-attention's cache, only q is projected and nothing
-    written), :func:`decode_attention` and ``wo``. Returns the block's
-    output (B, 1, D).
+    written), :func:`decode_attention` (at ``scale``) and ``wo``. Returns
+    the block's output (B, 1, D).
 
     With ``grp`` (the 'model' group; the residual whole on every rank)
     and the heads split (:func:`attn_layout`), the rank's columns of
@@ -289,7 +293,7 @@ def decode_attention_block(cfg, h: torch.Tensor, p, kc: torch.Tensor,
         kc[:, at - s0] = k[:, 0].to(kc.dtype)
         vc[:, at - s0] = v[:, 0].to(vc.dtype)
     o = decode_attention(q, kc, vc, pos, window=window, grp=cgrp,
-                         offset=s0, n=n)
+                         offset=s0, n=n, scale=scale)
     if not heads:
         return attn_out(o, p)
     Hl = H // tp
@@ -456,11 +460,13 @@ def attn_choice(cfg, tp: int, q_len: int) -> Optional[str]:
 def attention_block(cfg, h: torch.Tensor, p, positions: torch.Tensor,
                     grp=None, *, attend=attention_train, causal: bool = True,
                     window: Optional[int] = None, rope: bool = True,
-                    src: Optional[torch.Tensor] = None):
+                    src: Optional[torch.Tensor] = None,
+                    scale: Optional[float] = None):
     """Attention of the normed residual ``h`` (B, s, D), whose whole
     sequence has ``positions`` (n,): projections, RoPE (``rope``),
     ``attend`` (:func:`attention_train`, or the kernel K5) and ``wo``.
-    ``src`` (B, n_src, D) is a cross-attention's key and value input.
+    ``src`` (B, n_src, D) is a cross-attention's key and value input;
+    ``scale`` the scores' factor (None: ``attend``'s own, 1 / sqrt(Dh)).
     Returns (the output (B, s, D), the (k, v) attended to).
 
     With ``grp`` ``h`` is this rank's sequence slice, ``src`` whole on
@@ -481,7 +487,7 @@ def attention_block(cfg, h: torch.Tensor, p, positions: torch.Tensor,
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
-        o = attend(q, k, v, causal=causal, window=window)
+        o = attend(q, k, v, causal=causal, window=window, scale=scale)
         return attn_out(o, p, grp), (k, v)
     s0, s1 = grp.bounds(n)
     q, k, v = attn_qkv(h, p, cfg)
@@ -492,7 +498,8 @@ def attention_block(cfg, h: torch.Tensor, p, positions: torch.Tensor,
         k = apply_rope(k, positions[s0:s1], cfg.rope_theta)
     if src is None:
         k, v = gather_seq(k, n, grp), gather_seq(v, n, grp)
-    o = attend(q, k, v, causal=causal, window=window, q_offset=s0)
+    o = attend(q, k, v, causal=causal, window=window, q_offset=s0,
+               scale=scale)
     return attn_out(o, p), (k, v)
 
 

@@ -176,6 +176,10 @@ def mamba_block(x, p, cfg, state, train: bool = False,
     ``out_proj`` as two kernels (``kernels/mamba2_glue``), bit for bit
     the torch ops the other paths run.
 
+    The layer's output joins the residual times the config's
+    ``residual_multiplier`` where it has one (hybrid_moe: granite-4.0-h-
+    small's 0.22); zamba2's is added as it is.
+
     Spans (``obs``): ``mamba2.layer`` from the pre-norm to the residual
     add, and in it ``mamba2.in_proj`` and ``mamba2.out_proj``, the two
     GEMMs alone."""
@@ -231,6 +235,9 @@ def _mixer(x, p, cfg, state, train: bool, n: Optional[int], grp):
     with obs.span("mamba2.out_proj", y):
         out = y @ p["out_proj"].to(x.dtype)
     out = leave_block(out, n, grp)
+    mult = getattr(cfg, "residual_multiplier", 1.0)
+    if mult != 1.0:
+        out = out * mult
     if grp is not None and not train:       # the cache's conv state: whole
         conv_state = torch.cat([gather_model(conv_state[..., :di // tp],
                                              grp),

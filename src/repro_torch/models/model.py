@@ -44,6 +44,20 @@ a residual whole on every rank (``n`` None: the row-parallel exits
 all-reduce), each rank's slice of the KV cache and its heads of the
 recurrent states.
 
+The hybrid_moe family (granitemoehybrid: granite-4.0-h-small, which the
+reference does not define) picks each layer's mixer from
+``cfg.layer_types``, Mamba-2 (``mamba2.mamba_block``) or attention (GQA
+with no position embedding, K5 at the config's ``attention_multiplier``), and
+follows every mixer with the dropless MoE and its shared expert
+(``moe.moe_dropless``); each sublayer's output joins the residual times
+``residual_multiplier``, the embedding is multiplied by
+``embedding_multiplier`` and the logits divided by ``logits_scaling``. Its
+weights: ``layers.mamba`` stacked over the Mamba-2 layers (their ``ln`` the
+layers' input norm), ``layers.attention`` over the attention layers (``ln``
+and the projections), and ``layers.ln2``, ``layers.moe`` (with its
+``shared`` expert) over every layer. Spans: ``attn.layer`` (input norm to
+residual add) and ``moe.layer`` (post-norm to residual add).
+
 Caches:
   * transformer: ``{"k","v": (L, B, Smax, KV, Dh)}``; sliding-window
     configs a ring of length ``window``; audio adds the encoder's
@@ -51,6 +65,8 @@ Caches:
   * rwkv6:   ``{shift, wkv, cshift}`` stacked over L (O(1) in sequence).
   * hybrid:  ``{"state": {ssm, conv}}`` stacked over L, plus the shared
     block's ``"k","v": (n_slots, B, Smax, KV, Dh)``.
+  * hybrid_moe: ``{"state": {ssm, conv}}`` stacked over the Mamba-2
+    layers, ``"k","v": (n_attention_layers, B, Smax, KV, Dh)``.
 ``forward_decode`` writes the new token's K/V into the cache tensors in
 place (a functional update would copy the whole cache per token) and
 returns new recurrent states.
@@ -70,18 +86,18 @@ from .layers import (attn_heads_split, attention, attention_block,
                      attention_train, cache_kv, checkpointed,
                      decode_attention_block, init_attn, init_mlp, mlp_block,
                      mlp_split, normal_init, rmsnorm, rmsnorm_train, upcast)
-from .moe import experts_split, init_moe, moe_mlp
+from .moe import experts_split, init_moe, moe_dropless, moe_mlp
 
 Params = Dict[str, Any]
 
 
 def _kind(cfg) -> str:
-    """'rwkv', 'hybrid' or 'transformer' (dense, moe, audio and vlm), as
-    the reference's branches test them."""
+    """'rwkv', 'hybrid', 'hybrid_moe' or 'transformer' (dense, moe, audio
+    and vlm), as the reference's branches test them."""
     if cfg.family == "ssm" and cfg.rwkv is not None:
         return "rwkv"
-    if cfg.family == "hybrid":
-        return "hybrid"
+    if cfg.family in ("hybrid", "hybrid_moe"):
+        return cfg.family
     return "transformer"
 
 
@@ -100,6 +116,16 @@ def init_params(cfg, gen: torch.Generator, dtype=torch.float32,
     if kind == "rwkv":
         params["layers"] = {"rwkv": rwkv_mod.init_rwkv_layer(gen, cfg, L,
                                                              **kw)}
+    elif kind == "hybrid_moe":
+        mix = cfg.mixers()
+        La = mix.count("attention")
+        params["layers"] = {
+            "mamba": mamba_mod.init_mamba_layer(gen, cfg, mix.count("mamba"),
+                                                **kw),
+            "attention": {"ln": torch.ones((La, D), **kw),
+                          **init_attn(gen, cfg, La, **kw)},
+            "ln2": torch.ones((L, D), **kw),
+            "moe": init_moe(gen, cfg, L, **kw)}
     elif kind == "hybrid":
         params["layers"] = {"mamba": mamba_mod.init_mamba_layer(gen, cfg, L,
                                                                 **kw)}
@@ -152,6 +178,9 @@ def embed_tokens(cfg, params: Params, tokens: torch.Tensor,
         mine = (tokens >= v0) & (tokens < v0 + table.shape[0])
         x = table[torch.where(mine, tokens - v0, 0)].to(compute_dtype) * \
             mine[..., None].to(compute_dtype)
+    mult = getattr(cfg, "embedding_multiplier", 1.0)   # hybrid_moe's
+    if mult != 1.0:
+        return x * mult
     if cfg.family != "audio":
         return x
     # sqrt(d) rounded to x's dtype first, as JAX rounds a Python scalar
@@ -197,7 +226,9 @@ def _encoder_inputs(cfg, params: Params, batch, x: torch.Tensor, n: int,
 def lm_logits(cfg, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"]["tok"].T if cfg.tie_embeddings \
         else params["lm_head"]
-    return x @ head.to(x.dtype)
+    logits = x @ head.to(x.dtype)
+    scaling = getattr(cfg, "logits_scaling", 1.0)      # hybrid_moe's
+    return logits if scaling == 1.0 else logits / scaling
 
 
 def _layer(tree, i: int):
@@ -497,6 +528,84 @@ def _hybrid_decode(cfg, params: Params, x: torch.Tensor, cache, pos: int,
 
 
 # ---------------------------------------------------------------------------
+# hybrid_moe stack (granitemoehybrid)
+# ---------------------------------------------------------------------------
+
+def _attention_mixer(cfg, x: torch.Tensor, p: Params, attend):
+    """An attention mixer of the hybrid_moe stack: its input norm (K4),
+    ``attend(h, p)`` (NoPE GQA at the config's softmax scale and ``wo``:
+    (output, what the layer keeps of it)), and the residual add times
+    ``residual_multiplier``. Returns (x, what ``attend`` kept). One
+    ``attn.layer`` span a call."""
+    with obs.span("attn.layer", x):
+        y, kv = attend(rmsnorm(x, p["ln"], cfg.norm_eps), p)
+        return x + y * cfg.residual_multiplier, kv
+
+
+def _moe_sublayer(cfg, x: torch.Tensor, ln: torch.Tensor, p: Params):
+    """The hybrid_moe stack's FFN: the post-norm, the dropless MoE with
+    its shared expert (``moe.moe_dropless``), and the residual add times
+    ``residual_multiplier``. One ``moe.layer`` span a call."""
+    with obs.span("moe.layer", x):
+        y = moe_dropless(rmsnorm(x, ln, cfg.norm_eps), p, cfg)
+        return x + y * cfg.residual_multiplier
+
+
+def _hybrid_moe_layers(cfg, params: Params, x: torch.Tensor, state,
+                       attend):
+    """The hybrid_moe layers in turn: the layer's mixer (``layer_types``),
+    Mamba-2 on its state in ``state`` (stacked over the Mamba-2 layers;
+    None: zero) or attention through ``attend(h, p, i)`` for the ``i``-th
+    attention layer, then the MoE. Returns (x, the Mamba-2 layers' new
+    states, what each attention layer's ``attend`` kept)."""
+    lp = params["layers"]
+    new, kept = [], []
+    for i, mixer in enumerate(cfg.mixers()):
+        if mixer == "mamba":
+            x, st = mamba_mod.mamba_block(x, _layer(lp["mamba"], len(new)),
+                                          cfg, _layer(state, len(new)))
+            new.append(st)
+        else:
+            ia = len(kept)
+            x, kv = _attention_mixer(cfg, x, _layer(lp["attention"], ia),
+                                     lambda h, p: attend(h, p, ia))
+            kept.append(kv)
+        x = _moe_sublayer(cfg, x, lp["ln2"][i], _layer(lp["moe"], i))
+    return x, new, kept
+
+
+def _hybrid_moe_stack(cfg, params: Params, x: torch.Tensor, state,
+                      positions: torch.Tensor, *,
+                      collect_cache: bool = False):
+    """Prefill through the hybrid_moe layers, attention causal through K5.
+    ``state`` holds the Mamba-2 layers' states stacked over them (None:
+    zero, and none returned). Returns (x, the new states or None, the
+    attention layers' cache ``{"k","v": (La, B, S, KV, Dh)}`` or None)."""
+    def attend(h, p, ia):
+        return attention_block(cfg, h, p, positions, attend=attention,
+                               causal=True, rope=False,
+                               scale=cfg.attention_multiplier)
+    x, new, kvs = _hybrid_moe_layers(cfg, params, x, state, attend)
+    cache = {"k": torch.stack([k for k, _ in kvs]),
+             "v": torch.stack([v for _, v in kvs])} \
+        if collect_cache and kvs else None
+    return x, None if state is None else _stack(new), cache
+
+
+def _hybrid_moe_decode(cfg, params: Params, x: torch.Tensor, cache,
+                       pos: int):
+    """Single-token decode through the hybrid_moe layers: the Mamba-2
+    layers on their states, the attention layers against their KV cache
+    (written in place at ``pos``)."""
+    def attend(h, p, ia):
+        return decode_attention_block(cfg, h, p, cache["k"][ia],
+                                      cache["v"][ia], pos,
+                                      scale=cfg.attention_multiplier), None
+    x, new, _ = _hybrid_moe_layers(cfg, params, x, cache["state"], attend)
+    return x, {"k": cache["k"], "v": cache["v"], "state": _stack(new)}
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
@@ -516,6 +625,9 @@ def forward_train(cfg, params: Params, batch, compute_dtype=torch.bfloat16,
     from ..dist.sharding import tp_group
     grp = tp_group()
     kind = _kind(cfg)
+    if kind == "hybrid_moe":
+        raise ValueError(f"{cfg.name}: the hybrid_moe family serves only "
+                         f"(prefill and decode); it has no training path")
     x, n = _build_inputs(cfg, params, batch, compute_dtype, grp)
     dev = x.device
     targets = torch.as_tensor(batch["targets"], device=dev).long()
@@ -688,6 +800,9 @@ def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):
     from ..dist.sharding import last_position, tp_group
     grp = tp_group()
     kind = _kind(cfg)
+    if kind == "hybrid_moe" and grp is not None:
+        raise ValueError(f"{cfg.name}: the hybrid_moe family runs on one "
+                         f"device, not on a mesh")
     x, S = _build_inputs(cfg, params, batch, compute_dtype, grp)
     B = x.shape[0]
     dev = x.device
@@ -704,6 +819,12 @@ def forward_prefill(cfg, params: Params, batch, compute_dtype=torch.bfloat16):
         x, state, kv = _hybrid_stack(cfg, params, x, state, positions,
                                      collect_cache=True, grp=grp)
         cache = {"state": state, **kv}
+    elif kind == "hybrid_moe":
+        state = mamba_mod.init_mamba_state(cfg, cfg.mixers().count("mamba"),
+                                           B, compute_dtype, dev)
+        x, state, kv = _hybrid_moe_stack(cfg, params, x, state, positions,
+                                         collect_cache=True)
+        cache = {"state": state, **(kv or {})}
     else:
         enc_out, x = _encoder_inputs(cfg, params, batch, x, S, compute_dtype,
                                      grp=grp)
@@ -727,6 +848,9 @@ def forward_decode(cfg, params: Params, cache, token: torch.Tensor, pos: int,
     from ..dist.sharding import reduce_model, tp_group
     grp = tp_group()
     kind = _kind(cfg)
+    if kind == "hybrid_moe" and grp is not None:
+        raise ValueError(f"{cfg.name}: the hybrid_moe family runs on one "
+                         f"device, not on a mesh")
     split = grp is not None and cfg.vocab_size % grp.size == 0
     x = embed_tokens(cfg, params, token, compute_dtype,
                      grp if split else None)
@@ -742,6 +866,8 @@ def forward_decode(cfg, params: Params, cache, token: torch.Tensor, pos: int,
     elif kind == "hybrid":
         x, new_cache = _hybrid_decode(cfg, params, x, cache, pos, grp,
                                       seq_lens)
+    elif kind == "hybrid_moe":
+        x, new_cache = _hybrid_moe_decode(cfg, params, x, cache, pos)
     else:
         x, new_cache = _txf_decode(cfg, params, x, cache, pos, grp, seq_lens)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -769,6 +895,15 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     Smax = cache_max_len(cfg, seq_len)
     KV, Dh = cfg.n_kv_heads, cfg.d_head
     kw = dict(dtype=dtype, device=dev)
+    if kind == "hybrid_moe":
+        mix = cfg.mixers()
+        La = mix.count("attention")
+        return {
+            "state": mamba_mod.init_mamba_state(cfg, mix.count("mamba"),
+                                                batch, dtype, dev),
+            "k": torch.zeros((La, batch, Smax, KV, Dh), **kw),
+            "v": torch.zeros((La, batch, Smax, KV, Dh), **kw),
+        }
     if kind == "hybrid":
         n_slots = cfg.n_layers // cfg.shared_attn_every
         return {

@@ -18,6 +18,19 @@ the reference's dense mixture over every expert.
 The expert products are plain batched matmuls, which the reference leaves
 to XLA outside any Pallas kernel; no kernel of the port runs here.
 
+A ``configs.hybrid_moe.DroplessMoEConfig`` (the granitemoehybrid family,
+which the reference does not define) takes
+:func:`moe_dropless` instead: the router's logits in f32, the top k of
+them, a softmax over those k; the token-expert rows sorted by expert and
+every one of them computed, by grouped GEMMs over each expert's own row
+count (``torch._grouped_mm``: bf16 on the card, the library's grouped
+kernel), with no capacity, no padding and no row dropped; each row
+weighted by its gate and the k rows of a token summed; and the shared
+SwiGLU expert added. Spans (``obs``): ``moe.route`` (the router's product,
+top k, softmax, sort and gather), ``moe.experts`` (the grouped GEMMs and
+their activation) and ``moe.shared``; counters ``moe.rows`` (token-expert
+rows computed) and ``moe.dropped`` (none are, on this path).
+
 On a mesh the training step computes expert-parallel over 'model', as
 the reference's dispatch constraint (``moe.py:103``) places the experts
 (``moe_mlp`` given the 'model' group): each rank gathers the sequence,
@@ -38,21 +51,33 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import normal_init, upcast
+from .. import obs
+from ..configs.hybrid_moe import DroplessMoEConfig
+from .layers import mlp, normal_init, upcast
+
+COUNTS = obs.Counters("moe", "rows", "dropped")
 
 
 def init_moe(gen: torch.Generator, cfg, n_layers: int, dtype=torch.float32,
              device=None):
     """The reference's ``init_moe`` keys and shapes: ``router`` (L, D, E),
     ``w13`` (L, E, D, 2F) with gate and up fused, ``w2`` (L, E, F, D) at
-    ``0.02 / sqrt(2 n_layers)``."""
+    ``0.02 / sqrt(2 n_layers)``; with a shared expert (a
+    ``DroplessMoEConfig``'s ``d_ff_shared``) also ``shared``: a SwiGLU's
+    ``w13`` (L, D, 2 F_s) and ``w2``."""
     m = cfg.moe
     D, E, Fe = cfg.d_model, m.n_experts, m.d_ff_expert
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     kw = dict(dtype=dtype, device=device)
-    return {"router": normal_init(gen, (n_layers, D, E), **kw),
-            "w13": normal_init(gen, (n_layers, E, D, 2 * Fe), **kw),
-            "w2": normal_init(gen, (n_layers, E, Fe, D), out_scale, **kw)}
+    p = {"router": normal_init(gen, (n_layers, D, E), **kw),
+         "w13": normal_init(gen, (n_layers, E, D, 2 * Fe), **kw),
+         "w2": normal_init(gen, (n_layers, E, Fe, D), out_scale, **kw)}
+    Fs = getattr(m, "d_ff_shared", 0)
+    if Fs:
+        p["shared"] = {
+            "w13": normal_init(gen, (n_layers, D, 2 * Fs), **kw),
+            "w2": normal_init(gen, (n_layers, Fs, D), out_scale, **kw)}
+    return p
 
 
 def top_k(probs: torch.Tensor, k: int):
@@ -160,6 +185,10 @@ def moe_mlp(x: torch.Tensor, p, cfg, n: Optional[int] = None, grp=None
     all-reduced."""
     from ..dist.sharding import gather_seq, leave_block, seq_slice
     m = cfg.moe
+    if isinstance(m, DroplessMoEConfig):
+        raise ValueError(f"moe_mlp routes softmax-then-top-k into a "
+                         f"capacity; {cfg.name}'s MoE is dropless "
+                         f"(moe_dropless)")
     x = gather_seq(x, n, grp)
     B, S, D = x.shape
     E = m.n_experts
@@ -190,3 +219,66 @@ def moe_mlp(x: torch.Tensor, p, cfg, n: Optional[int] = None, grp=None
     out = torch.einsum("bskd,bsk->bsd", gathered, (w * keep).to(x.dtype))
     return (seq_slice(out, grp) if mine is None
             else leave_block(out, n, grp)), aux
+
+
+# ---------------------------------------------------------------------------
+# the dropless path (router "topk_softmax")
+# ---------------------------------------------------------------------------
+
+def route_topk_softmax(x: torch.Tensor, router: torch.Tensor, k: int):
+    """x: (T, D) -> sel (T, k) int64, gates (T, k) f32: the router's logits
+    as an f32 product of x and ``router`` (D, E), their top k in
+    :func:`top_k`'s order (largest first, the lower expert first among
+    equal logits), and a softmax over those k."""
+    logits = x.float() @ router.float()
+    top, sel = top_k(logits, k)
+    return sel, torch.softmax(top, dim=-1)
+
+
+def sort_rows(sel: torch.Tensor, E: int):
+    """The token-expert rows of ``sel`` (T, k) sorted by expert, stably
+    (within an expert, in token order): (the order, a permutation of the
+    T k flat rows; each expert's last row + 1 as int32 (E,), the grouped
+    GEMMs' offsets). Nothing waits for the device (``bincount`` would read
+    the largest id back to the host)."""
+    flat = sel.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.searchsorted(flat[order], torch.arange(E,
+                                                        device=flat.device),
+                              right=True, out_int32=True)
+    return order, ends
+
+
+def moe_dropless(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    """x: (B, S, D), the normed residual -> (B, S, D): the routed experts'
+    gated sum plus the shared expert (where ``p`` has ``shared``); ``p``
+    holds this layer's ``router``, ``w13``, ``w2`` and ``shared``. Every
+    token-expert row is computed (the module docstring)."""
+    m = cfg.moe
+    if not isinstance(m, DroplessMoEConfig):
+        raise ValueError(f"moe_dropless routes top-k-then-softmax with no "
+                         f"capacity; {cfg.name}'s MoE is not a "
+                         f"DroplessMoEConfig (moe_mlp)")
+    B, S, D = x.shape
+    k, E = m.top_k, m.n_experts
+    xt = x.reshape(B * S, D)
+    with obs.span("moe.route", x):
+        sel, gates = route_topk_softmax(xt, p["router"], k)
+        order, offs = sort_rows(sel, E)
+        rows = xt[order // k]                       # (T k, D) by expert
+    with obs.span("moe.experts", x):
+        # each expert's rows (offs: each one's end) times its own matrices
+        g1, g3 = torch._grouped_mm(rows, p["w13"].to(x.dtype),
+                                   offs=offs).chunk(2, dim=-1)
+        del rows
+        y = torch._grouped_mm(F.silu(g1) * g3, p["w2"].to(x.dtype),
+                              offs=offs)
+    COUNTS.add("rows", y.shape[0])
+    # back to token order, then each token's k rows weighted and summed
+    y = torch.empty_like(y).index_copy_(0, order, y)
+    out = torch.bmm(gates.to(x.dtype)[:, None], y.reshape(B * S, k, D))
+    out = out.reshape(B, S, D)
+    if "shared" in p:
+        with obs.span("moe.shared", x):
+            out = out + mlp(x, p["shared"], "swiglu", cfg.tp_fuse)
+    return out

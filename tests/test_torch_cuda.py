@@ -34,6 +34,7 @@ CPU tests' gloo ranks), the elastic restore onto the card is bit-equal,
 and the compressed sum's error is the CPU formula's bit for bit.
 """
 import importlib
+import math
 import os
 import shutil
 import subprocess
@@ -473,6 +474,32 @@ def test_flash_kernel_takes_odd_strided_bf16_views(cuda):
 
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_default_scale_is_bit_identical(cuda, dtype):
+    """``scale`` left out is the 1 / sqrt(Dh) call, bit for bit."""
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(1, 4 if i == 0 else 2, 200, 64, generator=g)
+               .to(dtype).to(cuda) for i in range(3))
+    assert torch.equal(fa.flash_attention(q, k, v),
+                       fa.flash_attention(q, k, v, scale=1 / math.sqrt(64)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_scale_one_over_dh(cuda, dtype, causal):
+    """granite-4.0-h-small's attention: 32 query and 8 kv heads of 128,
+    scale 1/128 (attention_multiplier), against the plain version at that
+    scale."""
+    g = torch.Generator().manual_seed(10)
+    q = torch.randn(2, 32, 300, 128, generator=g).to(dtype).to(cuda)
+    k, v = (torch.randn(2, 8, 300, 128, generator=g).to(dtype).to(cuda)
+            for _ in range(2))
+    got = fa.flash_attention(q, k, v, causal=causal, scale=1 / 128)
+    _close(got, fa.flash_attention_plain(q, k, v, causal=causal,
+                                         scale=1 / 128))
+    assert fa.LAUNCHES["flash_attention"] == 1
+
+
 def _bf16_qkv(B, H, KV, Sq, Sk, D, seed, cuda):
     g = torch.Generator().manual_seed(seed)
     return (torch.randn(B, H, Sq, D, generator=g).to(torch.bfloat16).to(cuda),
@@ -620,7 +647,11 @@ def _ssd_inputs(B, H, S, dh, N, seed, model_layout):
     (1, 4, 520, 64, 64, 256), (2, 2, 77, 16, 8, 100),
     # tests/test_torch_ssd_shim.py's shapes, and 32 chunks of 256
     (2, 1, 300, 16, 16, 32), (1, 2, 300, 64, 32, 128), (1, 1, 600, 64, 64, 256),
-    (1, 1, 130, 16, 8, 130), (1, 1, 1, 16, 8, 32), (2, 4, 8192, 64, 64, 256)])
+    (1, 1, 130, 16, 8, 130), (1, 1, 1, 16, 8, 32), (2, 4, 8192, 64, 64, 256),
+    # N past 64: two 64-wide tiles of the state (granite-4.0-h-small's 128
+    # at dh 64, and ragged widths)
+    (1, 2, 300, 64, 128, 128), (2, 1, 150, 32, 100, 64),
+    (1, 4, 4096, 64, 128, 256)])
 @pytest.mark.parametrize("model_layout", [False, True])
 @pytest.mark.parametrize("with_state", [False, True])
 def test_ssd_kernel_matches_plain(cuda, B, H, S, dh, N, chunk, model_layout,
@@ -644,6 +675,16 @@ def test_ssd_kernel_matches_the_sequential_oracle(cuda, S):
     x, lw, Bm, Cm, _ = _ssd_inputs(1, 4, S, 64, 64, 9, True)
     x, lw, Bm, Cm = (t.to(cuda) for t in (x, lw, Bm, Cm))
     y, _ = k6.ssd_chunked(x, lw, Bm, Cm, chunk=256)
+    assert _rel(y, k6.ssd_ref(x, lw, Bm, Cm)) < 1e-4
+
+
+def test_ssd_kernel_at_n128_matches_the_sequential_oracle(cuda):
+    """granite-4.0-h-small's widths (dh 64, N 128) in one call, against
+    the exact recurrence over all 700 steps."""
+    x, lw, Bm, Cm, _ = _ssd_inputs(1, 4, 700, 64, 128, 13, True)
+    x, lw, Bm, Cm = (t.to(cuda) for t in (x, lw, Bm, Cm))
+    y, _ = k6.ssd_chunked(x, lw, Bm, Cm, chunk=256)
+    assert k6.LAUNCHES["ssd_chunked"] == 1
     assert _rel(y, k6.ssd_ref(x, lw, Bm, Cm)) < 1e-4
 
 
@@ -732,6 +773,91 @@ def test_served_models_launch_the_chunk_scans(cuda, arch, k6_n, k7_n):
     assert bool(torch.isfinite(step).all())
     assert (k6.LAUNCHES["ssd_chunked"], k7.LAUNCHES["wkv6_chunked"]) == \
         (k6_n, k7_n)
+
+
+def _granite_reduced():
+    """granite-4.0-h-small at reduced() size (one period of 10 layers, 8
+    experts, the shared expert) with its plain reference's weights
+    (``tests/plain/granite4_hybrid.py``), drawn on the CPU in f32."""
+    import importlib.util
+    from repro_torch.configs import get_config
+    path = Path(__file__).resolve().parent / "plain" / "granite4_hybrid.py"
+    spec = importlib.util.spec_from_file_location("plain_granite4", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    try:
+        from test_torch_granite4h import draw, hf_config
+    finally:
+        sys.path.pop(0)
+    cfg = get_config("granite-4.0-h-small").reduced()
+    p = draw(ref.param_specs(hf_config(cfg)), torch.Generator().manual_seed(1))
+    return cfg, p, ref, hf_config(cfg)
+
+
+def test_granite_prefill_and_decode_on_the_card(cuda):
+    """Reduced granite-4.0-h-small in f32 on the card (K6 at each of the 9
+    Mamba-2 layers, K5 at scale 1/Dh on the attention layer, the grouped
+    expert GEMMs) against the port's own CPU run within 1e-4, then 4
+    decode steps through its cache against the CPU's."""
+    from repro_torch.models import forward_decode, init_cache
+    from repro_torch.launch.serve import graft
+    from repro_torch.serve import make_prefill_step
+    cfg, p, _, _ = _granite_reduced()
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 150)))
+    step = make_prefill_step(cfg, torch.float32)
+    want, wcache = step(p, {"tokens": toks})
+    pc = _tree_to(p, cuda)
+    got, cache = step(pc, {"tokens": toks.to(cuda)})
+    assert (k6.LAUNCHES["ssd_chunked"], fa.LAUNCHES["flash_attention"]) \
+        == (9, 1)
+    assert _rel(got.cpu(), want) < 1e-4
+    cache = graft(init_cache(cfg, 2, 154, torch.float32, cuda), cache)
+    wcache = graft(init_cache(cfg, 2, 154, torch.float32, "cpu"), wcache)
+    for i in range(4):
+        tok = toks[:, i:i + 1]
+        lg, cache = forward_decode(cfg, pc, cache, tok.to(cuda), 150 + i,
+                                   torch.float32)
+        wl, wcache = forward_decode(cfg, p, wcache, tok, 150 + i,
+                                    torch.float32)
+        assert _rel(lg.cpu(), wl) < 1e-4
+    assert k6.LAUNCHES["ssd_chunked"] == 9
+
+
+def test_granite_bf16_prefill_runs_the_kernels(cuda):
+    """The served path of the benchmark's cell at reduced size: bf16 on
+    the card, one conv_in, K6 and gate_norm a Mamba-2 layer, K5 once;
+    its logits against the plain f32 reference's on the same bf16
+    weights within GRANITE_BF16_TOL of their largest magnitude (bf16
+    through 10 layers, and the router's near-ties, which bf16 flips
+    against f32, 3 experts of 8 at this size: 0.209 on an H100, 0.091 in
+    the CPU's bf16; the cell's token_gap holds the full size)."""
+    from repro_torch.kernels import mamba2_glue as glue
+    from repro_torch.serve import make_prefill_step
+    cfg, p, ref, c = _granite_reduced()
+    pc = {k: v for k, v in _tree_to(p, cuda).items()}
+    pc = _tree_to_dtype(pc, torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 150))).to(cuda)
+    with torch.inference_mode():
+        got, _ = make_prefill_step(cfg, torch.bfloat16)(pc, {"tokens": toks})
+        want = ref.logits(c, pc, toks, [149])[:, 0]
+    assert (glue.LAUNCHES["mamba2_conv_in"], glue.LAUNCHES[
+        "mamba2_gate_norm"], k6.LAUNCHES["ssd_chunked"],
+        fa.LAUNCHES["flash_attention"]) == (9, 9, 9, 1)
+    err = float((got.float() - want).abs().max() / want.abs().max())
+    print(f"granite bf16 prefill vs f32 reference: {err}")
+    assert err < GRANITE_BF16_TOL
+
+
+GRANITE_BF16_TOL = 0.4
+
+
+def _tree_to_dtype(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to_dtype(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 def _tree_to(tree, device):

@@ -45,6 +45,7 @@ from repro.models import init_cache as ref_init_cache
 from repro.models import init_params as ref_init_params
 from repro.models import moe as ref_moe
 from repro_torch import tree as tree_util
+from repro.configs import list_archs as ref_list_archs
 from repro_torch.configs import get_config, list_archs
 from repro_torch.convert import from_jax
 from repro_torch.launch import serve as serve_mod
@@ -281,10 +282,14 @@ def test_serve_batch_tokens_match_reference(arch):
         assert gap <= bound and lg[got[b, i]] >= top2[1] - bound
 
 
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", [a for a in list_archs()
+                                  if a in ref_list_archs()])
 def test_every_config_builds(arch):
     """No family is refused any more: every config's reduced size builds,
-    with the reference's keys, shapes and dtypes."""
+    with the reference's keys, shapes and dtypes (every config the
+    reference defines: granite-4.0-h-small is the port's alone, and
+    tests/test_torch_granite4h.py holds its layout to its plain
+    reference's)."""
     cfg = get_config(arch).reduced()
     port = init_params(cfg, torch.Generator(), device=CPU)
     ref = jax.eval_shape(lambda: ref_init_params(

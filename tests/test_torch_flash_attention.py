@@ -109,6 +109,39 @@ def test_chunking_does_not_change_the_result():
     assert _err(a, b) < 2e-5
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_default_scale_is_the_one_over_sqrt_dh_call(dtype):
+    """``scale`` left out and ``scale=1/sqrt(Dh)`` given are the same
+    call, bit for bit (the kernel receives the same float either way)."""
+    _, tdt, _ = DTYPES[dtype]
+    q, k, v = (torch.from_numpy(a).to(tdt)
+               for a in _qkv(1, 4, 2, 70, 70, 32, 6))
+    assert torch.equal(flash_attention_plain(q, k, v),
+                       flash_attention_plain(q, k, v,
+                                             scale=1 / np.sqrt(32)))
+    assert torch.equal(port_flash(q, k, v),
+                       port_flash(q, k, v, scale=float(1 / np.sqrt(32))))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_scale_one_over_dh(causal):
+    """granite-4.0-h-small's softmax scale, 1 / Dh (attention_multiplier
+    1/128 at Dh 128): the plain version against softmax(q k^T / Dh) v in
+    float64, within the float32 tolerance; the default scale differs."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 2, 96, 96, 128, 7))
+    got = flash_attention_plain(q, k, v, causal=causal, scale=1 / 128)
+    qd, kd, vd = (t.double() for t in (q, k.repeat_interleave(4, 1),
+                                       v.repeat_interleave(4, 1)))
+    s = qd @ kd.transpose(-1, -2) / 128
+    if causal:
+        s = s.masked_fill(torch.ones(96, 96, dtype=torch.bool).triu(1),
+                          -np.inf)
+    want = torch.softmax(s, -1) @ vd
+    assert float((got.double() - want).abs().max()) < 2e-5
+    assert float((flash_attention_plain(q, k, v, causal=causal).double()
+                  - want).abs().max()) > 1e-2
+
+
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
                for a in _qkv(1, 4, 2, 70, 70, 32, 5))

@@ -115,6 +115,15 @@ def test_grouped_query_heads(kernel, H, KV, D):
     _close(kernel(q, k, v, **kw), fa.flash_attention_plain(q, k, v, **kw))
 
 
+def test_scale_one_over_dh(kernel):
+    """The softmax scale passed through: 1 / Dh at Dh 128 (granite-4.0-h-
+    small's attention_multiplier), GQA 4 / 2, causal, against the plain
+    version at the same scale."""
+    q, k, v = _qkv(1, 4, 2, 70, 70, 128, 9)
+    _close(kernel(q, k, v, scale=1 / 128),
+           fa.flash_attention_plain(q, k, v, scale=1 / 128))
+
+
 def test_fused_qkv_split_and_a_misaligned_view(kernel):
     H, KV, D, S = 4, 2, 64, 200
     g = torch.Generator().manual_seed(1)

@@ -42,6 +42,7 @@ CU = ROOT / "src/repro_torch/kernels/mamba2_glue/csrc/mamba2_glue.cu"
 # heads of 8 channels
 WIDTHS = {"reduced": (256, 16, 8), "zamba2": (4096, 64, 64),
           "narrow": (64, 8, 8)}
+GRANITE = (8192, 128, 128)      # granite-4.0-h-small: d_inner, N, heads
 
 # broken copies of the source: what is broken -> (the text replaced, its
 # replacement); each text must occur in the source once
@@ -248,6 +249,15 @@ def test_conv_in_at_zamba2_widths(lib, want):
     assert _conv_same(lib, want, proj, p, st, di, N) == []
 
 
+def test_conv_in_at_granite_widths(lib, want):
+    """granite-4.0-h-small's mixer: d_inner 8,192, 128 heads, N 128 (8,448
+    channels, 17 blocks of 128 threads across, the last with 64), 20
+    tokens, a given conv state: every output the plain version's bits."""
+    di, N, H = GRANITE
+    proj, p, st = _proj(1, 20, di, N, H, seed=11)
+    assert _conv_same(lib, want, proj, p, st, di, N) == []
+
+
 def test_conv_in_refuses_what_it_cannot_read(lib):
     """A conv view 2 bytes off an 8-byte boundary, widths off the
     4-channel groups and a conv of 5 taps are refused (a RuntimeError
@@ -287,6 +297,14 @@ def test_gate_norm_every_layout(lib, want, width, rows, pdtype):
 def test_gate_norm_at_2048_channels(lib, want):
     """d_inner 2,048: a warp a row with 8 groups a thread in registers."""
     args = _gate_inputs(2, 9, 2048, 64, 32, seed=3)
+    assert _gate_same(lib, want, *args)
+
+
+def test_gate_norm_at_granite_widths(lib, want):
+    """d_inner 8,192 in 128 heads: 128 threads a row, 8 groups a thread,
+    two rows a block; 3 rows (the second block's second row dead)."""
+    di, N, H = GRANITE
+    args = _gate_inputs(1, 3, di, N, H, seed=5)
     assert _gate_same(lib, want, *args)
 
 

@@ -74,10 +74,12 @@ def _inputs(B, H, S, dh, N, seed, model_layout, decay=0.1):
 
 
 # ragged S everywhere; chunks of 32 to 256 and one that is no multiple of
-# 64; dh and N of 16, 32 and 64; 10 chunks in the first case
+# 64; dh and N of 16, 32 and 64; 10 chunks in the first case; N 128, two
+# 64-wide tiles of the state (granite-4.0-h-small's widths), small: a
+# block of 256 threads is 256 host threads here
 SHAPES = [(2, 1, 300, 16, 16, 32), (2, 1, 200, 32, 64, 64),
           (1, 2, 300, 64, 32, 128), (1, 1, 600, 64, 64, 256),
-          (2, 1, 77, 16, 8, 100)]
+          (2, 1, 77, 16, 8, 100), (1, 1, 70, 64, 128, 64)]
 
 
 @pytest.mark.parametrize("B,H,S,dh,N,chunk", SHAPES)

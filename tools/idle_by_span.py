@@ -19,8 +19,9 @@ batch), then:
   * prints, per span name, its busy and idle seconds (self: where it is
     the innermost span; inclusive: its children's too) beside the sum of
     the device intervals ``obs`` recorded for it (timing events on the
-    stream) and of its host times, and for ``mamba2.layer`` and ``shared.block`` how far busy
-    plus idle lies from that interval;
+    stream) and of its host times, and for each layer span
+    (``mamba2.layer``, ``shared.block``, ``moe.layer``, ``attn.layer``)
+    how far busy plus idle lies from that interval;
   * prints the coverage of the root span ``serve.prefill_step`` (its
     intervals over the device time inside ``prefill``), the root's self
     share, where the window's ten largest operation names fall, and the
@@ -47,7 +48,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 BENCH_SPANS = ("prefill", "sample")
-CHECKED = ("mamba2.layer", "shared.block")
+CHECKED = ("mamba2.layer", "shared.block", "moe.layer", "attn.layer")
 ROOT_SPAN = "serve.prefill_step"
 
 
