@@ -2,7 +2,7 @@
 transfer checksum (K3), built for the CPU through ``tools/cuda_shim`` and
 held bit for bit against ``ref.py`` and the plain versions.
 
-The shim runs ``checksum.cu`` with one thread per CUDA thread and its
+The shim runs ``checksum.cu`` with one fiber per CUDA thread and its
 blocks one after another, on a card of 2 SMs (so a row spreads over up
 to 8 blocks). So the kernels' own logic runs here: the warp's halving
 tree in registers (in the lane, across lanes, inside a 16-byte group),
@@ -23,7 +23,7 @@ plain versions for CPU tensors). Tolerance: none. Sums, counts and the f32
 sum bit-exact, min/max equal by value, and the ticket buffer left zero.
 The broken copies of the source (one tree level's pairs, the fold's
 order, the ticket; K3's wrap compare, its last block's sum, its tail's
-zero padding) must each fail these checks.
+zero padding, its last barrier) must each fail these checks.
 """
 import ctypes
 import shutil
@@ -69,6 +69,18 @@ BROKEN = {
     # K3: the bytes after the last one are read into the last word
     "K3 tail not zero-padded": ("load_word(a.data, 4 * i, a.nbytes)",
                                 "load_word(a.data, 4 * i, a.nbytes + 3)"),
+    # K3: no barrier between the warps' writes of the fold's sums and
+    # thread 0's sum that sets a.out, so in one of the shim's two resume
+    # orders thread 0 reads the warps' block partials from before
+    "K3 last barrier dropped": (
+        "  __syncthreads();\n  if (threadIdx.x == 0) {\n"
+        "    for (int v = 1; v < kK3Warps; ++v) {\n"
+        "      s1 += red3[2 * v];\n      s2 += red3[2 * v + 1];\n    }\n"
+        "    a.out[0] = s1;",
+        "  if (threadIdx.x == 0) {\n"
+        "    for (int v = 1; v < kK3Warps; ++v) {\n"
+        "      s1 += red3[2 * v];\n      s2 += red3[2 * v + 1];\n    }\n"
+        "    a.out[0] = s1;"),
 }
 
 

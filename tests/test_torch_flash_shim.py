@@ -1,7 +1,7 @@
 """The CUDA source of flash attention (K5), built for the CPU through
 ``tools/cuda_shim`` and held against its plain version.
 
-The shim runs ``flash_attention.cu`` with one thread per CUDA thread and
+The shim runs ``flash_attention.cu`` with one fiber per CUDA thread and
 stands in for its inline PTX: TMA box loads with the swizzle, mbarriers,
 setmaxnreg and wgmma read through its shared-memory descriptors. So the
 kernel's own logic runs here: the mbarrier ring's phases, the fragment

@@ -2,7 +2,7 @@
 ``tools/cuda_shim`` and held bit for bit against the arithmetic it is
 meant to do.
 
-The shim runs ``mamba2_glue.cu`` with one thread per CUDA thread and its
+The shim runs ``mamba2_glue.cu`` with one fiber per CUDA thread and its
 blocks one after another. So the kernels' own logic runs here: conv_in's
 4-channel groups, its window sliding down a tile of 64 tokens with
 a 3-row halo from the tile before or from the conv state, the x / B / C

@@ -1,7 +1,7 @@
 """The CUDA source of RMSNorm (K4), built for the CPU through
 ``tools/cuda_shim`` and held bit for bit against its plain version.
 
-The shim runs ``rmsnorm.cu`` with one thread per CUDA thread and its blocks
+The shim runs ``rmsnorm.cu`` with one fiber per CUDA thread and its blocks
 one after another, on a card of 2 SMs. So the kernel's own logic runs here:
 the 16-byte groups held in registers, the tree's levels in a thread's
 registers, through shared memory and across a warp's lanes, the scale

@@ -1,7 +1,7 @@
 """The CUDA source of the Mamba-2 SSD chunk scan (K6), built for the CPU
 through ``tools/cuda_shim`` and held against its plain version.
 
-The shim runs ``mamba2_ssd.cu`` with one thread per CUDA thread, its four
+The shim runs ``mamba2_ssd.cu`` with one fiber per CUDA thread, its four
 kernels in order, and stands in for its inline PTX: the split-TF32
 ``mma.sync`` fragments in PTX's layout, ``cvt.rna.tf32`` and the
 ``cp.async`` stages (a copy's destination reads NaN until its wait). So

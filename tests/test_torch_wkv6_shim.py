@@ -1,7 +1,7 @@
 """The CUDA source of the RWKV-6 chunked WKV (K7), built for the CPU
 through ``tools/cuda_shim`` and held against its plain version.
 
-The shim runs ``rwkv6.cu`` with one thread per CUDA thread and its three
+The shim runs ``rwkv6.cu`` with one fiber per CUDA thread and its three
 kernels in order (and, once the source has them, stands in for its inline
 PTX). So the kernels' own logic runs here: the block-wide cumsum, the
 state pass over the chunks, the decays factored around 16-step

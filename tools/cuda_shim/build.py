@@ -9,6 +9,16 @@ at the block's buffer, and each ``kernel<<<grid, block, smem, stream>>>(
 args);`` becomes a ``shim_launch``. g++ builds it into a shared library
 whose C functions (``repro_*``) take CPU pointers, as the card's take
 device pointers.
+
+``shim.h`` runs a launch's blocks one after another on the calling OS
+thread, each CUDA thread of a block as a fiber that runs until it waits at
+a barrier, a shuffle, a vote or an mbarrier. The fibers are resumed in
+ascending ``threadIdx`` order in one launch of a launch site and in
+descending order in the next, so a missing barrier shows in one of the
+two. When no fiber of a block can run, the library aborts at once with
+the barrier, its phase and the waiting threads: call it in a subprocess
+where that must not end the caller. It cannot show true concurrency
+between the threads of a block; the card tests (the ``cuda`` marker) do.
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ def build(cu: Path, out: Path) -> Path:
     cpp = out.with_suffix(".cpp")
     cpp.write_text(rewrite(Path(cu).read_text()))
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off",
-                        "-shared", "-fPIC", "-pthread", "-o", str(out),
+                        "-shared", "-fPIC", "-o", str(out),
                         str(cpp)], capture_output=True, text=True)
     if r.returncode:
         raise RuntimeError(f"g++ failed on {cu}:\n{r.stderr[-4000:]}")
